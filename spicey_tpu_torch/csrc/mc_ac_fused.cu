@@ -1,0 +1,182 @@
+// K5: fused Monte-Carlo AC assemble-and-solve, one thread per system.
+//
+// Replaces the TPU kernel spicey_tpu/ops/pallas_mc_ac.py:_fused_kernel
+// (pallas_call in mc_ac_fused_f32) and, by role, its f64-fidelity twin
+// _fused_dd_kernel: the double instance of this kernel is the fidelity
+// tier, with no df32 refinement. The plain version is
+// spicey_tpu_torch/ops/mc_ac_fused.py:mc_ac_fused_plain.
+//
+// For variant b and frequency f, the thread builds the augmented (N, N+1)
+// complex planes from the stamp pattern (flat tables, read at run time so
+// one build serves every deck) and the values column values[:, b], runs
+// the complex one-hot-pivot Gauss-Jordan (largest |a|^2 among unused rows,
+// ties to the lowest row; invalid when |pivot|^2 < eps^2), and writes
+// only |x[node]| and valid to mag[f, b], valid[f, b].
+//
+// What bounds it on the H100: the inputs are the (n_rows, B) values and
+// the outputs two (F, B) planes, a few bytes per system, while the
+// elimination is ~8 N^3/3 flops per system from on-chip memory, so it is
+// bound by shared-memory bandwidth and latency, not device memory. The
+// planes of a thread's system live in shared memory with the system index
+// fastest, [(plane * N*(N+1) + i*(N+1) + j) * TPB + t], the layout the TPU
+// kernel gets from its lanes: every access of a warp is 32 consecutive
+// words, free of bank conflicts. (In registers, an N = 16 system would
+// spill past 255 registers a thread.) TPB is the largest of 256..32
+// systems a block whose planes fit in 112 KB, so two blocks share an SM.
+// Blocks run over (variant tiles, frequencies); reads of values and
+// writes of mag/valid are coalesced along the variant axis.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int KIND_ONE = 0, KIND_INV = 1, KIND_LIN = 2, KIND_W = 3,
+              KIND_WINV = 4;
+constexpr size_t SMEM_TARGET = 112 * 1024;
+constexpr size_t SMEM_MAX = 232448;  // opt-in maximum of one block
+
+// larger score wins, ties to the lower row, NaN above everything (as
+// torch.argmax and jnp.argmax rank it)
+template <typename T>
+__device__ __forceinline__ bool better(T s, int r, T best_s, int best_r) {
+  bool s_nan = s != s, b_nan = best_s != best_s;
+  if (s_nan || b_nan) return s_nan && (!b_nan || r < best_r);
+  return s > best_s || (s == best_s && r < best_r);
+}
+
+template <typename T>
+__device__ __forceinline__ T term_value(int kind, T sign, T v, T w, T eps) {
+  switch (kind) {
+    case KIND_ONE: return sign;
+    case KIND_INV: return sign / v;
+    case KIND_LIN: return sign * v;
+    case KIND_W: return sign * w * v;
+    case KIND_WINV:
+    default: {  // open circuit below eps (simulateAC.ts:47-52)
+      T wl = w * v;
+      return fabs(wl) < eps ? T(0) : -sign / wl;
+    }
+  }
+}
+
+template <typename T>
+__global__ void mc_ac_fused_kernel(
+    const T* __restrict__ freqs, const T* __restrict__ values, int B,
+    const int* __restrict__ ent, int n_ent, const int* __restrict__ terms,
+    const int* __restrict__ zeros, int n_zero, int n, int node_idx, T eps,
+    T eps2, T* __restrict__ mag, uint8_t* __restrict__ valid) {
+  extern __shared__ unsigned char smem_raw[];
+  const int tpb = blockDim.x;
+  const int t = threadIdx.x;
+  const int b = blockIdx.x * tpb + t;
+  const int f = blockIdx.y;
+  if (b >= B) return;  // no barrier below: each thread owns its system
+  T* P = reinterpret_cast<T*>(smem_raw) + t;  // element q at P[q * tpb]
+  const int w1 = n + 1;
+  const int nw = n * w1;
+  const T w = T(6.283185307179586) * freqs[f];
+
+  for (int z = 0; z < n_zero; ++z) P[(size_t)zeros[z] * tpb] = T(0);
+  for (int e = 0; e < n_ent; ++e) {
+    const int pos = ent[3 * e], t0 = ent[3 * e + 1], t1 = ent[3 * e + 2];
+    T acc = T(0);
+    for (int q = t0; q < t1; ++q) {
+      const int kind = terms[3 * q], row = terms[3 * q + 1];
+      const T v = values[(size_t)row * B + b];
+      const T tv = term_value<T>(kind, T(terms[3 * q + 2]), v, w, eps);
+      acc = q == t0 ? tv : acc + tv;
+    }
+    P[(size_t)pos * tpb] = acc;
+  }
+
+  T* R = P;                    // real plane
+  T* I = P + (size_t)nw * tpb; // imaginary plane
+  uint32_t used = 0;
+  bool ok_all = true;
+  int node_row = 0;
+  for (int k = 0; k < n; ++k) {
+    T best_s = T(-2);
+    int p = 0;
+    for (int i = 0; i < n; ++i) {
+      const T cr = R[(i * w1 + k) * tpb], ci = I[(i * w1 + k) * tpb];
+      const T s = (used >> i) & 1u ? T(-1) : cr * cr + ci * ci;
+      if (better(s, i, best_s, p)) { best_s = s; p = i; }
+    }
+    const T pvr = R[(p * w1 + k) * tpb], pvi = I[(p * w1 + k) * tpb];
+    const T d = pvr * pvr + pvi * pvi;
+    const bool ok = d >= eps2;
+    ok_all = ok_all && ok;
+    const T inv_d = T(1) / (ok ? d : T(1));
+    used |= 1u << p;
+    if (k == node_idx) node_row = p;
+    // normalize the pivot row in place, then eliminate column k from
+    // every other row with it (the same values the plain version forms)
+    for (int j = 0; j < w1; ++j) {
+      const T prr = R[(p * w1 + j) * tpb], pri = I[(p * w1 + j) * tpb];
+      R[(p * w1 + j) * tpb] = (prr * pvr + pri * pvi) * inv_d;
+      I[(p * w1 + j) * tpb] = (pri * pvr - prr * pvi) * inv_d;
+    }
+    for (int i = 0; i < n; ++i) {
+      if (i == p) continue;
+      const T fr = R[(i * w1 + k) * tpb], fi = I[(i * w1 + k) * tpb];
+      for (int j = 0; j < w1; ++j) {
+        const T qr = R[(p * w1 + j) * tpb], qi = I[(p * w1 + j) * tpb];
+        R[(i * w1 + j) * tpb] = R[(i * w1 + j) * tpb] - (fr * qr - fi * qi);
+        I[(i * w1 + j) * tpb] = I[(i * w1 + j) * tpb] - (fr * qi + fi * qr);
+      }
+    }
+  }
+  const T xr = R[(node_row * w1 + n) * tpb], xi = I[(node_row * w1 + n) * tpb];
+  mag[(size_t)f * B + b] = sqrt(xr * xr + xi * xi);
+  valid[(size_t)f * B + b] = ok_all ? 1 : 0;
+}
+
+template <typename T>
+int launch(const void* freqs, const void* values, int F, int B,
+           const void* ent, int n_ent, const void* terms, const void* zeros,
+           int n_zero, int n, int node_idx, double eps, void* mag,
+           void* valid, void* stream) {
+  if (n < 1 || n > 32) return (int)cudaErrorInvalidValue;
+  const size_t per_sys = 2 * (size_t)n * (n + 1) * sizeof(T);
+  int tpb = 256;
+  while (tpb > 32 && tpb * per_sys > SMEM_TARGET) tpb >>= 1;
+  const size_t smem = tpb * per_sys;
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      mc_ac_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (B > 0 && F > 0) {
+    dim3 grid((B + tpb - 1) / tpb, F);
+    mc_ac_fused_kernel<T><<<grid, tpb, smem, (cudaStream_t)stream>>>(
+        (const T*)freqs, (const T*)values, B, (const int*)ent, n_ent,
+        (const int*)terms, (const int*)zeros, n_zero, n, node_idx, (T)eps,
+        (T)(eps * eps), (T*)mag, (uint8_t*)valid);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int mc_ac_fused_f32(const void* freqs, const void* values, int F, int B,
+                    const void* ent, int n_ent,
+                    const void* terms, const void* zeros, int n_zero, int n,
+                    int node_idx, double eps, void* mag, void* valid,
+                    void* stream) {
+  return launch<float>(freqs, values, F, B, ent, n_ent, terms, zeros,
+                       n_zero, n, node_idx, eps, mag, valid, stream);
+}
+
+int mc_ac_fused_f64(const void* freqs, const void* values, int F, int B,
+                    const void* ent, int n_ent,
+                    const void* terms, const void* zeros, int n_zero, int n,
+                    int node_idx, double eps, void* mag, void* valid,
+                    void* stream) {
+  return launch<double>(freqs, values, F, B, ent, n_ent, terms,
+                        zeros, n_zero, n, node_idx, eps, mag, valid, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,116 @@
+"""Build the hand-written CUDA kernels at first use and load them.
+
+Each ``csrc/<name>.cu`` file exposes a plain C interface and is compiled by
+``nvcc`` into ``build/spicey_tpu_torch/lib<name>-<hash>.so`` at the repo
+root, then loaded with ``ctypes``. The hash covers the source text and the
+flags, so an edited kernel is rebuilt and a stale library is never loaded.
+Nothing here runs at import time: the CPU-only test hosts import every
+module and have no ``nvcc``.
+
+Every C entry point takes raw device pointers and the CUDA stream as
+``void*`` and returns ``cudaGetLastError()`` after its launch; ``check``
+turns a nonzero code into an exception (a refused launch never runs, and a
+later synchronize would not report it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spicey_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_BUILD_S: dict[str, float] = {}
+
+
+@dataclass
+class Kernel:
+    """One hand-written kernel: where it lives, what it replaces, and how
+    often its wrapper launched it (the wrapper adds one per launch and
+    nowhere else, so a run can prove it went through the kernel)."""
+
+    name: str
+    source: str      # path in the repo
+    replaces: str    # the TPU kernel's pallas_call site, file:line
+    launches: int = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build_seconds() -> dict[str, float]:
+    """Seconds each library took to build and load in this process (near
+    0 when it was already built on disk)."""
+    return dict(_BUILD_S)
+
+
+def load(name: str, signatures: dict[str, tuple[list, object]]
+         ) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if needed and return the loaded library,
+    with ``argtypes``/``restype`` set from ``signatures`` (function name ->
+    (argtypes, restype)) so no pointer is ever passed as a 32-bit int."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    src = _CSRC / f"{name}.cu"
+    text = src.read_bytes()
+    for dep in sorted(_CSRC.glob("*.cuh")):
+        text += dep.read_bytes()
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    t0 = time.perf_counter()
+    if not out.is_file():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # compile to a private name, then rename: a concurrent process
+        # never loads a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for fn_name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    _BUILD_S[name] = time.perf_counter() - t0
+    _LIBS[name] = lib
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

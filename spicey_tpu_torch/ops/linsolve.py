@@ -1,0 +1,113 @@
+"""Batched complex Gauss-Jordan solves on (re, im) planes.
+
+The reference solves each system with scalar Gaussian elimination + partial
+pivoting (spicey/lib/math/solveComplex.ts:4-74), throwing on |pivot| < EPS.
+Batched code cannot throw, so singularity is a per-system ``valid`` flag
+that callers surface at the host boundary.
+
+``gj_solve_planes`` is the plain PyTorch version of kernel K1
+(ops/gj.py, csrc/gj_complex.cu), written batch-first: a leading batch
+dimension instead of ``vmap``. It keeps the JAX package's semantics
+exactly: the pivot of column k is the unused row with the largest |a|²,
+ties to the lowest row (``torch.argmax`` returns the first maximum, as
+``jnp.argmax`` does); a system is invalid when |pivot|² < EPS²; elimination
+continues through an invalid pivot with a unit divisor so shapes and
+control flow never depend on the data.
+
+``solve_planes`` dispatches by the tensor's device: a CUDA tensor always
+launches K1 (the instantiation follows the dtype), a CPU tensor runs the
+plain version. There is no other branch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..constants import EPS
+
+
+def gj_solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
+                    b_re: torch.Tensor, b_im: torch.Tensor,
+                    eps: float = EPS
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Complex Gauss-Jordan with |pivot|² pivoting, batched.
+
+    A_*: (..., N, N); b_*: (..., N). Returns (x_re, x_im, valid) shaped
+    (..., N), (..., N) and (...). Works on copies; the inputs are unchanged.
+    """
+    lead = A_re.shape[:-2]
+    N = A_re.shape[-1]
+    dtype = A_re.dtype
+    Ar = torch.cat([A_re, b_re[..., None]], dim=-1).reshape(-1, N, N + 1)
+    Ai = torch.cat([A_im, b_im[..., None]], dim=-1).reshape(-1, N, N + 1)
+    nb = Ar.shape[0]
+    dev = Ar.device
+    used = torch.zeros((nb, N), dtype=torch.bool, device=dev)
+    perm = torch.zeros((nb, N), dtype=torch.int64, device=dev)
+    valid = torch.ones((nb,), dtype=torch.bool, device=dev)
+    rows = torch.arange(N, device=dev)
+    neg_one = torch.tensor(-1.0, dtype=dtype, device=dev)
+    zero = torch.tensor(0.0, dtype=dtype, device=dev)
+    one = torch.tensor(1.0, dtype=dtype, device=dev)
+    eps2 = eps * eps
+    for k in range(N):
+        cr = Ar[:, :, k]
+        ci = Ai[:, :, k]
+        mag2 = cr * cr + ci * ci
+        score = torch.where(used, neg_one, mag2)
+        p = torch.argmax(score, dim=1)                       # (nb,)
+        onehot = rows[None, :] == p[:, None]                 # (nb, N)
+        pvr = cr.gather(1, p[:, None])[:, 0]
+        pvi = ci.gather(1, p[:, None])[:, 0]
+        d = pvr * pvr + pvi * pvi
+        ok = d >= eps2  # |pivot| >= eps, the reference threshold
+        valid = valid & ok
+        inv_d = (1.0 / torch.where(ok, d, one))[:, None]
+        pidx = p[:, None, None].expand(nb, 1, N + 1)
+        prr = Ar.gather(1, pidx)[:, 0, :]                    # (nb, N+1)
+        pri = Ai.gather(1, pidx)[:, 0, :]
+        # pivot_row / pivot (complex divide)
+        prow_r = (prr * pvr[:, None] + pri * pvi[:, None]) * inv_d
+        prow_i = (pri * pvr[:, None] - prr * pvi[:, None]) * inv_d
+        fr = torch.where(onehot, zero, cr)[:, :, None]
+        fi = torch.where(onehot, zero, ci)[:, :, None]
+        Ar = Ar - (fr * prow_r[:, None, :] - fi * prow_i[:, None, :])
+        Ai = Ai - (fr * prow_i[:, None, :] + fi * prow_r[:, None, :])
+        Ar = torch.where(onehot[:, :, None], prow_r[:, None, :], Ar)
+        Ai = torch.where(onehot[:, :, None], prow_i[:, None, :], Ai)
+        used = used | onehot
+        perm[:, k] = p
+    # pivot row perm[k] carries x[k] in its RHS entry
+    x_re = Ar[:, :, N].gather(1, perm)
+    x_im = Ai[:, :, N].gather(1, perm)
+    return (x_re.reshape(lead + (N,)), x_im.reshape(lead + (N,)),
+            valid.reshape(lead))
+
+
+def solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
+                 b_re: torch.Tensor, b_im: torch.Tensor,
+                 method: str = "gj", eps: float = EPS
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Complex solve on (re, im) planes. A_*: (..., N, N); b_*: (..., N).
+
+    ``method`` keeps the JAX package's names so calls compare like with
+    like: "gj" (its f64 plane GJ) and "pallas" (its kernel tier). Both name
+    the same elimination here, and the device picks the implementation:
+    K1 on a CUDA tensor, in the tensor's precision; the plain version on
+    the CPU."""
+    if method not in ("gj", "pallas"):
+        raise ValueError(f"unknown solve method {method!r} "
+                         "(this package has 'gj' and 'pallas')")
+    if A_re.is_cuda:
+        from .gj import gj_solve_planes_cuda
+
+        lead = A_re.shape[:-2]
+        n = A_re.shape[-1]
+        xr, xi, valid = gj_solve_planes_cuda(
+            A_re.reshape(-1, n, n).contiguous(),
+            A_im.reshape(-1, n, n).contiguous(),
+            b_re.reshape(-1, n).contiguous(),
+            b_im.reshape(-1, n).contiguous(), eps=eps)
+        return (xr.reshape(lead + (n,)), xi.reshape(lead + (n,)),
+                valid.reshape(lead))
+    return gj_solve_planes(A_re, A_im, b_re, b_im, eps=eps)

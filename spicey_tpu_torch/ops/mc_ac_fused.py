@@ -1,0 +1,328 @@
+"""Fused Monte-Carlo AC assemble-and-solve: kernel K5 (csrc/mc_ac_fused.cu).
+
+Replaces ``spicey_tpu/ops/pallas_mc_ac.py:_fused_kernel`` (and, by role,
+its f64-fidelity twin ``_fused_dd_kernel``: Hopper has native f64, so the
+f64 instance of this kernel is the fidelity tier and needs no df32
+refinement loop). Per (variant, frequency) system it builds the augmented
+(N, N+1) complex planes on chip from the static stamp pattern and the
+(n_rows, B) element values, runs the complex one-hot-pivot Gauss-Jordan,
+and writes only |V(node)| and ``valid``: the planes never exist in device
+memory.
+
+The stamp pattern is the same static-index information the scatter
+assembly uses, precomputed on the host as per-entry term lists; each term
+is (kind, value_row, sign) with kind encoding the frequency dependence:
+
+  one   +-1 constants (V/E/H branch couplings)        -> real plane
+  inv   1/v (resistors)                               -> real plane
+  lin   v (VCCS gm, CCCS/VCVS/CCVS gains, phasor b)   -> real plane / b
+  w     2*pi*f * v (capacitors)                       -> imag plane
+  winv  -1/(2*pi*f * v), open when |2*pi*f*v| < EPS
+        (inductors, simulateAC.ts:47-52)              -> imag plane
+
+The TPU kernel unrolls the pattern at trace time; here ``pack_pattern``
+flattens it into int32 tables that the kernel reads at run time, so one
+nvcc build serves every deck. ``mc_ac_fused_plain`` is the plain PyTorch
+version: dense assembly from the same tables, then the plain
+``gj_solve_planes``, then |x[node]|.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..constants import EPS
+from ._build import Kernel, check, load, ptr, stream_ptr
+from .linsolve import gj_solve_planes
+
+# the fused tier's eligibility bound, as in the JAX package: beyond it the
+# per-system planes outgrow a thread's share of shared memory and the K1
+# route is the right shape
+FUSED_MAX_N = 16
+
+KINDS = {"one": 0, "inv": 1, "lin": 2, "w": 3, "winv": 4}
+
+# one launch counter per instantiation
+K5 = {dt: Kernel(name=f"mc_ac_fused_{tag}",
+                 source="spicey_tpu_torch/csrc/mc_ac_fused.cu",
+                 replaces="spicey_tpu/ops/pallas_mc_ac.py:982")
+      for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64"))}
+
+
+def build_stamp_pattern(n: int, r_idx: object, c_idx: object,
+                        l_idx: object, v_idx: object,
+                        ext_idx: dict | None = None) -> tuple:
+    """Host-side static stamp pattern for the fused kernel.
+
+    Returns (n_rows, re_entries, im_entries) where each entries item is
+    ((i, j), terms) with j == n meaning the RHS column and terms a tuple
+    of (kind, value_row, sign). Value rows index the combined value
+    matrix in the order [R | C | L | v_re | v_im | i_re | i_im | g | e |
+    f | h] (see combine_values)."""
+    re_t: dict = {}
+    im_t: dict = {}
+
+    def add(d: dict, i: int, j: int, term: tuple) -> None:
+        if i >= n or j > n:
+            return
+        d.setdefault((int(i), int(j)), []).append(term)
+
+    def adm(d: dict, idx: object, kind: str, base: int) -> None:
+        for k, (i1, i2) in enumerate(np.asarray(idx).reshape(-1, 2)):
+            row = base + k
+            for (a, b, s) in ((i1, i1, 1.0), (i2, i2, 1.0),
+                              (i1, i2, -1.0), (i2, i1, -1.0)):
+                if a < n and b < n:
+                    add(d, a, b, (kind, row, s))
+
+    n_r = np.asarray(r_idx).reshape(-1, 2).shape[0]
+    n_c = np.asarray(c_idx).reshape(-1, 2).shape[0]
+    n_l = np.asarray(l_idx).reshape(-1, 2).shape[0]
+    n_v = np.asarray(v_idx).reshape(-1, 3).shape[0]
+    off_r, off_c, off_l = 0, n_r, n_r + n_c
+    off_vre = n_r + n_c + n_l
+    off_vim = off_vre + n_v
+    adm(re_t, r_idx, "inv", off_r)
+    adm(im_t, c_idx, "w", off_c)
+    adm(im_t, l_idx, "winv", off_l)
+    for k, (i1, i2, j) in enumerate(np.asarray(v_idx).reshape(-1, 3)):
+        for (a, b, s) in ((i1, j, 1.0), (j, i1, 1.0),
+                          (i2, j, -1.0), (j, i2, -1.0)):
+            if a < n and b < n:
+                add(re_t, a, b, ("one", 0, s))
+        add(re_t, j, n, ("lin", off_vre + k, 1.0))
+        add(im_t, j, n, ("lin", off_vim + k, 1.0))
+    base = off_vim + n_v
+    if ext_idx:
+        ii = np.asarray(ext_idx["i_idx"]).reshape(-1, 2)
+        n_i = ii.shape[0]
+        off_ire, off_iim = base, base + n_i
+        for k, (i1, i2) in enumerate(ii):
+            # b[i1] -= I, b[i2] += I (stampCurrent*.ts)
+            add(re_t, i1, n, ("lin", off_ire + k, -1.0))
+            add(re_t, i2, n, ("lin", off_ire + k, 1.0))
+            add(im_t, i1, n, ("lin", off_iim + k, -1.0))
+            add(im_t, i2, n, ("lin", off_iim + k, 1.0))
+        base = off_iim + n_i
+        gi = np.asarray(ext_idx["g_idx"]).reshape(-1, 4)
+        for k, (i1, i2, cp, cn) in enumerate(gi):
+            row = base + k
+            for (a, b, s) in ((i1, cp, 1.0), (i1, cn, -1.0),
+                              (i2, cp, -1.0), (i2, cn, 1.0)):
+                if a < n and b < n:
+                    add(re_t, a, b, ("lin", row, s))
+        base += gi.shape[0]
+        ei = np.asarray(ext_idx["e_idx"]).reshape(-1, 5)
+        for k, (i1, i2, j, cp, cn) in enumerate(ei):
+            row = base + k
+            for (a, b, s) in ((i1, j, 1.0), (i2, j, -1.0),
+                              (j, i1, 1.0), (j, i2, -1.0)):
+                if a < n and b < n:
+                    add(re_t, a, b, ("one", 0, s))
+            for (a, b, s) in ((j, cp, -1.0), (j, cn, 1.0)):
+                if a < n and b < n:
+                    add(re_t, a, b, ("lin", row, s))
+        base += ei.shape[0]
+        fi = np.asarray(ext_idx["f_idx"]).reshape(-1, 3)
+        for k, (i1, i2, j) in enumerate(fi):
+            row = base + k
+            for (a, b, s) in ((i1, j, 1.0), (i2, j, -1.0)):
+                if a < n and b < n:
+                    add(re_t, a, b, ("lin", row, s))
+        base += fi.shape[0]
+        hi = np.asarray(ext_idx["h_idx"]).reshape(-1, 4)
+        for k, (i1, i2, j, jc) in enumerate(hi):
+            row = base + k
+            for (a, b, s) in ((i1, j, 1.0), (i2, j, -1.0),
+                              (j, i1, 1.0), (j, i2, -1.0)):
+                if a < n and b < n:
+                    add(re_t, a, b, ("one", 0, s))
+            if j < n and jc < n:
+                add(re_t, j, jc, ("lin", row, -1.0))
+        base += hi.shape[0]
+
+    def freeze(d: dict) -> tuple:
+        return tuple(sorted(
+            (ij, tuple(terms)) for ij, terms in d.items()
+        ))
+
+    return base, freeze(re_t), freeze(im_t)
+
+
+@dataclass(frozen=True)
+class PackedPattern:
+    """A stamp pattern as flat int32 tables on one device.
+
+    Positions are flat indices into the two planes of one augmented
+    system: ``plane * n*(n+1) + i*(n+1) + j`` (plane 0 real, 1 imag).
+    ``ent`` (n_ent, 3) = [position, first term, end term]; ``terms``
+    (n_terms, 3) = [kind, value row, sign]; ``zeros`` (n_zero,) = the
+    positions no entry writes, which the kernel zeroes."""
+
+    n: int
+    n_rows: int
+    ent: torch.Tensor
+    terms: torch.Tensor
+    zeros: torch.Tensor
+
+
+def pack_pattern(pattern: tuple, n: int,
+                 device: torch.device | str) -> PackedPattern:
+    n_rows, re_entries, im_entries = pattern
+    nw = n * (n + 1)
+    ent, terms, written = [], [], set()
+    for plane, entries in ((0, re_entries), (1, im_entries)):
+        for (i, j), ts in entries:
+            pos = plane * nw + i * (n + 1) + j
+            ent.append((pos, len(terms), len(terms) + len(ts)))
+            terms.extend((KINDS[kind], row, int(sign))
+                         for kind, row, sign in ts)
+            written.add(pos)
+    zeros = [p for p in range(2 * nw) if p not in written]
+
+    def table(rows: list, width: int) -> torch.Tensor:
+        a = np.asarray(rows, np.int32).reshape(-1, width)
+        return torch.as_tensor(a, device=device)
+
+    return PackedPattern(n=n, n_rows=int(n_rows), ent=table(ent, 3),
+                         terms=table(terms, 3),
+                         zeros=table(zeros, 1).reshape(-1))
+
+
+def combine_values(r_vals: torch.Tensor, c_vals: torch.Tensor,
+                   l_vals: torch.Tensor, v_re: torch.Tensor,
+                   v_im: torch.Tensor, ext: dict | None = None,
+                   i_re: torch.Tensor | None = None,
+                   i_im: torch.Tensor | None = None,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Stack every per-variant value array into one (n_rows, B) matrix in
+    the row order build_stamp_pattern assigns. (B, 0) groups contribute
+    no rows; unbatched (nI,) current phasors broadcast."""
+    B = r_vals.shape[0]
+    cols = [r_vals, c_vals, l_vals, v_re, v_im]
+    if ext is not None:
+        cols.append(i_re[None, :].expand(B, i_re.shape[0]))
+        cols.append(i_im[None, :].expand(B, i_im.shape[0]))
+        cols.extend([ext["g_gm"], ext["e_gain"], ext["f_gain"],
+                     ext["h_r"]])
+    vals = torch.cat([c.to(dtype) for c in cols], dim=1)
+    return vals.T.contiguous()  # (n_rows, B)
+
+
+def _term_values(packed: PackedPattern, values: torch.Tensor,
+                 w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Every term's value for every (frequency, variant): (n_terms, F, B)."""
+    row = packed.terms[:, 1].long()
+    sign = packed.terms[:, 2].to(values.dtype)[:, None, None]
+    v = values[row][:, None, :]                       # (n_terms, 1, B)
+    wv = w[None, :, None] * v                         # (n_terms, F, B)
+    shape = wv.shape
+    k = packed.terms[:, 0][:, None, None].expand(shape)
+    out = sign.expand(shape)                          # kind "one"
+    out = torch.where(k == KINDS["inv"], (sign / v).expand(shape), out)
+    out = torch.where(k == KINDS["lin"], (sign * v).expand(shape), out)
+    out = torch.where(k == KINDS["w"], sign * w[None, :, None] * v, out)
+    # winv: open circuit below EPS (simulateAC.ts:47-52)
+    small = wv.abs() < eps
+    one = torch.ones((), dtype=values.dtype, device=values.device)
+    winv = torch.where(small, torch.zeros_like(wv),
+                       -sign / torch.where(small, one, wv))
+    return torch.where(k == KINDS["winv"], winv, out)
+
+
+def mc_ac_fused_plain(freqs: torch.Tensor, values: torch.Tensor,
+                      packed: PackedPattern, node_idx: int,
+                      eps: float = EPS) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K5. freqs (F,), values (n_rows, B) -> (mag (B, F),
+    valid (B, F)), in the dtype of ``values``."""
+    n = packed.n
+    F, B = freqs.shape[0], values.shape[1]
+    w = (2.0 * math.pi) * freqs.to(values.dtype)
+    tv = _term_values(packed, values, w, eps)
+    planes = torch.zeros((2 * n * (n + 1), F, B), dtype=values.dtype,
+                         device=values.device)
+    # each entry is the sum of its terms in table order
+    for pos, t0, t1 in packed.ent.cpu().tolist():
+        acc = tv[t0]
+        for t in range(t0 + 1, t1):
+            acc = acc + tv[t]
+        planes[pos] = acc
+    planes = planes.reshape(2, n, n + 1, F, B).permute(0, 3, 4, 1, 2)
+    x_re, x_im, valid = gj_solve_planes(
+        planes[0, ..., :n], planes[1, ..., :n],
+        planes[0, ..., n], planes[1, ..., n], eps=eps)
+    xr, xi = x_re[..., node_idx], x_im[..., node_idx]
+    return torch.sqrt(xr * xr + xi * xi).T, valid.T
+
+
+_LAUNCH_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_SIGNATURES = {
+    "mc_ac_fused_f32": (_LAUNCH_ARGS, ctypes.c_int),
+    "mc_ac_fused_f64": (_LAUNCH_ARGS, ctypes.c_int),
+}
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load this kernel's library."""
+    return load("mc_ac_fused", _SIGNATURES)
+
+
+def mc_ac_fused_cuda(freqs: torch.Tensor, values: torch.Tensor,
+                     packed: PackedPattern, node_idx: int,
+                     eps: float = EPS) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K5. freqs (F,), values (n_rows, B), both CUDA, contiguous and
+    of one dtype (float32 or float64); the pattern's tables on the same
+    device. Returns (mag, valid) as (B, F) views of (F, B) outputs."""
+    n = packed.n
+    if not 1 <= n <= FUSED_MAX_N:
+        raise ValueError(f"K5 takes 1 <= N <= {FUSED_MAX_N}, got N={n}")
+    if values.ndim != 2 or values.shape[0] != packed.n_rows \
+            or freqs.ndim != 1:
+        raise ValueError("values must be (n_rows, B) and freqs (F,)")
+    if values.dtype not in (torch.float32, torch.float64) \
+            or freqs.dtype != values.dtype:
+        raise TypeError("K5 takes float32 or float64 freqs and values")
+    tables = (packed.ent, packed.terms, packed.zeros)
+    if any(t.dtype != torch.int32 for t in tables):
+        raise TypeError("K5 takes int32 pattern tables")
+    ts = (freqs, values) + tables
+    if any(not t.is_cuda or t.device != values.device for t in ts):
+        raise ValueError("K5 takes CUDA tensors on one device")
+    if any(not t.is_contiguous() for t in ts):
+        raise ValueError("K5 takes contiguous tensors")
+    if not 0 <= node_idx < n:
+        raise ValueError(f"node index {node_idx} outside the system")
+    if freqs.shape[0] > 65535 or values.shape[1] >= 2**31:
+        raise ValueError("K5 takes at most 65535 frequencies (one grid "
+                         "row each) and fewer than 2^31 variants")
+    lib = load_library()
+    F, B = freqs.shape[0], values.shape[1]
+    mag = torch.empty((F, B), dtype=values.dtype, device=values.device)
+    valid = torch.empty((F, B), dtype=torch.bool, device=values.device)
+    fn = lib.mc_ac_fused_f64 if values.dtype == torch.float64 \
+        else lib.mc_ac_fused_f32
+    code = fn(ptr(freqs), ptr(values), F, B, ptr(packed.ent),
+              packed.ent.shape[0], ptr(packed.terms), ptr(packed.zeros),
+              packed.zeros.shape[0], n, node_idx, float(eps), ptr(mag),
+              ptr(valid), stream_ptr(values.device))
+    check(code, "mc_ac_fused launch")
+    K5[values.dtype].launches += 1
+    return mag.T, valid.T
+
+
+def mc_ac_fused(freqs: torch.Tensor, values: torch.Tensor,
+                packed: PackedPattern, node_idx: int,
+                eps: float = EPS) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused assemble+solve: K5 on CUDA tensors, the plain version on the
+    CPU. freqs (F,), values (n_rows, B) -> (mag (B, F), valid (B, F))."""
+    if values.is_cuda:
+        return mc_ac_fused_cuda(freqs, values, packed, node_idx, eps)
+    return mc_ac_fused_plain(freqs, values, packed, node_idx, eps)

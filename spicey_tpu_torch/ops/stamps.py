@@ -1,0 +1,153 @@
+"""Vectorized MNA stamp assembly on torch tensors.
+
+The reference's stamp functions (spicey/lib/stamping/*.ts) are per-element
+scatter-adds with ground guards. Here each becomes ONE batched
+``index_add_`` over all elements of a device type, into a padded
+(nvar+1)-sized system whose last row/column is a dump slot for ground (see
+ir/circuit.py); contributions to the dump row/column are sliced off by the
+callers. Duplicate indices accumulate, as scatter-add semantics require.
+
+Every function updates ``A_pad``/``b_pad`` IN PLACE (a batched system is
+the largest tensor of an assembly; building it once saves a copy per
+stamp) and returns it for chaining. ``A_pad`` is (..., n+1, n+1) and
+``b_pad`` (..., n+1); values broadcast against the leading batch dims and
+end in the element axis.
+
+Patterns:
+  - admittance (4-point ±Y): stampAdmittance{Real,Complex}.ts:10-29
+  - RHS current injection:   stampCurrent{Real,Complex}.ts:10-14
+  - voltage-source rows (±1 couplings + RHS voltage):
+                             stampVoltageSource{Real,Complex}.ts:11-34
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _add(A_pad: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
+         y: torch.Tensor | float) -> torch.Tensor:
+    """A_pad[..., i[e], j[e]] += y[..., e] for every element e."""
+    n1 = A_pad.shape[-1]
+    lead = A_pad.shape[:-2]
+    flat = A_pad.view(*lead, n1 * n1)
+    src = torch.as_tensor(y, dtype=A_pad.dtype, device=A_pad.device)
+    src = src.expand(*lead, i.shape[0])
+    flat.index_add_(-1, i * n1 + j, src)
+    return A_pad
+
+
+def _add_vec(b_pad: torch.Tensor, i: torch.Tensor,
+             y: torch.Tensor | float) -> torch.Tensor:
+    """b_pad[..., i[e]] += y[..., e] for every element e."""
+    src = torch.as_tensor(y, dtype=b_pad.dtype, device=b_pad.device)
+    b_pad.index_add_(-1, i, src.expand(*b_pad.shape[:-1], i.shape[0]))
+    return b_pad
+
+
+def stamp_admittance(A_pad: torch.Tensor, idx: torch.Tensor,
+                     y: torch.Tensor) -> torch.Tensor:
+    """Scatter ±y for each 2-terminal element. idx: (nE, 2); y: (..., nE)."""
+    i1, i2 = idx[:, 0], idx[:, 1]
+    _add(A_pad, i1, i1, y)
+    _add(A_pad, i2, i2, y)
+    _add(A_pad, i1, i2, -y)
+    _add(A_pad, i2, i1, -y)
+    return A_pad
+
+
+def stamp_current(b_pad: torch.Tensor, idx: torch.Tensor,
+                  current: torch.Tensor) -> torch.Tensor:
+    """RHS injection: b[i1] -= I, b[i2] += I. Batch dims broadcast."""
+    _add_vec(b_pad, idx[:, 0], -current)
+    _add_vec(b_pad, idx[:, 1], current)
+    return b_pad
+
+
+def stamp_voltage_source(A_pad: torch.Tensor, b_pad: torch.Tensor,
+                         v_idx: torch.Tensor, volts: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """±1 node/branch couplings and branch-row RHS voltage.
+
+    v_idx: (nV, 3) = [i1, i2, branch]; volts: (..., nV).
+    """
+    i1, i2, j = v_idx[:, 0], v_idx[:, 1], v_idx[:, 2]
+    _add(A_pad, i1, j, 1.0)
+    _add(A_pad, j, i1, 1.0)
+    _add(A_pad, i2, j, -1.0)
+    _add(A_pad, j, i2, -1.0)
+    _add_vec(b_pad, j, volts)
+    return A_pad, b_pad
+
+
+def stamp_vccs(A_pad: torch.Tensor, idx: torch.Tensor,
+               gm: torch.Tensor) -> torch.Tensor:
+    """Voltage-controlled current source (extended dialect).
+
+    idx: (nG, 4) = [i1, i2, ic_pos, ic_neg]; gm: (..., nG). Injects
+    gm*(v(ic+)-v(ic-)) out of i1's KCL row into i2's.
+    """
+    i1, i2, icp, icn = idx[:, 0], idx[:, 1], idx[:, 2], idx[:, 3]
+    _add(A_pad, i1, icp, gm)
+    _add(A_pad, i1, icn, -gm)
+    _add(A_pad, i2, icp, -gm)
+    _add(A_pad, i2, icn, gm)
+    return A_pad
+
+
+def stamp_vcvs(A_pad: torch.Tensor, idx: torch.Tensor,
+               gain: torch.Tensor) -> torch.Tensor:
+    """Voltage-controlled voltage source (extended dialect).
+
+    idx: (nE, 5) = [i1, i2, branch, ic_pos, ic_neg]; gain: (..., nE). The
+    branch row enforces v(i1) - v(i2) - gain*(v(ic+) - v(ic-)) = 0.
+    """
+    i1, i2, j = idx[:, 0], idx[:, 1], idx[:, 2]
+    icp, icn = idx[:, 3], idx[:, 4]
+    _add(A_pad, i1, j, 1.0)
+    _add(A_pad, i2, j, -1.0)
+    _add(A_pad, j, i1, 1.0)
+    _add(A_pad, j, i2, -1.0)
+    _add(A_pad, j, icp, -gain)
+    _add(A_pad, j, icn, gain)
+    return A_pad
+
+
+def stamp_cccs(A_pad: torch.Tensor, idx: torch.Tensor,
+               gain: torch.Tensor) -> torch.Tensor:
+    """Current-controlled current source (extended dialect).
+
+    idx: (nF, 3) = [i1, i2, ctrl_branch]; gain: (..., nF):
+    i(F) = gain * x[ctrl_branch], flowing i1 -> i2 through the source.
+    """
+    i1, i2, jv = idx[:, 0], idx[:, 1], idx[:, 2]
+    _add(A_pad, i1, jv, gain)
+    _add(A_pad, i2, jv, -gain)
+    return A_pad
+
+
+def stamp_ccvs(A_pad: torch.Tensor, idx: torch.Tensor,
+               r: torch.Tensor) -> torch.Tensor:
+    """Current-controlled voltage source (extended dialect).
+
+    idx: (nH, 4) = [i1, i2, branch, ctrl_branch]; r: (..., nH). The branch
+    row enforces v(i1) - v(i2) - r * x[ctrl_branch] = 0.
+    """
+    i1, i2, j, jv = idx[:, 0], idx[:, 1], idx[:, 2], idx[:, 3]
+    _add(A_pad, i1, j, 1.0)
+    _add(A_pad, i2, j, -1.0)
+    _add(A_pad, j, i1, 1.0)
+    _add(A_pad, j, i2, -1.0)
+    _add(A_pad, j, jv, -r)
+    return A_pad
+
+
+def stamp_extended(A_pad: torch.Tensor, ext: dict) -> torch.Tensor:
+    """All linear extended-dialect controlled sources from an ext dict
+    (ir.circuit.ext_arrays): G/E/F/H. Independent I sources are RHS-only
+    and handled by the callers."""
+    stamp_vccs(A_pad, ext["g_idx"], ext["g_gm"])
+    stamp_vcvs(A_pad, ext["e_idx"], ext["e_gain"])
+    stamp_cccs(A_pad, ext["f_idx"], ext["f_gain"])
+    stamp_ccvs(A_pad, ext["h_idx"], ext["h_r"])
+    return A_pad

@@ -1,0 +1,132 @@
+"""The port's plain complex Gauss-Jordan (the CPU version of kernel K1)
+against the JAX package's solvers on identical numpy inputs.
+
+f64 is held to the JAX plane GJ at rtol 1e-12 (same algorithm, same pivot
+order; the last bits differ only where XLA fuses differently). f32 is held
+to the Pallas kernel in interpret mode at rtol 1e-5 (f32 elimination
+carries ~N * 6e-8 relative rounding). ``valid`` must agree exactly.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spicey_tpu.ops import linsolve as jlin
+from spicey_tpu.ops.pallas_gj import pallas_gj_solve_complex
+from spicey_tpu_torch.ops import linsolve as tlin
+
+
+def _random(rng, B, N):
+    Ar = rng.standard_normal((B, N, N)) + N * np.eye(N)
+    Ai = rng.standard_normal((B, N, N))
+    br = rng.standard_normal((B, N))
+    bi = rng.standard_normal((B, N))
+    return Ar, Ai, br, bi
+
+
+def _mna_like(rng, B, N):
+    """Zero-diagonal rows in the voltage-source pattern: the branch row
+    and column of each source carry +-1 couplings and a zero diagonal, so
+    the first pivot of that column must come from another row."""
+    Ar, Ai, br, bi = _random(rng, B, N)
+    for j in range(N - 2, N):
+        Ar[:, j, :] = 0.0
+        Ar[:, :, j] = 0.0
+        Ai[:, j, :] = 0.0
+        Ai[:, :, j] = 0.0
+        k = j - (N - 2)
+        Ar[:, k, j] = Ar[:, j, k] = 1.0
+    return Ar, Ai, br, bi
+
+
+def _singular(rng, B, N):
+    """Lane 0: a zero row; lane 1: two equal rows; lane 2: all zero; the
+    rest regular."""
+    Ar, Ai, br, bi = _random(rng, B, N)
+    Ar[0, 1, :] = Ai[0, 1, :] = 0.0
+    Ar[1, 2, :] = Ar[1, 0, :]
+    Ai[1, 2, :] = Ai[1, 0, :]
+    Ar[2] = Ai[2] = 0.0
+    return Ar, Ai, br, bi
+
+
+def _jax_gj(Ar, Ai, br, bi):
+    f = jax.vmap(jlin.gj_solve_planes)
+    return [np.asarray(a) for a in f(*map(jnp.asarray, (Ar, Ai, br, bi)))]
+
+
+def _port(arrays, dtype):
+    xr, xi, valid = tlin.gj_solve_planes(
+        *[torch.as_tensor(a, dtype=dtype) for a in arrays])
+    return xr.numpy(), xi.numpy(), valid.numpy()
+
+
+@pytest.mark.parametrize("kind,N", [("random", 3), ("random", 8),
+                                    ("random", 24), ("mna", 6),
+                                    ("singular", 5)])
+def test_f64_plane_gj_matches_jax(kind, N):
+    rng = np.random.default_rng(N)
+    make = {"random": _random, "mna": _mna_like, "singular": _singular}[kind]
+    arrays = make(rng, 16, N)
+    jr, ji, jv = _jax_gj(*arrays)
+    tr, ti, tv = _port(arrays, torch.float64)
+    np.testing.assert_array_equal(tv, jv)
+    if kind == "singular":
+        assert not tv[:3].any() and tv[3:].all()
+    ok = jv
+    np.testing.assert_allclose(tr[ok], jr[ok], rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(ti[ok], ji[ok], rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("kind,N", [("random", 4), ("mna", 8),
+                                    ("singular", 6)])
+def test_f32_matches_pallas_kernel_interpret(kind, N):
+    rng = np.random.default_rng(100 + N)
+    make = {"random": _random, "mna": _mna_like, "singular": _singular}[kind]
+    arrays = [a.astype(np.float32) for a in make(rng, 24, N)]
+    jr, ji, jv = [np.asarray(a) for a in pallas_gj_solve_complex(
+        *map(jnp.asarray, arrays), refine=0, interpret=True)]
+    tr, ti, tv = _port(arrays, torch.float32)
+    assert tr.dtype == np.float32
+    np.testing.assert_array_equal(tv, jv)
+    # the duplicated-row lane of the singular set keeps an f32 rounding
+    # residue as its last pivot: both flag it valid with garbage x, so
+    # values are compared on the regular lanes only
+    ok = jv.copy()
+    if kind == "singular":
+        ok[:3] = False
+    scale = np.max(np.abs(jr[ok]))
+    np.testing.assert_allclose(tr[ok], jr[ok], rtol=1e-5, atol=1e-5 * scale)
+    np.testing.assert_allclose(ti[ok], ji[ok], rtol=1e-5, atol=1e-5 * scale)
+
+
+def test_batch_dims_and_ties_to_lowest_row():
+    """Leading batch dims survive, and equal |pivot| candidates pick the
+    lowest row: with A = [[1, 1], [1, -1]] (equal magnitudes in column 0)
+    the first pivot is row 0, as jnp.argmax picks it."""
+    A = torch.tensor([[1.0, 1.0], [1.0, -1.0]], dtype=torch.float64)
+    Ar = A.expand(2, 3, 2, 2)
+    Ai = torch.zeros_like(Ar)
+    br = torch.tensor([3.0, 1.0], dtype=torch.float64).expand(2, 3, 2)
+    xr, xi, valid = tlin.gj_solve_planes(Ar, Ai, br, torch.zeros_like(br))
+    assert xr.shape == (2, 3, 2) and valid.shape == (2, 3)
+    torch.testing.assert_close(xr[1, 2], torch.tensor(
+        [2.0, 1.0], dtype=torch.float64), rtol=0, atol=1e-15)
+    jr, _, _ = jlin.gj_solve_planes(jnp.asarray(A.numpy()),
+                                    jnp.zeros((2, 2)),
+                                    jnp.asarray([3.0, 1.0]), jnp.zeros(2))
+    np.testing.assert_array_equal(xr[0, 0].numpy(), np.asarray(jr))
+
+
+def test_solve_planes_cpu_runs_plain_and_checks_method():
+    rng = np.random.default_rng(7)
+    arrays = [torch.as_tensor(a) for a in _random(rng, 4, 5)]
+    for method in ("gj", "pallas"):
+        got = tlin.solve_planes(*arrays, method=method)
+        ref = tlin.gj_solve_planes(*arrays)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+    with pytest.raises(ValueError, match="unknown solve method"):
+        tlin.solve_planes(*arrays, method="lax")

@@ -1,0 +1,67 @@
+"""The port runs where jax is absent, as on the GPU machine.
+
+A subprocess blocks ``import jax`` and reproduces the basics01 golden
+through ``spicey_tpu_torch``; an AST scan asserts that no module of the
+port imports jax or the JAX package.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "spicey_tpu_torch"
+
+_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["spicey_tpu"] = None
+import spicey_tpu_torch as st
+deck = open(sys.argv[1]).read()
+golden = open(sys.argv[2]).read()
+out = st.format_ac_result(st.simulate(deck).ac)
+stats = st.mc_ac_stats(deck, {"r1": [30.0, 33.0]}, node="2",
+                       method="pallas", precision="f32")
+assert out == golden, "golden mismatch"
+assert stats.n_valid == 2
+print("OK")
+"""
+
+BASICS01 = """Demo of a simple AC circuit
+v1 1 0 dc 0 ac 1
+r1 1 2 30
+c1 2 0 100u
+.ac dec 100 1 100
+.end
+"""
+
+
+def test_port_runs_with_jax_blocked(tmp_path, fixtures_dir):
+    deck = tmp_path / "basics01.cir"
+    deck.write_text(BASICS01)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT, str(deck),
+         os.path.join(fixtures_dir, "basics01_golden.txt")],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK"
+
+
+def _imports(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_port_module_imports_jax():
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) > 15
+    for path in files:
+        for name in _imports(ast.parse(path.read_text(), str(path))):
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "spicey_tpu"), (path, name)
