@@ -5,26 +5,44 @@ needs one CUDA card and the CUDA toolkit (nvcc), imports nothing of JAX,
 and exits nonzero on the first failure (nothing is caught). Phases, one
 line each:
 
-  1. build kernels K1 (csrc/gj_complex.cu) and K5 (csrc/mc_ac_fused.cu)
-     with nvcc; print the build seconds and the card's name/power limit;
+  1. build kernels K1 (csrc/gj_complex.cu), K2 + K3 (csrc/gj_real.cu),
+     K5 (csrc/mc_ac_fused.cu) and K8 (csrc/mc_tran_fused.cu) with nvcc,
+     one process per source, all started together; print the build
+     seconds and the card's name/power limit;
   2. every kernel instantiation against its plain PyTorch version on the
      card, on the same inputs: K1 at N in {3, 8, 64, 128} with singular
      lanes and at the main path's shapes (the basics01 planes, the N = 64
      ladder's 2048 x 51 systems), K5 on the extended deck and at the 1M x
-     201 yield; ``valid`` identical, f64 rtol 1e-12, f32 rtol 1e-5 (nvcc
-     contracts multiply-adds into FMAs, the torch ops do not). The f32
-     ladder is too ill-conditioned for 1e-5 between two f32 eliminations;
-     there K1 must be as accurate as the plain version against an f64
-     solve of the same planes (see ``k1_vs_plain``);
-  3-5. the main path through the public entry points, with every launch
-     counter zeroed first: the basics01 golden on cuda (character-exact);
-     the 1M-variant AC yield at f32 (K5) against the analytic
-     |1/(1+jwRC)| ensemble at rtol 2e-4, at f64 at rtol 1e-9, and one
-     on-device-sampled 1M run; the N = 64 RC ladder at f32 and f64 (K1),
-     means within 5e-3, and f64 kernel against the f64 plain path on a
-     64-variant subset at 1e-9;
-  6. every instantiation launched during 3-5; CUDA-event times of each
-     kernel and its plain version at the main path's shapes.
+     201 yield, K2 and K3 at N in {3, 8, 64, 128} with an all-zero and a
+     zero-row system and at the main path's shapes (the boost converter's
+     100k x 6 Newton systems, the RC transient's 1M x 3 matrices), K8 on
+     an extended linear deck and at the 1M x 201 RC transient; ``valid``
+     identical, f64 rtol 1e-12, f32 rtol 1e-5 (nvcc contracts
+     multiply-adds into FMAs, the torch ops do not). The f32 ladder is too
+     ill-conditioned for 1e-5 between two f32 eliminations; there K1 must
+     be as accurate as the plain version against an f64 solve of the same
+     planes (see ``k1_vs_plain``);
+  3-8. the main path through the public entry points, each phase with
+     every launch counter zeroed first and read after: the basics01
+     golden on cuda (character-exact); the 1M-variant AC yield at f32
+     (K5) against the analytic |1/(1+jwRC)| ensemble at rtol 2e-4, at f64
+     at rtol 1e-9, and one on-device-sampled 1M run; the N = 64 RC ladder
+     at f32 and f64 (K1), means within 5e-3, and f64 kernel against the
+     f64 plain path on a 64-variant subset at 1e-9; the transient goldens
+     on cuda (K2 on the nonlinear decks, K3 on the linear ones) against
+     the NumPy oracle at tests/test_tran.py's tolerances; the 1M-variant
+     RC transient at f32 through K8 and through the batched loop (K3),
+     at f64 (K3), and one on-device-sampled f32 run, against the exact
+     backward-Euler recurrence at 2e-4 (f32) and 1e-9 (f64); the
+     100k-variant boost converter at f64 and f32 (K2 every Newton pass),
+     n_valid 100k, a 64-variant subset equal to the CPU path at 1e-9;
+  9. every instantiation launched during 3-8; CUDA-event times of each
+     kernel, its plain version and, where one PyTorch call computes the
+     same function, that call (``torch.linalg.solve`` for K1/K2,
+     ``torch.linalg.inv`` for K3), at the main path's shapes, beside the
+     kernel's bound: the larger of its bytes over 3.35 TB/s and its
+     operations over the H100's non-tensor peak (67 TFLOP/s f32, 34
+     TFLOP/s f64, NVIDIA's H100 SXM data sheet).
 
 Then a JSON line of the kernels, the nvidia-smi line, and the result line.
 """
@@ -62,8 +80,55 @@ L1 d 0 10m
 .ac dec 10 10 1e5
 .end
 """
+TRAN_NET = ("TRAN bench\nV1 1 0 PULSE(0 5 0 1n 1n 5u 10u)\nR1 1 2 1k\n"
+            "C1 2 0 1u\n.tran 0.1u 20u\n.end\n")
+BOOST_NET = """a boost-converter bench (reference fixture)
+.MODEL D D
+.MODEL SWMOD SW
+LL1 N1 N2 1
+DD1 N2 N3 D
+CC1 N3 0 10U
+RR1 N3 0 1K
+SM1 N2 0 N4 0 SWMOD
+Vs0 N1 0 DC 5
+Vs1 N4 0 PULSE(0 10 0 1n 1n 0.00068 0.001)
+.tran 0.001 0.1 uic
+"""
+EXT_TRAN = """* extended linear transient
+I1 0 a PULSE(0 1m 0 1u 1u 5u 10u)
+R1 a 0 1k
+G1 0 b a 0 2m
+R2 b 0 500
+E1 c 0 b 0 3
+R3 c d 100
+C1 d 0 1u
+V1 e 0 PULSE(0 5 0 1n 1n 5u 10u)
+R4 e d 200
+F1 0 b V1 0.5
+H1 f 0 V1 50
+R5 f d 300
+L1 d 0 10m
+.tran 0.1u 20u
+.end
+"""
+BOOST_B = 100_000
+GOLDENS = ("RC_PULSE", "TWO_PROBES", "SERIES_RLC", "SWITCH_VT_VH",
+           "VSWITCH_PWL", "BOOST_CONVERTER", "DIODE_SWITCH")
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 TAG = {torch.float64: "f64", torch.float32: "f32"}
+# the H100 SXM's peaks (NVIDIA data sheet): HBM3 bytes/s; FLOP/s outside
+# the tensor cores
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def bound(flops: float, nbytes: float, dtype: torch.dtype
+          ) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate, in ms."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def rc_ladder_netlist(sections: int, freqs: int = 51) -> str:
@@ -120,18 +185,44 @@ def main() -> int:
     from spicey_tpu_torch.analysis import ac as tac
     from spicey_tpu_torch.analysis import batch as tbatch
     from spicey_tpu_torch.analysis import mc as tmc
-    from spicey_tpu_torch.ops import _build, gj, linsolve, mc_ac_fused
+    from spicey_tpu_torch.analysis import tran as ttran
+    from spicey_tpu_torch.ir.circuit import (effective_time_step,
+                                             sample_source_values)
+    from spicey_tpu_torch.ops import (_build, gj, gj_real, linsolve,
+                                      mc_ac_fused, mc_tran_fused)
+    from tests.fixtures import netlists
+    from tests.oracle import oracle_tran
 
     dev = torch.device("cuda")
     kernels = {k.name: k for k in
-               list(gj.K1.values()) + list(mc_ac_fused.K5.values())}
+               list(gj.K1.values()) + list(mc_ac_fused.K5.values())
+               + list(gj_real.K2.values()) + list(gj_real.K3.values())
+               + list(mc_tran_fused.K8.values())}
     err = {name: 0.0 for name in kernels}
-    ms: dict[str, tuple[float, float]] = {}
+    # name -> (kernel ms, plain ms, library ms or None, bound ms, bound by)
+    ms: dict[str, tuple] = {}
+    launches = {name: 0 for name in kernels}
+
+    def counted(phase: str, expect: list) -> None:
+        """Add this phase's launches to the totals and fail unless every
+        kernel it must drive launched; then zero the counters for the
+        next phase."""
+        got = {name: k.launches for name, k in kernels.items()}
+        for name, n in got.items():
+            launches[name] += n
+        missing = [k.name for k in expect if got[k.name] == 0]
+        if missing:
+            raise AssertionError(f"{phase}: never launched {missing}")
+        say(phase, "launches " + json.dumps(
+            {n: c for n, c in got.items() if c}))
+        for k in kernels.values():
+            k.launches = 0
 
     # ---- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
-    gj.load_library()
-    mc_ac_fused.load_library()
+    _build.build(["gj_complex", "gj_real", "mc_ac_fused", "mc_tran_fused"])
+    for mod in (gj, gj_real, mc_ac_fused, mc_tran_fused):
+        mod.load_library()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -311,9 +402,152 @@ def main() -> int:
             raise AssertionError(f"K5 1M: {nv}/{nt} valid")
         say("2 compare", f"K5 {TAG[dtype]} RC (1M, 201) valid {nv}/{nt} "
             f"max_abs_err {e:.3e}")
+    # K2 and K3: random systems with an all-zero and a zero-row system
+    def k2_vs_plain(A, b, dtype, what, main_shape):
+        x, v = gj_real.gj_solve_cuda(A, b)
+        px, pv = linsolve.gj_solve(A, b)
+        if not torch.equal(v, pv):
+            raise AssertionError(f"K2 {what}: valid flags differ")
+        e = check_close(x[pv], px[pv], TOL[dtype], f"K2 {what}")
+        if main_shape:
+            err[gj_real.K2[dtype].name] = max(err[gj_real.K2[dtype].name], e)
+        return e, int(pv.sum()), pv.numel()
+
+    def k3_vs_plain(A, dtype, what, main_shape):
+        inv, v = gj_real.gj_inverse_cuda(A)
+        pinv, pv = linsolve.gj_inverse(A)
+        if not torch.equal(v, pv):
+            raise AssertionError(f"K3 {what}: valid flags differ")
+        e = check_close(inv[pv], pinv[pv], TOL[dtype], f"K3 {what}")
+        if main_shape:
+            err[gj_real.K3[dtype].name] = max(err[gj_real.K3[dtype].name], e)
+        return e, int(pv.sum()), pv.numel()
+
+    for dtype in (torch.float64, torch.float32):
+        for n in (3, 8, 64, 128):
+            B = 512
+            A = rng.standard_normal((B, n, n)) + n * np.eye(n)
+            b = rng.standard_normal((B, n))
+            A[0] = 0.0             # all-zero system
+            A[1, n // 2] = 0.0     # one zero row
+            At = torch.as_tensor(A, dtype=dtype, device=dev)
+            bt = torch.as_tensor(b, dtype=dtype, device=dev)
+            e2, nv, nt = k2_vs_plain(At, bt, dtype, f"{TAG[dtype]} N={n}",
+                                     False)
+            e3, nv3, _ = k3_vs_plain(At, dtype, f"{TAG[dtype]} N={n}", False)
+            if nv != nt - 2 or nv3 != nt - 2:
+                raise AssertionError(f"K2/K3 N={n}: {nv}, {nv3}/{nt} valid")
+            say("2 compare", f"K2/K3 {TAG[dtype]} N={n} B={B} valid "
+                f"{nv}/{nt} max_abs_err {e2:.3e} / {e3:.3e}")
+
+    def boost_system(B, dtype):
+        """The boost converter's Newton systems (B, 6): RR1 at U(1, 1.1) x
+        1k, a random switch state and diode seed voltage per variant, the
+        sources at t = 0.5 ms (the switch's gate high)."""
+        ckt = st.parse_netlist(BOOST_NET)
+        t = st.build_tensors(ckt)
+        dt, _ = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
+        rr = torch.as_tensor(1e3 * (1 + 0.1 * rng.random((B, 1))),
+                             dtype=dtype, device=dev)
+        arr = ttran.tran_arrays(t, dev, dtype, r_vals=rr)
+        carry = ttran._init_carry((B,), {"c": t.n_c, "l": t.n_l, "d": t.n_d,
+                                         "m": 0, "q": 0, "s": t.n_s},
+                                  dtype, dev)
+        carry[4] = torch.as_tensor(rng.uniform(-1.0, 0.8, (B, t.n_d)),
+                                   dtype=dtype, device=dev)
+        sw = torch.as_tensor(rng.random((B, t.n_s)) < 0.5, device=dev)
+        vs = torch.as_tensor(sample_source_values(ckt, np.array([5e-4]))[0],
+                             dtype=dtype, device=dev)
+        A, b = ttran._stamp_system(
+            arr, t.nvar, dt, vs, torch.zeros((B, t.nvar), dtype=dtype,
+                                             device=dev),
+            0, carry, sw, vt_scale=1.0)
+        return A.contiguous(), b.contiguous()
+
+    r_tran = 1e3 * (1 + 0.2 * rng.random(BIG))
+    c_tran = 1e-6 * (1 + 0.2 * rng.random(BIG))
+    tran_ckt = st.parse_netlist(TRAN_NET)
+    tran_t = st.build_tensors(tran_ckt)
+    tran_dt, tran_steps = effective_time_step(tran_ckt.tran.dt,
+                                              tran_ckt.tran.tstop)
+
+    def rc_matrix(dtype):
+        """The RC transient's factor-once matrices (1M, 3)."""
+        arr = ttran.tran_arrays(
+            tran_t, dev, dtype,
+            r_vals=torch.as_tensor(r_tran[:, None], dtype=dtype, device=dev),
+            c_vals=torch.as_tensor(c_tran[:, None], dtype=dtype, device=dev))
+        return ttran.linear_system_matrix(
+            tran_t.nvar, (BIG,), dtype, arr, arr["c_vals"] / tran_dt,
+            tran_dt).contiguous()
+
+    boost_sys, rc_mat = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        boost_sys[dtype] = boost_system(BOOST_B, dtype)
+        e, nv, nt = k2_vs_plain(*boost_sys[dtype], dtype,
+                                f"{TAG[dtype]} boost", True)
+        if nv != nt:
+            raise AssertionError(f"K2 boost: {nv}/{nt} valid")
+        say("2 compare", f"K2 {TAG[dtype]} boost Newton systems ({nt}, 6) "
+            f"valid {nv}/{nt} max_abs_err {e:.3e}")
+        rc_mat[dtype] = rc_matrix(dtype)
+        e, nv, nt = k3_vs_plain(rc_mat[dtype], dtype, f"{TAG[dtype]} RC",
+                                True)
+        if nv != nt:
+            raise AssertionError(f"K3 RC: {nv}/{nt} valid")
+        say("2 compare", f"K3 {TAG[dtype]} RC transient matrices ({nt}, 3) "
+            f"valid {nv}/{nt} max_abs_err {e:.3e}")
+
+    def k8_inputs(net, node, over, B, dialect="spicey"):
+        ckt = st.parse_netlist(net, dialect=dialect)
+        t = st.build_tensors(ckt)
+        dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
+        vs = torch.as_tensor(
+            sample_source_values(ckt, np.arange(steps + 1) * dt),
+            dtype=torch.float32, device=dev)
+
+        def vals(base, names):
+            return torch.as_tensor(tbatch._batch_values(base, names, over, B),
+                                   dtype=torch.float64, device=dev)
+
+        values = tmc.tran_value_slab(
+            vals(t.r_vals, t.r_names), vals(t.c_vals, t.c_names),
+            vals(t.l_vals, t.l_names),
+            tbatch._batched_ext(t, over, B, dev, torch.float64), dt)
+        pattern = tmc._fused_tran_pattern(ckt, t, "pallas", "f32", "be",
+                                          False, dev)
+        node_idx = [n.upper() for n in t.node_names].index(node.upper())
+        return vs, values, pattern, node_idx
+
+    def k8_vs_plain(inputs, what, main_shape):
+        out, v = mc_tran_fused.mc_tran_fused_cuda(*inputs)
+        pout, pv = mc_tran_fused.mc_tran_fused_plain(*inputs)
+        if not torch.equal(v, pv):
+            raise AssertionError(f"K8 {what}: valid flags differ")
+        e = check_close(out[pv], pout[pv], TOL[torch.float32], f"K8 {what}")
+        if main_shape:
+            name = mc_tran_fused.K8[torch.float32].name
+            err[name] = max(err[name], e)
+        return e, int(pv.sum()), pv.numel()
+
+    ext_tran_over = {"R1": 1e3 * (1 + 0.2 * rng.random(4096)),
+                     "L1": 1e-2 * (1 + 0.2 * rng.random(4096)),
+                     "C1": 1e-6 * (1 + 0.2 * rng.random(4096))}
+    inputs = k8_inputs(EXT_TRAN, "d", ext_tran_over, 4096, "extended")
+    e, nv, nt = k8_vs_plain(inputs, "extended deck", False)
+    say("2 compare", f"K8 f32 extended deck N={inputs[2].n} (4096, "
+        f"{inputs[0].shape[0]} steps) valid {nv}/{nt} max_abs_err {e:.3e}")
+    tran_big_inputs = k8_inputs(TRAN_NET, "2",
+                                {"R1": r_tran, "C1": c_tran}, BIG)
+    e, nv, nt = k8_vs_plain(tran_big_inputs, "RC 1M", True)
+    if nv != nt:
+        raise AssertionError(f"K8 RC 1M: {nv}/{nt} valid")
+    say("2 compare", f"K8 f32 RC transient (1M, {tran_steps + 1} steps) "
+        f"valid {nv}/{nt} max_abs_err {e:.3e}")
     torch.cuda.empty_cache()
 
-    # ---- 3-5. the main path, counted -------------------------------------
+    # ---- 3-8. the main path, counted per phase ---------------------------
+    f64 = torch.float64
     for k in kernels.values():
         k.launches = 0
     with open("tests/fixtures/basics01_golden.txt") as fh:
@@ -322,6 +556,7 @@ def main() -> int:
     if out != golden:
         raise AssertionError("basics01 golden mismatch on cuda")
     say("3 golden", "basics01 character-exact on cuda")
+    counted("3 golden", [gj.K1[f64]])
 
     w = 2 * np.pi * tac.build_frequency_array("dec", 100, 1.0, 100.0)
 
@@ -363,6 +598,7 @@ def main() -> int:
     np.testing.assert_allclose(s.max, hs_max, rtol=2e-4)
     say("4 yield", f"mc_ac_sampled 1M x 201 f32 n_valid {s.n_valid} within "
         f"2e-4 of analytic; {sampled_s:.3f} s wall")
+    counted("4 yield", list(mc_ac_fused.K5.values()))
 
     lad = {}
     ladder_s = {}
@@ -390,30 +626,208 @@ def main() -> int:
         f"kernel = plain (cpu) on 64 variants at 1e-9; wall f32 "
         f"{ladder_s['f32']:.3f} s f64 {ladder_s['f64']:.3f} s")
 
-    # ---- 6. launches and times --------------------------------------------
-    launches = {name: k.launches for name, k in kernels.items()}
+    counted("5 ladder", list(gj.K1.values()))
+
+    # ---- 6. transient goldens on cuda -------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for deck in GOLDENS:
+        net = getattr(netlists, deck)
+        tran = st.simulate(net, device=dev).tran
+        text = st.format_tran_result(tran)
+        times, nv, ec = oracle_tran(st.parse_netlist(net))
+        rtol, atol = ((1e-7, 1e-9) if deck == "BOOST_CONVERTER"
+                      else (1e-9, 1e-12))
+        np.testing.assert_array_equal(tran.times, times)
+        if list(tran.node_voltages) != list(nv) \
+                or list(tran.element_currents) != list(ec):
+            raise AssertionError(f"{deck}: result keys differ")
+        for series, ref in ((tran.node_voltages, nv),
+                            (tran.element_currents, ec)):
+            for name, want in ref.items():
+                np.testing.assert_allclose(series[name], want, rtol=rtol,
+                                           atol=atol,
+                                           err_msg=f"{deck} {name}")
+        if len(text.splitlines()) != len(times) + 1:
+            raise AssertionError(f"{deck}: format_tran_result rows")
+    gold_s = time.perf_counter() - t0
+    say("6 tran golden", f"{len(GOLDENS)} decks on cuda match the oracle "
+        f"(1e-9/1e-12, boost 1e-7/1e-9); {gold_s:.2f} s wall, oracle "
+        "included")
+    counted("6 tran golden", [gj_real.K2[f64], gj_real.K3[f64]])
+
+    # ---- 7. tran-1M: the RC transient, 1M variants x 201 steps -----------
+    vs_rc = torch.as_tensor(sample_source_values(
+        tran_ckt, np.arange(tran_steps + 1) * tran_dt)[:, 0], dtype=f64,
+        device=dev)
+
+    def be_recurrence(r: torch.Tensor, c: torch.Tensor):
+        """Mean and max over the variants of the exact backward-Euler
+        recurrence v_n = (v_{n-1} + (dt/RC) vs_n) / (1 + dt/RC), f64."""
+        a = tran_dt / (r * c)
+        v = torch.zeros_like(a)
+        means, maxs = [], []
+        for n in range(tran_steps + 1):
+            v = (v + a * vs_rc[n]) / (1.0 + a)
+            means.append(v.mean())
+            maxs.append(v.amax())
+        return torch.stack(means), torch.stack(maxs)
+
+    def check_stats(got, mean, mx, rtol, what):
+        return max(check_close(torch.as_tensor(got.mean), mean.cpu(), rtol,
+                               f"{what} mean"),
+                   check_close(torch.as_tensor(got.max), mx.cpu(), rtol,
+                               f"{what} max"))
+
+    be_mean, be_max = be_recurrence(
+        torch.as_tensor(r_tran, dtype=f64, device=dev),
+        torch.as_tensor(c_tran, dtype=f64, device=dev))
+    tran_over = {"R1": r_tran, "C1": c_tran}
+    tran_s = {}
+    for label, method, precision, rtol in (
+            ("f32 fused (K8)", "pallas", "f32", 2e-4),
+            ("f32 loop (K3)", "gj", "f32", 2e-4),
+            ("f64 loop (K3)", "pallas", "f64", 1e-9)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts = st.mc_tran_stats(TRAN_NET, tran_over, node="2", method=method,
+                              precision=precision, device=dev)
+        tran_s[label] = time.perf_counter() - t0
+        if ts.n_valid != BIG:
+            raise AssertionError(f"tran-1M {label}: n_valid {ts.n_valid}")
+        e = check_stats(ts, be_mean, be_max, rtol, f"tran-1M {label}")
+        say("7 tran-1M", f"{label}: n_valid {ts.n_valid}, mean/max within "
+            f"{rtol:g} of the BE recurrence (max abs err {e:.3e}); "
+            f"{tran_s[label]:.3f} s wall (host clock, incl. host value prep)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts = st.mc_tran_sampled(TRAN_NET, {"R1": 0.2, "C1": 0.2}, BIG, node="2",
+                            key=SEED, method="pallas", precision="f32",
+                            device=dev)
+    sampled_tran_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    z = torch.randn((BIG, 2), generator=gen, dtype=f64, device=dev)
+    sm, sx = be_recurrence(1e3 * torch.exp(0.2 * z[:, 0]),
+                           1e-6 * torch.exp(0.2 * z[:, 1]))
+    if ts.n_valid != BIG:
+        raise AssertionError(f"sampled tran-1M: n_valid {ts.n_valid}")
+    e = check_stats(ts, sm, sx, 2e-4, "sampled tran-1M")
+    say("7 tran-1M", f"mc_tran_sampled 1M f32 (K8) n_valid {ts.n_valid} "
+        f"within 2e-4 of the BE recurrence (max abs err {e:.3e}); "
+        f"{sampled_tran_s:.3f} s wall")
+    counted("7 tran-1M", [mc_tran_fused.K8[torch.float32],
+                          gj_real.K3[torch.float32], gj_real.K3[f64]])
+    torch.cuda.empty_cache()
+
+    # ---- 8. boost-100k: the switch+diode converter, 100k variants --------
+    boost_over = {"RR1": 1e3 * (1 + 0.1 * rng.random(BOOST_B))}
+    boost = {}
+    boost_s = {}
+    for precision in ("f64", "f32"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        boost[precision] = st.mc_tran_stats(BOOST_NET, boost_over, node="N3",
+                                            precision=precision, device=dev)
+        boost_s[precision] = time.perf_counter() - t0
+        if boost[precision].n_valid != BOOST_B:
+            raise AssertionError(f"boost {precision}: n_valid "
+                                 f"{boost[precision].n_valid}")
+    scale = float(np.abs(boost["f64"].mean).max())
+    d32 = float(np.abs(boost["f32"].mean - boost["f64"].mean).max())
+    if d32 > 5e-3 * scale:
+        raise AssertionError(f"boost f32 mean off f64 by {d32:.3e}")
+    sub = {"RR1": boost_over["RR1"][:64]}
+    k_sub = st.mc_tran_stats(BOOST_NET, sub, node="N3", device=dev)
+    p_sub = st.mc_tran_stats(BOOST_NET, sub, node="N3", device="cpu")
+    for f in ("mean", "std", "min", "max"):
+        want = getattr(p_sub, f)
+        np.testing.assert_allclose(getattr(k_sub, f), want, rtol=1e-9,
+                                   atol=1e-9 * float(np.abs(want).max()),
+                                   err_msg=f)
+    say("8 boost-100k", f"{BOOST_B} variants x 101 steps: n_valid "
+        f"{BOOST_B} at f64 and f32; f32 mean within {d32:.2e} of f64 "
+        f"(limit {5e-3 * scale:.2e}); f64 kernel = CPU path on 64 variants "
+        f"at 1e-9; wall f64 {boost_s['f64']:.3f} s f32 "
+        f"{boost_s['f32']:.3f} s")
+    counted("8 boost-100k", list(gj_real.K2.values()))
+
+    # ---- 9. launches and times --------------------------------------------
     missing = [name for name, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    say("6 launches", json.dumps(launches))
+    say("9 launches", json.dumps(launches))
+    shape = {}
     for dtype, planes in ladder_planes.items():
-        ms[gj.K1[dtype].name] = (
-            cuda_ms(lambda: gj.gj_solve_planes_cuda(*planes), 5),
-            cuda_ms(lambda: linsolve.gj_solve_planes(*planes), 2))
+        nb, n = planes[0].shape[0], planes[0].shape[1]
+        el = planes[0].element_size()
+        Ac = torch.complex(planes[0], planes[1])
+        bc = torch.complex(planes[2], planes[3])
+        name = gj.K1[dtype].name
+        shape[name] = f"ladder ({nb}, {n})"
+        ms[name] = (cuda_ms(lambda: gj.gj_solve_planes_cuda(*planes), 5),
+                    cuda_ms(lambda: linsolve.gj_solve_planes(*planes), 2),
+                    cuda_ms(lambda: torch.linalg.solve(Ac, bc), 3),
+                    *bound(nb * 8.0 * n * n * (n + 1),
+                           el * nb * (2 * n * n + 4 * n) + nb, dtype))
+        del Ac, bc
     for dtype, inputs in big_inputs.items():
-        ms[mc_ac_fused.K5[dtype].name] = (
-            cuda_ms(lambda: mc_ac_fused.mc_ac_fused_cuda(*inputs), 5),
-            cuda_ms(lambda: plain_chunked(*inputs), 1))
-    for name, (k_ms, p_ms) in ms.items():
-        shape = "ladder (104448, 64)" if "gj" in name else "RC (1M, 201)"
-        say("6 times", f"{name} at {shape}: kernel {k_ms:.3f} ms, plain "
-            f"{p_ms:.3f} ms (CUDA events) | {smi}")
+        freqs, values, packed, _node = inputs
+        F, nb, n = freqs.shape[0], values.shape[1], packed.n
+        el = values.element_size()
+        name = mc_ac_fused.K5[dtype].name
+        shape[name] = f"RC ({nb}, {F})"
+        ms[name] = (cuda_ms(lambda: mc_ac_fused.mc_ac_fused_cuda(*inputs), 5),
+                    cuda_ms(lambda: plain_chunked(*inputs), 1), None,
+                    *bound(F * nb * (8.0 * n * n * (n + 1)
+                                     + 2 * packed.terms.shape[0]),
+                           el * (values.numel() + F) + F * nb * (el + 1),
+                           dtype))
+    for dtype, (A, b) in boost_sys.items():
+        nb, n, el = A.shape[0], A.shape[1], A.element_size()
+        name = gj_real.K2[dtype].name
+        shape[name] = f"boost ({nb}, {n})"
+        ms[name] = (cuda_ms(lambda: gj_real.gj_solve_cuda(A, b), 20),
+                    cuda_ms(lambda: linsolve.gj_solve(A, b), 5),
+                    cuda_ms(lambda: torch.linalg.solve(A, b), 5),
+                    *bound(nb * 2.0 * n * n * (n + 1),
+                           el * nb * (n * n + 2 * n) + nb, dtype))
+    for dtype, A in rc_mat.items():
+        nb, n, el = A.shape[0], A.shape[1], A.element_size()
+        name = gj_real.K3[dtype].name
+        shape[name] = f"RC tran ({nb}, {n})"
+        ms[name] = (cuda_ms(lambda: gj_real.gj_inverse_cuda(A), 20),
+                    cuda_ms(lambda: linsolve.gj_inverse(A), 5),
+                    cuda_ms(lambda: torch.linalg.inv(A), 5),
+                    *bound(nb * 4.0 * n ** 3, el * nb * 2 * n * n + nb,
+                           dtype))
+    vs, values, pattern, _node = tran_big_inputs
+    s1, nb, n = vs.shape[0], values.shape[1], pattern.n
+    n_b = bin(pattern.b_rows).count("1")
+    per_step = (2 * n * n_b + 2 * pattern.bsrc.shape[0]
+                + 3 * pattern.cst.shape[0] + 4 * pattern.lst.shape[0])
+    name = mc_tran_fused.K8[torch.float32].name
+    shape[name] = f"RC tran ({nb}, {s1} steps)"
+    ms[name] = (cuda_ms(lambda: mc_tran_fused.mc_tran_fused_cuda(
+                    *tran_big_inputs), 5),
+                cuda_ms(lambda: mc_tran_fused.mc_tran_fused_plain(
+                    *tran_big_inputs), 1), None,
+                *bound(nb * (4.0 * n ** 3 + s1 * per_step
+                             + 2 * pattern.terms.shape[0]),
+                       4 * (values.numel() + vs.numel() + s1 * nb) + nb,
+                       torch.float32))
+    for name, (k_ms, p_ms, lib_ms, b_ms, b_by) in ms.items():
+        lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
+        say("9 times", f"{name} at {shape[name]}: kernel {k_ms:.3f} ms, "
+            f"plain {p_ms:.3f} ms, library {lib}, bound {b_ms:.4f} ms "
+            f"({b_by}) (CUDA events) | {smi}")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[name],
          "max_abs_err": err[name], "ms": ms[name][0],
-         "plain_ms": ms[name][1]}
+         "plain_ms": ms[name][1], "bound_ms": ms[name][3],
+         "bound_by": ms[name][4], "library_ms": ms[name][2]}
         for name, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,31 +7,44 @@ the JAX package becomes a kernel written by hand for Hopper in
 always goes through the kernel; a CPU tensor runs the kernel's plain
 PyTorch version, which is what the CPU tests exercise.
 
-This first slice carries the AC main path: ``simulate()`` for ``.ac``
-decks (the basics01 golden), and the Monte-Carlo AC yield
-(``mc_ac_stats``/``mc_ac_sampled``) through kernels K1 (complex
-Gauss-Jordan) and K5 (fused assemble-and-solve). The host layer
-(parsing, IR, formatting) is a jax-free copy of the JAX package's.
-Public entry points take an explicit ``device=`` and state float64 or
-float32 at every tensor creation.
+It carries the AC and transient main paths: ``simulate()`` for ``.ac``
+and ``.tran`` decks (the basics01 golden, the reference's transient
+fixtures), the Monte-Carlo AC yield (``mc_ac_stats``/``mc_ac_sampled``)
+through kernels K1 (complex Gauss-Jordan) and K5 (fused
+assemble-and-solve), and the Monte-Carlo transient
+(``mc_tran_stats``/``mc_tran_sampled``) through K2 (real Gauss-Jordan,
+every Newton pass), K3 (the factor-once inverse of linear decks) and K8
+(the fused linear whole transient). The host layer (parsing, IR,
+formatting) is a jax-free copy of the JAX package's. Public entry points
+run on the CUDA card unless called with ``device="cpu"``, and state
+float64 or float32 at every tensor creation.
 """
 
 from __future__ import annotations
 
 from .analysis.ac import simulate_ac
-from .analysis.mc import MCStats, mc_ac_sampled, mc_ac_stats
-from .analysis.results import ACResult, SimulationResult
+from .analysis.mc import (MCStats, mc_ac_sampled, mc_ac_stats,
+                          mc_tran_sampled, mc_tran_stats)
+from .analysis.results import ACResult, SimulationResult, TranResult
 from .analysis.simulate import simulate
+from .analysis.tran import TranState, simulate_tran
 from .constants import EPS, VT_300K
 from .formatting.jsnum import to_precision
-from .formatting.text import format_ac_result
+from .formatting.compare import compare_voltage_levels
+from .formatting.text import format_ac_result, format_tran_result
+from .formatting.vgraph import (eec_engine_tran_to_vgraphs,
+                                spicey_tran_to_vgraphs)
 from .ir.circuit import CircuitTensors, build_tensors, from_jax_tensors
 from .parsing.netlist import ParsedCircuit, parse_netlist
 
 # camelCase aliases matching the reference's npm surface (lib/index.ts:1-12)
 parseNetlist = parse_netlist
 simulateAC = simulate_ac
+simulateTRAN = simulate_tran
 formatAcResult = format_ac_result
+formatTranResult = format_tran_result
+spiceyTranToVGraphs = spicey_tran_to_vgraphs
+eecEngineTranToVGraphs = eec_engine_tran_to_vgraphs
 
 __all__ = [
     "ACResult",
@@ -40,17 +53,30 @@ __all__ = [
     "MCStats",
     "ParsedCircuit",
     "SimulationResult",
+    "TranResult",
+    "TranState",
     "VT_300K",
     "build_tensors",
+    "compare_voltage_levels",
+    "eecEngineTranToVGraphs",
+    "eec_engine_tran_to_vgraphs",
     "format_ac_result",
+    "format_tran_result",
     "formatAcResult",
+    "formatTranResult",
     "from_jax_tensors",
     "mc_ac_sampled",
     "mc_ac_stats",
+    "mc_tran_sampled",
+    "mc_tran_stats",
     "parseNetlist",
     "parse_netlist",
     "simulate",
     "simulateAC",
+    "simulateTRAN",
     "simulate_ac",
+    "simulate_tran",
+    "spiceyTranToVGraphs",
+    "spicey_tran_to_vgraphs",
     "to_precision",
 ]

@@ -20,10 +20,10 @@ Switches and diodes are NOT stamped in AC (no DC operating point / small-
 signal linearization exists in the reference).
 
 Not ported yet, each raising ``NotImplementedError``: ``linearize="op"``
-(needs the operating point, ROADMAP §1 item 5), the Schur tier
-(``method="schur"``, item 9), K coupling and T lines (item 4 brings their
-companions with the transient). The JAX package's host interp tier for
-tiny decks has no counterpart: the device path is the path.
+(needs the operating point, ROADMAP §1 item 6), the Schur tier
+(``method="schur"``, item 8), K coupling and T lines (item 4). The JAX
+package's host interp tier for tiny decks has no counterpart: the device
+path is the path.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from ..ops.stamps import (
     stamp_voltage_source,
 )
 from ..parsing.netlist import ParsedCircuit
+from ..utils.device import resolve_device
 from ..utils.logspace import linear_grid, logspace, octspace
 from .results import ACResult
 
@@ -207,7 +208,7 @@ def check_ported(tensors: CircuitTensors, method: str) -> None:
     yet, naming the ROADMAP item that brings it."""
     if method == "schur":
         raise NotImplementedError(
-            "the Schur tier is not ported yet (ROADMAP §1 item 9)")
+            "the Schur tier is not ported yet (ROADMAP §1 item 8)")
     if tensors.n_k:
         raise NotImplementedError(
             "K (mutual inductance) elements are not ported yet "
@@ -227,11 +228,13 @@ def simulate_ac(
     tensors: CircuitTensors | None = None,
     method: str = "gj",
     linearize: str | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> ACResult | None:
-    """AC sweep in float64 on ``device``. ``linearize=None`` (the only
-    ported mode) keeps reference parity: nonlinear devices are NOT stamped
+    """AC sweep in float64 on ``device`` (the card unless
+    ``device="cpu"``). ``linearize=None`` (the only ported mode) keeps
+    reference parity: nonlinear devices are NOT stamped
     (simulateAC.ts:24-60)."""
+    device = resolve_device(device)
     if ckt.ac is None:
         return None
     for r in ckt.R:
@@ -244,7 +247,7 @@ def simulate_ac(
     if linearize == "op":
         raise NotImplementedError(
             "linearize='op' needs the operating point, which is not "
-            "ported yet (ROADMAP §1 item 5)")
+            "ported yet (ROADMAP §1 item 6)")
     check_ported(tensors, method)
     freqs = build_frequency_array(ckt.ac.mode, ckt.ac.N, ckt.ac.f1, ckt.ac.f2)
     v_idx_ac, v_re, v_im = ac_vsource_arrays(ckt, tensors)

@@ -3,7 +3,7 @@
 Overrides map element names (case-insensitive) to (B,) value arrays; the
 helpers tile netlist values to a leading variants axis and apply them.
 The batched analyses themselves (``simulate_ac_batch``,
-``simulate_tran_batch``) are not ported yet (ROADMAP §1 item 6).
+``simulate_tran_batch``) are not ported yet (ROADMAP §1 item 2).
 """
 
 from __future__ import annotations

@@ -6,14 +6,25 @@ reduction run where the batch lives, and only the (n_stats, F) summary
 crosses to the host, in one transfer.
 
 APIs:
-  mc_ac_stats(net, overrides, node)  -> per-frequency stats of |V(node)|
+  mc_ac_stats(net, overrides, node)    -> per-frequency stats of |V(node)|
   mc_ac_sampled(net, spreads, B, node) -> the same with on-device draws
+  mc_tran_stats(net, overrides, node)  -> per-timestep stats of V(node)
+  mc_tran_sampled(net, spreads, B, node) -> the same with on-device draws
 
-Routes on a CUDA tensor (every solve is a kernel launch):
+AC routes on a CUDA tensor (every solve is a kernel launch):
   - ``method="pallas"``, N <= 16, no K/T: the fused assemble-and-solve
     kernel K5 (ops/mc_ac_fused.py), instantiated in the precision asked;
   - everything else: batched torch assembly, then kernel K1 (ops/gj.py).
-On a CPU tensor the same routes run their plain versions.
+Transient routes, as the JAX package routes them:
+  - ``method="pallas"``, ``precision="f32"``, BE, linear, N <= 16, no
+    per-variant source values: the fused whole-transient kernel K8
+    (ops/mc_tran_fused.py); a nonlinear (S/D) deck there is where JAX
+    runs K9, which is not ported yet and raises;
+  - everything else: the batched time loop of analysis/tran.py, one
+    (B, N, N) solve per Newton pass (K2), or one inverse for a linear
+    deck (K3) and a matvec per step.
+On a CPU tensor the same routes run their plain versions. Entry points
+run on the card unless ``device="cpu"``.
 
 Exact quantiles follow ``jnp.nanpercentile``'s linear interpolation, done
 by hand: ``torch.quantile`` refuses inputs above 2^24 elements, and the
@@ -28,15 +39,20 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ir.circuit import bv_branch_rows, build_tensors
+from ..constants import EPS
+from ..ir.circuit import (bv_branch_rows, build_tensors, effective_time_step,
+                          ext_arrays, sample_source_values)
+from ..ops import mc_tran_fused as mtf
 from ..ops.mc_ac_fused import (FUSED_MAX_N, PackedPattern,
                                build_stamp_pattern, combine_values,
                                mc_ac_fused, pack_pattern)
 from ..parsing.netlist import ParsedCircuit
+from ..utils.device import resolve_device
 from .ac import (_ac_sweep_core, build_frequency_array, check_ported,
                  index_tensor)
 from .batch import (_batch_size, _batch_values, _batched_ext, _consumed,
                     _resolve)
+from .tran import _tran_core, check_ported_tran, tran_arrays, vt_scale_of
 
 _DTYPES = {"f64": torch.float64, "f32": torch.float32}
 
@@ -285,7 +301,7 @@ def mc_ac_stats(
     dialect: str = "spicey",
     chunk: int | None = None,
     quantile_method: str = "exact",
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> MCStats:
     """Distribution of |V(node)| per frequency across parameter variants.
 
@@ -296,8 +312,9 @@ def mc_ac_stats(
     spreads lose nothing at f32); the 6-sig-fig golden contract needs the
     default f64. ``method="pallas"`` takes the fused kernel K5 where the
     circuit qualifies (N <= 16), ``"gj"`` always assembles and solves
-    with K1; on the CPU both run their plain versions.
+    with K1; on the CPU (``device="cpu"``) both run their plain versions.
     """
+    device = resolve_device(device)
     ckt = _resolve(circuit, dialect=dialect)
     if ckt.ac is None:
         raise ValueError("netlist has no .ac analysis")
@@ -375,7 +392,7 @@ def mc_ac_sampled(
     chunk: int | None = None,
     dialect: str = "spicey",
     quantile_method: str = "exact",
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> MCStats:
     """Yield analysis with ON-DEVICE parameter sampling: ``spreads`` maps
     R/C/L element names to relative sigmas; B variants are drawn from a
@@ -384,6 +401,7 @@ def mc_ac_sampled(
     (B, nE) host arrays ever exist. The draws differ from the JAX
     package's ``jax.random`` stream for the same key. Everything else
     matches mc_ac_stats."""
+    device = resolve_device(device)
     ckt = _resolve(circuit, dialect=dialect)
     if ckt.ac is None:
         raise ValueError("netlist has no .ac analysis")
@@ -400,3 +418,260 @@ def mc_ac_sampled(
     return _run(ckt, tensors, vals["r"], vals["c"], vals["l"],
                 _batched_ext(tensors, {}, B, device, fdt), node, quantiles,
                 method, fdt, chunk, quantile_method, device)
+
+
+def _fused_tran_pattern(ckt: ParsedCircuit, tensors, method: str,
+                        precision: str, integration: str, vs_batched: bool,
+                        device: torch.device) -> mtf.TranPattern | None:
+    """Packed pattern for the fused whole-transient tier (K8), or None
+    when the JAX package's eligibility (mc.py:484-522) fails: the pallas
+    method at f32, BE, no per-variant source values, 0 < N <= 16. A
+    nonlinear deck there is where JAX runs K9, not ported yet: raise
+    rather than take another tier. The TPU's SMEM source-grid budget has
+    no counterpart: the kernel reads the grid from device memory."""
+    if (method != "pallas" or precision != "f32" or vs_batched
+            or integration != "be"
+            or not 0 < tensors.nvar <= mtf.FUSED_MAX_N):
+        return None
+    if tensors.n_s or tensors.n_d:
+        raise NotImplementedError(
+            "the fused nonlinear transient kernel K9 (switches/diodes with "
+            "method='pallas', precision='f32') is not ported yet (ROADMAP "
+            "§1 item 1); use precision='f64' or method='gj'")
+    ext_idx = {"i_idx": tensors.i_idx, "g_idx": tensors.g_idx,
+               "e_idx": tensors.e_idx, "f_idx": tensors.f_idx,
+               "h_idx": tensors.h_idx}
+    pattern = mtf.build_tran_pattern(tensors.nvar, tensors.r_idx,
+                                     tensors.c_idx, tensors.l_idx,
+                                     tensors.v_idx, tensors.n_i, ext_idx)
+    return mtf.pack_tran_pattern(pattern, tensors.nvar, device)
+
+
+def tran_value_slab(r_vals: torch.Tensor, c_vals: torch.Tensor,
+                    l_vals: torch.Tensor, ext: dict, dt: float
+                    ) -> torch.Tensor:
+    """K8's (n_rows, B) float32 value slab in build_tran_pattern's row
+    order [R | gc = C/dt | gl = dt/L | g | e | f | h]; the companion
+    conductances are formed in f64 and rounded once, so dt never enters
+    the kernel. Unbatched (nX,) ext values broadcast."""
+    B = r_vals.shape[0]
+    dt_c = max(dt, EPS)
+    f64 = torch.float64
+
+    def to2d(a: torch.Tensor) -> torch.Tensor:
+        return a.expand(B, a.shape[0]) if a.ndim == 1 else a
+
+    cols = [r_vals.to(f64), c_vals.to(f64) / dt_c, dt_c / l_vals.to(f64)]
+    cols += [to2d(ext[k]).to(f64) for k in ("g_gm", "e_gain", "f_gain",
+                                            "h_r")]
+    return torch.cat(cols, dim=1).T.to(torch.float32).contiguous()
+
+
+def _mc_tran_fused_core(vs_grid: torch.Tensor, r_vals: torch.Tensor,
+                        c_vals: torch.Tensor, l_vals: torch.Tensor,
+                        ext: dict, dt: float, pattern: mtf.TranPattern,
+                        node_idx: int, qs: tuple,
+                        q_method: str = "exact") -> torch.Tensor:
+    """K8 on the value slab (``tran_value_slab``), then the reduction."""
+    v_node, valid = mtf.mc_tran_fused(
+        vs_grid.to(torch.float32).contiguous(),
+        tran_value_slab(r_vals, c_vals, l_vals, ext, dt), pattern, node_idx)
+    return _pack_stats(_stats_of(v_node, valid, qs, q_method=q_method),
+                       valid.sum())
+
+
+def _mc_tran_stats_core(vs_grid: torch.Tensor, dt: float, arr: dict,
+                        nvar: int, node_idx: int, method: str, qs: tuple,
+                        integration: str = "be", chunk: int | None = None,
+                        q_method: str = "exact",
+                        vt_scale: torch.Tensor | float = 1.0
+                        ) -> torch.Tensor:
+    """The batched time loop (analysis/tran._tran_core with lead (B,)),
+    recording only the probed node, then the reduction. ``chunk`` runs
+    the variants in blocks of that many, bounding the loop's buffers;
+    only the (B, S+1) response accumulates."""
+    B = arr["r_vals"].shape[0]
+
+    def batched(v: torch.Tensor) -> bool:
+        return v.ndim >= 2 and v.shape[0] == B
+
+    def run_block(sl: slice) -> tuple[torch.Tensor, torch.Tensor]:
+        arr_b = {k: (v[sl] if not k.endswith("idx") and k != "ext"
+                     and batched(v) else v) for k, v in arr.items()}
+        arr_b["ext"] = {k: (v[sl] if not k.endswith("idx") and batched(v)
+                            else v) for k, v in arr["ext"].items()}
+        vs = vs_grid[:, sl] if vs_grid.ndim == 3 else vs_grid
+        xs, _sw, valid, _carry = _tran_core(
+            vs, dt, arr_b, nvar, method=method, integration=integration,
+            lead=(arr_b["r_vals"].shape[0],), record=node_idx,
+            vt_scale=vt_scale)
+        return xs.T, valid  # (b, S+1), (b,)
+
+    step = B if chunk is None or chunk >= B else chunk
+    blocks = [run_block(slice(s, s + step)) for s in range(0, B, step)]
+    if len(blocks) == 1:
+        v_node, valid = blocks[0]
+    else:
+        v_node = torch.cat([v for v, _ in blocks], dim=0)
+        valid = torch.cat([v for _, v in blocks], dim=0)
+    return _pack_stats(_stats_of(v_node, valid, qs, q_method=q_method),
+                       valid.sum())
+
+
+def _check_tran_args(ckt: ParsedCircuit, tensors, method: str,
+                     precision: str, quantile_method: str,
+                     time_parallel: str, integration: str) -> torch.dtype:
+    if ckt.tran is None:
+        raise ValueError("netlist has no .tran analysis")
+    check_ported_tran(ckt, tensors, method)
+    if time_parallel not in ("auto", "never"):
+        raise ValueError("time_parallel must be 'auto' or 'never'")
+    if integration not in ("be", "trap", "gear2"):
+        raise ValueError("integration must be 'be', 'trap' or 'gear2'")
+    return _check_args(precision, quantile_method)
+
+
+def _run_tran(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
+              c_vals: torch.Tensor, l_vals: torch.Tensor, ext: dict,
+              vs_grid: np.ndarray, times: np.ndarray, dt: float,
+              v_over: dict, node: str, quantiles, method: str,
+              precision: str, integration: str, chunk: int | None,
+              quantile_method: str, device: torch.device) -> MCStats:
+    """Shared tail of mc_tran_stats and mc_tran_sampled: per-variant
+    source values, the route, the core, one transfer to the host."""
+    fdt = _DTYPES[precision]
+    B = r_vals.shape[0]
+    node_idx = [n.upper() for n in tensors.node_names].index(node.upper())
+    qs = tuple(float(q) for q in quantiles)
+    vs = torch.as_tensor(vs_grid, dtype=fdt, device=device)
+    if v_over:
+        # time-major (S+1, B, nSrc): one DC value per variant and source
+        vs = vs[:, None, :].expand(vs.shape[0], B, vs.shape[1]).clone()
+        v_lower = {n.lower(): i for i, n in enumerate(tensors.v_names)}
+        for key, vals in v_over.items():
+            i = v_lower[key.lower()]
+            if tensors.v_has_waveform[i]:
+                raise ValueError(
+                    f"cannot override waveform-driven source {key!r}")
+            vs[:, :, i] = torch.as_tensor(np.asarray(vals, np.float64),
+                                          dtype=fdt, device=device)
+    pattern = _fused_tran_pattern(ckt, tensors, method, precision,
+                                  integration, bool(v_over), device)
+    if pattern is not None:
+        packed = _mc_tran_fused_core(vs, r_vals, c_vals, l_vals, ext, dt,
+                                     pattern, node_idx, qs,
+                                     q_method=quantile_method)
+    else:
+        arr = tran_arrays(tensors, device, fdt, r_vals=r_vals.to(fdt),
+                          c_vals=c_vals.to(fdt), l_vals=l_vals.to(fdt),
+                          ext={k: (v if k.endswith("idx") else v.to(fdt))
+                               for k, v in ext.items()})
+        packed = _mc_tran_stats_core(
+            vs, dt, arr, tensors.nvar, node_idx, method, qs,
+            integration=integration, chunk=chunk, q_method=quantile_method,
+            vt_scale=vt_scale_of(tensors, device, fdt))
+    res = _unpack_stats(packed.cpu().numpy(), tuple(quantiles), times)
+    res.n_total = B
+    return res
+
+
+def mc_tran_stats(
+    circuit: ParsedCircuit | str,
+    overrides: dict[str, np.ndarray],
+    node: str,
+    quantiles: tuple[float, ...] = (5.0, 50.0, 95.0),
+    tensors=None,
+    method: str = "gj",
+    precision: str = "f64",
+    dialect: str = "spicey",
+    quantile_method: str = "exact",
+    time_parallel: str = "auto",
+    integration: str = "be",
+    chunk: int | None = None,
+    device: torch.device | str | None = None,
+) -> MCStats:
+    """Distribution of V(node) per timestep across parameter variants.
+
+    ``overrides`` maps element names (R/C/L, extended G/E/F/H gains, DC V
+    sources) to (B,) value arrays. ``precision="f32"`` with
+    ``method="pallas"`` takes the fused whole-transient kernel K8 for a
+    linear deck (BE, N <= 16); otherwise the batched time loop runs (K2
+    per Newton pass, or K3 once for a linear deck). ``integration``:
+    "be" (reference semantics), "trap" or "gear2". ``chunk`` runs the
+    variants in blocks of that size.
+
+    ``time_parallel`` keeps the JAX package's switch, but both "auto"
+    and "never" run the sequential loop until analysis/timeparallel.py
+    is ported (ROADMAP §1 item 5)."""
+    device = resolve_device(device)
+    ckt = _resolve(circuit, dialect=dialect)
+    if tensors is None:
+        tensors = build_tensors(ckt)
+    fdt = _check_tran_args(ckt, tensors, method, precision, quantile_method,
+                           time_parallel, integration)
+    B = _batch_size(overrides)
+    _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
+               tensors.v_names, tensors.i_names, tensors.g_names,
+               tensors.e_names, tensors.f_names, tensors.h_names], overrides)
+
+    def vals(base: np.ndarray, names: tuple) -> torch.Tensor:
+        return torch.as_tensor(_batch_values(base, names, overrides, B),
+                               dtype=fdt, device=device)
+
+    dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
+    times = np.arange(steps + 1, dtype=np.float64) * dt
+    v_lower = {n.lower() for n in tensors.v_names}
+    return _run_tran(
+        ckt, tensors, vals(tensors.r_vals, tensors.r_names),
+        vals(tensors.c_vals, tensors.c_names),
+        vals(tensors.l_vals, tensors.l_names),
+        _batched_ext(tensors, overrides, B, device, fdt),
+        sample_source_values(ckt, times), times, dt,
+        {k: v for k, v in overrides.items() if k.lower() in v_lower},
+        node, quantiles, method, precision, integration, chunk,
+        quantile_method, device)
+
+
+def mc_tran_sampled(
+    circuit: ParsedCircuit | str,
+    spreads: dict[str, float],
+    B: int,
+    node: str,
+    key: int = 0,
+    dist: str = "lognormal",
+    quantiles: tuple[float, ...] = (5.0, 50.0, 95.0),
+    tensors=None,
+    method: str = "gj",
+    precision: str = "f64",
+    chunk: int | None = None,
+    dialect: str = "spicey",
+    quantile_method: str = "exact",
+    time_parallel: str = "auto",
+    integration: str = "be",
+    device: torch.device | str | None = None,
+) -> MCStats:
+    """Transient yield analysis with ON-DEVICE parameter sampling, the
+    time-domain twin of mc_ac_sampled: ``spreads`` maps R/C/L element
+    names to relative sigmas, B variants are drawn by a
+    ``torch.Generator`` on ``device`` seeded with ``key`` (other draws
+    than the JAX package's ``jax.random`` for the same key), then the
+    routes and options of mc_tran_stats."""
+    device = resolve_device(device)
+    ckt = _resolve(circuit, dialect=dialect)
+    if tensors is None:
+        tensors = build_tensors(ckt)
+    fdt = _check_tran_args(ckt, tensors, method, precision, quantile_method,
+                           time_parallel, integration)
+    targets = _sample_targets(tensors, spreads)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(key))
+    z = torch.randn((B, len(targets)), generator=gen, dtype=torch.float64,
+                    device=device)
+    vals = _spread_values(tensors, targets, z, dist)
+    dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
+    times = np.arange(steps + 1, dtype=np.float64) * dt
+    return _run_tran(ckt, tensors, vals["r"], vals["c"], vals["l"],
+                     ext_arrays(tensors, device, fdt),
+                     sample_source_values(ckt, times), times, dt, {}, node,
+                     quantiles, method, precision, integration, chunk,
+                     quantile_method, device)

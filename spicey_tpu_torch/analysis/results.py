@@ -3,6 +3,8 @@
 Shapes mirror the reference's return records:
   - AC:   {freqs, nodeVoltages, elementCurrents} with per-frequency phasors
           (spicey/lib/analysis/simulateAC.ts:129)
+  - TRAN: {times, nodeVoltages, elementCurrents}
+          (spicey/lib/analysis/simulateTRAN.ts:251)
 Series are NumPy arrays instead of JS number lists; dict insertion order
 matches the reference's recording order (nodes in discovery order, then
 element currents in R, C, L, V[, S, D] stamp order).
@@ -32,10 +34,26 @@ class ACResult:
 
 
 @dataclass
+class TranResult:
+    times: np.ndarray  # (S+1,) float64
+    node_voltages: dict[str, np.ndarray]  # name -> (S+1,) float64
+    element_currents: dict[str, np.ndarray] = field(default_factory=dict)
+    state: object | None = None  # TranState checkpoint (return_state=True)
+
+    @property
+    def nodeVoltages(self):
+        return self.node_voltages
+
+    @property
+    def elementCurrents(self):
+        return self.element_currents
+
+
+@dataclass
 class SimulationResult:
     circuit: object
     ac: ACResult | None
-    tran: object | None  # TranResult once the transient is ported
+    tran: TranResult | None
     op: object | None = None  # OPResult when the extended .op directive ran
     dc: object | None = None  # DCResult when the extended .dc directive ran
     tf: object | None = None  # TFResult when the extended .tf directive ran

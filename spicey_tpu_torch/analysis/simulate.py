@@ -1,9 +1,9 @@
-"""Universal entry point: parse -> AC.
+"""Universal entry point: parse -> AC -> TRAN.
 
 Contract: spicey/lib/analysis/simulate.ts:5-10. This package runs the AC
-analysis; a deck that asks for an analysis not ported yet raises
-``NotImplementedError`` naming the ROADMAP item that brings it, rather
-than returning ``None`` for it.
+and transient analyses; a deck that asks for an analysis not ported yet
+raises ``NotImplementedError`` naming the ROADMAP item that brings it,
+rather than returning ``None`` for it.
 """
 
 from __future__ import annotations
@@ -12,21 +12,22 @@ import torch
 
 from ..ir.circuit import build_tensors
 from ..parsing.netlist import ParsedCircuit, parse_netlist
+from ..utils.device import resolve_device
 from .ac import simulate_ac
 from .results import SimulationResult
+from .tran import simulate_tran
 
 # analysis -> ROADMAP §1 item that ports it
 _NOT_PORTED = (
-    (".tran", "item 4", lambda c: c.tran is not None),
-    (".op", "item 5", lambda c: c.op),
-    (".dc", "item 5", lambda c: c.dc is not None),
-    (".tf", "item 8", lambda c: c.tf is not None),
-    (".noise", "item 8", lambda c: c.noise is not None),
-    (".pz", "item 8", lambda c: c.pz is not None),
-    (".sens", "item 8", lambda c: c.sens is not None),
-    (".four", "item 8", lambda c: c.four is not None),
-    (".step", "item 6", lambda c: c.step is not None),
-    (".control", "item 8", lambda c: bool(c.control)),
+    (".op", "item 6", lambda c: c.op),
+    (".dc", "item 6", lambda c: c.dc is not None),
+    (".tf", "item 10", lambda c: c.tf is not None),
+    (".noise", "item 10", lambda c: c.noise is not None),
+    (".pz", "item 10", lambda c: c.pz is not None),
+    (".sens", "item 10", lambda c: c.sens is not None),
+    (".four", "item 10", lambda c: c.four is not None),
+    (".step", "item 2", lambda c: c.step is not None),
+    (".control", "item 10", lambda c: bool(c.control)),
 )
 
 
@@ -38,16 +39,36 @@ def _require_ported(circuit: ParsedCircuit) -> None:
                 f"(ROADMAP §1 {item})")
 
 
+def _tran_options(options: dict) -> dict:
+    """``.options reltol/itl4/vntol/abstol`` as Newton toggles: reltol
+    implies iterate-to-convergence (the reference default is the
+    break-on-switch-stability loop); vntol/abstol are per-unknown floors
+    and imply convergence with ngspice's default reltol when not given."""
+    kw = {}
+    if "reltol" in options:
+        kw = dict(nr="converged", nr_tol=options["reltol"])
+    if "itl4" in options:
+        kw["max_nr"] = int(options["itl4"])
+    if "vntol" in options or "abstol" in options:
+        kw.setdefault("nr", "converged")
+        kw.setdefault("nr_tol", options.get("reltol", 1e-3))
+        kw["nr_vntol"] = options.get("vntol")
+        kw["nr_abstol"] = options.get("abstol")
+    return kw
+
+
 def simulate(netlist_text: str, method: str = "gj",
              dialect: str = "spicey",
              ac_linearize: str | None = None,
              base_dir: str | None = None,
-             device: torch.device | str = "cpu") -> SimulationResult:
-    """Parse and run every requested analysis on ``device``.
+             device: torch.device | str | None = None) -> SimulationResult:
+    """Parse and run every requested analysis on ``device`` (the card
+    unless ``device="cpu"``).
 
     ``ac_linearize="op"`` (or ``.options acop``) needs the operating
     point and raises until it is ported. ``base_dir`` resolves relative
     ``.include``/``.lib`` paths (extended dialect)."""
+    device = resolve_device(device)
     circuit = parse_netlist(netlist_text, dialect=dialect, base_dir=base_dir)
     _require_ported(circuit)
     tensors = build_tensors(circuit)
@@ -55,4 +76,6 @@ def simulate(netlist_text: str, method: str = "gj",
         ac_linearize = "op"
     ac = simulate_ac(circuit, tensors=tensors, method=method,
                      linearize=ac_linearize, device=device)
-    return SimulationResult(circuit=circuit, ac=ac, tran=None)
+    tran = simulate_tran(circuit, tensors=tensors, method=method,
+                         device=device, **_tran_options(circuit.options))
+    return SimulationResult(circuit=circuit, ac=ac, tran=tran)

@@ -1,0 +1,710 @@
+"""Transient analysis: companion models under a time loop on torch tensors.
+
+Contract: spicey/lib/analysis/simulateTRAN.ts:14-252, as the JAX package
+carries it (spicey_tpu/analysis/tran.py). The JAX ``lax.scan`` over time
+is a Python loop over steps here, and its Newton ``while_loop`` a loop of
+at most ``max_nr`` passes with the per-lane ``done`` mask, so the same
+core serves one circuit (``lead=()``) and a batch of Monte-Carlo
+variants (``lead=(B,)``):
+
+  - x is seeded to zero each step (:149); each pass rebuilds A and b and
+    solves them (kernel K2 on the card, ops/linsolve.solve); a lane is
+    done as soon as no switch toggled (:159-161; ``nr="converged"`` also
+    asks |dx| <= tol * (1 + |x|)), so diodes get one Newton step per
+    switch-stable pass, seeded from the previous step's vd on pass 0
+    (:81-85);
+  - a linear circuit (no S/D, reference Newton) factors once: the inverse
+    of the time-invariant matrix (kernel K3, ops/linsolve.inverse), then
+    per step x = Ainv b plus one refinement pass;
+  - source values are precomputed over the grid (ir/circuit.py);
+  - element currents are recovered after the loop from the stacked
+    solutions on the host (C from the step-to-step voltage delta, L as a
+    cumulative sum of companion updates; :173-219).
+
+Device models (simulateTRAN.ts:25-106): C: Gc = C/max(dt, EPS), Ieq =
+-Gc vPrev; L: Gl = max(dt, EPS)/L, Norton current iPrev; S: R = Ron|Roff
+by hysteresis state, |R| >= EPS; V: waveform(t) | dc; D: Shockley
+companion, vd clamped to [-1.0, 0.8] * vt/VT_300K, gd >= GMIN. The
+improvement toggles ``integration="trap"|"gear2"`` and
+``nr="converged"`` are the JAX package's.
+
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
+item: K coupling, T lines and B sources (§1 item 4); MOSFET/BJT devices
+and diode/BJT charge storage (item 3); the Schur tier (item 8). The JAX
+package's host interp tier, placement and ``accurate_exp`` have no
+counterpart (item 12): on the card the device path is the path, and only
+the dtype half of the Newton tolerance floor (16 ulps) is kept.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..constants import (DIODE_VD_MAX, DIODE_VD_MIN, EPS, GMIN, MAX_NR_ITERS,
+                         VT_300K)
+from ..ir.circuit import (CircuitTensors, build_tensors, effective_time_step,
+                          ext_arrays, nl_arrays, sample_source_values)
+from ..ops.linsolve import inverse, solve
+from ..ops.stamps import (pad_solution, stamp_admittance, stamp_current,
+                          stamp_extended, stamp_voltage_source)
+from ..parsing.netlist import ParsedCircuit
+from ..utils.device import resolve_device
+from .results import TranResult
+
+
+@dataclass
+class TranState:
+    """Checkpoint of a transient run: the loop carry + the end time.
+
+    ``simulate_tran(..., return_state=True)`` hands it back as
+    ``result.state``; ``simulate_tran(..., state=...)`` continues exactly
+    where it stopped, the netlist's .tran spec giving the next segment's
+    length. ``carry`` is the JAX package's layout (v_prev_c, i_prev_c,
+    i_prev_l, v_prev_l, vd_prev_d, vm_prev, vq_prev, sw_on, v_prev2_c,
+    i_prev2_l) as host NumPy arrays, so a JAX checkpoint resumes here and
+    the other way round."""
+
+    carry: tuple
+    t: float
+    dt: float
+
+
+def check_ported_tran(ckt: ParsedCircuit, tensors: CircuitTensors,
+                      method: str) -> None:
+    """Raise ``NotImplementedError`` for what the transient slice does not
+    carry yet, naming the ROADMAP item that brings it."""
+    if method == "schur":
+        raise NotImplementedError(
+            "the Schur tier is not ported yet (ROADMAP §1 item 8)")
+    for what, present in (("K (mutual inductance) elements", tensors.n_k),
+                          ("T (transmission line) elements", tensors.n_t),
+                          ("B (behavioral) sources", len(ckt.B))):
+        if present:
+            raise NotImplementedError(
+                f"{what} are not ported to the transient yet "
+                "(ROADMAP §1 item 4)")
+    for what, present in (("MOSFET/JFET devices", tensors.n_m),
+                          ("BJT devices", tensors.n_q),
+                          ("diode charge storage (TT/CJO)",
+                           tensors.has_d_charge)):
+        if present:
+            raise NotImplementedError(
+                f"{what} are not ported to the transient yet "
+                "(ROADMAP §1 item 3)")
+
+
+def _vdrop(x_pad: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return x_pad[..., idx[:, 0]] - x_pad[..., idx[:, 1]]
+
+
+def _l_stamp(A_pad: torch.Tensor, l_idx: torch.Tensor, c: float,
+             l_vals: torch.Tensor) -> torch.Tensor:
+    """Inductor companion admittance c/L per element (the diagonal case;
+    K-coupled inductors are ROADMAP §1 item 4)."""
+    return stamp_admittance(A_pad, l_idx, c / l_vals)
+
+
+def _zeros(lead: tuple, n: int, dtype: torch.dtype,
+           device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.zeros(lead + (n, n), dtype=dtype, device=device),
+            torch.zeros(lead + (n,), dtype=dtype, device=device))
+
+
+def _c_conductance(c_vals: torch.Tensor, dt_c: float, integration: str,
+                   first: bool, second: bool) -> torch.Tensor:
+    """Companion conductance of the capacitors: C/dt (backward Euler,
+    simulateTRAN.ts:41-53), 2C/dt (trap) or 1.5C/dt (gear2). The first
+    step of a fresh run is backward Euler (trap is not self-starting), and
+    gear2's second too (it needs two history points)."""
+    if integration == "trap" and not first:
+        return 2.0 * c_vals / dt_c
+    if integration == "gear2" and not (first or second):
+        return 1.5 * c_vals / dt_c
+    return c_vals / dt_c
+
+
+def _l_factor(dt_c: float, integration: str, first: bool,
+              second: bool) -> float:
+    """c of the inductors' companion conductance c/L: dt (backward
+    Euler), dt/2 (trap) or dt/1.5 (gear2), with the same startup steps."""
+    if integration == "trap" and not first:
+        return dt_c / 2.0
+    if integration == "gear2" and not (first or second):
+        return dt_c / 1.5
+    return dt_c
+
+
+def _companion_currents(arr: dict, dt_c: float, integration: str,
+                        first: bool, second: bool, carry: list
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The stamp_current values of the C and L companions:
+      trap   C: -(G v_n + i_n)             L: i_n + (c/L) v_n
+      gear2  C: -(C/dt)(2 v_n - 0.5 v_n-1)  L: (2 i_n - 0.5 i_n-1) / 1.5
+      BE     C: -G v_n                      L: i_n"""
+    (v_prev_c, i_prev_c, i_prev_l, v_prev_l, _vd, _vm, _vq, _sw,
+     v_prev2_c, i_prev2_l) = carry
+    c_vals, l_vals = arr["c_vals"], arr["l_vals"]
+    g_c = _c_conductance(c_vals, dt_c, integration, first, second)
+    c_l = _l_factor(dt_c, integration, first, second)
+    startup = first or second
+    if integration == "trap":
+        return (-(g_c * v_prev_c + i_prev_c),
+                i_prev_l + (c_l / l_vals) * v_prev_l)
+    if integration == "gear2" and not startup:
+        return (-(c_vals / dt_c) * (2.0 * v_prev_c - 0.5 * v_prev2_c),
+                (2.0 * i_prev_l - 0.5 * i_prev2_l) / 1.5)
+    return -g_c * v_prev_c, i_prev_l
+
+
+def _stamp_system(arr: dict, nvar: int, dt: float, vs_t: torch.Tensor,
+                  x: torch.Tensor, it: int, carry: list, sw_on: torch.Tensor,
+                  integration: str = "be", first: bool = False,
+                  second: bool = False, vt_scale: torch.Tensor | float = 1.0
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Assemble one Newton pass's (A, b), sliced to (..., nvar[, nvar])."""
+    A, b = _zeros(x.shape[:-1], nvar + 1, x.dtype, x.device)
+    dt_c = max(dt, EPS)
+    stamp_admittance(A, arr["r_idx"], 1.0 / arr["r_vals"])
+    ieq_c, isrc_l = _companion_currents(arr, dt_c, integration, first,
+                                        second, carry)
+    stamp_admittance(A, arr["c_idx"], _c_conductance(
+        arr["c_vals"], dt_c, integration, first, second))
+    stamp_current(b, arr["c_idx"], ieq_c)
+    _l_stamp(A, arr["l_idx"], _l_factor(dt_c, integration, first, second),
+             arr["l_vals"])
+    stamp_current(b, arr["l_idx"], isrc_l)
+    # switches by their hysteresis state
+    r_sw = torch.where(sw_on, arr["s_ron"], arr["s_roff"])
+    stamp_admittance(A, arr["s_idx"][:, :2],
+                     1.0 / torch.clamp(r_sw.abs(), min=EPS))
+    n_v = arr["v_idx"].shape[0]
+    stamp_voltage_source(A, b, arr["v_idx"], vs_t[..., :n_v])
+    # extended-dialect current sources: direct RHS injection
+    ext = arr["ext"]
+    stamp_current(b, ext["i_idx"], vs_t[..., n_v:])
+    stamp_extended(A, ext)
+    # diode Shockley companions; the clamp window scales with T/300
+    d_idx = arr["d_idx"]
+    vd = carry[4] if it == 0 else _vdrop(pad_solution(x, nvar), d_idx)
+    vd_lim = torch.clamp(vd, DIODE_VD_MIN * vt_scale,
+                         DIODE_VD_MAX * vt_scale)
+    v_th = arr["d_n"] * VT_300K
+    exp_val = torch.exp(vd_lim / v_th)
+    i_d = arr["d_is"] * (exp_val - 1.0)
+    g_d = torch.clamp((arr["d_is"] / v_th) * exp_val, min=GMIN)
+    stamp_admittance(A, d_idx, g_d)
+    stamp_current(b, d_idx, i_d - g_d * vd_lim)
+    return A[..., :nvar, :nvar], b[..., :nvar]
+
+
+def linear_system_matrix(nvar: int, lead: tuple, dtype: torch.dtype,
+                         arr: dict, g_c: torch.Tensor, c_l: float
+                         ) -> torch.Tensor:
+    """The (sliced) time-invariant matrix of a linear circuit: R +
+    C companion (g_c) + L companion (c_l/L) + V-source rows + extended
+    controlled sources."""
+    dev = arr["r_vals"].device
+    A, b_dummy = _zeros(lead, nvar + 1, dtype, dev)
+    stamp_admittance(A, arr["r_idx"], 1.0 / arr["r_vals"])
+    stamp_admittance(A, arr["c_idx"], g_c)
+    _l_stamp(A, arr["l_idx"], c_l, arr["l_vals"])
+    stamp_voltage_source(A, b_dummy, arr["v_idx"],
+                         torch.zeros(arr["v_idx"].shape[:1], dtype=dtype,
+                                     device=dev))
+    stamp_extended(A, arr["ext"])
+    return A[..., :nvar, :nvar]
+
+
+def _switch_update(s_idx: torch.Tensor, s_von: torch.Tensor,
+                   s_voff: torch.Tensor, sw_on: torch.Tensor,
+                   x_pad: torch.Tensor) -> torch.Tensor:
+    """Hysteresis state transition (simulateTRAN.ts:108-128)."""
+    vctrl = x_pad[..., s_idx[:, 2]] - x_pad[..., s_idx[:, 3]]
+    return torch.where(sw_on, ~(vctrl < s_voff), vctrl > s_von)
+
+
+def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched matvec as multiply + reduce: at (1M, 3, 3) a batched
+    ``matmul`` became 48 cuBLAS gemv launches per product on the card
+    (534 ms of a 593 ms run, tools/profile_torch_tran.py)."""
+    return (M * v[..., None, :]).sum(dim=-1)
+
+
+def _init_carry(lead: tuple, n: dict, dtype: torch.dtype,
+                device: torch.device) -> list:
+    def z(*shape: int) -> torch.Tensor:
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+    return [z(n["c"]), z(n["c"]), z(n["l"]), z(n["l"]), z(n["d"]),
+            z(n["m"], 2), z(n["q"], 2),
+            torch.zeros(lead + (n["s"],), dtype=torch.bool, device=device),
+            z(n["c"]), z(n["l"])]
+
+
+def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
+               method: str = "gj", integration: str = "be",
+               nr: str = "spicey", nr_tol: float = 1e-9,
+               max_nr: int | None = None, lead: tuple = (),
+               record: int | None = None, init_state: tuple | None = None,
+               resume: bool = False, nr_floor: torch.Tensor | None = None,
+               vt_scale: torch.Tensor | float = 1.0
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, list]:
+    """The time loop; returns (xs, sw_states, valid, final carry).
+
+    ``arr`` holds the index tensors (int64) and value tensors: values
+    lead with the variants axis when ``lead=(B,)`` (r/c/l (B, nE), ext
+    values (B, nX)) or are unbatched. ``vs_grid`` is (S+1, nSrc) or
+    (S+1, B, nSrc). ``record=i`` stacks only unknown i per step, (S+1,
+    [B]) instead of (S+1, [B], nvar). ``init_state`` with ``resume=True``
+    continues a checkpoint: no step is re-marked as the t = 0 bootstrap."""
+    dtype, dev = vs_grid.dtype, vs_grid.device
+    n = {"c": arr["c_idx"].shape[0], "l": arr["l_idx"].shape[0],
+         "s": arr["s_idx"].shape[0], "d": arr["d_idx"].shape[0],
+         "m": 0, "q": 0}
+    if max_nr is None:
+        max_nr = MAX_NR_ITERS if nr == "spicey" else 50
+    linear = n["s"] == 0 and n["d"] == 0 and nr == "spicey"
+    dt_c = max(dt, EPS)
+    n_v = arr["v_idx"].shape[0]
+    ext = arr["ext"]
+
+    valid_all = torch.ones(lead, dtype=torch.bool, device=dev)
+    if linear:
+        # the matrix is time-invariant (per integration phase): factor
+        # ONCE, then each step is a multiply by the inverse plus one
+        # refinement pass, not a fresh elimination
+        def assemble(first: bool, second: bool) -> torch.Tensor:
+            return linear_system_matrix(
+                nvar, lead, dtype, arr,
+                _c_conductance(arr["c_vals"], dt_c, integration, first,
+                               second),
+                _l_factor(dt_c, integration, first, second))
+
+        A_main = assemble(False, False)
+        Ainv_main, factor_ok = inverse(A_main)
+        if integration in ("trap", "gear2"):
+            A_start = assemble(True, False)
+            Ainv_start, ok_start = inverse(A_start)
+            factor_ok = factor_ok & ok_start
+        else:
+            A_start, Ainv_start = A_main, Ainv_main
+
+    carry = (_init_carry(lead, n, dtype, dev) if init_state is None
+             else [torch.tensor(np.asarray(a), device=dev) for a in init_state])
+    carry = [a if a.dtype == torch.bool else a.to(dtype) for a in carry]
+    n_steps = vs_grid.shape[0]
+    xs = torch.empty((n_steps,) + lead + (() if record is not None
+                                          else (nvar,)),
+                     dtype=dtype, device=dev)
+    sw_states = torch.empty((n_steps,) + lead + (n["s"],), dtype=torch.bool,
+                            device=dev)
+    tol_eff = max(float(nr_tol), 16.0 * float(torch.finfo(dtype).eps))
+    for s in range(n_steps):
+        vs_t = vs_grid[s]
+        first = s == 0 and not resume
+        second = s == 1 and not resume
+        (v_prev_c, i_prev_c, i_prev_l, v_prev_l, vd_prev_d, vm_prev,
+         vq_prev, sw_on, v_prev2_c, i_prev2_l) = carry
+        if linear:
+            b = torch.zeros(lead + (nvar + 1,), dtype=dtype, device=dev)
+            ieq_c, isrc_l = _companion_currents(arr, dt_c, integration,
+                                                first, second, carry)
+            stamp_current(b, arr["c_idx"], ieq_c)
+            stamp_current(b, arr["l_idx"], isrc_l)
+            b.index_add_(-1, arr["v_idx"][:, 2],
+                         vs_t[..., :n_v].expand(lead + (n_v,)))
+            stamp_current(b, ext["i_idx"], vs_t[..., n_v:])
+            b = b[..., :nvar]
+            startup = first or (second and integration == "gear2")
+            Ainv, A_t = ((Ainv_start, A_start) if startup
+                         else (Ainv_main, A_main))
+            x = _mv(Ainv, b)
+            x = x + _mv(Ainv, b - _mv(A_t, x))
+            step_ok = factor_ok
+        else:
+            x = torch.zeros(lead + (nvar,), dtype=dtype, device=dev)
+            sw = sw_on
+            done = torch.zeros(lead, dtype=torch.bool, device=dev)
+            step_ok = torch.ones(lead, dtype=torch.bool, device=dev)
+            for it in range(max_nr):
+                A, b = _stamp_system(arr, nvar, dt, vs_t, x, it, carry, sw,
+                                     integration, first, second, vt_scale)
+                x_new, solve_ok = solve(A, b, method=method)
+                new_on = _switch_update(arr["s_idx"], arr["s_von"],
+                                        arr["s_voff"], sw,
+                                        pad_solution(x_new, nvar))
+                settled = ~torch.any(new_on != sw, dim=-1)
+                if nr == "converged":
+                    # floor the relative tolerance at 16 ulps of the
+                    # working dtype (an unfloored f32 run never settles)
+                    if nr_floor is not None:
+                        # ngspice's per-unknown criterion (.options
+                        # vntol/abstol)
+                        conv = torch.all((x_new - x).abs()
+                                         <= tol_eff * x_new.abs() + nr_floor,
+                                         dim=-1)
+                    elif nvar:
+                        delta = (x_new - x).abs().amax(dim=-1)
+                        scale = 1.0 + x_new.abs().amax(dim=-1)
+                        conv = delta <= tol_eff * scale
+                    else:
+                        conv = torch.ones_like(settled)
+                    settled = settled & conv
+                # masked commit: once done, the lane is frozen
+                mask = done[..., None]
+                x = torch.where(mask, x, x_new)
+                sw = torch.where(mask, sw, new_on)
+                step_ok = step_ok & (done | solve_ok)
+                done = done | settled
+                if bool(done.all()):
+                    break
+            sw_on = sw
+        x_pad = pad_solution(x, nvar)
+        # state commit (simulateTRAN.ts:221-237; trap carries the companion
+        # current, gear2 two-step history)
+        if n["c"]:
+            vd_c = _vdrop(x_pad, arr["c_idx"])
+            if integration == "trap":
+                c_vals = arr["c_vals"]
+                i_prev_c = ((c_vals / dt_c) * (vd_c - v_prev_c) if first
+                            else (2.0 * c_vals / dt_c) * (vd_c - v_prev_c)
+                            - i_prev_c)
+            v_prev2_c = v_prev_c
+            v_prev_c = vd_c
+        if n["l"]:
+            vd_l = _vdrop(x_pad, arr["l_idx"])
+            l_vals = arr["l_vals"]
+            i_prev2_l_new = i_prev_l
+            if integration == "trap":
+                i_prev_l = i_prev_l + (
+                    (dt_c / l_vals) * vd_l if first
+                    else (dt_c / 2.0 / l_vals) * (v_prev_l + vd_l))
+                v_prev_l = vd_l
+            elif integration == "gear2":
+                i_prev_l = (i_prev_l + (dt_c / l_vals) * vd_l
+                            if first or second
+                            else (dt_c / 1.5 / l_vals) * vd_l
+                            + (2.0 * i_prev_l - 0.5 * i_prev2_l) / 1.5)
+            else:
+                i_prev_l = i_prev_l + (dt_c / l_vals) * vd_l
+            i_prev2_l = i_prev2_l_new
+        if n["d"]:
+            vd_prev_d = _vdrop(x_pad, arr["d_idx"])
+        valid_all = valid_all & step_ok
+        carry = [v_prev_c, i_prev_c, i_prev_l, v_prev_l, vd_prev_d, vm_prev,
+                 vq_prev, sw_on, v_prev2_c, i_prev2_l]
+        xs[s] = x if record is None else x[..., record]
+        sw_states[s] = sw_on
+    return xs, sw_states, valid_all, carry
+
+
+def tran_arrays(tensors: CircuitTensors, device: torch.device,
+                dtype: torch.dtype, r_vals: torch.Tensor | None = None,
+                c_vals: torch.Tensor | None = None,
+                l_vals: torch.Tensor | None = None,
+                ext: dict | None = None) -> dict:
+    """The index and value tensors ``_tran_core`` reads. The r/c/l values
+    and ``ext`` default to the netlist's (unbatched); the Monte-Carlo
+    analyses pass batched ones."""
+    def idx(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    def val(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                               device=device)
+
+    return {
+        "r_idx": idx(tensors.r_idx),
+        "r_vals": val(tensors.r_vals) if r_vals is None else r_vals,
+        "c_idx": idx(tensors.c_idx),
+        "c_vals": val(tensors.c_vals) if c_vals is None else c_vals,
+        "l_idx": idx(tensors.l_idx),
+        "l_vals": val(tensors.l_vals) if l_vals is None else l_vals,
+        "v_idx": idx(tensors.v_idx),
+        "s_idx": idx(tensors.s_idx),
+        "s_ron": val(tensors.s_ron), "s_roff": val(tensors.s_roff),
+        "s_von": val(tensors.s_von), "s_voff": val(tensors.s_voff),
+        "d_idx": idx(tensors.d_idx),
+        "d_is": val(tensors.d_is), "d_n": val(tensors.d_n),
+        "ext": ext_arrays(tensors, device, dtype) if ext is None else ext,
+    }
+
+
+def vt_scale_of(tensors: CircuitTensors, device: torch.device,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The diode clamp window's scale vt / VT_300K (1 at 300 K)."""
+    return nl_arrays(tensors, device, dtype)["vt"] / VT_300K
+
+
+def _element_currents(tensors: CircuitTensors, xs: np.ndarray,
+                      sw_states: np.ndarray, dt: float,
+                      integration: str = "be",
+                      src_grid: np.ndarray | None = None,
+                      state0: tuple | None = None,
+                      resumed: bool | None = None) -> dict[str, np.ndarray]:
+    """Per-step element currents recovered from the stacked solutions on
+    the host (simulateTRAN.ts:173-219); the C/L companion recurrences
+    unroll into (alternating-sign) cumulative sums.
+
+    ``state0``: the carry the loop started from, for resumed segments and
+    fresh .ic runs; ``resumed`` tells them apart (a fresh run keeps the BE
+    bootstrap rows of trap/gear2, a resumed segment does not repeat
+    them)."""
+    xs_pad = np.concatenate([xs, np.zeros((xs.shape[0], 1))], axis=1)
+    dt_c = max(dt, EPS)
+    out: dict[str, np.ndarray] = {}
+    has0 = state0 is not None
+    if resumed is None:
+        resumed = has0
+
+    def s0(k: int, n: int) -> np.ndarray:
+        return np.asarray(state0[k]) if has0 else np.zeros(n)
+
+    v_prev_c0, i_prev_c0 = s0(0, tensors.n_c), s0(1, tensors.n_c)
+    i_prev_l0, v_prev_l0 = s0(2, tensors.n_l), s0(3, tensors.n_l)
+    v_prev2_c0, i_prev2_l0 = s0(8, tensors.n_c), s0(9, tensors.n_l)
+
+    def vdrop(idx: np.ndarray) -> np.ndarray:
+        return xs_pad[:, idx[:, 0]] - xs_pad[:, idx[:, 1]]  # (S+1, nE)
+
+    if tensors.n_r:
+        i_r = vdrop(tensors.r_idx) / tensors.r_vals[None, :]
+        for k, name in enumerate(tensors.r_names):
+            out[name] = i_r[:, k]
+    if tensors.n_c:
+        vd = vdrop(tensors.c_idx)
+        cv = tensors.c_vals
+        prev = np.concatenate([v_prev_c0[None, :], vd[:-1]], axis=0)
+        if integration == "trap":
+            # i_k = (2C/dt)(v_k - v_{k-1}) - i_{k-1} telescopes to an
+            # alternating cumulative sum; a fresh run's step 0 is BE
+            a = 2.0 * cv[None, :] * (vd - prev) / dt_c
+            if not resumed:
+                a[0] = cv * (vd[0] - v_prev_c0) / dt_c
+            sign = (-1.0) ** np.arange(a.shape[0])[:, None]
+            i_c = sign * np.cumsum(sign * a, axis=0)
+            if has0:
+                i_c = i_c - sign * i_prev_c0[None, :]
+        elif integration == "gear2":
+            prev2 = np.concatenate([v_prev2_c0[None, :], prev[:-1]], axis=0)
+            i_c = (cv[None, :] / dt_c) * (1.5 * vd - 2.0 * prev + 0.5 * prev2)
+            if not resumed:
+                i_c[0] = cv * (vd[0] - v_prev_c0) / dt_c
+                if vd.shape[0] > 1:
+                    i_c[1] = cv * (vd[1] - vd[0]) / dt_c
+        else:
+            i_c = cv[None, :] * (vd - prev) / dt_c
+        for k, name in enumerate(tensors.c_names):
+            out[name] = i_c[:, k]
+    if tensors.n_l:
+        vd = vdrop(tensors.l_idx)
+
+        def lmv(c: float, v: np.ndarray) -> np.ndarray:
+            return (c / tensors.l_vals) * v
+
+        if integration == "trap":
+            prev = np.concatenate([v_prev_l0[None, :], vd[:-1]], axis=0)
+            inc = lmv(dt_c / 2.0, prev + vd)
+            if not resumed:
+                inc[0] = lmv(dt_c, vd[0])  # BE first step
+            i_l = i_prev_l0[None, :] + np.cumsum(inc, axis=0)
+        elif integration == "gear2":
+            i_l = np.zeros_like(vd)
+            im1, im2 = i_prev_l0, i_prev2_l0
+            for k in range(vd.shape[0]):
+                if not resumed and k < 2:
+                    ik = im1 + lmv(dt_c, vd[k])
+                else:
+                    ik = lmv(dt_c / 1.5, vd[k]) + (2.0 * im1 - 0.5 * im2) / 1.5
+                i_l[k] = ik
+                im2, im1 = im1, ik
+        else:
+            i_l = i_prev_l0[None, :] + np.cumsum(lmv(dt_c, vd), axis=0)
+        for k, name in enumerate(tensors.l_names):
+            out[name] = i_l[:, k]
+    for k, name in enumerate(tensors.v_names):
+        out[name] = xs[:, tensors.v_idx[k, 2]]
+    if tensors.n_g:
+        vc = xs_pad[:, tensors.g_idx[:, 2]] - xs_pad[:, tensors.g_idx[:, 3]]
+        i_g = tensors.g_gm[None, :] * vc
+        for k, name in enumerate(tensors.g_names):
+            out[name] = i_g[:, k]
+    for k, name in enumerate(tensors.e_names):
+        out[name] = xs[:, tensors.e_idx[k, 2]]
+    for k, name in enumerate(tensors.f_names):
+        out[name] = tensors.f_gain[k] * xs[:, tensors.f_idx[k, 2]]
+    for k, name in enumerate(tensors.h_names):
+        out[name] = xs[:, tensors.h_idx[k, 2]]
+    if tensors.n_i and src_grid is not None:
+        for k, name in enumerate(tensors.i_names):
+            out[name] = np.asarray(src_grid[:, tensors.n_v + k])
+    if tensors.n_s:
+        r_sw = np.where(sw_states, tensors.s_ron[None, :],
+                        tensors.s_roff[None, :])
+        i_s = vdrop(tensors.s_idx[:, :2]) / np.maximum(np.abs(r_sw), EPS)
+        for k, name in enumerate(tensors.s_names):
+            out[name] = i_s[:, k]
+    if tensors.n_d:
+        vd = vdrop(tensors.d_idx)
+        v_th = tensors.d_n[None, :] * VT_300K
+        with np.errstate(over="ignore"):
+            i_d = tensors.d_is[None, :] * (np.exp(vd / v_th) - 1.0)
+        for k, name in enumerate(tensors.d_names):
+            out[name] = i_d[:, k]
+    return out
+
+
+def _ic_carry(ckt: ParsedCircuit, tensors: CircuitTensors) -> tuple:
+    """The starting carry of a fresh run with extended .ic / element
+    ``ic=``: each capacitor's companion state at its initial voltage
+    (unspecified nodes at 0), each inductor's at its initial current. The
+    reference has no .ic support (simulateTRAN.ts:149 starts from rest)."""
+    ic = {k.upper(): v for k, v in ckt.initial_conditions.items()}
+    node_v = np.zeros(tensors.nvar + 1)
+    for i, name in enumerate(tensors.node_names):
+        node_v[i] = ic.get(name.upper(), 0.0)
+    v_ic = node_v[tensors.c_idx[:, 0]] - node_v[tensors.c_idx[:, 1]]
+    for k, c in enumerate(ckt.C):
+        if c.ic is not None:
+            v_ic[k] = c.ic
+    i_l0 = np.zeros(tensors.n_l)
+    for k, el in enumerate(ckt.L):
+        if el.ic is not None:
+            i_l0[k] = el.ic
+    z = np.zeros
+    return (v_ic, z(tensors.n_c), i_l0, z(tensors.n_l), z(tensors.n_d),
+            z((tensors.n_m, 2)), z((tensors.n_q, 2)),
+            np.zeros(tensors.n_s, bool), v_ic.copy(), i_l0.copy())
+
+
+def simulate_tran(
+    ckt: ParsedCircuit,
+    tensors: CircuitTensors | None = None,
+    method: str = "gj",
+    integration: str = "be",
+    nr: str = "spicey",
+    nr_tol: float = 1e-9,
+    max_nr: int | None = None,
+    state: TranState | None = None,
+    return_state: bool = False,
+    nr_vntol: float | None = None,
+    nr_abstol: float | None = None,
+    device: torch.device | str | None = None,
+) -> TranResult | None:
+    """Transient analysis in float64 on ``device`` (the card unless
+    ``device="cpu"``). Defaults reproduce the reference; see _tran_core for
+    the ``integration``/``nr`` toggles.
+
+    Checkpoint/resume: ``return_state=True`` attaches the final state
+    (``result.state``); passing it back via ``state=`` runs the netlist's
+    .tran spec as the NEXT segment of the same run: times continue from
+    the checkpoint, sources are sampled at absolute time, and no quasi-DC
+    bootstrap step is repeated."""
+    device = resolve_device(device)
+    if ckt.tran is None:
+        return None
+    if integration not in ("be", "trap", "gear2"):
+        raise ValueError("integration must be 'be', 'trap', or 'gear2'")
+    if nr not in ("spicey", "converged"):
+        raise ValueError("nr must be 'spicey' or 'converged'")
+    if tensors is None:
+        tensors = build_tensors(ckt)
+    check_ported_tran(ckt, tensors, method)
+
+    dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
+    if state is None:
+        times = np.arange(steps + 1, dtype=np.float64) * dt
+    else:
+        if abs(state.dt - dt) > EPS:
+            raise ValueError(
+                f"resume dt {dt} differs from checkpoint dt {state.dt}")
+        # rebuild the absolute grid from the integer step count: state.t +
+        # k*dt accumulates rounding that can move a sample across a
+        # nanosecond PULSE edge
+        step0 = round(state.t / dt)
+        times = (step0 + np.arange(1, steps + 1, dtype=np.float64)) * dt
+    vs_grid = sample_source_values(ckt, times)  # (S+1, nV+nI)
+
+    init_carry = None  # fresh-run .ic carry, also for element currents
+    init_state = None
+    if state is not None:
+        init_state = state.carry
+    elif (ckt.initial_conditions or any(c.ic is not None for c in ckt.C)
+          or any(el.ic is not None for el in ckt.L)):
+        init_carry = _ic_carry(ckt, tensors)
+        init_state = init_carry
+
+    f64 = torch.float64
+    nr_floor = None
+    if nr_vntol is not None or nr_abstol is not None:
+        # ngspice's per-unknown floors: node-voltage rows then branch rows
+        nr_floor = torch.as_tensor(np.where(
+            np.arange(tensors.nvar) < tensors.n_node_vars,
+            1e-6 if nr_vntol is None else nr_vntol,
+            1e-12 if nr_abstol is None else nr_abstol), dtype=f64,
+            device=device)
+    xs, sw_states, valid, fin = _tran_core(
+        torch.as_tensor(vs_grid, dtype=f64, device=device), dt,
+        tran_arrays(tensors, device, f64), tensors.nvar, method=method,
+        integration=integration, nr=nr, nr_tol=nr_tol, max_nr=max_nr,
+        init_state=init_state, resume=state is not None, nr_floor=nr_floor,
+        vt_scale=vt_scale_of(tensors, device, f64))
+    # one device->host transfer of [solution | switch states | validity]
+    packed = torch.cat([xs, sw_states.to(f64),
+                        valid.to(f64).expand(xs.shape[0], 1)],
+                       dim=1).cpu().numpy()
+    if not bool(packed[0, -1] > 0.5):
+        raise ValueError("Singular matrix in TRAN solve")
+    xs_np = packed[:, :tensors.nvar]
+    sw_np = packed[:, tensors.nvar:tensors.nvar + tensors.n_s] > 0.5
+    return _tran_epilogue(ckt, tensors, xs_np, sw_np, times, vs_grid, dt,
+                          integration, state, return_state,
+                          [a.cpu().numpy() for a in fin] if return_state
+                          else None, init_carry=init_carry)
+
+
+def _tran_epilogue(ckt: ParsedCircuit, tensors: CircuitTensors,
+                   xs: np.ndarray, sw_states: np.ndarray, times: np.ndarray,
+                   vs_grid: np.ndarray, dt: float, integration: str,
+                   state: TranState | None, return_state: bool,
+                   fin_state: list | None,
+                   init_carry: tuple | None = None) -> TranResult:
+    """Host-side result assembly: element currents, probe filters, the
+    record window, checkpoint packaging."""
+    node_voltages = {
+        name: xs[:, i] for i, name in enumerate(tensors.node_names)
+    }
+    element_currents = _element_currents(
+        tensors, xs, sw_states, dt, integration=integration,
+        src_grid=vs_grid,
+        state0=state.carry if state is not None else init_carry,
+        resumed=state is not None)
+    # probe filter (simulateTRAN.ts:240-249): keep canonical-casing keys
+    if ckt.tran_probes:
+        upper = {p.upper() for p in ckt.tran_probes}
+        node_voltages = {name: series for name, series in
+                         node_voltages.items() if name.upper() in upper}
+    if getattr(ckt, "tran_iprobes", None):
+        # extended .print tran i(...): filter element currents (the
+        # reference recognizes only v() probes and leaves currents whole)
+        upper_i = {p.upper() for p in ckt.tran_iprobes}
+        element_currents = {name: series for name, series in
+                            element_currents.items()
+                            if name.upper() in upper_i}
+    # extended ngspice-style record window: integrate from 0, keep t >=
+    # tstart (resumed segments start mid-run and keep everything)
+    tstart = getattr(ckt.tran, "tstart", 0.0)
+    if tstart > 0.0 and state is None:
+        keep = times >= tstart - EPS
+        times = times[keep]
+        node_voltages = {k: v[keep] for k, v in node_voltages.items()}
+        element_currents = {k: v[keep] for k, v in element_currents.items()}
+    result = TranResult(times=times, node_voltages=node_voltages,
+                        element_currents=element_currents)
+    if return_state:
+        result.state = TranState(carry=tuple(fin_state),
+                                 t=float(times[-1]), dt=dt)
+    return result

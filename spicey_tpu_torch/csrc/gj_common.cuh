@@ -1,0 +1,261 @@
+// The one-hot-pivot Gauss-Jordan elimination shared by kernels K1, K2, K3,
+// K5 and K8, templated on the element type: P = 1 real plane, P = 2 complex
+// (re, im) planes.
+//
+// Semantics are those of the plain versions in
+// spicey_tpu_torch/ops/linsolve.py: the pivot of column k is the unused
+// row with the largest score (|a| real, |a|^2 complex), ties to the lowest
+// row, NaN ranked highest; the pivot is accepted when score >= thr (thr =
+// eps real, eps^2 complex), and elimination continues through a rejected
+// pivot with a unit divisor, so control flow never depends on the data.
+// Every row, the pivot row included, is updated over all w columns, as
+// the plain versions update them.
+//
+// Two layouts:
+//   block_gj   one block per system, the (n, w) planes row-major in shared
+//              memory or a global workspace, thread-strided updates with a
+//              barrier per step (K1, and K2/K3 above THREAD_MAX_N);
+//   thread_gj  one thread per system, element q of plane c at
+//              a[c][q * stride] (the system index fastest, so a warp's
+//              accesses are consecutive words), no barriers (K2/K3 up to
+//              THREAD_MAX_N, K5, K8).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace gj {
+
+constexpr size_t SMEM_MAX = 232448;  // opt-in shared memory of one block
+constexpr int THREAD_MAX_N = 16;     // 4-bit pivot rows packed in 64 bits
+
+// (s, r) beats (best_s, best_r): larger score, ties to the lower row, and
+// NaN above everything, as torch.argmax and jnp.argmax rank it (a NaN
+// pivot then fails the score >= thr test and flags the system).
+template <typename T>
+__device__ __forceinline__ bool better(T s, int r, T best_s, int best_r) {
+  bool s_nan = s != s, b_nan = best_s != best_s;
+  if (s_nan || b_nan) return s_nan && (!b_nan || r < best_r);
+  return s > best_s || (s == best_s && r < best_r);
+}
+
+template <typename T, int P>
+__device__ __forceinline__ T score(T* const (&a)[P], size_t q) {
+  if constexpr (P == 1) {
+    return fabs(a[0][q]);
+  } else {
+    T r = a[0][q], i = a[1][q];
+    return r * r + i * i;
+  }
+}
+
+// ---- one block per system ------------------------------------------------
+
+// Shared-memory bytes of block_gj's scratch for an (n, w) system, plus
+// the planes themselves when they live in shared memory.
+template <typename T, int P>
+__host__ __device__ inline size_t block_smem_bytes(int n, int w,
+                                                   bool planes_in_smem) {
+  size_t t_count = (size_t)P * w + (size_t)P * n + 32 + 4;
+  if (planes_in_smem) t_count += (size_t)P * n * w;
+  return t_count * sizeof(T) + (32 + 2 * (size_t)n + 2) * sizeof(int);
+}
+
+template <typename T, int P>
+struct BlockScratch {
+  T* prow[P];
+  T* f[P];
+  T* red_s;
+  T* piv;  // pivot value(s) and divisor
+  int* red_r;
+  int* perm;  // perm[k] = pivot row of column k
+  int* used;
+  int* pivot_row;
+  int* ok_all;
+};
+
+// Carve the scratch from ``base`` (shared memory after the planes).
+template <typename T, int P>
+__device__ inline BlockScratch<T, P> carve(T* base, int n, int w) {
+  BlockScratch<T, P> s;
+  for (int c = 0; c < P; ++c) s.prow[c] = base + c * w;
+  base += P * w;
+  for (int c = 0; c < P; ++c) s.f[c] = base + c * n;
+  base += P * n;
+  s.red_s = base;
+  s.piv = base + 32;
+  s.red_r = reinterpret_cast<int*>(s.piv + 4);
+  s.perm = s.red_r + 32;
+  s.used = s.perm + n;
+  s.pivot_row = s.used + n;
+  s.ok_all = s.pivot_row + 1;
+  return s;
+}
+
+// Eliminate the (n, w) system in ``a`` with every thread of the block.
+// Leaves the reduced planes in ``a``, the pivot rows in s.perm and the
+// validity in *s.ok_all (all visible to every thread on return).
+template <typename T, int P>
+__device__ void block_gj(T* const (&a)[P], int n, int w, T thr,
+                         const BlockScratch<T, P>& s) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = (nt + 31) >> 5;
+  const int nw = n * w;
+  for (int i = tid; i < n; i += nt) s.used[i] = 0;
+  if (tid == 0) *s.ok_all = 1;
+  __syncthreads();
+  for (int k = 0; k < n; ++k) {
+    // pivot search: per-thread best over its rows (ascending, so a strict
+    // > keeps the lowest row on ties), then warp and block reductions
+    T best_s = T(-2);
+    int best_r = n;
+    for (int i = tid; i < n; i += nt) {
+      T sc = s.used[i] ? T(-1) : score<T, P>(a, (size_t)i * w + k);
+      if (better(sc, i, best_s, best_r)) { best_s = sc; best_r = i; }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      T os = __shfl_down_sync(0xffffffffu, best_s, off);
+      int orow = __shfl_down_sync(0xffffffffu, best_r, off);
+      if (better(os, orow, best_s, best_r)) { best_s = os; best_r = orow; }
+    }
+    if (lane == 0) { s.red_s[warp] = best_s; s.red_r[warp] = best_r; }
+    __syncthreads();
+    if (tid == 0) {
+      T bs = s.red_s[0];
+      int br = s.red_r[0];
+      for (int q = 1; q < nwarps; ++q)
+        if (better(s.red_s[q], s.red_r[q], bs, br)) {
+          bs = s.red_s[q];
+          br = s.red_r[q];
+        }
+      const size_t pq = (size_t)br * w + k;
+      if constexpr (P == 1) {
+        T pv = a[0][pq];
+        bool ok = fabs(pv) >= thr;
+        if (!ok) *s.ok_all = 0;
+        s.piv[0] = ok ? pv : T(1);  // the divisor
+      } else {
+        T pvr = a[0][pq], pvi = a[1][pq];
+        T d = pvr * pvr + pvi * pvi;
+        bool ok = d >= thr;
+        if (!ok) *s.ok_all = 0;
+        s.piv[0] = pvr;
+        s.piv[1] = pvi;
+        s.piv[2] = T(1) / (ok ? d : T(1));
+      }
+      *s.pivot_row = br;
+      s.used[br] = 1;
+      s.perm[k] = br;
+    }
+    __syncthreads();
+    const int p = *s.pivot_row;
+    for (int j = tid; j < w; j += nt) {
+      const size_t pq = (size_t)p * w + j;
+      if constexpr (P == 1) {
+        s.prow[0][j] = a[0][pq] / s.piv[0];
+      } else {
+        T prr = a[0][pq], pri = a[1][pq];
+        T pvr = s.piv[0], pvi = s.piv[1], inv_d = s.piv[2];
+        s.prow[0][j] = (prr * pvr + pri * pvi) * inv_d;
+        s.prow[1][j] = (pri * pvr - prr * pvi) * inv_d;
+      }
+    }
+    for (int i = tid; i < n; i += nt)
+      for (int c = 0; c < P; ++c)
+        s.f[c][i] = i == p ? T(0) : a[c][(size_t)i * w + k];
+    __syncthreads();
+    for (int idx = tid; idx < nw; idx += nt) {
+      int i = idx / w, j = idx - i * w;
+      if (i == p) {
+        for (int c = 0; c < P; ++c) a[c][idx] = s.prow[c][j];
+      } else if constexpr (P == 1) {
+        a[0][idx] = a[0][idx] - s.f[0][i] * s.prow[0][j];
+      } else {
+        T fr = s.f[0][i], fi = s.f[1][i];
+        a[0][idx] = a[0][idx] - (fr * s.prow[0][j] - fi * s.prow[1][j]);
+        a[1][idx] = a[1][idx] - (fr * s.prow[1][j] + fi * s.prow[0][j]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// ---- one thread per system -------------------------------------------------
+
+// Pivot row of column k from the packed permutation.
+__device__ __forceinline__ int perm_at(uint64_t perm, int k) {
+  return (int)((perm >> (4 * k)) & 15u);
+}
+
+// Eliminate one (n, w) system, n <= THREAD_MAX_N, by the calling thread
+// alone; element q of plane c is a[c][q * stride]. Returns validity and
+// the pivot rows packed 4 bits each in ``perm``.
+template <typename T, int P>
+__device__ bool thread_gj(T* const (&a)[P], int stride, int n, int w, T thr,
+                          uint64_t& perm) {
+  uint32_t used = 0;
+  bool ok_all = true;
+  perm = 0;
+  for (int k = 0; k < n; ++k) {
+    T best_s = T(-2);
+    int p = 0;
+    for (int i = 0; i < n; ++i) {
+      const T sc = (used >> i) & 1u
+                       ? T(-1)
+                       : score<T, P>(a, (size_t)(i * w + k) * stride);
+      if (better(sc, i, best_s, p)) { best_s = sc; p = i; }
+    }
+    used |= 1u << p;
+    perm |= (uint64_t)p << (4 * k);
+    const size_t pk = (size_t)(p * w + k) * stride;
+    // normalize the pivot row in place, then eliminate column k from
+    // every other row with it (the values the plain version forms)
+    if constexpr (P == 1) {
+      const T pv = a[0][pk];
+      const bool ok = fabs(pv) >= thr;
+      ok_all = ok_all && ok;
+      const T d = ok ? pv : T(1);
+      for (int j = 0; j < w; ++j) {
+        T* e = a[0] + (size_t)(p * w + j) * stride;
+        *e = *e / d;
+      }
+      for (int i = 0; i < n; ++i) {
+        if (i == p) continue;
+        const T f = a[0][(size_t)(i * w + k) * stride];
+        for (int j = 0; j < w; ++j) {
+          const T q = a[0][(size_t)(p * w + j) * stride];
+          T* e = a[0] + (size_t)(i * w + j) * stride;
+          *e = *e - f * q;
+        }
+      }
+    } else {
+      const T pvr = a[0][pk], pvi = a[1][pk];
+      const T d = pvr * pvr + pvi * pvi;
+      const bool ok = d >= thr;
+      ok_all = ok_all && ok;
+      const T inv_d = T(1) / (ok ? d : T(1));
+      for (int j = 0; j < w; ++j) {
+        const size_t q = (size_t)(p * w + j) * stride;
+        const T prr = a[0][q], pri = a[1][q];
+        a[0][q] = (prr * pvr + pri * pvi) * inv_d;
+        a[1][q] = (pri * pvr - prr * pvi) * inv_d;
+      }
+      for (int i = 0; i < n; ++i) {
+        if (i == p) continue;
+        const size_t ik = (size_t)(i * w + k) * stride;
+        const T fr = a[0][ik], fi = a[1][ik];
+        for (int j = 0; j < w; ++j) {
+          const size_t q = (size_t)(p * w + j) * stride;
+          const size_t e = (size_t)(i * w + j) * stride;
+          const T qr = a[0][q], qi = a[1][q];
+          a[0][e] = a[0][e] - (fr * qr - fi * qi);
+          a[1][e] = a[1][e] - (fr * qi + fi * qr);
+        }
+      }
+    }
+  }
+  return ok_all;
+}
+
+}  // namespace gj

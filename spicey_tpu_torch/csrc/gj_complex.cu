@@ -6,7 +6,8 @@
 // spicey_tpu_torch/ops/linsolve.py:gj_solve_planes: the pivot of column k
 // is the unused row with the largest |a|^2, ties to the lowest row; a
 // system is invalid when |pivot|^2 < eps^2, and elimination continues
-// through an invalid pivot with a unit divisor.
+// through an invalid pivot with a unit divisor. The elimination is
+// gj_common.cuh:block_gj with complex elements, shared with K2 and K3.
 //
 // Layout: batch-first A_re, A_im (B, N, N), b_re, b_im (B, N) ->
 // x_re, x_im (B, N), valid (B,) as bytes (a torch.bool tensor).
@@ -26,17 +27,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "gj_common.cuh"
 
-// (s, r) beats (best_s, best_r): larger score, ties to the lower row, and
-// NaN above everything, as torch.argmax and jnp.argmax rank it (a NaN
-// pivot then fails the |pivot|^2 >= eps^2 test and flags the system).
-template <typename T>
-__device__ __forceinline__ bool better(T s, int r, T best_s, int best_r) {
-  bool s_nan = s != s, b_nan = best_s != best_s;
-  if (s_nan || b_nan) return s_nan && (!b_nan || r < best_r);
-  return s > best_s || (s == best_s && r < best_r);
-}
+namespace {
 
 template <typename T>
 __global__ void gj_complex_kernel(const T* __restrict__ A_re,
@@ -53,9 +46,7 @@ __global__ void gj_complex_kernel(const T* __restrict__ A_re,
   const int w = n + 1;
   const int nw = n * w;
 
-  // shared layout: [planes (smem route only)] prow_r, prow_i (w each),
-  // f_r, f_i (n each), red_s (32), piv (4), then ints: red_r (32),
-  // perm (n), used (n), pivot_row, ok_all
+  // shared layout: [planes (smem route only)] then block_gj's scratch
   T* base = reinterpret_cast<T*>(smem_raw);
   T *ar, *ai;
   if (workspace == nullptr) {
@@ -66,17 +57,7 @@ __global__ void gj_complex_kernel(const T* __restrict__ A_re,
     ar = workspace + (size_t)sys * 2 * nw;
     ai = ar + nw;
   }
-  T* prow_r = base;
-  T* prow_i = prow_r + w;
-  T* f_r = prow_i + w;
-  T* f_i = f_r + n;
-  T* red_s = f_i + n;
-  T* piv = red_s + 32;  // pvr, pvi, inv_d
-  int* red_r = reinterpret_cast<int*>(piv + 4);
-  int* perm = red_r + 32;
-  int* used = perm + n;
-  int* pivot_row = used + n;
-  int* ok_all = pivot_row + 1;
+  const gj::BlockScratch<T, 2> s = gj::carve<T, 2>(base, n, w);
 
   const T* Ar0 = A_re + (size_t)sys * n * n;
   const T* Ai0 = A_im + (size_t)sys * n * n;
@@ -85,84 +66,19 @@ __global__ void gj_complex_kernel(const T* __restrict__ A_re,
     ar[idx] = j < n ? Ar0[i * n + j] : b_re[(size_t)sys * n + i];
     ai[idx] = j < n ? Ai0[i * n + j] : b_im[(size_t)sys * n + i];
   }
-  for (int i = tid; i < n; i += nt) used[i] = 0;
-  if (tid == 0) *ok_all = 1;
-  __syncthreads();
-
-  const int lane = tid & 31, warp = tid >> 5, nwarps = (nt + 31) >> 5;
-  for (int k = 0; k < n; ++k) {
-    // pivot search: per-thread best over its rows (ascending, so a strict
-    // > keeps the lowest row on ties), then warp and block reductions
-    T best_s = T(-2);
-    int best_r = n;
-    for (int i = tid; i < n; i += nt) {
-      T cr = ar[i * w + k], ci = ai[i * w + k];
-      T s = used[i] ? T(-1) : cr * cr + ci * ci;
-      if (better(s, i, best_s, best_r)) { best_s = s; best_r = i; }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      T os = __shfl_down_sync(0xffffffffu, best_s, off);
-      int orow = __shfl_down_sync(0xffffffffu, best_r, off);
-      if (better(os, orow, best_s, best_r)) { best_s = os; best_r = orow; }
-    }
-    if (lane == 0) { red_s[warp] = best_s; red_r[warp] = best_r; }
-    __syncthreads();
-    if (tid == 0) {
-      T bs = red_s[0];
-      int br = red_r[0];
-      for (int q = 1; q < nwarps; ++q)
-        if (better(red_s[q], red_r[q], bs, br)) { bs = red_s[q]; br = red_r[q]; }
-      T pvr = ar[br * w + k], pvi = ai[br * w + k];
-      T d = pvr * pvr + pvi * pvi;
-      bool ok = d >= eps2;
-      if (!ok) *ok_all = 0;
-      piv[0] = pvr;
-      piv[1] = pvi;
-      piv[2] = T(1) / (ok ? d : T(1));
-      *pivot_row = br;
-      used[br] = 1;
-      perm[k] = br;
-    }
-    __syncthreads();
-    const int p = *pivot_row;
-    const T pvr = piv[0], pvi = piv[1], inv_d = piv[2];
-    for (int j = tid; j < w; j += nt) {
-      T prr = ar[p * w + j], pri = ai[p * w + j];
-      prow_r[j] = (prr * pvr + pri * pvi) * inv_d;
-      prow_i[j] = (pri * pvr - prr * pvi) * inv_d;
-    }
-    for (int i = tid; i < n; i += nt) {
-      f_r[i] = i == p ? T(0) : ar[i * w + k];
-      f_i[i] = i == p ? T(0) : ai[i * w + k];
-    }
-    __syncthreads();
-    for (int idx = tid; idx < nw; idx += nt) {
-      int i = idx / w, j = idx - i * w;
-      if (i == p) {
-        ar[idx] = prow_r[j];
-        ai[idx] = prow_i[j];
-      } else {
-        T fr = f_r[i], fi = f_i[i];
-        ar[idx] = ar[idx] - (fr * prow_r[j] - fi * prow_i[j]);
-        ai[idx] = ai[idx] - (fr * prow_i[j] + fi * prow_r[j]);
-      }
-    }
-    __syncthreads();
-  }
+  T* const planes[2] = {ar, ai};
+  gj::block_gj<T, 2>(planes, n, w, eps2, s);
   // pivot row perm[k] carries x[k] in its RHS entry
   for (int k = tid; k < n; k += nt) {
-    x_re[(size_t)sys * n + k] = ar[perm[k] * w + n];
-    x_im[(size_t)sys * n + k] = ai[perm[k] * w + n];
+    x_re[(size_t)sys * n + k] = ar[s.perm[k] * w + n];
+    x_im[(size_t)sys * n + k] = ai[s.perm[k] * w + n];
   }
-  if (tid == 0) valid_out[sys] = (uint8_t)(*ok_all);
+  if (tid == 0) valid_out[sys] = (uint8_t)(*s.ok_all);
 }
 
 template <typename T>
 size_t smem_bytes(int n, bool planes_in_smem) {
-  size_t w = n + 1;
-  size_t t_count = 2 * w + 2 * n + 32 + 4;
-  if (planes_in_smem) t_count += 2 * (size_t)n * w;
-  return t_count * sizeof(T) + (32 + 2 * (size_t)n + 2) * sizeof(int);
+  return gj::block_smem_bytes<T, 2>(n, n + 1, planes_in_smem);
 }
 
 template <typename T>

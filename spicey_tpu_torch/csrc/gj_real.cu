@@ -1,0 +1,233 @@
+// K2 and K3: batched real Gauss-Jordan solve and inverse.
+//
+// K2 replaces the TPU kernel spicey_tpu/ops/pallas_gj.py:_gj_real_kernel
+// (pallas_call in _solve_real_f32): A x = b for a batch of (N, N) systems.
+// K3 replaces _gj_inv_real_kernel (pallas_call in _inverse_real_f32,
+// loop _real_inv_scratch): the reduction of [A | I], here written out as
+// the TRUE inverse (the TPU kernel returns the row-permuted M and the
+// pivot map; this kernel un-permutes before it writes). The plain
+// versions are spicey_tpu_torch/ops/linsolve.py:gj_solve and gj_inverse:
+// pivot = the unused row with the largest |a|, ties to the lowest row,
+// NaN highest; invalid when |pivot| < eps, eliminating on through an
+// invalid pivot with a unit divisor. Both run in float and double: Hopper
+// has native f64, so the f64 instance replaces the TPU's f32 kernel plus
+// refinement outside it.
+//
+// Layout: batch-first A (B, N, N), b (B, N) -> x (B, N) [K2] or
+// Ainv (B, N, N) [K3], valid (B,) as bytes (a torch.bool tensor).
+//
+// What bounds it on the H100: the systems are read once and the answers
+// written once (a few bytes per flop at N = 3..6, where the transient
+// main path runs it), while the elimination is 2N^2(N+1) [K2] or 4N^3
+// [K3] flops from on-chip memory. Two routes:
+//   - N <= 16 (gj::THREAD_MAX_N): one THREAD per system, the augmented
+//     system in shared memory with the system index fastest (conflict-free
+//     warp accesses, no barriers in the elimination), as kernel K5 does.
+//     The block's systems are contiguous in A, so they are loaded with
+//     coalesced reads and scattered into that layout. This is the shape of
+//     the Newton passes (B = 1..1e5, N = 3..7) and of the factor-once
+//     inverse (B up to 1e6, N = 3).
+//   - N > 16: one BLOCK per system (gj::block_gj, the elimination of K1 on
+//     real elements), planes in dynamic shared memory up to the 227 KB a
+//     block may hold and in a global workspace the wrapper allocates above
+//     that (K3 at N = 128 in f64: [A | I] is 256 KB).
+// Several systems per block at mid N and register tiling are later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "gj_common.cuh"
+
+namespace {
+
+constexpr size_t SMEM_TARGET = 112 * 1024;  // two blocks share an SM
+
+// augmented width: [A | b] or [A | I]
+__host__ __device__ inline int width(int n, bool inv) {
+  return inv ? 2 * n : n + 1;
+}
+
+template <typename T, bool INV>
+__global__ void gj_real_thread_kernel(const T* __restrict__ A,
+                                      const T* __restrict__ b,
+                                      T* __restrict__ out,
+                                      uint8_t* __restrict__ valid, int B,
+                                      int n, T eps) {
+  extern __shared__ unsigned char smem_raw[];
+  const int tpb = blockDim.x, t = threadIdx.x;
+  const long long first = (long long)blockIdx.x * tpb;
+  const int nsys = (int)min((long long)tpb, (long long)B - first);
+  const int w = width(n, INV);
+  const int nn = n * n;
+  T* S = reinterpret_cast<T*>(smem_raw);  // element q of system s: S[q*tpb+s]
+
+  // coalesced loads of the block's contiguous systems
+  const T* A0 = A + first * nn;
+  for (int idx = t; idx < nsys * nn; idx += tpb) {
+    const int s = idx / nn, q = idx - s * nn;
+    const int i = q / n, j = q - i * n;
+    S[(size_t)(i * w + j) * tpb + s] = A0[idx];
+  }
+  if (INV) {
+    for (int idx = t; idx < nsys * nn; idx += tpb) {
+      const int s = idx / nn, q = idx - s * nn;
+      const int i = q / n, j = q - i * n;
+      S[(size_t)(i * w + n + j) * tpb + s] = i == j ? T(1) : T(0);
+    }
+  } else {
+    const T* b0 = b + first * n;
+    for (int idx = t; idx < nsys * n; idx += tpb) {
+      const int s = idx / n, i = idx - s * n;
+      S[(size_t)(i * w + n) * tpb + s] = b0[idx];
+    }
+  }
+  __syncthreads();
+  if (t >= nsys) return;  // no barrier below
+
+  T* const a[1] = {S + t};
+  uint64_t perm;
+  const bool ok = gj::thread_gj<T, 1>(a, tpb, n, w, eps, perm);
+  const long long sys = first + t;
+  // pivot row perm[k] carries row k of the answer in its right block
+  for (int k = 0; k < n; ++k) {
+    const T* row = a[0] + (size_t)(gj::perm_at(perm, k) * w + n) * tpb;
+    if (INV) {
+      for (int j = 0; j < n; ++j)
+        out[sys * nn + k * n + j] = row[(size_t)j * tpb];
+    } else {
+      out[sys * n + k] = row[0];
+    }
+  }
+  valid[sys] = ok ? 1 : 0;
+}
+
+template <typename T, bool INV>
+__global__ void gj_real_block_kernel(const T* __restrict__ A,
+                                     const T* __restrict__ b,
+                                     T* __restrict__ out,
+                                     uint8_t* __restrict__ valid,
+                                     T* __restrict__ workspace, int n, T eps) {
+  extern __shared__ unsigned char smem_raw[];
+  const long long sys = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int w = width(n, INV);
+  const int nw = n * w;
+  const int nn = n * n;
+  T* base = reinterpret_cast<T*>(smem_raw);
+  T* a0;
+  if (workspace == nullptr) {
+    a0 = base;
+    base += nw;
+  } else {
+    a0 = workspace + sys * nw;
+  }
+  const gj::BlockScratch<T, 1> s = gj::carve<T, 1>(base, n, w);
+  const T* As = A + sys * nn;
+  for (int idx = tid; idx < nw; idx += nt) {
+    const int i = idx / w, j = idx - i * w;
+    if (j < n)
+      a0[idx] = As[i * n + j];
+    else if (INV)
+      a0[idx] = j - n == i ? T(1) : T(0);
+    else
+      a0[idx] = b[sys * n + i];
+  }
+  T* const planes[1] = {a0};
+  gj::block_gj<T, 1>(planes, n, w, eps, s);
+  if (INV) {
+    for (int idx = tid; idx < nn; idx += nt) {
+      const int k = idx / n, j = idx - k * n;
+      out[sys * nn + idx] = a0[s.perm[k] * w + n + j];
+    }
+  } else {
+    for (int k = tid; k < n; k += nt) out[sys * n + k] = a0[s.perm[k] * w + n];
+  }
+  if (tid == 0) valid[sys] = (uint8_t)(*s.ok_all);
+}
+
+template <typename T>
+size_t block_smem(int n, bool inv, bool planes_in_smem) {
+  return gj::block_smem_bytes<T, 1>(n, width(n, inv), planes_in_smem);
+}
+
+template <typename T, bool INV>
+int launch(const void* A, const void* b, void* out, void* valid,
+           void* workspace, int batch, int n, double eps, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  if (n <= gj::THREAD_MAX_N) {
+    const size_t per_sys = (size_t)n * width(n, INV) * sizeof(T);
+    int tpb = 256;
+    while (tpb > 32 && tpb * per_sys > SMEM_TARGET) tpb >>= 1;
+    const size_t smem = tpb * per_sys;
+    if (smem > gj::SMEM_MAX) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        gj_real_thread_kernel<T, INV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (batch > 0) {
+      const int blocks = (int)(((long long)batch + tpb - 1) / tpb);
+      gj_real_thread_kernel<T, INV><<<blocks, tpb, smem,
+                                      (cudaStream_t)stream>>>(
+          (const T*)A, (const T*)b, (T*)out, (uint8_t*)valid, batch, n,
+          (T)eps);
+    }
+    return (int)cudaGetLastError();
+  }
+  const int threads = n <= 24 ? 128 : 256;
+  const size_t smem = block_smem<T>(n, INV, workspace == nullptr);
+  if (smem > gj::SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gj_real_block_kernel<T, INV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (batch > 0) {
+    gj_real_block_kernel<T, INV><<<batch, threads, smem,
+                                   (cudaStream_t)stream>>>(
+        (const T*)A, (const T*)b, (T*)out, (uint8_t*)valid, (T*)workspace,
+        n, (T)eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// 1 when the block route's planes do not fit in shared memory, so the
+// wrapper must pass a global workspace of (B, N, width) elements.
+int gj_real_needs_workspace(int n, int inv, int is_double) {
+  if (n <= gj::THREAD_MAX_N) return 0;
+  const size_t bytes = is_double ? block_smem<double>(n, inv, true)
+                                 : block_smem<float>(n, inv, true);
+  return bytes > gj::SMEM_MAX ? 1 : 0;
+}
+
+int gj_real_solve_f32(const void* A, const void* b, void* x, void* valid,
+                      void* workspace, int batch, int n, double eps,
+                      void* stream) {
+  return launch<float, false>(A, b, x, valid, workspace, batch, n, eps,
+                              stream);
+}
+
+int gj_real_solve_f64(const void* A, const void* b, void* x, void* valid,
+                      void* workspace, int batch, int n, double eps,
+                      void* stream) {
+  return launch<double, false>(A, b, x, valid, workspace, batch, n, eps,
+                               stream);
+}
+
+int gj_real_inverse_f32(const void* A, void* inv, void* valid,
+                        void* workspace, int batch, int n, double eps,
+                        void* stream) {
+  return launch<float, true>(A, nullptr, inv, valid, workspace, batch, n,
+                             eps, stream);
+}
+
+int gj_real_inverse_f64(const void* A, void* inv, void* valid,
+                        void* workspace, int batch, int n, double eps,
+                        void* stream) {
+  return launch<double, true>(A, nullptr, inv, valid, workspace, batch, n,
+                              eps, stream);
+}
+
+}  // extern "C"

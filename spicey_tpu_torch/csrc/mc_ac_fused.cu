@@ -9,9 +9,9 @@
 // For variant b and frequency f, the thread builds the augmented (N, N+1)
 // complex planes from the stamp pattern (flat tables, read at run time so
 // one build serves every deck) and the values column values[:, b], runs
-// the complex one-hot-pivot Gauss-Jordan (largest |a|^2 among unused rows,
-// ties to the lowest row; invalid when |pivot|^2 < eps^2), and writes
-// only |x[node]| and valid to mag[f, b], valid[f, b].
+// the complex one-hot-pivot Gauss-Jordan (gj_common.cuh:thread_gj: largest
+// |a|^2 among unused rows, ties to the lowest row; invalid when |pivot|^2
+// < eps^2), and writes only |x[node]| and valid to mag[f, b], valid[f, b].
 //
 // What bounds it on the H100: the inputs are the (n_rows, B) values and
 // the outputs two (F, B) planes, a few bytes per system, while the
@@ -29,21 +29,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gj_common.cuh"
+
 namespace {
 
 constexpr int KIND_ONE = 0, KIND_INV = 1, KIND_LIN = 2, KIND_W = 3,
               KIND_WINV = 4;
 constexpr size_t SMEM_TARGET = 112 * 1024;
-constexpr size_t SMEM_MAX = 232448;  // opt-in maximum of one block
-
-// larger score wins, ties to the lower row, NaN above everything (as
-// torch.argmax and jnp.argmax rank it)
-template <typename T>
-__device__ __forceinline__ bool better(T s, int r, T best_s, int best_r) {
-  bool s_nan = s != s, b_nan = best_s != best_s;
-  if (s_nan || b_nan) return s_nan && (!b_nan || r < best_r);
-  return s > best_s || (s == best_s && r < best_r);
-}
 
 template <typename T>
 __device__ __forceinline__ T term_value(int kind, T sign, T v, T w, T eps) {
@@ -90,46 +82,14 @@ __global__ void mc_ac_fused_kernel(
     P[(size_t)pos * tpb] = acc;
   }
 
-  T* R = P;                    // real plane
-  T* I = P + (size_t)nw * tpb; // imaginary plane
-  uint32_t used = 0;
-  bool ok_all = true;
-  int node_row = 0;
-  for (int k = 0; k < n; ++k) {
-    T best_s = T(-2);
-    int p = 0;
-    for (int i = 0; i < n; ++i) {
-      const T cr = R[(i * w1 + k) * tpb], ci = I[(i * w1 + k) * tpb];
-      const T s = (used >> i) & 1u ? T(-1) : cr * cr + ci * ci;
-      if (better(s, i, best_s, p)) { best_s = s; p = i; }
-    }
-    const T pvr = R[(p * w1 + k) * tpb], pvi = I[(p * w1 + k) * tpb];
-    const T d = pvr * pvr + pvi * pvi;
-    const bool ok = d >= eps2;
-    ok_all = ok_all && ok;
-    const T inv_d = T(1) / (ok ? d : T(1));
-    used |= 1u << p;
-    if (k == node_idx) node_row = p;
-    // normalize the pivot row in place, then eliminate column k from
-    // every other row with it (the same values the plain version forms)
-    for (int j = 0; j < w1; ++j) {
-      const T prr = R[(p * w1 + j) * tpb], pri = I[(p * w1 + j) * tpb];
-      R[(p * w1 + j) * tpb] = (prr * pvr + pri * pvi) * inv_d;
-      I[(p * w1 + j) * tpb] = (pri * pvr - prr * pvi) * inv_d;
-    }
-    for (int i = 0; i < n; ++i) {
-      if (i == p) continue;
-      const T fr = R[(i * w1 + k) * tpb], fi = I[(i * w1 + k) * tpb];
-      for (int j = 0; j < w1; ++j) {
-        const T qr = R[(p * w1 + j) * tpb], qi = I[(p * w1 + j) * tpb];
-        R[(i * w1 + j) * tpb] = R[(i * w1 + j) * tpb] - (fr * qr - fi * qi);
-        I[(i * w1 + j) * tpb] = I[(i * w1 + j) * tpb] - (fr * qi + fi * qr);
-      }
-    }
-  }
-  const T xr = R[(node_row * w1 + n) * tpb], xi = I[(node_row * w1 + n) * tpb];
+  T* const planes[2] = {P, P + (size_t)nw * tpb};  // real, imaginary
+  uint64_t perm;
+  const bool ok = gj::thread_gj<T, 2>(planes, tpb, n, w1, eps2, perm);
+  // pivot row perm[node] carries x[node] in its RHS entry
+  const size_t q = (size_t)(gj::perm_at(perm, node_idx) * w1 + n) * tpb;
+  const T xr = planes[0][q], xi = planes[1][q];
   mag[(size_t)f * B + b] = sqrt(xr * xr + xi * xi);
-  valid[(size_t)f * B + b] = ok_all ? 1 : 0;
+  valid[(size_t)f * B + b] = ok ? 1 : 0;
 }
 
 template <typename T>
@@ -137,12 +97,12 @@ int launch(const void* freqs, const void* values, int F, int B,
            const void* ent, int n_ent, const void* terms, const void* zeros,
            int n_zero, int n, int node_idx, double eps, void* mag,
            void* valid, void* stream) {
-  if (n < 1 || n > 32) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > gj::THREAD_MAX_N) return (int)cudaErrorInvalidValue;
   const size_t per_sys = 2 * (size_t)n * (n + 1) * sizeof(T);
   int tpb = 256;
   while (tpb > 32 && tpb * per_sys > SMEM_TARGET) tpb >>= 1;
   const size_t smem = tpb * per_sys;
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (smem > gj::SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       mc_ac_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

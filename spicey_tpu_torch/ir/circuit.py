@@ -579,3 +579,44 @@ def from_jax_tensors(t: object) -> CircuitTensors:
             f"only here {sorted(set(mine) - set(theirs))}, "
             f"only there {sorted(set(theirs) - set(mine))}")
     return CircuitTensors(**{n: getattr(t, n) for n in mine})
+
+
+def nl_arrays(tensors: CircuitTensors, device: torch.device | str,
+              dtype: torch.dtype = torch.float64) -> dict:
+    """The nonlinear-device arrays the transient reads, reduced to what
+    the switch/diode path needs: the thermal voltage at the circuit's
+    .temp, which scales the diode's linearization clamp window
+    (``vd in [-1.0, 0.8] * vt / VT_300K``). The MOSFET/BJT rows of the
+    JAX package's ``nl_arrays`` come with those devices (ROADMAP §1 item
+    3)."""
+    return {"vt": torch.as_tensor(tensors.vt, dtype=dtype, device=device)}
+
+
+def sample_source_values(ckt: ParsedCircuit, times: np.ndarray) -> np.ndarray:
+    """Every independent-source value over the whole time grid.
+
+    Mirrors ``vs.waveform ? vs.waveform(t) : vs.dc || 0``
+    (spicey/lib/analysis/simulateTRAN.ts:66-69), vectorized so the time
+    loop indexes a (steps+1, nV+nI) array instead of calling Python.
+    Columns are V sources first, then extended-dialect I sources.
+    """
+    times = np.asarray(times, dtype=np.float64)
+    cols = []
+    for src in list(ckt.V) + list(ckt.I):
+        if src.waveform is not None:
+            cols.append(src.waveform.sample(times))
+        else:
+            cols.append(np.full(times.shape, _or0(src.dc), dtype=np.float64))
+    if not cols:
+        return np.zeros((times.shape[0], 0), dtype=np.float64)
+    return np.stack(cols, axis=1)
+
+
+def effective_time_step(dt_requested: float, tstop: float) -> tuple[float, int]:
+    """Timestep policy (spicey/lib/analysis/simulateTRAN.ts:14-19)."""
+    from ..constants import EPS
+
+    dt_eff = dt_requested if dt_requested > EPS else max(tstop / 1000.0, EPS)
+    steps = max(1, math.ceil(tstop / max(dt_eff, EPS)))
+    dt = tstop / steps if steps > 0 else tstop
+    return dt, steps

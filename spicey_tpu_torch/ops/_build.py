@@ -32,6 +32,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spicey_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+# opt-in shared memory of one H100 block (227 KB), gj_common.cuh:SMEM_MAX
+SMEM_MAX = 232_448
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILD_S: dict[str, float] = {}
 
@@ -65,6 +68,47 @@ def build_seconds() -> dict[str, float]:
     return dict(_BUILD_S)
 
 
+def _target(name: str) -> tuple[Path, Path]:
+    """The source of ``name`` and the library it builds into; the hash
+    covers the source, the shared headers and the flags."""
+    src = _CSRC / f"{name}.cu"
+    text = src.read_bytes()
+    for dep in sorted(_CSRC.glob("*.cuh")):
+        text += dep.read_bytes()
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return src, BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(names: list[str]) -> None:
+    """Compile every library of ``names`` not built yet, one nvcc process
+    per source, all started together; raise if any fails. Each compiles
+    to a private name and is renamed when done, so a concurrent process
+    never loads a half-written library."""
+    jobs = []
+    for name in names:
+        src, out = _target(name)
+        if out.is_file():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        jobs.append((name, src, out, tmp, time.perf_counter(),
+                     subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for name, src, out, tmp, t0, proc in jobs:
+        _out, err = proc.communicate()
+        _BUILD_S[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc failed on {src.name}:\n{err}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def load(name: str, signatures: dict[str, tuple[list, object]]
          ) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library,
@@ -73,31 +117,14 @@ def load(name: str, signatures: dict[str, tuple[list, object]]
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    src = _CSRC / f"{name}.cu"
-    text = src.read_bytes()
-    for dep in sorted(_CSRC.glob("*.cuh")):
-        text += dep.read_bytes()
-    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"lib{name}-{digest[:12]}.so"
     t0 = time.perf_counter()
-    if not out.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # compile to a private name, then rename: a concurrent process
-        # never loads a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    build([name])
+    lib = ctypes.CDLL(str(_target(name)[1]))
     for fn_name, (argtypes, restype) in signatures.items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = restype
-    _BUILD_S[name] = time.perf_counter() - t0
+    _BUILD_S.setdefault(name, time.perf_counter() - t0)
     _LIBS[name] = lib
     return lib
 

@@ -14,10 +14,9 @@ import ctypes
 import torch
 
 from ..constants import EPS
-from ._build import Kernel, check, load, ptr, stream_ptr
+from ._build import SMEM_MAX, Kernel, check, load, ptr, stream_ptr
 
 MAX_N = 128  # the JAX dense tiers stop here; larger systems go to Schur
-_SMEM_MAX = 232_448  # opt-in shared memory of one H100 block (227 KB)
 
 # one launch counter per instantiation
 K1 = {dt: Kernel(name=f"gj_complex_{tag}",
@@ -71,7 +70,7 @@ def gj_solve_planes_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
     x_im = torch.empty_like(x_re)
     valid = torch.empty((nb,), dtype=torch.bool, device=A_re.device)
     ws = None
-    if lib.gj_complex_smem_bytes(n, int(dbl)) > _SMEM_MAX:
+    if lib.gj_complex_smem_bytes(n, int(dbl)) > SMEM_MAX:
         # the f64 planes near N=128 overflow shared memory: eliminate in
         # place in a global workspace instead
         ws = torch.empty((nb, 2, n, n + 1), dtype=A_re.dtype,

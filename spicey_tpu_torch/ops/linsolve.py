@@ -1,4 +1,4 @@
-"""Batched complex Gauss-Jordan solves on (re, im) planes.
+"""Batched Gauss-Jordan solves: complex on (re, im) planes, and real.
 
 The reference solves each system with scalar Gaussian elimination + partial
 pivoting (spicey/lib/math/solveComplex.ts:4-74), throwing on |pivot| < EPS.
@@ -14,9 +14,20 @@ ties to the lowest row (``torch.argmax`` returns the first maximum, as
 continues through an invalid pivot with a unit divisor so shapes and
 control flow never depend on the data.
 
-``solve_planes`` dispatches by the tensor's device: a CUDA tensor always
-launches K1 (the instantiation follows the dtype), a CPU tensor runs the
-plain version. There is no other branch.
+``gj_solve`` and ``gj_inverse`` are the real counterparts (the plain
+versions of kernels K2 and K3, ops/gj_real.py, csrc/gj_real.cu), ports
+of ``spicey_tpu/ops/linsolve.py:gj_solve`` batch-first: pivot = the
+unused row with the largest |a|, ties to the lowest row, invalid when
+|pivot| < EPS, a unit divisor on an invalid pivot. ``gj_inverse`` reduces
+[A | I] with the same pivot order, so column j of its inverse is
+``gj_solve(A, e_j)``, the JAX package's ``inv_of`` (analysis/tran.py).
+
+``solve_planes``, ``solve`` and ``inverse`` dispatch by the tensor's
+device: a CUDA tensor always launches the kernel (the instantiation
+follows the dtype), a CPU tensor runs the plain version. There is no
+other branch. The JAX package's f32-kernel-plus-f64-refinement wrapper
+(``pallas_gj.py:562-640``) has no counterpart: the card solves f64
+natively.
 """
 
 from __future__ import annotations
@@ -95,9 +106,7 @@ def solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
     the same elimination here, and the device picks the implementation:
     K1 on a CUDA tensor, in the tensor's precision; the plain version on
     the CPU."""
-    if method not in ("gj", "pallas"):
-        raise ValueError(f"unknown solve method {method!r} "
-                         "(this package has 'gj' and 'pallas')")
+    _check_method(method)
     if A_re.is_cuda:
         from .gj import gj_solve_planes_cuda
 
@@ -111,3 +120,105 @@ def solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
         return (xr.reshape(lead + (n,)), xi.reshape(lead + (n,)),
                 valid.reshape(lead))
     return gj_solve_planes(A_re, A_im, b_re, b_im, eps=eps)
+
+
+def _gj_real(Ab: torch.Tensor, n: int, eps: float
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reduce the batch of real augmented systems Ab (nb, n, w) in place of
+    a copy. Returns (reduced Ab, perm (nb, n), valid (nb,)); pivot row
+    perm[k] carries row k of the answer in its right block."""
+    nb, _, w = Ab.shape
+    dev, dtype = Ab.device, Ab.dtype
+    used = torch.zeros((nb, n), dtype=torch.bool, device=dev)
+    perm = torch.zeros((nb, n), dtype=torch.int64, device=dev)
+    valid = torch.ones((nb,), dtype=torch.bool, device=dev)
+    rows = torch.arange(n, device=dev)
+    neg_one = torch.tensor(-1.0, dtype=dtype, device=dev)
+    zero = torch.tensor(0.0, dtype=dtype, device=dev)
+    one = torch.tensor(1.0, dtype=dtype, device=dev)
+    for k in range(n):
+        col = Ab[:, :, k]
+        score = torch.where(used, neg_one, col.abs())
+        p = torch.argmax(score, dim=1)                       # (nb,)
+        onehot = rows[None, :] == p[:, None]                 # (nb, n)
+        pv = col.gather(1, p[:, None])[:, 0]
+        ok = pv.abs() >= eps  # the reference threshold
+        valid = valid & ok
+        safe = torch.where(ok, pv, one)[:, None]
+        prow = Ab.gather(1, p[:, None, None].expand(nb, 1, w))[:, 0, :]
+        prow = prow / safe                                    # (nb, w)
+        factor = torch.where(onehot, zero, col)[:, :, None]
+        Ab = Ab - factor * prow[:, None, :]
+        Ab = torch.where(onehot[:, :, None], prow[:, None, :], Ab)
+        used = used | onehot
+        perm[:, k] = p
+    return Ab, perm, valid
+
+
+def gj_solve(A: torch.Tensor, b: torch.Tensor, eps: float = EPS
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Real Gauss-Jordan with |pivot| pivoting, batched (plain K2).
+
+    A: (..., N, N); b: (..., N). Returns (x, valid) shaped (..., N) and
+    (...). Works on copies; the inputs are unchanged."""
+    lead = A.shape[:-2]
+    n = A.shape[-1]
+    Ab = torch.cat([A, b[..., None]], dim=-1).reshape(-1, n, n + 1)
+    Ab, perm, valid = _gj_real(Ab, n, eps)
+    x = Ab[:, :, n].gather(1, perm)
+    return x.reshape(lead + (n,)), valid.reshape(lead)
+
+
+def gj_inverse(A: torch.Tensor, eps: float = EPS
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The true inverse by reducing [A | I], batched (plain K3).
+
+    A: (..., N, N). Returns (Ainv (..., N, N), valid (...))."""
+    lead = A.shape[:-2]
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    A2 = A.reshape(-1, n, n)
+    Ab = torch.cat([A2, eye.expand(A2.shape[0], n, n)], dim=-1)
+    Ab, perm, valid = _gj_real(Ab, n, eps)
+    inv = Ab[:, :, n:].gather(1, perm[:, :, None].expand(-1, -1, n))
+    return inv.reshape(lead + (n, n)), valid.reshape(lead)
+
+
+def _check_method(method: str) -> None:
+    if method not in ("gj", "pallas"):
+        raise ValueError(f"unknown solve method {method!r} "
+                         "(this package has 'gj' and 'pallas')")
+
+
+def solve(A: torch.Tensor, b: torch.Tensor, method: str = "gj",
+          eps: float = EPS) -> tuple[torch.Tensor, torch.Tensor]:
+    """Real solve with method dispatch. A: (..., N, N); b: (..., N).
+
+    "gj" and "pallas" keep the JAX package's names and name the same
+    elimination here: K2 on a CUDA tensor, in the tensor's precision; the
+    plain ``gj_solve`` on the CPU."""
+    _check_method(method)
+    if A.is_cuda:
+        from .gj_real import gj_solve_cuda
+
+        lead = A.shape[:-2]
+        n = A.shape[-1]
+        x, valid = gj_solve_cuda(A.reshape(-1, n, n).contiguous(),
+                                 b.reshape(-1, n).contiguous(), eps=eps)
+        return x.reshape(lead + (n,)), valid.reshape(lead)
+    return gj_solve(A, b, eps=eps)
+
+
+def inverse(A: torch.Tensor, eps: float = EPS
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The true inverse of a batch: K3 on a CUDA tensor, the plain
+    ``gj_inverse`` on the CPU. A: (..., N, N)."""
+    if A.is_cuda:
+        from .gj_real import gj_inverse_cuda
+
+        lead = A.shape[:-2]
+        n = A.shape[-1]
+        inv, valid = gj_inverse_cuda(A.reshape(-1, n, n).contiguous(),
+                                     eps=eps)
+        return inv.reshape(lead + (n, n)), valid.reshape(lead)
+    return gj_inverse(A, eps=eps)

@@ -171,27 +171,40 @@ class PackedPattern:
     zeros: torch.Tensor
 
 
-def pack_pattern(pattern: tuple, n: int,
-                 device: torch.device | str) -> PackedPattern:
-    n_rows, re_entries, im_entries = pattern
-    nw = n * (n + 1)
+def pack_entries(planes: tuple, n: int, width: int,
+                 device: torch.device | str) -> tuple:
+    """Flatten per-plane entry lists ((i, j), ((kind, row, sign), ...))
+    into int32 tables: ``ent`` [position, first term, end term] with
+    position ``plane * n*width + i*width + j``, ``terms`` [kind, row,
+    sign], and ``zeros``, every position of the planes no entry writes.
+    Shared by K5's and K8's patterns (ops/mc_tran_fused.py)."""
+    nw = n * width
     ent, terms, written = [], [], set()
-    for plane, entries in ((0, re_entries), (1, im_entries)):
+    for plane, entries in enumerate(planes):
         for (i, j), ts in entries:
-            pos = plane * nw + i * (n + 1) + j
+            pos = plane * nw + i * width + j
             ent.append((pos, len(terms), len(terms) + len(ts)))
             terms.extend((KINDS[kind], row, int(sign))
                          for kind, row, sign in ts)
             written.add(pos)
-    zeros = [p for p in range(2 * nw) if p not in written]
+    zeros = [p for p in range(len(planes) * nw) if p not in written]
+    return (int32_table(ent, 3, device), int32_table(terms, 3, device),
+            int32_table(zeros, 1, device).reshape(-1))
 
-    def table(rows: list, width: int) -> torch.Tensor:
-        a = np.asarray(rows, np.int32).reshape(-1, width)
-        return torch.as_tensor(a, device=device)
 
-    return PackedPattern(n=n, n_rows=int(n_rows), ent=table(ent, 3),
-                         terms=table(terms, 3),
-                         zeros=table(zeros, 1).reshape(-1))
+def int32_table(rows: list, width: int,
+                device: torch.device | str) -> torch.Tensor:
+    a = np.asarray(rows, np.int32).reshape(-1, width)
+    return torch.as_tensor(a, device=device)
+
+
+def pack_pattern(pattern: tuple, n: int,
+                 device: torch.device | str) -> PackedPattern:
+    n_rows, re_entries, im_entries = pattern
+    ent, terms, zeros = pack_entries((re_entries, im_entries), n, n + 1,
+                                     device)
+    return PackedPattern(n=n, n_rows=int(n_rows), ent=ent, terms=terms,
+                         zeros=zeros)
 
 
 def combine_values(r_vals: torch.Tensor, c_vals: torch.Tensor,

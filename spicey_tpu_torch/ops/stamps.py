@@ -25,14 +25,24 @@ from __future__ import annotations
 import torch
 
 
+def _source(y: torch.Tensor | float, like: torch.Tensor) -> torch.Tensor:
+    """``y`` as a tensor of ``like``'s dtype and device. A Python constant
+    becomes a fill on the device: ``torch.as_tensor`` of a float copies it
+    from pageable host memory, a stream sync per stamp on the card."""
+    if isinstance(y, torch.Tensor):
+        return y.to(like.dtype)
+    return torch.full((), y, dtype=like.dtype, device=like.device)
+
+
 def _add(A_pad: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
          y: torch.Tensor | float) -> torch.Tensor:
     """A_pad[..., i[e], j[e]] += y[..., e] for every element e."""
+    if i.shape[0] == 0:  # no element of this kind: no launch
+        return A_pad
     n1 = A_pad.shape[-1]
     lead = A_pad.shape[:-2]
     flat = A_pad.view(*lead, n1 * n1)
-    src = torch.as_tensor(y, dtype=A_pad.dtype, device=A_pad.device)
-    src = src.expand(*lead, i.shape[0])
+    src = _source(y, A_pad).expand(*lead, i.shape[0])
     flat.index_add_(-1, i * n1 + j, src)
     return A_pad
 
@@ -40,9 +50,17 @@ def _add(A_pad: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
 def _add_vec(b_pad: torch.Tensor, i: torch.Tensor,
              y: torch.Tensor | float) -> torch.Tensor:
     """b_pad[..., i[e]] += y[..., e] for every element e."""
-    src = torch.as_tensor(y, dtype=b_pad.dtype, device=b_pad.device)
-    b_pad.index_add_(-1, i, src.expand(*b_pad.shape[:-1], i.shape[0]))
+    if i.shape[0] == 0:
+        return b_pad
+    b_pad.index_add_(-1, i, _source(y, b_pad).expand(*b_pad.shape[:-1],
+                                                      i.shape[0]))
     return b_pad
+
+
+def pad_solution(x: torch.Tensor, nvar: int) -> torch.Tensor:
+    """Append the ground slot (0) at index ``nvar``: (..., nvar) ->
+    (..., nvar+1), so index arrays holding the dump slot gather 0."""
+    return torch.cat([x, x.new_zeros(x.shape[:-1] + (1,))], dim=-1)
 
 
 def stamp_admittance(A_pad: torch.Tensor, idx: torch.Tensor,

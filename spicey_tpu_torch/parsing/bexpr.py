@@ -14,10 +14,10 @@ remapping and compute the Newton linearization as per-reference partial
 derivatives — each partial stamps as a VCCS row, the zeroth-order term as
 a current injection. No new stamp machinery is needed.
 
-This copy keeps only the NumPy function table: the AC slice never
+This copy keeps only the NumPy function table: the AC path never
 evaluates a behavioral expression (V-kind sources stamp as 0 V shorts,
-I-kind sources are not stamped), so a torch table is later work
-(ROADMAP §1, the transient and op items).
+I-kind sources are not stamped), and the transient refuses B sources, so
+a torch table comes with them (ROADMAP §1 item 4).
 
 Like parsing/params.py, evaluation is a whitelisted AST walk: numeric
 literals (engineering suffixes allowed), + - * / **, parens, unary +/-,

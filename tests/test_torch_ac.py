@@ -68,7 +68,7 @@ DECKS = {"basics01": (BASICS01, "spicey"), "rlc": (RLC, "spicey"),
 def test_basics01_golden_character_exact(fixtures_dir):
     with open(os.path.join(fixtures_dir, "basics01_golden.txt")) as fh:
         golden = fh.read()
-    out = format_ac_result(simulate(BASICS01).ac)
+    out = format_ac_result(simulate(BASICS01, device="cpu").ac)
     assert out == golden
     assert formatAcResult is format_ac_result
 
@@ -79,7 +79,8 @@ def test_simulate_ac_matches_jax(deck, method):
     net, dialect = DECKS[deck]
     ref = jax_simulate_ac(spicey_tpu.parse_netlist(net, dialect=dialect),
                           method="gj")
-    got = simulate_ac(parse_netlist(net, dialect=dialect), method=method)
+    got = simulate_ac(parse_netlist(net, dialect=dialect), method=method,
+                      device="cpu")
     np.testing.assert_array_equal(got.freqs, ref.freqs)
     assert list(got.node_voltages) == list(ref.node_voltages)
     assert list(got.element_currents) == list(ref.element_currents)
@@ -94,7 +95,7 @@ def test_singular_deck_raises():
     with pytest.raises(ValueError, match="Singular matrix in AC solve"):
         jax_simulate_ac(spicey_tpu.parse_netlist(SINGULAR))
     with pytest.raises(ValueError, match="Singular matrix in AC solve"):
-        simulate(SINGULAR)
+        simulate(SINGULAR, device="cpu")
 
 
 @pytest.mark.parametrize("deck", sorted(DECKS))
@@ -113,8 +114,8 @@ def test_from_jax_tensors_round_trips(deck):
         else:
             assert a == b, f.name
     # the converted IR drives the port's engine to the same answer
-    a = simulate_ac(ckt, tensors=conv)
-    b = simulate_ac(ckt, tensors=mine)
+    a = simulate_ac(ckt, tensors=conv, device="cpu")
+    b = simulate_ac(ckt, tensors=mine, device="cpu")
     for name in b.node_voltages:
         np.testing.assert_array_equal(a.node_voltages[name],
                                       b.node_voltages[name])
@@ -130,16 +131,17 @@ def test_from_jax_tensors_rejects_other_fields():
 
 
 def test_unported_analyses_raise():
-    tran = BASICS01.replace(".ac dec 100 1 100", ".tran 1u 10u")
-    with pytest.raises(NotImplementedError, match=r"\.tran .*ROADMAP"):
-        simulate(tran)
+    dc = BASICS01.replace(".ac dec 100 1 100", ".dc v1 0 1 0.5")
+    with pytest.raises(NotImplementedError, match=r"\.dc .*ROADMAP §1 item 6"):
+        simulate(dc, dialect="extended", device="cpu")
     op = BASICS01.replace(".end", ".op\n.end")
     with pytest.raises(NotImplementedError, match=r"\.op"):
-        simulate(op, dialect="extended")
+        simulate(op, dialect="extended", device="cpu")
     with pytest.raises(NotImplementedError, match="operating point"):
-        simulate(BASICS01, ac_linearize="op")
+        simulate(BASICS01, ac_linearize="op", device="cpu")
     with pytest.raises(NotImplementedError, match=r"\.meas"):
         parse_netlist(BASICS01.replace(
             ".end", ".meas ac vmax max vm(2)\n.end"), dialect="extended")
     # a deck without .ac has no AC result, as in the JAX package
-    assert simulate_ac(parse_netlist("* empty\nr1 1 0 1k\n.end\n")) is None
+    assert simulate_ac(parse_netlist("* empty\nr1 1 0 1k\n.end\n"),
+                       device="cpu") is None

@@ -1,4 +1,4 @@
-"""Kernels K1 and K5 against their plain versions, on the card.
+"""Kernels K1, K2, K3, K5 and K8 against their plain versions, on the card.
 
 Tests marked ``cuda`` need an NVIDIA GPU with the CUDA toolkit and skip
 elsewhere; run them on the card with
@@ -18,7 +18,12 @@ import pytest
 import torch
 
 import spicey_tpu_torch as st
-from spicey_tpu_torch.ops import gj, linsolve, mc_ac_fused
+from spicey_tpu_torch.ir.circuit import (effective_time_step,
+                                         sample_source_values)
+from spicey_tpu_torch.ops import (gj, gj_real, linsolve, mc_ac_fused,
+                                  mc_tran_fused)
+from tests.fixtures import netlists
+from tests.oracle import oracle_tran
 
 RC = ("* rc\nv1 1 0 dc 0 ac 1\nr1 1 2 30\nc1 2 0 100u\n"
       ".ac dec 10 1 100\n.end\n")
@@ -73,7 +78,7 @@ def test_mc_routes_match_cpu(cuda, precision, method):
                          precision=precision, device=cuda)
     assert counter.launches > before
     want = st.mc_ac_stats(RC, ov, node="2", method=method,
-                          precision=precision)
+                          precision=precision, device="cpu")
     tol = TOL[dtype]
     assert got.n_valid == want.n_valid == 500
     for f in ("mean", "std", "min", "max"):
@@ -113,3 +118,111 @@ def test_k5_wrapper_refuses_bad_input():
         mc_ac_fused.mc_ac_fused_cuda(freqs.double(), values, packed, 1)
     with pytest.raises(ValueError, match="n_rows"):
         mc_ac_fused.mc_ac_fused_cuda(freqs, values[:1], packed, 1)
+
+
+def _real_systems(n, B, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, n, n)) + n * np.eye(n)
+    b = rng.standard_normal((B, n))
+    A[0] = 0.0            # all-zero system
+    A[1, n // 2] = 0.0    # one zero row
+    return [torch.as_tensor(a, dtype=dtype) for a in (A, b)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [3, 6, 16, 17, 64, 128])
+def test_k2_k3_match_plain(cuda, n, dtype):
+    A, b = _real_systems(n, 40, dtype)
+    k2, k3 = gj_real.K2[dtype].launches, gj_real.K3[dtype].launches
+    x, v = linsolve.solve(A.to(cuda), b.to(cuda))
+    inv, iv = linsolve.inverse(A.to(cuda))
+    assert gj_real.K2[dtype].launches == k2 + 1
+    assert gj_real.K3[dtype].launches == k3 + 1
+    rx, rv = linsolve.gj_solve(A, b)
+    rinv, riv = linsolve.gj_inverse(A)
+    assert torch.equal(v.cpu(), rv) and torch.equal(iv.cpu(), riv)
+    assert not rv[:2].any() and rv[2:].all()
+    for got, want, ok in ((x, rx, rv), (inv, rinv, riv)):
+        torch.testing.assert_close(got.cpu()[ok], want[ok], rtol=TOL[dtype],
+                                   atol=TOL[dtype] * float(
+                                       want[ok].abs().max()))
+
+
+RC_TRAN = ("* rc\nV1 1 0 PULSE(0 5 0 1n 1n 5u 10u)\nR1 1 2 1k\n"
+           "C1 2 0 1u\n.tran 0.1u 20u\n.end\n")
+
+
+@pytest.mark.cuda
+def test_k8_matches_plain(cuda):
+    ckt = st.parse_netlist(RC_TRAN)
+    t = st.build_tensors(ckt)
+    dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
+    vs = torch.as_tensor(sample_source_values(ckt, np.arange(steps + 1) * dt),
+                         dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(3)
+    B = 5000
+    values = torch.as_tensor(np.stack([
+        1e3 * (1 + 0.2 * rng.random(B)),
+        1e-6 * (1 + 0.2 * rng.random(B)) / dt]), dtype=torch.float32,
+        device=cuda)
+    pattern = mc_tran_fused.pack_tran_pattern(
+        mc_tran_fused.build_tran_pattern(t.nvar, t.r_idx, t.c_idx, t.l_idx,
+                                         t.v_idx, t.n_i), t.nvar, cuda)
+    before = mc_tran_fused.K8[torch.float32].launches
+    got, valid = mc_tran_fused.mc_tran_fused(vs, values, pattern, 1)
+    assert mc_tran_fused.K8[torch.float32].launches == before + 1
+    want, pvalid = mc_tran_fused.mc_tran_fused_plain(vs, values, pattern, 1)
+    assert torch.equal(valid, pvalid) and bool(valid.all())
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deck", ["RC_PULSE", "SERIES_RLC", "BOOST_CONVERTER",
+                                  "SWITCH_VT_VH"])
+def test_tran_golden_on_cuda(cuda, deck):
+    net = getattr(netlists, deck)
+    ckt = st.parse_netlist(net)
+    got = st.simulate_tran(ckt, device=cuda)
+    times, nv, ec = oracle_tran(ckt)
+    rtol, atol = (1e-7, 1e-9) if deck == "BOOST_CONVERTER" else (1e-9, 1e-12)
+    np.testing.assert_array_equal(got.times, times)
+    for series, ref in ((got.node_voltages, nv), (got.element_currents, ec)):
+        for name, w in ref.items():
+            np.testing.assert_allclose(series[name], w, rtol=rtol, atol=atol,
+                                       err_msg=name)
+
+
+def test_k2_k3_wrappers_refuse_bad_input():
+    A, b = _real_systems(4, 2, torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        gj_real.gj_solve_cuda(A, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        gj_real.gj_inverse_cuda(A)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        gj_real.gj_solve_cuda(A.half(), b.half())
+    with pytest.raises(TypeError, match="float32 or float64"):
+        gj_real.gj_solve_cuda(A, b.float())
+    with pytest.raises(ValueError, match=r"b must be \(B, N\)"):
+        gj_real.gj_solve_cuda(A, b[:, :3])
+    with pytest.raises(ValueError, match=r"\(B, N, N\)"):
+        gj_real.gj_inverse_cuda(A[:, :3])
+    big, _ = _real_systems(129, 2, torch.float64)
+    with pytest.raises(ValueError, match="N <= 128"):
+        gj_real.gj_inverse_cuda(big)
+
+
+def test_k8_wrapper_refuses_bad_input():
+    t = st.build_tensors(st.parse_netlist(RC_TRAN))
+    pattern = mc_tran_fused.pack_tran_pattern(
+        mc_tran_fused.build_tran_pattern(t.nvar, t.r_idx, t.c_idx, t.l_idx,
+                                         t.v_idx, t.n_i), t.nvar, "cpu")
+    vs = torch.zeros((5, 1), dtype=torch.float32)
+    values = torch.ones((pattern.n_rows, 3), dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        mc_tran_fused.mc_tran_fused_cuda(vs, values, pattern, 1)
+    with pytest.raises(TypeError, match="float32"):
+        mc_tran_fused.mc_tran_fused_cuda(vs, values.double(), pattern, 1)
+    with pytest.raises(ValueError, match="n_rows"):
+        mc_tran_fused.mc_tran_fused_cuda(vs, values[:1], pattern, 1)

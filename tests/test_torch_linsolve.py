@@ -130,3 +130,116 @@ def test_solve_planes_cpu_runs_plain_and_checks_method():
             assert torch.equal(g, r)
     with pytest.raises(ValueError, match="unknown solve method"):
         tlin.solve_planes(*arrays, method="lax")
+
+
+# ---- the real solve and inverse: plain K2 and K3 -------------------------
+
+def _real(kind, rng, B, N):
+    """Random diagonally dominant systems; "singular": lane 0 a zero row,
+    lane 1 two equal rows, lane 2 all zero, lane 3 a NaN entry."""
+    A = rng.standard_normal((B, N, N)) + N * np.eye(N)
+    b = rng.standard_normal((B, N))
+    if kind == "mna":
+        A = _mna_like(rng, B, N)[0]
+    elif kind == "singular":
+        A[0, 1, :] = 0.0
+        A[1, 2, :] = A[1, 0, :]
+        A[2] = 0.0
+        A[3, 0, 0] = np.nan
+    return A, b
+
+
+def _jax_inv_of(A):
+    """The JAX transient's factor-once inverse (analysis/tran.py inv_of):
+    one gj_solve per unit vector, column j of the inverse."""
+    def col(a, e):
+        return jlin.gj_solve(a, e, 1e-15)
+
+    f = jax.jit(jax.vmap(jax.vmap(col, in_axes=(None, 0)), in_axes=(0, None)))
+    X, oks = f(jnp.asarray(A), jnp.eye(A.shape[-1]))  # (B, col, row)
+    return np.swapaxes(np.asarray(X), -1, -2), np.asarray(oks).all(axis=1)
+
+
+@pytest.mark.parametrize("kind", ["random", "mna", "singular"])
+@pytest.mark.parametrize("N", [3, 8, 32])
+def test_real_gj_solve_matches_jax(kind, N):
+    rng = np.random.default_rng(200 + N)
+    A, b = _real(kind, rng, 16, N)
+    jx, jv = [np.asarray(a) for a in jax.vmap(
+        jlin.gj_solve, in_axes=(0, 0, None))(jnp.asarray(A), jnp.asarray(b),
+                                             1e-15)]
+    tx, tv = tlin.gj_solve(torch.as_tensor(A), torch.as_tensor(b))
+    np.testing.assert_array_equal(tv.numpy(), jv)
+    if kind == "singular":
+        assert not tv[:4].any() and tv[4:].all()
+    np.testing.assert_allclose(tx.numpy()[jv], jx[jv], rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["random", "mna", "singular"])
+@pytest.mark.parametrize("N", [3, 8, 32])
+def test_real_gj_inverse_matches_jax_inv_of(kind, N):
+    rng = np.random.default_rng(300 + N)
+    A, _b = _real(kind, rng, 12, N)
+    jinv, jv = _jax_inv_of(A)
+    tinv, tv = tlin.gj_inverse(torch.as_tensor(A))
+    tv = tv.numpy()
+    if kind == "singular":
+        # the duplicated-row lane's last pivot is a rounding residue near
+        # EPS; whether it clears EPS depends on the order XLA sums in, so
+        # that lane is held to nothing but being the only one in doubt
+        assert not tv[[0, 2, 3]].any() and not jv[[0, 2, 3]].any()
+        tv[1] = jv[1] = False
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_allclose(tinv.numpy()[jv], jinv[jv], rtol=1e-12,
+                               atol=1e-12)
+    if kind == "random":  # the true inverse, not a row-permuted one
+        np.testing.assert_allclose(tinv.numpy(), np.linalg.inv(A),
+                                   rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("N", [4, 8])
+def test_real_f32_matches_pallas_kernels_interpret(N):
+    """The f32 plain versions against the TPU kernels K2 and K3 run in
+    interpret mode; K3's row-permuted output is un-permuted by its pivot
+    map (colidx) first."""
+    from spicey_tpu.ops import pallas_gj
+
+    rng = np.random.default_rng(400 + N)
+    A, b = [a.astype(np.float32) for a in _real("mna", rng, 20, N)]
+    jx, jv = pallas_gj.pallas_gj_solve_real(jnp.asarray(A), jnp.asarray(b),
+                                            refine=0, interpret=True)
+    tx, tv = tlin.gj_solve(torch.as_tensor(A), torch.as_tensor(b))
+    assert tx.dtype == torch.float32
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    scale = float(np.abs(np.asarray(jx)).max())
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-5,
+                               atol=1e-5 * scale)
+    M, colidx, mv = pallas_gj._inverse_real_f32(jnp.asarray(A), 1e-15, True)
+    M, colidx = np.asarray(M), np.asarray(colidx).astype(int)
+    jinv = np.zeros_like(M)
+    for s in range(A.shape[0]):
+        jinv[s, colidx[s]] = M[s]
+    tinv, iv = tlin.gj_inverse(torch.as_tensor(A))
+    np.testing.assert_array_equal(iv.numpy(), np.asarray(mv))
+    scale = float(np.abs(jinv).max())
+    np.testing.assert_allclose(tinv.numpy(), jinv, rtol=1e-5,
+                               atol=1e-5 * scale)
+
+
+def test_real_solve_and_inverse_dispatch_on_the_cpu():
+    rng = np.random.default_rng(9)
+    A, b = [torch.as_tensor(a) for a in _real("random", rng, 6, 5)]
+    A4, b3 = A.reshape(2, 3, 5, 5), b.reshape(2, 3, 5)
+    for method in ("gj", "pallas"):
+        x, v = tlin.solve(A4, b3, method=method)
+        rx, rv = tlin.gj_solve(A, b)
+        assert x.shape == (2, 3, 5) and v.shape == (2, 3)
+        assert torch.equal(x.reshape(6, 5), rx) and torch.equal(
+            v.reshape(6), rv)
+    inv, v = tlin.inverse(A4)
+    rinv, rv = tlin.gj_inverse(A)
+    assert inv.shape == (2, 3, 5, 5)
+    assert torch.equal(inv.reshape(6, 5, 5), rinv)
+    with pytest.raises(ValueError, match="unknown solve method"):
+        tlin.solve(A, b, method="lax")

@@ -153,7 +153,8 @@ def test_f64_stats_match_jax_gj(deck, method):
     ov = _overrides(net, names, 32, seed=5)
     ref = jmc.mc_ac_stats(jparse(net), ov, node=node, method="gj",
                           precision="f64")
-    got = mc_ac_stats(net, ov, node=node, method=method, precision="f64")
+    got = mc_ac_stats(net, ov, node=node, method=method, precision="f64",
+                      device="cpu")
     _stats_close(got, ref, rtol=1e-9)
 
 
@@ -162,7 +163,8 @@ def test_f32_fused_close_to_f64_reference():
     ov = _overrides(net, names, 48, seed=0)
     ref = jmc.mc_ac_stats(jparse(net), ov, node=node, method="gj",
                           precision="f64")
-    got = mc_ac_stats(net, ov, node=node, method="pallas", precision="f32")
+    got = mc_ac_stats(net, ov, node=node, method="pallas", precision="f32",
+                      device="cpu")
     for f in ("mean", "std", "min", "max"):
         np.testing.assert_allclose(
             getattr(got, f), getattr(ref, f), rtol=2e-5,
@@ -176,7 +178,8 @@ def test_singular_lane_is_excluded(method):
     c = np.full(B, 1e-6)
     c[3] = 0.0
     ov = {"c1": c.copy(), "c2": c.copy()}
-    got = mc_ac_stats(SINGULAR_NET, ov, node="2", method=method)
+    got = mc_ac_stats(SINGULAR_NET, ov, node="2", method=method,
+                      device="cpu")
     ref = jmc.mc_ac_stats(jparse(SINGULAR_NET), ov, node="2", method="gj")
     assert got.n_valid == ref.n_valid == B - 1
     np.testing.assert_allclose(got.mean, ref.mean, rtol=1e-9)
@@ -228,7 +231,7 @@ def test_sampler_transform_matches_jax(dist, monkeypatch):
 
 
 def test_sampled_is_seeded_and_chunking_is_invisible():
-    kw = dict(node="2", method="pallas", precision="f64")
+    kw = dict(node="2", method="pallas", precision="f64", device="cpu")
     a = mc_ac_sampled(RC_NET, {"r1": 0.05, "c1": 0.05}, 30, key=1, **kw)
     b = mc_ac_sampled(RC_NET, {"r1": 0.05, "c1": 0.05}, 30, key=1,
                       chunk=7, **kw)
@@ -239,15 +242,18 @@ def test_sampled_is_seeded_and_chunking_is_invisible():
     _stats_close(b, a, rtol=1e-13)
     assert not np.allclose(a.mean, c.mean, rtol=1e-9)
     with pytest.raises(ValueError, match="unknown sampled element"):
-        mc_ac_sampled(RC_NET, {"r9": 0.1}, 4, node="2")
+        mc_ac_sampled(RC_NET, {"r9": 0.1}, 4, node="2", device="cpu")
 
 
 def test_unported_options_raise():
     with pytest.raises(ValueError, match="precision"):
-        mc_ac_stats(RC_NET, {"r1": np.ones(2)}, node="2", precision="f16")
+        mc_ac_stats(RC_NET, {"r1": np.ones(2)}, node="2", precision="f16",
+                    device="cpu")
     k_net = ("* k deck\nv1 1 0 ac 1\nl1 1 0 1m\nl2 2 0 1m\nr1 2 0 1k\n"
              "k1 l1 l2 0.5\n.ac dec 2 1 100\n.end\n")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mc_ac_stats(k_net, {"r1": np.ones(2)}, node="2", dialect="extended")
+        mc_ac_stats(k_net, {"r1": np.ones(2)}, node="2", dialect="extended",
+                    device="cpu")
     with pytest.raises(NotImplementedError, match="Schur"):
-        mc_ac_stats(RC_NET, {"r1": np.ones(2)}, node="2", method="schur")
+        mc_ac_stats(RC_NET, {"r1": np.ones(2)}, node="2", method="schur",
+                    device="cpu")

@@ -1,7 +1,9 @@
 """The port runs where jax is absent, as on the GPU machine.
 
 A subprocess blocks ``import jax`` and reproduces the basics01 golden
-through ``spicey_tpu_torch``; an AST scan asserts that no module of the
+through ``spicey_tpu_torch``, runs the boost-converter transient and a
+small transient Monte-Carlo on both routes (the batched loop and the
+fused tier's plain version); an AST scan asserts that no module of the
 port imports jax or the JAX package.
 """
 
@@ -10,6 +12,8 @@ import os
 import pathlib
 import subprocess
 import sys
+
+from tests.fixtures import netlists
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "spicey_tpu_torch"
@@ -21,11 +25,19 @@ sys.modules["spicey_tpu"] = None
 import spicey_tpu_torch as st
 deck = open(sys.argv[1]).read()
 golden = open(sys.argv[2]).read()
-out = st.format_ac_result(st.simulate(deck).ac)
+out = st.format_ac_result(st.simulate(deck, device="cpu").ac)
 stats = st.mc_ac_stats(deck, {"r1": [30.0, 33.0]}, node="2",
-                       method="pallas", precision="f32")
+                       method="pallas", precision="f32", device="cpu")
 assert out == golden, "golden mismatch"
 assert stats.n_valid == 2
+tran = st.simulate(open(sys.argv[3]).read(), device="cpu").tran
+assert st.format_tran_result(tran).startswith("t(s), N1:V, N3:V")
+assert len(tran.times) == 101 and "DD1" in tran.element_currents
+rc = open(sys.argv[4]).read()
+for method, precision in (("gj", "f64"), ("pallas", "f32")):
+    ts = st.mc_tran_stats(rc, {"R1": [1e3, 1.1e3, 1.2e3]}, node="2",
+                          method=method, precision=precision, device="cpu")
+    assert ts.n_valid == 3 and ts.mean.shape == (201,)
 print("OK")
 """
 
@@ -41,10 +53,15 @@ c1 2 0 100u
 def test_port_runs_with_jax_blocked(tmp_path, fixtures_dir):
     deck = tmp_path / "basics01.cir"
     deck.write_text(BASICS01)
+    boost = tmp_path / "boost.cir"
+    boost.write_text(netlists.BOOST_CONVERTER)
+    rc = tmp_path / "rc.cir"
+    rc.write_text(netlists.RC_PULSE)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
         [sys.executable, "-c", _SCRIPT, str(deck),
-         os.path.join(fixtures_dir, "basics01_golden.txt")],
+         os.path.join(fixtures_dir, "basics01_golden.txt"), str(boost),
+         str(rc)],
         capture_output=True, text=True, env=env, cwd=tmp_path, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "OK"
