@@ -6,9 +6,9 @@ and exits nonzero on the first failure (nothing is caught). Phases, one
 line each:
 
   1. build kernels K1 (csrc/gj_complex.cu), K2 + K3 (csrc/gj_real.cu),
-     K5 (csrc/mc_ac_fused.cu) and K8 (csrc/mc_tran_fused.cu) with nvcc,
-     one process per source, all started together; print the build
-     seconds and the card's name/power limit;
+     K5 (csrc/mc_ac_fused.cu), K8 (csrc/mc_tran_fused.cu) and K9
+     (csrc/mc_tran_nr.cu) with nvcc, one process per source, all started
+     together; print the build seconds and the card's name/power limit;
   2. every kernel instantiation against its plain PyTorch version on the
      card, on the same inputs: K1 at N in {3, 8, 64, 128} with singular
      lanes and at the main path's shapes (the basics01 planes, the N = 64
@@ -21,7 +21,13 @@ line each:
      multiply-adds into FMAs, the torch ops do not). The f32 ladder is too
      ill-conditioned for 1e-5 between two f32 eliminations; there K1 must
      be as accurate as the plain version against an f64 solve of the same
-     planes (see ``k1_vs_plain``);
+     planes (see ``k1_vs_plain``). K9 at B = 4096 on one deck per family
+     (the boost converter on its own grid and on DIODE_SWITCH's 10 us
+     grid, the bench's MOSFET ring, an NPN and a PNP amplifier, a JFET
+     stage, the TT and CJO diode decks, the BJT-charge deck): ``valid``
+     identical, every lane within 1e-4 x max|V| (f32 Newton iterates
+     rounded differently), or, where a lane lands on the other side of a
+     threshold, mean/min/max within 2e-4 with the count of such lanes;
   3-8. the main path through the public entry points, each phase with
      every launch counter zeroed first and read after: the basics01
      golden on cuda (character-exact); the 1M-variant AC yield at f32
@@ -36,13 +42,30 @@ line each:
      backward-Euler recurrence at 2e-4 (f32) and 1e-9 (f64); the
      100k-variant boost converter at f64 and f32 (K2 every Newton pass),
      n_valid 100k, a 64-variant subset equal to the CPU path at 1e-9;
-  9. every instantiation launched during 3-8; CUDA-event times of each
+  10-13. the nonlinear Monte-Carlo through K9 (f32, ``method="pallas"``)
+     against the f64 loop (K2): the bench's ring oscillator at B = 4096
+     (mean within 5e-3 x scale, a 64-variant f64 subset equal to the CPU
+     path at 1e-9) and at 100k; the bench's switch_diode boost at 100k
+     (a 64-variant subset) and at DIODE_SWITCH's grid (1001 steps, a
+     4096-variant subset); BJT_NET with Q1's Is swept, 100k (a
+     4096-variant subset); n_valid == B throughout; then the bench's
+     ring and BJT-amplifier latency decks through ``simulate()`` on cuda,
+     equal to the CPU path at 1e-9. The decks are
+     ``spicey_tpu_torch/decks.py``'s;
+  9. every instantiation launched during 3-8 and 10-13 (printed after
+     them); CUDA-event times of each
      kernel, its plain version and, where one PyTorch call computes the
      same function, that call (``torch.linalg.solve`` for K1/K2,
      ``torch.linalg.inv`` for K3), at the main path's shapes, beside the
      kernel's bound: the larger of its bytes over 3.35 TB/s and its
      operations over the H100's non-tensor peak (67 TFLOP/s f32, 34
-     TFLOP/s f64, NVIDIA's H100 SXM data sheet).
+     TFLOP/s f64, NVIDIA's H100 SXM data sheet); K9 against its plain
+     version at each 100k shape of phases 10-12 (the boost on both grids,
+     the ring, BJT_NET; the same tolerances as in phase 2), with the
+     Newton passes per lane there and K9's time at each, its plain
+     version's time and bound at the boost-100k shape, its operations
+     counted from the lane passes its plain version runs on the same
+     inputs.
 
 Then a JSON line of the kernels, the nvidia-smi line, and the result line.
 """
@@ -80,20 +103,6 @@ L1 d 0 10m
 .ac dec 10 10 1e5
 .end
 """
-TRAN_NET = ("TRAN bench\nV1 1 0 PULSE(0 5 0 1n 1n 5u 10u)\nR1 1 2 1k\n"
-            "C1 2 0 1u\n.tran 0.1u 20u\n.end\n")
-BOOST_NET = """a boost-converter bench (reference fixture)
-.MODEL D D
-.MODEL SWMOD SW
-LL1 N1 N2 1
-DD1 N2 N3 D
-CC1 N3 0 10U
-RR1 N3 0 1K
-SM1 N2 0 N4 0 SWMOD
-Vs0 N1 0 DC 5
-Vs1 N4 0 PULSE(0 10 0 1n 1n 0.00068 0.001)
-.tran 0.001 0.1 uic
-"""
 EXT_TRAN = """* extended linear transient
 I1 0 a PULSE(0 1m 0 1u 1u 5u 10u)
 R1 a 0 1k
@@ -112,6 +121,7 @@ L1 d 0 10m
 .end
 """
 BOOST_B = 100_000
+RING_B = 4096
 GOLDENS = ("RC_PULSE", "TWO_PROBES", "SERIES_RLC", "SWITCH_VT_VH",
            "VSWITCH_PWL", "BOOST_CONVERTER", "DIODE_SWITCH")
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -186,6 +196,10 @@ def main() -> int:
     from spicey_tpu_torch.analysis import batch as tbatch
     from spicey_tpu_torch.analysis import mc as tmc
     from spicey_tpu_torch.analysis import tran as ttran
+    from spicey_tpu_torch.decks import (BJT_AMP_DECK, BJT_NET, BOOST_FINE,
+                                        BOOST_NET, CJ_NET, JFET_NET, PNP_NET,
+                                        QC_NET, RING_DECK, RING_NET, TRAN_NET,
+                                        TT_NET)
     from spicey_tpu_torch.ir.circuit import (effective_time_step,
                                              sample_source_values)
     from spicey_tpu_torch.ops import (_build, gj, gj_real, linsolve,
@@ -197,7 +211,8 @@ def main() -> int:
     kernels = {k.name: k for k in
                list(gj.K1.values()) + list(mc_ac_fused.K5.values())
                + list(gj_real.K2.values()) + list(gj_real.K3.values())
-               + list(mc_tran_fused.K8.values())}
+               + list(mc_tran_fused.K8.values())
+               + list(mc_tran_fused.K9.values())}
     err = {name: 0.0 for name in kernels}
     # name -> (kernel ms, plain ms, library ms or None, bound ms, bound by)
     ms: dict[str, tuple] = {}
@@ -220,9 +235,11 @@ def main() -> int:
 
     # ---- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build(["gj_complex", "gj_real", "mc_ac_fused", "mc_tran_fused"])
+    _build.build(["gj_complex", "gj_real", "mc_ac_fused", "mc_tran_fused",
+                  "mc_tran_nr"])
     for mod in (gj, gj_real, mc_ac_fused, mc_tran_fused):
         mod.load_library()
+    mc_tran_fused.load_nr_library()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -511,9 +528,10 @@ def main() -> int:
                                    dtype=torch.float64, device=dev)
 
         values = tmc.tran_value_slab(
-            vals(t.r_vals, t.r_names), vals(t.c_vals, t.c_names),
+            t, vals(t.r_vals, t.r_names), vals(t.c_vals, t.c_names),
             vals(t.l_vals, t.l_names),
-            tbatch._batched_ext(t, over, B, dev, torch.float64), dt)
+            tbatch._batched_ext(t, over, B, dev, torch.float64),
+            tbatch._batched_nl(t, over, B, dev, torch.float64), dt)
         pattern = tmc._fused_tran_pattern(ckt, t, "pallas", "f32", "be",
                                           False, dev)
         node_idx = [n.upper() for n in t.node_names].index(node.upper())
@@ -544,6 +562,98 @@ def main() -> int:
         raise AssertionError(f"K8 RC 1M: {nv}/{nt} valid")
     say("2 compare", f"K8 f32 RC transient (1M, {tran_steps + 1} steps) "
         f"valid {nv}/{nt} max_abs_err {e:.3e}")
+
+    def k9_inputs(net, node, over, B, dialect="spicey"):
+        """K9's inputs as the main path forms them: the f32 value slab
+        with the device rows, the packed pattern, the Newton settings."""
+        ckt = st.parse_netlist(net, dialect=dialect)
+        t = st.build_tensors(ckt)
+        dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
+        f32 = torch.float32
+        vs = torch.as_tensor(
+            sample_source_values(ckt, np.arange(steps + 1) * dt),
+            dtype=f32, device=dev)
+
+        def vals(base, names):
+            return torch.as_tensor(tbatch._batch_values(base, names, over, B),
+                                   dtype=f32, device=dev)
+
+        values = tmc.tran_value_slab(
+            t, vals(t.r_vals, t.r_names), vals(t.c_vals, t.c_names),
+            vals(t.l_vals, t.l_names),
+            tbatch._batched_ext(t, over, B, dev, f32),
+            tbatch._batched_nl(t, over, B, dev, f32), dt)
+        pattern = tmc._fused_tran_pattern(ckt, t, "pallas", "f32", "be",
+                                          False, dev)
+        nr, max_nr = tmc._nr_mode(t)
+        node_idx = [n.upper() for n in t.node_names].index(node.upper())
+        return vs, values, pattern, node_idx, dict(
+            vd_scale=float(t.vt) / st.VT_300K, nr=nr, max_nr=max_nr)
+
+    def k9_vs_plain(inputs, what, main_shape):
+        """K9 against its plain version: ``valid`` identical, each valid
+        lane within 1e-4 x max|V|; lanes beyond that (a rounding
+        difference that puts a switch or Newton exit on the other side of
+        its threshold) are counted, and then mean/min/max over the valid
+        lanes must agree at 2e-4. Returns (max abs err, lanes beyond,
+        the plain version's Newton passes per lane, n_valid, B)."""
+        vs, values, pattern, node_idx, kw = inputs
+        out, v = mc_tran_fused.mc_tran_fused_nr_cuda(vs, values, pattern,
+                                                     node_idx, **kw)
+        pout, pv, passes = mc_tran_fused.mc_tran_fused_nr_plain(
+            vs, values, pattern, node_idx, return_passes=True, **kw)
+        if not torch.equal(v, pv):
+            raise AssertionError(f"K9 {what}: valid flags differ")
+        scale = float(pout[pv].abs().max())
+        lane_err = (out[pv] - pout[pv]).abs().amax(dim=1)
+        beyond = int((lane_err > 1e-4 * scale).sum())
+        if beyond:
+            for f in (torch.mean, torch.amin, torch.amax):
+                check_close(f(out[pv], dim=0), f(pout[pv], dim=0), 2e-4,
+                            f"K9 {what} {f.__name__}")
+        e = float(lane_err.max())
+        if main_shape:
+            name = mc_tran_fused.K9[torch.float32].name
+            err[name] = max(err[name], e)
+        return e, beyond, passes, int(pv.sum()), pv.numel()
+
+    def pass_stats(passes):
+        """Newton passes per lane: mean, max, and the mean over warps (32
+        consecutive lanes) of the warp's most passes over the mean passes,
+        the factor by which divergence stretches a thread-per-variant
+        kernel's work."""
+        pl = passes.double()
+        warps = pl[:pl.numel() // 32 * 32].view(-1, 32).amax(dim=1)
+        return (float(pl.mean()), int(passes.max()),
+                float(warps.mean() / pl.mean()))
+
+    # one deck per family: (deck, dialect, node, swept element, nominal)
+    k9_decks = {
+        "boost": (BOOST_NET, "spicey", "N3", "RR1", 1e3),
+        "boost 10us grid": (BOOST_FINE, "spicey", "N3", "RR1", 1e3),
+        "ring": (RING_NET, "extended", "n1", "c1", 1e-9),
+        "BJT_NET": (BJT_NET, "extended", "c1", "RC", 1e3),
+        "TT diode": (TT_NET, "extended", "2", "R1", 100.0),
+        "CJO diode": (CJ_NET, "extended", "2", "R1", 1e3),
+        "BJT charge": (QC_NET, "extended", "c1", "RC", 1e3),
+        "JFET": (JFET_NET, "extended", "d1", "RD", 1e4),
+        "PNP": (PNP_NET, "extended", "c1", "RC", 1e3),
+    }
+    k9_passes = {}
+    for deck, (net, dialect, node, elem, nominal) in k9_decks.items():
+        over = {elem: nominal * (1 + 0.1 * rng.random(RING_B))}
+        inputs = k9_inputs(net, node, over, RING_B, dialect)
+        e, beyond, passes, nv, nt = k9_vs_plain(inputs, deck, False)
+        pm, px, wf = pass_stats(passes)
+        steps1 = inputs[0].shape[0]
+        k9_passes[deck] = (pm, px, wf, steps1)
+        if nv != nt:
+            raise AssertionError(f"K9 {deck}: {nv}/{nt} valid")
+        say("2 compare", f"K9 f32 {deck} N={inputs[2].n} ({nt}, {steps1} "
+            f"steps, nr={inputs[4]['nr']}) valid {nv}/{nt} max_abs_err "
+            f"{e:.3e}, lanes beyond 1e-4 x max|V|: {beyond}; Newton "
+            f"passes per lane mean {pm:.1f} max {px} "
+            f"({pm / steps1:.3f} per step), warp max / mean {wf:.2f}")
     torch.cuda.empty_cache()
 
     # ---- 3-8. the main path, counted per phase ---------------------------
@@ -751,6 +861,116 @@ def main() -> int:
         f"at 1e-9; wall f64 {boost_s['f64']:.3f} s f32 "
         f"{boost_s['f32']:.3f} s")
     counted("8 boost-100k", list(gj_real.K2.values()))
+    torch.cuda.empty_cache()
+
+    def f32_vs_f64(f32s, f64s, what):
+        """The f32 fused tier's mean within 5e-3 x scale of the f64 loop's
+        (bench.py:676-680); returns the difference and the limit."""
+        scale = float(np.abs(f64s.mean).max()) + 1e-30
+        d = float(np.abs(f32s.mean - f64s.mean).max())
+        if d > 5e-3 * scale:
+            raise AssertionError(f"{what}: f32 mean off f64 by {d:.3e}")
+        return d, 5e-3 * scale
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    k9_kw = dict(method="pallas", precision="f32", device=dev)
+
+    # ---- 10. ring MC: the bench's nonlinear_ring, K9 against the loop ----
+    ring_over = {"c1": 1e-9 * (1 + 0.1 * rng.random(BOOST_B)),
+                 "c2": 1e-9 * (1 + 0.1 * rng.random(BOOST_B))}
+    r4k = {k: v[:RING_B] for k, v in ring_over.items()}
+    r32, r32_s = timed(lambda: st.mc_tran_stats(
+        RING_NET, r4k, node="n1", dialect="extended", **k9_kw))
+    r64, r64_s = timed(lambda: st.mc_tran_stats(
+        RING_NET, r4k, node="n1", dialect="extended", device=dev))
+    if r32.n_valid != RING_B or r64.n_valid != RING_B:
+        raise AssertionError(f"ring: n_valid {r32.n_valid}, {r64.n_valid}")
+    d, lim = f32_vs_f64(r32, r64, "ring 4096")
+    sub = {k: v[:64] for k, v in r4k.items()}
+    k_sub = st.mc_tran_stats(RING_NET, sub, node="n1", dialect="extended",
+                             device=dev)
+    p_sub = st.mc_tran_stats(RING_NET, sub, node="n1", dialect="extended",
+                             device="cpu")
+    for f in ("mean", "std", "min", "max"):
+        want = getattr(p_sub, f)
+        np.testing.assert_allclose(getattr(k_sub, f), want, rtol=1e-9,
+                                   atol=1e-9 * float(np.abs(want).max()),
+                                   err_msg=f"ring subset {f}")
+    r100, r100_s = timed(lambda: st.mc_tran_stats(
+        RING_NET, ring_over, node="n1", dialect="extended", **k9_kw))
+    if r100.n_valid != BOOST_B:
+        raise AssertionError(f"ring 100k: n_valid {r100.n_valid}")
+    say("10 ring MC", f"{RING_B} x 101 steps: f32 K9 mean within {d:.2e} "
+        f"of the f64 loop (limit {lim:.2e}); f64 cuda = CPU on 64 variants "
+        f"at 1e-9; wall f32 K9 {r32_s:.3f} s, f64 loop {r64_s:.3f} s; "
+        f"{BOOST_B} variants through K9: n_valid {r100.n_valid}, wall "
+        f"{r100_s:.3f} s")
+    counted("10 ring MC", [mc_tran_fused.K9[torch.float32],
+                           gj_real.K2[f64]])
+
+    # ---- 11. switch-diode MC: the bench's switch_diode, both grids -------
+    sw_over = {"RR1": 1e3 * (1 + 0.1 * rng.random(BOOST_B))}
+    sw_s = {}
+    for label, net, n_sub in (("1 ms grid", BOOST_NET, 64),
+                              ("10 us grid", BOOST_FINE, RING_B)):
+        s32, sw_s[label] = timed(lambda: st.mc_tran_stats(
+            net, sw_over, node="N3", **k9_kw))
+        if s32.n_valid != BOOST_B:
+            raise AssertionError(f"switch-diode {label}: n_valid "
+                                 f"{s32.n_valid}")
+        sub = {"RR1": sw_over["RR1"][:n_sub]}
+        s32_sub = st.mc_tran_stats(net, sub, node="N3", **k9_kw)
+        s64_sub, s64_s = timed(lambda: st.mc_tran_stats(
+            net, sub, node="N3", device=dev))
+        d, lim = f32_vs_f64(s32_sub, s64_sub, f"switch-diode {label}")
+        say("11 switch-diode MC", f"{label}: {BOOST_B} variants x "
+            f"{len(s32.grid)} steps through K9, n_valid {s32.n_valid}, wall "
+            f"{sw_s[label]:.3f} s; {n_sub}-variant subset f32 mean within "
+            f"{d:.2e} of the f64 loop (limit {lim:.2e}, f64 loop "
+            f"{s64_s:.3f} s)")
+    counted("11 switch-diode MC", [mc_tran_fused.K9[torch.float32],
+                                   gj_real.K2[f64]])
+
+    # ---- 12. BJT MC: BJT_NET with Q1's Is swept (_batched_nl) ------------
+    q_over = {"Q1": 1e-15 * (1 + 0.2 * rng.random(BOOST_B))}
+    q32, q_s = timed(lambda: st.mc_tran_stats(
+        BJT_NET, q_over, node="c1", dialect="extended", **k9_kw))
+    if q32.n_valid != BOOST_B:
+        raise AssertionError(f"BJT MC: n_valid {q32.n_valid}")
+    sub = {"Q1": q_over["Q1"][:RING_B]}
+    q32_sub = st.mc_tran_stats(BJT_NET, sub, node="c1", dialect="extended",
+                               **k9_kw)
+    q64_sub, q64_s = timed(lambda: st.mc_tran_stats(
+        BJT_NET, sub, node="c1", dialect="extended", device=dev))
+    d, lim = f32_vs_f64(q32_sub, q64_sub, "BJT MC")
+    say("12 BJT MC", f"{BOOST_B} variants x {len(q32.grid)} steps through "
+        f"K9, n_valid {q32.n_valid}, wall {q_s:.3f} s; {RING_B}-variant "
+        f"subset f32 mean within {d:.2e} of the f64 loop (limit {lim:.2e}, "
+        f"f64 loop {q64_s:.3f} s)")
+    counted("12 BJT MC", [mc_tran_fused.K9[torch.float32], gj_real.K2[f64]])
+
+    # ---- 13. single nonlinear decks through simulate() on cuda -----------
+    for label, net in (("ring_deck", RING_DECK), ("bjt_amp_deck",
+                                                  BJT_AMP_DECK)):
+        got, g_s = timed(lambda: st.simulate(net, dialect="extended",
+                                             device=dev).tran)
+        want = st.simulate(net, dialect="extended", device="cpu").tran
+        np.testing.assert_array_equal(got.times, want.times)
+        for series, ref in ((got.node_voltages, want.node_voltages),
+                            (got.element_currents, want.element_currents)):
+            for name, w in ref.items():
+                np.testing.assert_allclose(series[name], w, rtol=1e-9,
+                                           atol=1e-12,
+                                           err_msg=f"{label} {name}")
+        say("13 single decks", f"{label} ({len(got.times)} steps) on cuda "
+            f"equals the CPU path at 1e-9; {g_s:.3f} s wall")
+    counted("13 single decks", [gj_real.K2[f64]])
 
     # ---- 9. launches and times --------------------------------------------
     missing = [name for name, n in launches.items() if n == 0]
@@ -816,6 +1036,52 @@ def main() -> int:
                              + 2 * pattern.terms.shape[0]),
                        4 * (values.numel() + vs.numel() + s1 * nb) + nb,
                        torch.float32))
+    # K9 against its plain version at each 100k shape the main path gave
+    # it in phases 10-12 (the same overrides), the Newton passes per lane
+    # the plain version ran there, and K9's time at each; at the
+    # boost-100k shape also the plain version's time and the bound, its
+    # operations counted from those lane passes
+    name = mc_tran_fused.K9[torch.float32].name
+    k9_main = {"boost": (BOOST_NET, "N3", sw_over, "spicey"),
+               "boost 10us grid": (BOOST_FINE, "N3", sw_over, "spicey"),
+               "ring": (RING_NET, "n1", ring_over, "extended"),
+               "BJT_NET": (BJT_NET, "c1", q_over, "extended")}
+    for label, (net, node, over, dialect) in k9_main.items():
+        k9_in = k9_inputs(net, node, over, BOOST_B, dialect)
+        vs, values, pattern, node_idx, kw = k9_in
+        t0 = time.perf_counter()
+        e, beyond, passes, nv, nt = k9_vs_plain(k9_in, f"{label} 100k",
+                                                True)
+        cmp_s = time.perf_counter() - t0
+        if nv != nt:
+            raise AssertionError(f"K9 {label} 100k: {nv}/{nt} valid")
+        pm, px, wf = pass_stats(passes)
+        s1, n = vs.shape[0], pattern.n
+        t_ms = cuda_ms(lambda: mc_tran_fused.mc_tran_fused_nr_cuda(
+            vs, values, pattern, node_idx, **kw), 5)
+        say("9 K9 main shapes", f"{label} ({nt}, {s1} steps, "
+            f"nr={kw['nr']}): valid {nv}/{nt}, max_abs_err {e:.3e}, lanes "
+            f"beyond 1e-4 x max|V|: {beyond}; Newton passes per lane mean "
+            f"{pm:.1f} max {px}, warp max / mean {wf:.2f}; kernel "
+            f"{t_ms:.3f} ms (CUDA events); comparison {cmp_s:.1f} s wall "
+            f"| {smi}")
+        if label == "boost":
+            lane_passes = float(passes.sum())
+            shape[name] = (f"boost ({nt}, {s1} steps, {pm:.1f} passes per "
+                           "lane)")
+            ms[name] = (t_ms, cuda_ms(
+                lambda: mc_tran_fused.mc_tran_fused_nr_plain(
+                    vs, values, pattern, node_idx, **kw), 1), None,
+                *bound(lane_passes * (2.0 * n ** 3 / 3.0 + n * n),
+                       4 * (values.numel() + vs.numel() + s1 * nt) + nt,
+                       torch.float32))
+        del k9_in, vs, values, passes
+        torch.cuda.empty_cache()
+    for deck, (pm, px, wf, steps1) in k9_passes.items():
+        say("9 passes", f"K9 {deck} (phase 2, B = {RING_B}): {pm:.1f} "
+            f"Newton passes per lane over {steps1} steps "
+            f"({pm / steps1:.3f} per step), max {px}, warp max / mean "
+            f"{wf:.2f}")
     for name, (k_ms, p_ms, lib_ms, b_ms, b_by) in ms.items():
         lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
         say("9 times", f"{name} at {shape[name]}: kernel {k_ms:.3f} ms, "

@@ -20,8 +20,8 @@ Switches and diodes are NOT stamped in AC (no DC operating point / small-
 signal linearization exists in the reference).
 
 Not ported yet, each raising ``NotImplementedError``: ``linearize="op"``
-(needs the operating point, ROADMAP §1 item 6), the Schur tier
-(``method="schur"``, item 8), K coupling and T lines (item 4). The JAX
+(needs the operating point, ROADMAP §1 item 4), the Schur tier
+(``method="schur"``, item 6), K coupling and T lines (item 2). The JAX
 package's host interp tier for tiny decks has no counterpart: the device
 path is the path.
 """
@@ -208,15 +208,15 @@ def check_ported(tensors: CircuitTensors, method: str) -> None:
     yet, naming the ROADMAP item that brings it."""
     if method == "schur":
         raise NotImplementedError(
-            "the Schur tier is not ported yet (ROADMAP §1 item 8)")
+            "the Schur tier is not ported yet (ROADMAP §1 item 6)")
     if tensors.n_k:
         raise NotImplementedError(
             "K (mutual inductance) elements are not ported yet "
-            "(ROADMAP §1 item 4)")
+            "(ROADMAP §1 item 2)")
     if tensors.n_t:
         raise NotImplementedError(
             "T (transmission line) elements are not ported yet "
-            "(ROADMAP §1 item 4)")
+            "(ROADMAP §1 item 2)")
 
 
 def index_tensor(a: np.ndarray, device: torch.device | str) -> torch.Tensor:
@@ -247,7 +247,7 @@ def simulate_ac(
     if linearize == "op":
         raise NotImplementedError(
             "linearize='op' needs the operating point, which is not "
-            "ported yet (ROADMAP §1 item 6)")
+            "ported yet (ROADMAP §1 item 4)")
     check_ported(tensors, method)
     freqs = build_frequency_array(ckt.ac.mode, ckt.ac.N, ckt.ac.f1, ckt.ac.f2)
     v_idx_ac, v_re, v_im = ac_vsource_arrays(ckt, tensors)

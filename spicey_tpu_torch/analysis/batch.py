@@ -3,7 +3,7 @@
 Overrides map element names (case-insensitive) to (B,) value arrays; the
 helpers tile netlist values to a leading variants axis and apply them.
 The batched analyses themselves (``simulate_ac_batch``,
-``simulate_tran_batch``) are not ported yet (ROADMAP §1 item 2).
+``simulate_tran_batch``) are not ported yet (ROADMAP §1 item 1).
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ir.circuit import CircuitTensors, ext_arrays
+from ..ir.circuit import CircuitTensors, ext_arrays, nl_arrays
 from ..parsing.netlist import ParsedCircuit, parse_netlist
 
 
@@ -50,6 +50,24 @@ def _batched_ext(tensors: CircuitTensors, overrides, B: int,
             _batch_values(base, names, overrides, B), dtype=dtype,
             device=device)
     return ext
+
+
+def _batched_nl(tensors: CircuitTensors, overrides, B: int,
+                device: torch.device | str, dtype: torch.dtype) -> dict:
+    """nl dict with per-device betas and Is tiled to (B, nX): overriding an
+    M name sweeps its beta, a J name its model Beta (the stored channel
+    value is 2x the model's; ``m_beta_scale`` undoes the lowering, so
+    user values stay in model units), a Q name its Is. The products are
+    formed in float64 and rounded once to ``dtype``."""
+    nl = nl_arrays(tensors, device, dtype)
+    scale = tensors.m_beta_scale
+    nl["m_beta"] = torch.as_tensor(
+        _batch_values(tensors.m_beta / scale, tensors.m_names, overrides, B)
+        * scale, dtype=dtype, device=device)
+    nl["q_is"] = torch.as_tensor(
+        _batch_values(tensors.q_is, tensors.q_names, overrides, B),
+        dtype=dtype, device=device)
+    return nl
 
 
 def _batch_size(overrides: dict[str, np.ndarray]) -> int:

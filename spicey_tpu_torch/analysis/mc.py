@@ -16,10 +16,12 @@ AC routes on a CUDA tensor (every solve is a kernel launch):
     kernel K5 (ops/mc_ac_fused.py), instantiated in the precision asked;
   - everything else: batched torch assembly, then kernel K1 (ops/gj.py).
 Transient routes, as the JAX package routes them:
-  - ``method="pallas"``, ``precision="f32"``, BE, linear, N <= 16, no
-    per-variant source values: the fused whole-transient kernel K8
-    (ops/mc_tran_fused.py); a nonlinear (S/D) deck there is where JAX
-    runs K9, which is not ported yet and raises;
+  - ``method="pallas"``, ``precision="f32"``, BE, N <= 16, no
+    per-variant source values: the fused whole-transient kernels
+    (ops/mc_tran_fused.py), K8 for a linear deck, K9 for a deck with
+    switches, diodes, MOSFETs/JFETs or BJTs (junction charge included),
+    with the reference's switch-stability exit for S/D decks and Newton
+    to convergence for M/Q decks;
   - everything else: the batched time loop of analysis/tran.py, one
     (B, N, N) solve per Newton pass (K2), or one inverse for a linear
     deck (K3) and a matvec per step.
@@ -39,9 +41,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..constants import EPS
+from ..constants import EPS, MAX_NR_ITERS, VT_300K
 from ..ir.circuit import (bv_branch_rows, build_tensors, effective_time_step,
-                          ext_arrays, sample_source_values)
+                          ext_arrays, nl_arrays, sample_source_values)
 from ..ops import mc_tran_fused as mtf
 from ..ops.mc_ac_fused import (FUSED_MAX_N, PackedPattern,
                                build_stamp_pattern, combine_values,
@@ -50,8 +52,8 @@ from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
 from .ac import (_ac_sweep_core, build_frequency_array, check_ported,
                  index_tensor)
-from .batch import (_batch_size, _batch_values, _batched_ext, _consumed,
-                    _resolve)
+from .batch import (_batch_size, _batch_values, _batched_ext, _batched_nl,
+                    _consumed, _resolve)
 from .tran import _tran_core, check_ported_tran, tran_arrays, vt_scale_of
 
 _DTYPES = {"f64": torch.float64, "f32": torch.float32}
@@ -423,87 +425,126 @@ def mc_ac_sampled(
 def _fused_tran_pattern(ckt: ParsedCircuit, tensors, method: str,
                         precision: str, integration: str, vs_batched: bool,
                         device: torch.device) -> mtf.TranPattern | None:
-    """Packed pattern for the fused whole-transient tier (K8), or None
-    when the JAX package's eligibility (mc.py:484-522) fails: the pallas
-    method at f32, BE, no per-variant source values, 0 < N <= 16. A
-    nonlinear deck there is where JAX runs K9, not ported yet: raise
-    rather than take another tier. The TPU's SMEM source-grid budget has
-    no counterpart: the kernel reads the grid from device memory."""
+    """Packed pattern for the fused whole-transient tier, or None when the
+    JAX package's eligibility (mc.py:484-522) fails: the pallas method at
+    f32, BE, no per-variant source values, 0 < N <= 16 (K/T/B decks
+    raise before this). A linear pattern runs K8, one with switches,
+    diodes, MOSFETs or BJTs (and their junction charge) K9. The TPU's
+    SMEM source-grid budget has no counterpart: the kernels read the grid
+    from device memory."""
     if (method != "pallas" or precision != "f32" or vs_batched
             or integration != "be"
             or not 0 < tensors.nvar <= mtf.FUSED_MAX_N):
         return None
-    if tensors.n_s or tensors.n_d:
-        raise NotImplementedError(
-            "the fused nonlinear transient kernel K9 (switches/diodes with "
-            "method='pallas', precision='f32') is not ported yet (ROADMAP "
-            "§1 item 1); use precision='f64' or method='gj'")
     ext_idx = {"i_idx": tensors.i_idx, "g_idx": tensors.g_idx,
                "e_idx": tensors.e_idx, "f_idx": tensors.f_idx,
                "h_idx": tensors.h_idx}
-    pattern = mtf.build_tran_pattern(tensors.nvar, tensors.r_idx,
-                                     tensors.c_idx, tensors.l_idx,
-                                     tensors.v_idx, tensors.n_i, ext_idx)
+    pattern = mtf.build_tran_pattern(
+        tensors.nvar, tensors.r_idx, tensors.c_idx, tensors.l_idx,
+        tensors.v_idx, tensors.n_i, ext_idx, s_idx=tensors.s_idx,
+        d_idx=tensors.d_idx, m_idx=tensors.m_idx, m_pol=tensors.m_polarity,
+        q_idx=tensors.q_idx, q_pol=tensors.q_polarity,
+        d_chg=tensors.has_d_charge, q_chg=tensors.has_q_charge)
     return mtf.pack_tran_pattern(pattern, tensors.nvar, device)
 
 
-def tran_value_slab(r_vals: torch.Tensor, c_vals: torch.Tensor,
-                    l_vals: torch.Tensor, ext: dict, dt: float
-                    ) -> torch.Tensor:
-    """K8's (n_rows, B) float32 value slab in build_tran_pattern's row
-    order [R | gc = C/dt | gl = dt/L | g | e | f | h]; the companion
-    conductances are formed in f64 and rounded once, so dt never enters
-    the kernel. Unbatched (nX,) ext values broadcast."""
+def tran_value_slab(tensors, r_vals: torch.Tensor, c_vals: torch.Tensor,
+                    l_vals: torch.Tensor, ext: dict, nl: dict,
+                    dt: float) -> torch.Tensor:
+    """The fused tier's (n_rows, B) float32 value slab in
+    build_tran_pattern's row order: [R | gc = C/dt | gl = dt/L | g | e |
+    f | h | switch 1/max(|Ron|, EPS) | 1/max(|Roff|, EPS) | Von | Voff |
+    diode Is | N * VT_300K | MOSFET beta | Vto | lambda | BJT Is | Bf |
+    Br | diode TT, CJO, VJ, M, FC | BJT TF, CJE, VJE, MJE, TR, CJC, VJC,
+    MJC, FC | 1/dt], from the deck's ``tensors`` and its (batched)
+    MOSFET/BJT arrays ``nl``. A device kind the deck lacks gives no rows;
+    the charge rows come only with that charge and the 1/dt row with
+    either (a linear deck's slab is K8's). Every row is formed in f64 and
+    rounded once, so dt never enters the kernels except through that row.
+    Unbatched (nX,) values broadcast."""
+    t = tensors
     B = r_vals.shape[0]
     dt_c = max(dt, EPS)
     f64 = torch.float64
+    dev = r_vals.device
 
-    def to2d(a: torch.Tensor) -> torch.Tensor:
+    def to2d(a: torch.Tensor | np.ndarray) -> torch.Tensor:
+        a = torch.as_tensor(a, dtype=f64, device=dev)
         return a.expand(B, a.shape[0]) if a.ndim == 1 else a
 
     cols = [r_vals.to(f64), c_vals.to(f64) / dt_c, dt_c / l_vals.to(f64)]
-    cols += [to2d(ext[k]).to(f64) for k in ("g_gm", "e_gain", "f_gain",
-                                            "h_r")]
+    cols += [to2d(ext[k]) for k in ("g_gm", "e_gain", "f_gain", "h_r")]
+    cols += [to2d(1.0 / np.maximum(np.abs(t.s_ron), EPS)),
+             to2d(1.0 / np.maximum(np.abs(t.s_roff), EPS)),
+             to2d(t.s_von), to2d(t.s_voff), to2d(t.d_is),
+             to2d(np.asarray(t.d_n) * VT_300K)]
+    cols += [to2d(nl[k]) for k in ("m_beta", "m_vto", "m_lambda", "q_is",
+                                   "q_bf", "q_br")]
+    if t.has_d_charge:
+        cols += [to2d(a) for a in (t.d_tt, t.d_cjo, t.d_vj, t.d_m, t.d_fc)]
+    if t.has_q_charge:
+        # b-e block then b-c block (q_chg columns: tf, tr, cje, vje, mje,
+        # cjc, vjc, mjc, fc)
+        cols += [to2d(t.q_chg[:, j]) for j in (0, 2, 3, 4, 1, 5, 6, 7, 8)]
+    if t.has_d_charge or t.has_q_charge:
+        cols += [to2d(np.full(1, 1.0 / dt_c))]
     return torch.cat(cols, dim=1).T.to(torch.float32).contiguous()
 
 
-def _mc_tran_fused_core(vs_grid: torch.Tensor, r_vals: torch.Tensor,
-                        c_vals: torch.Tensor, l_vals: torch.Tensor,
-                        ext: dict, dt: float, pattern: mtf.TranPattern,
-                        node_idx: int, qs: tuple,
-                        q_method: str = "exact") -> torch.Tensor:
-    """K8 on the value slab (``tran_value_slab``), then the reduction."""
+def _nr_mode(tensors) -> tuple[str, int]:
+    """The Newton exit and pass limit the JAX package gives a deck:
+    MOSFETs/BJTs iterate to convergence (50 passes), the reference's set
+    exits on switch stability (20 passes, simulateTRAN.ts:151)."""
+    if tensors.n_m or tensors.n_q:
+        return "converged", 50
+    return "spicey", MAX_NR_ITERS
+
+
+def _mc_tran_fused_core(vs_grid: torch.Tensor, values: torch.Tensor,
+                        pattern: mtf.TranPattern, node_idx: int, qs: tuple,
+                        q_method: str = "exact", vd_scale: float = 1.0,
+                        nr: str = "spicey", max_nr: int = MAX_NR_ITERS
+                        ) -> torch.Tensor:
+    """K8 or K9 on the value slab (``tran_value_slab``), then the
+    reduction."""
     v_node, valid = mtf.mc_tran_fused(
-        vs_grid.to(torch.float32).contiguous(),
-        tran_value_slab(r_vals, c_vals, l_vals, ext, dt), pattern, node_idx)
+        vs_grid.to(torch.float32).contiguous(), values, pattern, node_idx,
+        vd_scale=vd_scale, nr=nr, max_nr=max_nr)
     return _pack_stats(_stats_of(v_node, valid, qs, q_method=q_method),
                        valid.sum())
+
+
+def _slice_arrays(tree: object, sl: slice, B: int) -> object:
+    """``tree`` (tran_arrays' dict, nested dicts, None) with every value
+    tensor that leads with the B variants cut to ``sl``; index tensors and
+    unbatched values pass whole."""
+    if isinstance(tree, dict):
+        return {k: (v if k.endswith("idx") else _slice_arrays(v, sl, B))
+                for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.ndim >= 2 \
+            and tree.shape[0] == B:
+        return tree[sl]
+    return tree
 
 
 def _mc_tran_stats_core(vs_grid: torch.Tensor, dt: float, arr: dict,
                         nvar: int, node_idx: int, method: str, qs: tuple,
                         integration: str = "be", chunk: int | None = None,
                         q_method: str = "exact",
-                        vt_scale: torch.Tensor | float = 1.0
-                        ) -> torch.Tensor:
+                        vt_scale: torch.Tensor | float = 1.0,
+                        nr: str = "spicey") -> torch.Tensor:
     """The batched time loop (analysis/tran._tran_core with lead (B,)),
     recording only the probed node, then the reduction. ``chunk`` runs
     the variants in blocks of that many, bounding the loop's buffers;
     only the (B, S+1) response accumulates."""
     B = arr["r_vals"].shape[0]
 
-    def batched(v: torch.Tensor) -> bool:
-        return v.ndim >= 2 and v.shape[0] == B
-
     def run_block(sl: slice) -> tuple[torch.Tensor, torch.Tensor]:
-        arr_b = {k: (v[sl] if not k.endswith("idx") and k != "ext"
-                     and batched(v) else v) for k, v in arr.items()}
-        arr_b["ext"] = {k: (v[sl] if not k.endswith("idx") and batched(v)
-                            else v) for k, v in arr["ext"].items()}
+        arr_b = _slice_arrays(arr, sl, B)
         vs = vs_grid[:, sl] if vs_grid.ndim == 3 else vs_grid
         xs, _sw, valid, _carry = _tran_core(
             vs, dt, arr_b, nvar, method=method, integration=integration,
-            lead=(arr_b["r_vals"].shape[0],), record=node_idx,
+            nr=nr, lead=(arr_b["r_vals"].shape[0],), record=node_idx,
             vt_scale=vt_scale)
         return xs.T, valid  # (b, S+1), (b,)
 
@@ -533,7 +574,7 @@ def _check_tran_args(ckt: ParsedCircuit, tensors, method: str,
 
 def _run_tran(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
               c_vals: torch.Tensor, l_vals: torch.Tensor, ext: dict,
-              vs_grid: np.ndarray, times: np.ndarray, dt: float,
+              nl: dict, vs_grid: np.ndarray, times: np.ndarray, dt: float,
               v_over: dict, node: str, quantiles, method: str,
               precision: str, integration: str, chunk: int | None,
               quantile_method: str, device: torch.device) -> MCStats:
@@ -555,21 +596,27 @@ def _run_tran(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
                     f"cannot override waveform-driven source {key!r}")
             vs[:, :, i] = torch.as_tensor(np.asarray(vals, np.float64),
                                           dtype=fdt, device=device)
+    nr, max_nr = _nr_mode(tensors)
     pattern = _fused_tran_pattern(ckt, tensors, method, precision,
                                   integration, bool(v_over), device)
     if pattern is not None:
-        packed = _mc_tran_fused_core(vs, r_vals, c_vals, l_vals, ext, dt,
-                                     pattern, node_idx, qs,
-                                     q_method=quantile_method)
+        values = tran_value_slab(tensors, r_vals, c_vals, l_vals, ext, nl,
+                                 dt)
+        packed = _mc_tran_fused_core(
+            vs, values, pattern, node_idx, qs, q_method=quantile_method,
+            vd_scale=float(tensors.vt) / VT_300K, nr=nr, max_nr=max_nr)
     else:
+        def cast(d: dict) -> dict:
+            return {k: (v if k.endswith("idx") else v.to(fdt))
+                    for k, v in d.items()}
+
         arr = tran_arrays(tensors, device, fdt, r_vals=r_vals.to(fdt),
                           c_vals=c_vals.to(fdt), l_vals=l_vals.to(fdt),
-                          ext={k: (v if k.endswith("idx") else v.to(fdt))
-                               for k, v in ext.items()})
+                          ext=cast(ext), nl=cast(nl))
         packed = _mc_tran_stats_core(
             vs, dt, arr, tensors.nvar, node_idx, method, qs,
             integration=integration, chunk=chunk, q_method=quantile_method,
-            vt_scale=vt_scale_of(tensors, device, fdt))
+            vt_scale=vt_scale_of(tensors, device, fdt), nr=nr)
     res = _unpack_stats(packed.cpu().numpy(), tuple(quantiles), times)
     res.n_total = B
     return res
@@ -593,16 +640,18 @@ def mc_tran_stats(
     """Distribution of V(node) per timestep across parameter variants.
 
     ``overrides`` maps element names (R/C/L, extended G/E/F/H gains, DC V
-    sources) to (B,) value arrays. ``precision="f32"`` with
-    ``method="pallas"`` takes the fused whole-transient kernel K8 for a
-    linear deck (BE, N <= 16); otherwise the batched time loop runs (K2
-    per Newton pass, or K3 once for a linear deck). ``integration``:
+    sources, MOSFET/JFET names for their beta, BJT names for their Is)
+    to (B,) value arrays. ``precision="f32"`` with ``method="pallas"``
+    takes the fused whole-transient kernels (BE, N <= 16): K8 for a
+    linear deck, K9 for a nonlinear one; otherwise the batched time loop
+    runs (K2 per Newton pass, or K3 once for a linear deck). Decks with
+    MOSFETs or BJTs iterate Newton to convergence. ``integration``:
     "be" (reference semantics), "trap" or "gear2". ``chunk`` runs the
     variants in blocks of that size.
 
     ``time_parallel`` keeps the JAX package's switch, but both "auto"
     and "never" run the sequential loop until analysis/timeparallel.py
-    is ported (ROADMAP §1 item 5)."""
+    is ported (ROADMAP §1 item 3)."""
     device = resolve_device(device)
     ckt = _resolve(circuit, dialect=dialect)
     if tensors is None:
@@ -612,7 +661,8 @@ def mc_tran_stats(
     B = _batch_size(overrides)
     _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
                tensors.v_names, tensors.i_names, tensors.g_names,
-               tensors.e_names, tensors.f_names, tensors.h_names], overrides)
+               tensors.e_names, tensors.f_names, tensors.h_names,
+               tensors.m_names, tensors.q_names], overrides)
 
     def vals(base: np.ndarray, names: tuple) -> torch.Tensor:
         return torch.as_tensor(_batch_values(base, names, overrides, B),
@@ -626,6 +676,7 @@ def mc_tran_stats(
         vals(tensors.c_vals, tensors.c_names),
         vals(tensors.l_vals, tensors.l_names),
         _batched_ext(tensors, overrides, B, device, fdt),
+        _batched_nl(tensors, overrides, B, device, fdt),
         sample_source_values(ckt, times), times, dt,
         {k: v for k, v in overrides.items() if k.lower() in v_lower},
         node, quantiles, method, precision, integration, chunk,
@@ -672,6 +723,7 @@ def mc_tran_sampled(
     times = np.arange(steps + 1, dtype=np.float64) * dt
     return _run_tran(ckt, tensors, vals["r"], vals["c"], vals["l"],
                      ext_arrays(tensors, device, fdt),
+                     nl_arrays(tensors, device, fdt),
                      sample_source_values(ckt, times), times, dt, {}, node,
                      quantiles, method, precision, integration, chunk,
                      quantile_method, device)

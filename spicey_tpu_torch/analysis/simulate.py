@@ -19,15 +19,15 @@ from .tran import simulate_tran
 
 # analysis -> ROADMAP §1 item that ports it
 _NOT_PORTED = (
-    (".op", "item 6", lambda c: c.op),
-    (".dc", "item 6", lambda c: c.dc is not None),
-    (".tf", "item 10", lambda c: c.tf is not None),
-    (".noise", "item 10", lambda c: c.noise is not None),
-    (".pz", "item 10", lambda c: c.pz is not None),
-    (".sens", "item 10", lambda c: c.sens is not None),
-    (".four", "item 10", lambda c: c.four is not None),
-    (".step", "item 2", lambda c: c.step is not None),
-    (".control", "item 10", lambda c: bool(c.control)),
+    (".op", "item 4", lambda c: c.op),
+    (".dc", "item 4", lambda c: c.dc is not None),
+    (".tf", "item 8", lambda c: c.tf is not None),
+    (".noise", "item 8", lambda c: c.noise is not None),
+    (".pz", "item 8", lambda c: c.pz is not None),
+    (".sens", "item 8", lambda c: c.sens is not None),
+    (".four", "item 8", lambda c: c.four is not None),
+    (".step", "item 1", lambda c: c.step is not None),
+    (".control", "item 8", lambda c: bool(c.control)),
 )
 
 

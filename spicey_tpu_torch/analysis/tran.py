@@ -13,7 +13,7 @@ variants (``lead=(B,)``):
     asks |dx| <= tol * (1 + |x|)), so diodes get one Newton step per
     switch-stable pass, seeded from the previous step's vd on pass 0
     (:81-85);
-  - a linear circuit (no S/D, reference Newton) factors once: the inverse
+  - a linear circuit (no S/D/M/Q, reference Newton) factors once: the inverse
     of the time-invariant matrix (kernel K3, ops/linsolve.inverse), then
     per step x = Ainv b plus one refinement pass;
   - source values are precomputed over the grid (ir/circuit.py);
@@ -25,15 +25,22 @@ Device models (simulateTRAN.ts:25-106): C: Gc = C/max(dt, EPS), Ieq =
 -Gc vPrev; L: Gl = max(dt, EPS)/L, Norton current iPrev; S: R = Ron|Roff
 by hysteresis state, |R| >= EPS; V: waveform(t) | dc; D: Shockley
 companion, vd clamped to [-1.0, 0.8] * vt/VT_300K, gd >= GMIN. The
-improvement toggles ``integration="trap"|"gear2"`` and
-``nr="converged"`` are the JAX package's.
+extended devices are the JAX package's (models/devices.py): MOSFETs
+(level 1; JFETs lower to them) and BJTs (Ebers-Moll) seeded from the
+previous step's junction voltages on pass 0, diode TT/CJO and BJT
+TF/TR/CJE/CJC junction charge as backward-Euler charge companions with
+the split Newton anchor (diffusion at the clamped voltage, depletion at
+the true one). A deck with MOSFETs or BJTs iterates to convergence
+(``nr="converged"``), as in the JAX package. The improvement toggles
+``integration="trap"|"gear2"`` and ``nr="converged"`` are the JAX
+package's.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: K coupling, T lines and B sources (§1 item 4); MOSFET/BJT devices
-and diode/BJT charge storage (item 3); the Schur tier (item 8). The JAX
-package's host interp tier, placement and ``accurate_exp`` have no
-counterpart (item 12): on the card the device path is the path, and only
-the dtype half of the Newton tolerance floor (16 ulps) is kept.
+item: K coupling, T lines and B sources (§1 item 2); the Schur tier
+(item 6). The JAX package's host interp tier, placement and
+``accurate_exp`` have no counterpart (item 10): on the card the device
+path is the path, and only the dtype half of the Newton tolerance floor
+(16 ulps) is kept.
 """
 
 from __future__ import annotations
@@ -45,11 +52,13 @@ import torch
 
 from ..constants import (DIODE_VD_MAX, DIODE_VD_MIN, EPS, GMIN, MAX_NR_ITERS,
                          VT_300K)
-from ..ir.circuit import (CircuitTensors, build_tensors, effective_time_step,
-                          ext_arrays, nl_arrays, sample_source_values)
+from ..ir.circuit import (CircuitTensors, build_tensors, dchg_arrays,
+                          effective_time_step, ext_arrays, nl_arrays,
+                          qchg_arrays, sample_source_values)
+from ..models.devices import bjt_ebers_moll, diode_charge_cap, mos_level1
 from ..ops.linsolve import inverse, solve
 from ..ops.stamps import (pad_solution, stamp_admittance, stamp_current,
-                          stamp_extended, stamp_voltage_source)
+                          stamp_extended, stamp_vccs, stamp_voltage_source)
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
 from .results import TranResult
@@ -64,8 +73,9 @@ class TranState:
     where it stopped, the netlist's .tran spec giving the next segment's
     length. ``carry`` is the JAX package's layout (v_prev_c, i_prev_c,
     i_prev_l, v_prev_l, vd_prev_d, vm_prev, vq_prev, sw_on, v_prev2_c,
-    i_prev2_l) as host NumPy arrays, so a JAX checkpoint resumes here and
-    the other way round."""
+    i_prev2_l[, q_prev_d][, q_prev_q]), the charges present when the deck
+    stores diode or BJT junction charge, as host NumPy arrays, so a JAX
+    checkpoint resumes here and the other way round."""
 
     carry: tuple
     t: float
@@ -78,22 +88,14 @@ def check_ported_tran(ckt: ParsedCircuit, tensors: CircuitTensors,
     carry yet, naming the ROADMAP item that brings it."""
     if method == "schur":
         raise NotImplementedError(
-            "the Schur tier is not ported yet (ROADMAP §1 item 8)")
+            "the Schur tier is not ported yet (ROADMAP §1 item 6)")
     for what, present in (("K (mutual inductance) elements", tensors.n_k),
                           ("T (transmission line) elements", tensors.n_t),
                           ("B (behavioral) sources", len(ckt.B))):
         if present:
             raise NotImplementedError(
                 f"{what} are not ported to the transient yet "
-                "(ROADMAP §1 item 4)")
-    for what, present in (("MOSFET/JFET devices", tensors.n_m),
-                          ("BJT devices", tensors.n_q),
-                          ("diode charge storage (TT/CJO)",
-                           tensors.has_d_charge)):
-        if present:
-            raise NotImplementedError(
-                f"{what} are not ported to the transient yet "
-                "(ROADMAP §1 item 3)")
+                "(ROADMAP §1 item 2)")
 
 
 def _vdrop(x_pad: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -103,7 +105,7 @@ def _vdrop(x_pad: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def _l_stamp(A_pad: torch.Tensor, l_idx: torch.Tensor, c: float,
              l_vals: torch.Tensor) -> torch.Tensor:
     """Inductor companion admittance c/L per element (the diagonal case;
-    K-coupled inductors are ROADMAP §1 item 4)."""
+    K-coupled inductors are ROADMAP §1 item 2)."""
     return stamp_admittance(A_pad, l_idx, c / l_vals)
 
 
@@ -145,7 +147,7 @@ def _companion_currents(arr: dict, dt_c: float, integration: str,
       gear2  C: -(C/dt)(2 v_n - 0.5 v_n-1)  L: (2 i_n - 0.5 i_n-1) / 1.5
       BE     C: -G v_n                      L: i_n"""
     (v_prev_c, i_prev_c, i_prev_l, v_prev_l, _vd, _vm, _vq, _sw,
-     v_prev2_c, i_prev2_l) = carry
+     v_prev2_c, i_prev2_l) = carry[:10]
     c_vals, l_vals = arr["c_vals"], arr["l_vals"]
     g_c = _c_conductance(c_vals, dt_c, integration, first, second)
     c_l = _l_factor(dt_c, integration, first, second)
@@ -159,12 +161,121 @@ def _companion_currents(arr: dict, dt_c: float, integration: str,
     return -g_c * v_prev_c, i_prev_l
 
 
+def _charge_slots(arr: dict) -> tuple[int | None, int | None]:
+    """Carry positions of the committed diode and BJT junction charges
+    (after the ten fixed entries, each present only with its charge)."""
+    pos_d = 10 if arr.get("dchg") is not None else None
+    pos_q = (10 + (pos_d is not None) if arr.get("qchg") is not None
+             else None)
+    return pos_d, pos_q
+
+
+def _nl_index_sets(nl: dict) -> dict:
+    """The terminal pairs the MOSFET/BJT stamps scatter through, gathered
+    once per run: (d, s) and the gm pattern (d, s, g, s); (b, e), (b, c),
+    (c, e) and the transport patterns (c, e, b, e) and (c, e, b, c)."""
+    m, q = nl["m_idx"], nl["q_idx"]
+    return {"m_ds": m[:, [0, 2]], "m_gm": m[:, [0, 2, 1, 2]],
+            "q_be": q[:, [1, 2]], "q_bc": q[:, [1, 0]], "q_ce": q[:, [0, 2]],
+            "q_gmf": q[:, [0, 2, 1, 2]], "q_gmr": q[:, [0, 2, 1, 0]]}
+
+
+def _stamp_nonlinear(A: torch.Tensor, b: torch.Tensor, nl: dict, sets: dict,
+                     x_pad: torch.Tensor, it: int, vm_prev: torch.Tensor,
+                     vq_prev: torch.Tensor) -> None:
+    """MOSFET/BJT Newton companions (spicey_tpu/analysis/tran.py:152-198).
+    Seeds follow the diode convention: the previous step's junction
+    voltages on pass 0, the current iterate after."""
+    m_idx, q_idx = nl["m_idx"], nl["q_idx"]
+    if m_idx.shape[0]:
+        if it == 0:
+            vgs, vds = vm_prev[..., 0], vm_prev[..., 1]
+        else:
+            vgs = x_pad[..., m_idx[:, 1]] - x_pad[..., m_idx[:, 2]]
+            vds = x_pad[..., m_idx[:, 0]] - x_pad[..., m_idx[:, 2]]
+        gm, gds, i_eq, _ = mos_level1(vgs, vds, nl["m_beta"], nl["m_vto"],
+                                      nl["m_lambda"], nl["m_pol"])
+        stamp_admittance(A, sets["m_ds"], gds)
+        stamp_vccs(A, sets["m_gm"], gm)
+        stamp_current(b, sets["m_ds"], i_eq)
+    if q_idx.shape[0]:
+        if it == 0:
+            vbe, vbc = vq_prev[..., 0], vq_prev[..., 1]
+        else:
+            vbe = x_pad[..., q_idx[:, 1]] - x_pad[..., q_idx[:, 2]]
+            vbc = x_pad[..., q_idx[:, 1]] - x_pad[..., q_idx[:, 0]]
+        gbe, gbc, gmf, gmr, ibe_eq, ibc_eq, ict_eq, _, _ = bjt_ebers_moll(
+            vbe, vbc, nl["q_is"], nl["q_bf"], nl["q_br"], nl["q_pol"],
+            vt=nl["vt"])
+        stamp_admittance(A, sets["q_be"], gbe)
+        stamp_admittance(A, sets["q_bc"], gbc)
+        stamp_vccs(A, sets["q_gmf"], gmf)
+        stamp_vccs(A, sets["q_gmr"], -gmr)
+        stamp_current(b, sets["q_be"], ibe_eq)
+        stamp_current(b, sets["q_bc"], ibc_eq)
+        stamp_current(b, sets["q_ce"], ict_eq)
+
+
+def _bjt_junction_charge(x_pad: torch.Tensor, nl: dict, qchg: dict
+                         ) -> tuple[torch.Tensor, ...]:
+    """Junction charges and capacitances (q_be, c_be, q_bc, c_bc, cv_be,
+    cv_bc) at the current iterate (spicey_tpu/analysis/tran.py:201-239).
+    Each junction is the diode charge model in the reflected frame: b-e
+    with (TF, CJE, VJE, MJE), b-c with (TR, CJC, VJC, MJC). Diffusion at
+    the clamped voltage, depletion at the true one; ``cv`` is the split
+    Newton anchor, so the b-stamp is (q - q_prev - cv)/dt beside the
+    A-stamp c/dt."""
+    q_idx = nl["q_idx"]
+    s = nl["q_pol"]
+    vt = nl["vt"]
+    tscale = vt / VT_300K
+    u_be = s * (x_pad[..., q_idx[:, 1]] - x_pad[..., q_idx[:, 2]])
+    u_bc = s * (x_pad[..., q_idx[:, 1]] - x_pad[..., q_idx[:, 0]])
+    lo, hi = DIODE_VD_MIN * tscale, DIODE_VD_MAX * tscale
+    i_s = nl["q_is"]
+
+    def one(u: torch.Tensor, tt: torch.Tensor, cjo: torch.Tensor,
+            vj: torch.Tensor, m: torch.Tensor) -> tuple:
+        u_lim = torch.clamp(u, lo, hi)
+        ev = torch.exp(u_lim / vt)
+        g_diff = (i_s / vt * ev).clamp_min(GMIN)
+        q_r, c = diode_charge_cap(u, i_s * (ev - 1.0), g_diff, tt, cjo, vj,
+                                  m, qchg["fc"])
+        cv = tt * g_diff * (s * u_lim) + (c - tt * g_diff) * (s * u)
+        return s * q_r, c, cv
+
+    q_be, c_be, cv_be = one(u_be, qchg["tf"], qchg["cje"], qchg["vje"],
+                            qchg["mje"])
+    q_bc, c_bc, cv_bc = one(u_bc, qchg["tr"], qchg["cjc"], qchg["vjc"],
+                            qchg["mjc"])
+    return q_be, c_be, q_bc, c_bc, cv_be, cv_bc
+
+
+def _diode_charge(vd: torch.Tensor, arr: dict,
+                  vt_scale: torch.Tensor | float) -> torch.Tensor:
+    """The diode charge committed at an accepted solution: diffusion at
+    the clamped voltage (consistent with the stamping), depletion at the
+    true one (spicey_tpu/analysis/tran.py:773-788)."""
+    dchg = arr["dchg"]
+    vd_c = torch.clamp(vd, DIODE_VD_MIN * vt_scale, DIODE_VD_MAX * vt_scale)
+    v_th = arr["d_n"] * VT_300K
+    ev_c = torch.exp(vd_c / v_th)
+    q, _ = diode_charge_cap(vd, arr["d_is"] * (ev_c - 1.0),
+                            ((arr["d_is"] / v_th) * ev_c).clamp_min(GMIN),
+                            dchg["tt"], dchg["cjo"], dchg["vj"], dchg["m"],
+                            dchg["fc"])
+    return q
+
+
 def _stamp_system(arr: dict, nvar: int, dt: float, vs_t: torch.Tensor,
                   x: torch.Tensor, it: int, carry: list, sw_on: torch.Tensor,
                   integration: str = "be", first: bool = False,
                   second: bool = False, vt_scale: torch.Tensor | float = 1.0
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Assemble one Newton pass's (A, b), sliced to (..., nvar[, nvar])."""
+    """Assemble one Newton pass's (A, b), sliced to (..., nvar[, nvar]).
+    ``arr`` carries the MOSFET/BJT arrays under "nl" (with their index
+    sets from ``_nl_index_sets`` under "nl_sets") and the junction
+    charges under "dchg"/"qchg" (None when absent)."""
     A, b = _zeros(x.shape[:-1], nvar + 1, x.dtype, x.device)
     dt_c = max(dt, EPS)
     stamp_admittance(A, arr["r_idx"], 1.0 / arr["r_vals"])
@@ -197,6 +308,35 @@ def _stamp_system(arr: dict, nvar: int, dt: float, vs_t: torch.Tensor,
     g_d = torch.clamp((arr["d_is"] / v_th) * exp_val, min=GMIN)
     stamp_admittance(A, d_idx, g_d)
     stamp_current(b, d_idx, i_d - g_d * vd_lim)
+    pos_d, pos_q = _charge_slots(arr)
+    if pos_d is not None:
+        # charge companion (BE): i = (q(v) - q_prev)/dt with the split
+        # anchor, diffusion linearized at vd_lim, depletion at the true vd
+        dchg = arr["dchg"]
+        q_d, c_d = diode_charge_cap(vd, i_d, g_d, dchg["tt"], dchg["cjo"],
+                                    dchg["vj"], dchg["m"], dchg["fc"])
+        c_dep = c_d - dchg["tt"] * g_d
+        stamp_admittance(A, d_idx, c_d / dt_c)
+        stamp_current(b, d_idx, (q_d - carry[pos_d]
+                                 - dchg["tt"] * g_d * vd_lim - c_dep * vd)
+                      / dt_c)
+    nl = arr.get("nl")
+    if nl is not None and (nl["m_idx"].shape[0] or nl["q_idx"].shape[0]):
+        x_pad = pad_solution(x, nvar)
+        _stamp_nonlinear(A, b, nl, arr["nl_sets"], x_pad, it, carry[5],
+                         carry[6])
+        if pos_q is not None:
+            # BJT junction-charge companions (BE), at the current iterate
+            q_be, c_be, q_bc, c_bc, cv_be, cv_bc = _bjt_junction_charge(
+                x_pad, nl, arr["qchg"])
+            sets = arr["nl_sets"]
+            q_prev = carry[pos_q]
+            stamp_admittance(A, sets["q_be"], c_be / dt_c)
+            stamp_current(b, sets["q_be"],
+                          (q_be - q_prev[..., 0] - cv_be) / dt_c)
+            stamp_admittance(A, sets["q_bc"], c_bc / dt_c)
+            stamp_current(b, sets["q_bc"],
+                          (q_bc - q_prev[..., 1] - cv_bc) / dt_c)
     return A[..., :nvar, :nvar], b[..., :nvar]
 
 
@@ -234,14 +374,22 @@ def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _init_carry(lead: tuple, n: dict, dtype: torch.dtype,
-                device: torch.device) -> list:
+                device: torch.device, d_chg: bool = False,
+                q_chg: bool = False) -> list:
+    """A fresh run's carry: every companion state at rest, the committed
+    junction charges (q(0) = 0) appended when the deck stores them."""
     def z(*shape: int) -> torch.Tensor:
         return torch.zeros(lead + shape, dtype=dtype, device=device)
 
-    return [z(n["c"]), z(n["c"]), z(n["l"]), z(n["l"]), z(n["d"]),
-            z(n["m"], 2), z(n["q"], 2),
-            torch.zeros(lead + (n["s"],), dtype=torch.bool, device=device),
-            z(n["c"]), z(n["l"])]
+    carry = [z(n["c"]), z(n["c"]), z(n["l"]), z(n["l"]), z(n["d"]),
+             z(n["m"], 2), z(n["q"], 2),
+             torch.zeros(lead + (n["s"],), dtype=torch.bool, device=device),
+             z(n["c"]), z(n["l"])]
+    if d_chg:
+        carry.append(z(n["d"]))
+    if q_chg:
+        carry.append(z(n["q"], 2))
+    return carry
 
 
 def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
@@ -261,12 +409,16 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
     [B]) instead of (S+1, [B], nvar). ``init_state`` with ``resume=True``
     continues a checkpoint: no step is re-marked as the t = 0 bootstrap."""
     dtype, dev = vs_grid.dtype, vs_grid.device
+    nl = arr["nl"]
     n = {"c": arr["c_idx"].shape[0], "l": arr["l_idx"].shape[0],
          "s": arr["s_idx"].shape[0], "d": arr["d_idx"].shape[0],
-         "m": 0, "q": 0}
+         "m": nl["m_idx"].shape[0], "q": nl["q_idx"].shape[0]}
+    arr = dict(arr, nl_sets=_nl_index_sets(nl))
+    pos_d, pos_q = _charge_slots(arr)
     if max_nr is None:
         max_nr = MAX_NR_ITERS if nr == "spicey" else 50
-    linear = n["s"] == 0 and n["d"] == 0 and nr == "spicey"
+    linear = (n["s"] == 0 and n["d"] == 0 and n["m"] == 0 and n["q"] == 0
+              and nr == "spicey")
     dt_c = max(dt, EPS)
     n_v = arr["v_idx"].shape[0]
     ext = arr["ext"]
@@ -292,7 +444,8 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
         else:
             A_start, Ainv_start = A_main, Ainv_main
 
-    carry = (_init_carry(lead, n, dtype, dev) if init_state is None
+    carry = (_init_carry(lead, n, dtype, dev, pos_d is not None,
+                         pos_q is not None) if init_state is None
              else [torch.tensor(np.asarray(a), device=dev) for a in init_state])
     carry = [a if a.dtype == torch.bool else a.to(dtype) for a in carry]
     n_steps = vs_grid.shape[0]
@@ -307,7 +460,8 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
         first = s == 0 and not resume
         second = s == 1 and not resume
         (v_prev_c, i_prev_c, i_prev_l, v_prev_l, vd_prev_d, vm_prev,
-         vq_prev, sw_on, v_prev2_c, i_prev2_l) = carry
+         vq_prev, sw_on, v_prev2_c, i_prev2_l) = carry[:10]
+        charges = carry[10:]
         if linear:
             b = torch.zeros(lead + (nvar + 1,), dtype=dtype, device=dev)
             ieq_c, isrc_l = _companion_currents(arr, dt_c, integration,
@@ -393,9 +547,25 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
             i_prev2_l = i_prev2_l_new
         if n["d"]:
             vd_prev_d = _vdrop(x_pad, arr["d_idx"])
+        if pos_d is not None:
+            charges[0] = _diode_charge(vd_prev_d, arr, vt_scale)
+        if pos_q is not None:
+            q_be, _, q_bc, _, _, _ = _bjt_junction_charge(x_pad, nl,
+                                                          arr["qchg"])
+            charges[-1] = torch.stack([q_be, q_bc], dim=-1)
+        if n["m"]:
+            m_idx = nl["m_idx"]
+            vm_prev = torch.stack(
+                [x_pad[..., m_idx[:, 1]] - x_pad[..., m_idx[:, 2]],
+                 x_pad[..., m_idx[:, 0]] - x_pad[..., m_idx[:, 2]]], dim=-1)
+        if n["q"]:
+            q_idx = nl["q_idx"]
+            vq_prev = torch.stack(
+                [x_pad[..., q_idx[:, 1]] - x_pad[..., q_idx[:, 2]],
+                 x_pad[..., q_idx[:, 1]] - x_pad[..., q_idx[:, 0]]], dim=-1)
         valid_all = valid_all & step_ok
         carry = [v_prev_c, i_prev_c, i_prev_l, v_prev_l, vd_prev_d, vm_prev,
-                 vq_prev, sw_on, v_prev2_c, i_prev2_l]
+                 vq_prev, sw_on, v_prev2_c, i_prev2_l] + charges
         xs[s] = x if record is None else x[..., record]
         sw_states[s] = sw_on
     return xs, sw_states, valid_all, carry
@@ -405,10 +575,11 @@ def tran_arrays(tensors: CircuitTensors, device: torch.device,
                 dtype: torch.dtype, r_vals: torch.Tensor | None = None,
                 c_vals: torch.Tensor | None = None,
                 l_vals: torch.Tensor | None = None,
-                ext: dict | None = None) -> dict:
-    """The index and value tensors ``_tran_core`` reads. The r/c/l values
-    and ``ext`` default to the netlist's (unbatched); the Monte-Carlo
-    analyses pass batched ones."""
+                ext: dict | None = None, nl: dict | None = None) -> dict:
+    """The index and value tensors ``_tran_core`` reads. The r/c/l values,
+    ``ext`` and the MOSFET/BJT arrays ``nl`` default to the netlist's
+    (unbatched); the Monte-Carlo analyses pass batched ones. "dchg" and
+    "qchg" hold the junction charges, None when the deck has none."""
     def idx(a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
@@ -430,13 +601,16 @@ def tran_arrays(tensors: CircuitTensors, device: torch.device,
         "d_idx": idx(tensors.d_idx),
         "d_is": val(tensors.d_is), "d_n": val(tensors.d_n),
         "ext": ext_arrays(tensors, device, dtype) if ext is None else ext,
+        "nl": nl_arrays(tensors, device, dtype) if nl is None else nl,
+        "dchg": dchg_arrays(tensors, device, dtype),
+        "qchg": qchg_arrays(tensors, device, dtype),
     }
 
 
 def vt_scale_of(tensors: CircuitTensors, device: torch.device,
                 dtype: torch.dtype) -> torch.Tensor:
-    """The diode clamp window's scale vt / VT_300K (1 at 300 K)."""
-    return nl_arrays(tensors, device, dtype)["vt"] / VT_300K
+    """The junction clamp window's scale vt / VT_300K (1 at 300 K)."""
+    return torch.as_tensor(tensors.vt, dtype=dtype, device=device) / VT_300K
 
 
 def _element_currents(tensors: CircuitTensors, xs: np.ndarray,
@@ -552,9 +726,64 @@ def _element_currents(tensors: CircuitTensors, xs: np.ndarray,
         v_th = tensors.d_n[None, :] * VT_300K
         with np.errstate(over="ignore"):
             i_d = tensors.d_is[None, :] * (np.exp(vd / v_th) - 1.0)
+        if tensors.has_d_charge:
+            # the capacitive current (q_k - q_{k-1})/dt on top, q formed
+            # as the loop committed it
+            tsc = tensors.vt / VT_300K
+            ev_c = np.exp(np.clip(vd, DIODE_VD_MIN * tsc,
+                                  DIODE_VD_MAX * tsc) / v_th)
+            q = _host(diode_charge_cap, vd, tensors.d_is * (ev_c - 1.0),
+                      np.maximum(tensors.d_is / v_th * ev_c, GMIN),
+                      tensors.d_tt, tensors.d_cjo, tensors.d_vj, tensors.d_m,
+                      tensors.d_fc)[0]
+            q_prev = np.concatenate([s0(10, tensors.n_d)[None, :], q[:-1]],
+                                    axis=0)
+            i_d = i_d + (q - q_prev) / dt_c
         for k, name in enumerate(tensors.d_names):
             out[name] = i_d[:, k]
+    if tensors.n_m:
+        m_idx = tensors.m_idx
+        vgs = xs_pad[:, m_idx[:, 1]] - xs_pad[:, m_idx[:, 2]]
+        vds = xs_pad[:, m_idx[:, 0]] - xs_pad[:, m_idx[:, 2]]
+        i_m = _host(mos_level1, vgs, vds, tensors.m_beta, tensors.m_vto,
+                    tensors.m_lambda, tensors.m_polarity)[3]
+        for k, name in enumerate(tensors.m_names):
+            out[name] = i_m[:, k]
+    if tensors.n_q:
+        q_idx, pol = tensors.q_idx, tensors.q_polarity
+        vbe = xs_pad[:, q_idx[:, 1]] - xs_pad[:, q_idx[:, 2]]
+        vbc = xs_pad[:, q_idx[:, 1]] - xs_pad[:, q_idx[:, 0]]
+        # the full nonlinear currents without the Newton clamp, as the
+        # reference records its diode (simulateTRAN.ts:207-219)
+        i_c = _host(bjt_ebers_moll, vbe, vbc, tensors.q_is, tensors.q_bf,
+                    tensors.q_br, pol, tensors.vt, pol * vbe, pol * vbc)[7]
+        if tensors.has_q_charge:
+            # the collector loses the b-c junction's charge current
+            # dq_bc/dt (clamped diffusion, true depletion, as committed)
+            g = tensors.q_chg
+            tsc = tensors.vt / VT_300K
+            u_bc = pol * vbc
+            ev = np.exp(np.clip(u_bc, DIODE_VD_MIN * tsc, DIODE_VD_MAX * tsc)
+                        / tensors.vt)
+            q_bc = pol * _host(
+                diode_charge_cap, u_bc, tensors.q_is * (ev - 1.0),
+                np.maximum(tensors.q_is / tensors.vt * ev, GMIN), g[:, 1],
+                g[:, 5], g[:, 6], g[:, 7], g[:, 8])[0]
+            pos = 10 + int(tensors.has_d_charge)
+            q0 = (np.asarray(state0[pos])[:, 1] if has0
+                  else np.zeros(tensors.n_q))
+            q_prev = np.concatenate([q0[None, :], q_bc[:-1]], axis=0)
+            i_c = i_c - (q_bc - q_prev) / dt_c
+        for k, name in enumerate(tensors.q_names):
+            out[name] = i_c[:, k]
     return out
+
+
+def _host(fn, *args: object) -> tuple[np.ndarray, ...]:
+    """Run a device model of models/devices.py on host float64 arrays (the
+    result epilogue is NumPy); returns NumPy arrays."""
+    outs = fn(*(torch.as_tensor(np.asarray(a, np.float64)) for a in args))
+    return tuple(o.numpy() for o in outs)
 
 
 def _ic_carry(ckt: ParsedCircuit, tensors: CircuitTensors) -> tuple:
@@ -575,9 +804,14 @@ def _ic_carry(ckt: ParsedCircuit, tensors: CircuitTensors) -> tuple:
         if el.ic is not None:
             i_l0[k] = el.ic
     z = np.zeros
-    return (v_ic, z(tensors.n_c), i_l0, z(tensors.n_l), z(tensors.n_d),
-            z((tensors.n_m, 2)), z((tensors.n_q, 2)),
-            np.zeros(tensors.n_s, bool), v_ic.copy(), i_l0.copy())
+    carry = (v_ic, z(tensors.n_c), i_l0, z(tensors.n_l), z(tensors.n_d),
+             z((tensors.n_m, 2)), z((tensors.n_q, 2)),
+             np.zeros(tensors.n_s, bool), v_ic.copy(), i_l0.copy())
+    if tensors.has_d_charge:
+        carry += (z(tensors.n_d),)
+    if tensors.has_q_charge:
+        carry += (z((tensors.n_q, 2)),)
+    return carry
 
 
 def simulate_tran(
@@ -613,6 +847,10 @@ def simulate_tran(
     if tensors is None:
         tensors = build_tensors(ckt)
     check_ported_tran(ckt, tensors, method)
+    # MOSFET/BJT devices need Newton iteration: the reference's
+    # break-on-switch-stability rule is upgraded, as in the JAX package
+    if (tensors.n_m or tensors.n_q) and nr == "spicey":
+        nr = "converged"
 
     dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
     if state is None:

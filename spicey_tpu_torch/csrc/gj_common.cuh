@@ -1,6 +1,6 @@
 // The one-hot-pivot Gauss-Jordan elimination shared by kernels K1, K2, K3,
-// K5 and K8, templated on the element type: P = 1 real plane, P = 2 complex
-// (re, im) planes.
+// K5, K8 and K9, templated on the element type: P = 1 real plane, P = 2
+// complex (re, im) planes.
 //
 // Semantics are those of the plain versions in
 // spicey_tpu_torch/ops/linsolve.py: the pivot of column k is the unused
@@ -18,7 +18,7 @@
 //   thread_gj  one thread per system, element q of plane c at
 //              a[c][q * stride] (the system index fastest, so a warp's
 //              accesses are consecutive words), no barriers (K2/K3 up to
-//              THREAD_MAX_N, K5, K8).
+//              THREAD_MAX_N, K5, K8, K9).
 
 #pragma once
 

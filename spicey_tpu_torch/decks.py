@@ -1,0 +1,103 @@
+"""The netlists of the port's transient workloads, each beside its source.
+
+``chip_smoke.py``, ``tools/profile_torch_tran.py`` and the port's tests
+read them from here, so that what is profiled on the card is what is
+checked there and on the CPU. The decks are the JAX package's own bench
+and test decks (``bench.py``, ``tests/test_pallas_fused.py``,
+``tests/fixtures/netlists.py``), copied: the port imports nothing of the
+JAX package or its tests.
+"""
+
+from __future__ import annotations
+
+# bench.py:579-586, the transient Monte-Carlo: an RC low-pass driven by a
+# pulse, 201 points
+TRAN_NET = ("TRAN bench\nV1 1 0 PULSE(0 5 0 1n 1n 5u 10u)\nR1 1 2 1k\n"
+            "C1 2 0 1u\n.tran 0.1u 20u\n.end\n")
+
+# bench.py:689-701, the switch_diode headline: the reference's boost
+# converter (switch + diode), 101 points on a 1 ms grid
+BOOST_NET = """a boost-converter bench (reference fixture)
+.MODEL D D
+.MODEL SWMOD SW
+LL1 N1 N2 1
+DD1 N2 N3 D
+CC1 N3 0 10U
+RR1 N3 0 1K
+SM1 N2 0 N4 0 SWMOD
+Vs0 N1 0 DC 5
+Vs1 N4 0 PULSE(0 10 0 1n 1n 0.00068 0.001)
+.tran 0.001 0.1 uic
+"""
+
+# the same converter on tests/fixtures/netlists.py DIODE_SWITCH's grid
+# (.tran 10u 10m, 1001 points), where the switch opens and closes
+BOOST_FINE = BOOST_NET.replace(".tran 0.001 0.1 uic", ".tran 0.00001 0.01")
+
+# bench.py:646-656, the nonlinear_ring headline: a 3-stage CMOS ring
+# oscillator, Newton to convergence, 101 points
+RING_NET = """a ring-oscillator bench
+.model mn nmos(vto=1 kp=2m)
+.model mp pmos(vto=-1 kp=2m)
+vdd vdd 0 5
+mn1 n1 n3 0 mn
+mp1 n1 n3 vdd mp
+c1 n1 0 1n
+mn2 n2 n1 0 mn
+mp2 n2 n1 vdd mp
+c2 n2 0 1n
+mn3 n3 n2 0 mn
+mp3 n3 n2 vdd mp
+c3 n3 0 1n
+ikick 0 n1 PULSE(0 2m 0 1n 1n 3u 1)
+.tran 0.1u 10u
+"""
+
+# bench.py:453-474, the single-circuit latency decks
+RING_DECK = ("a mosfet ring latency deck\n"
+             ".model mn nmos(vto=1 kp=2m)\n.model mp pmos(vto=-1 kp=2m)\n"
+             "vdd vdd 0 5\n"
+             "mn1 n1 n3 0 mn\nmp1 n1 n3 vdd mp\nc1 n1 0 1n\n"
+             "mn2 n2 n1 0 mn\nmp2 n2 n1 vdd mp\nc2 n2 0 1n\n"
+             "mn3 n3 n2 0 mn\nmp3 n3 n2 vdd mp\nc3 n3 0 1n\n"
+             "ikick 0 n1 PULSE(0 2m 0 1n 1n 3u 1)\n.tran 0.2u 30u\n.end\n")
+BJT_AMP_DECK = ("a bjt amp latency deck\n.model qn npn(is=1e-16 bf=100)\n"
+                "vcc vcc 0 5\nvin bs 0 SIN(0.7 0.005 100k)\nrc vcc c 1k\n"
+                "q1 c bs 0 qn\n.tran 0.2u 20u\n.end\n")
+
+# tests/test_pallas_fused.py:365-368, an NPN common-emitter amplifier
+BJT_NET = ("a bjt ce amp\n.model qn npn(is=1e-15 bf=100)\n"
+           "VCC vcc 0 5\nVIN in 0 PULSE(0.6 0.7 0 1u 1u 10u 20u)\n"
+           "RB in b1 10k\nRC vcc c1 1k\nQ1 c1 b1 0 qn\nCL c1 0 1n\n"
+           ".tran 0.2u 40u\n.end\n")
+
+# tests/test_pallas_fused.py:454-458, the same amplifier with BJT
+# junction charge (TF, CJE, CJC)
+QC_NET = ("a bjt charge amp\n"
+          ".model qn npn(is=1e-15 bf=100 tf=1n cje=2p cjc=1p)\n"
+          "VCC vcc 0 5\nVIN in 0 PULSE(0.6 0.7 0 1u 1u 10u 20u)\n"
+          "RB in b1 10k\nRC vcc c1 1k\nQ1 c1 b1 0 qn\n"
+          ".tran 0.2u 40u\n.end\n")
+
+# tests/test_pallas_fused.py:480-487, diode charge: reverse recovery (TT)
+# and a varactor (CJO)
+TT_NET = ("tt diode deck\n.model dchg d(is=1e-14 tt=10n)\n"
+          "V1 1 0 PULSE(5 -5 0 1n 1n 50n 200n)\nR1 1 2 100\n"
+          "D1 2 0 dchg\n.tran 4n 400n\n.end\n")
+CJ_NET = ("a cjo varactor deck\n"
+          ".model dv d(is=1e-14 cjo=10p vj=0.7 m=0.5)\n"
+          "V1 1 0 SIN(0 2 1e6)\nR1 1 2 1k\nD1 2 0 dv\n"
+          ".tran 10n 3u\n.end\n")
+
+# tests/test_pallas_fused.py:432-435, a JFET common-source stage
+JFET_NET = ("a jfet cs amp\n.model jm njf(vto=-2 beta=1e-4 lambda=0)\n"
+            "VDD vdd 0 10\nVG g 0 PULSE(-2 0 0 1u 1u 10u 20u)\n"
+            "RD vdd d1 10k\nJ1 d1 g 0 jm\nCL d1 0 1n\n"
+            ".tran 1u 20u\n.end\n")
+
+# BJT_NET mirrored to a PNP stage (the emitter at the 5 V rail), for the
+# reflected frame of the PNP model
+PNP_NET = ("a pnp ce amp\n.model qp pnp(is=1e-15 bf=80 br=2)\n"
+           "VEE vee 0 5\nVIN in 0 PULSE(4.4 4.3 0 1u 1u 10u 20u)\n"
+           "RB in b1 10k\nRC c1 0 1k\nQ1 c1 b1 vee qp\nCL c1 0 1n\n"
+           ".tran 0.2u 20u\n.end\n")

@@ -583,13 +583,53 @@ def from_jax_tensors(t: object) -> CircuitTensors:
 
 def nl_arrays(tensors: CircuitTensors, device: torch.device | str,
               dtype: torch.dtype = torch.float64) -> dict:
-    """The nonlinear-device arrays the transient reads, reduced to what
-    the switch/diode path needs: the thermal voltage at the circuit's
-    .temp, which scales the diode's linearization clamp window
-    (``vd in [-1.0, 0.8] * vt / VT_300K``). The MOSFET/BJT rows of the
-    JAX package's ``nl_arrays`` come with those devices (ROADMAP §1 item
-    3)."""
-    return {"vt": torch.as_tensor(tensors.vt, dtype=dtype, device=device)}
+    """Nonlinear extended-device arrays (MOSFET/BJT) as one dict, with the
+    thermal voltage at the circuit's .temp (``vt``, which also scales the
+    junction clamp window ``[-1.0, 0.8] * vt / VT_300K``). Index arrays
+    are int64, values ``dtype``."""
+    def idx(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    def val(a: object) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                               device=device)
+
+    return {
+        "m_idx": idx(tensors.m_idx), "m_beta": val(tensors.m_beta),
+        "m_vto": val(tensors.m_vto), "m_lambda": val(tensors.m_lambda),
+        "m_pol": val(tensors.m_polarity),
+        "q_idx": idx(tensors.q_idx), "q_is": val(tensors.q_is),
+        "q_bf": val(tensors.q_bf), "q_br": val(tensors.q_br),
+        "q_pol": val(tensors.q_polarity),
+        "vt": val(tensors.vt),
+    }
+
+
+def dchg_arrays(tensors: CircuitTensors, device: torch.device | str,
+                dtype: torch.dtype = torch.float64) -> dict | None:
+    """Diode charge storage (TT, CJO, VJ, M, FC per diode), or None when
+    every TT and CJO is 0: the reference's memoryless diode."""
+    if not tensors.has_d_charge:
+        return None
+    return {k: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                               device=device)
+            for k, a in (("tt", tensors.d_tt), ("cjo", tensors.d_cjo),
+                         ("vj", tensors.d_vj), ("m", tensors.d_m),
+                         ("fc", tensors.d_fc))}
+
+
+def qchg_arrays(tensors: CircuitTensors, device: torch.device | str,
+                dtype: torch.dtype = torch.float64) -> dict | None:
+    """BJT junction charge, or None when every TF/TR/CJE/CJC is 0: the
+    columns of ``q_chg`` shaped for ``diode_charge_cap``, the b-e
+    junction with (tf, cje, vje, mje), the b-c junction with (tr, cjc,
+    vjc, mjc), fc shared."""
+    if not tensors.has_q_charge:
+        return None
+    g = np.asarray(tensors.q_chg, np.float64)
+    names = ("tf", "tr", "cje", "vje", "mje", "cjc", "vjc", "mjc", "fc")
+    return {k: torch.as_tensor(g[:, i], dtype=dtype, device=device)
+            for i, k in enumerate(names)}
 
 
 def sample_source_values(ckt: ParsedCircuit, times: np.ndarray) -> np.ndarray:

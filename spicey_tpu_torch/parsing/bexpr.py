@@ -17,7 +17,7 @@ a current injection. No new stamp machinery is needed.
 This copy keeps only the NumPy function table: the AC path never
 evaluates a behavioral expression (V-kind sources stamp as 0 V shorts,
 I-kind sources are not stamped), and the transient refuses B sources, so
-a torch table comes with them (ROADMAP §1 item 4).
+a torch table comes with them (ROADMAP §1 item 2).
 
 Like parsing/params.py, evaluation is a whitelisted AST walk: numeric
 literals (engineering suffixes allowed), + - * / **, parens, unary +/-,

@@ -861,7 +861,7 @@ def _parse_directive(ckt: ParsedCircuit, tokens: list[str], line: str,
         ckt.tf = TFAnalysis(out_pos=out_pos, out_neg=out_neg, src=src)
     elif dir_name in (".meas", ".measure") and dialect == "extended":
         raise NotImplementedError(
-            ".meas is not ported yet (ROADMAP §1 item 10)")
+            ".meas is not ported yet (ROADMAP §1 item 8)")
     elif dir_name == ".noise" and dialect == "extended":
         out_tok = _require(tokens, 1, ".noise missing output spec")
         src = _require(tokens, 2, ".noise missing input source name")

@@ -132,7 +132,7 @@ def test_from_jax_tensors_rejects_other_fields():
 
 def test_unported_analyses_raise():
     dc = BASICS01.replace(".ac dec 100 1 100", ".dc v1 0 1 0.5")
-    with pytest.raises(NotImplementedError, match=r"\.dc .*ROADMAP §1 item 6"):
+    with pytest.raises(NotImplementedError, match=r"\.dc .*ROADMAP §1 item 4"):
         simulate(dc, dialect="extended", device="cpu")
     op = BASICS01.replace(".end", ".op\n.end")
     with pytest.raises(NotImplementedError, match=r"\.op"):

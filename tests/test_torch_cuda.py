@@ -1,4 +1,5 @@
-"""Kernels K1, K2, K3, K5 and K8 against their plain versions, on the card.
+"""Kernels K1, K2, K3, K5, K8 and K9 against their plain versions, on the
+card.
 
 Tests marked ``cuda`` need an NVIDIA GPU with the CUDA toolkit and skip
 elsewhere; run them on the card with
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 import spicey_tpu_torch as st
+from spicey_tpu_torch import decks
 from spicey_tpu_torch.ir.circuit import (effective_time_step,
                                          sample_source_values)
 from spicey_tpu_torch.ops import (gj, gj_real, linsolve, mc_ac_fused,
@@ -226,3 +228,92 @@ def test_k8_wrapper_refuses_bad_input():
         mc_tran_fused.mc_tran_fused_cuda(vs, values.double(), pattern, 1)
     with pytest.raises(ValueError, match="n_rows"):
         mc_tran_fused.mc_tran_fused_cuda(vs, values[:1], pattern, 1)
+
+
+# K9: a switch + diode deck (the reference's exit on switch stability) and
+# a MOSFET deck (Newton to convergence), both on a few hundred variants
+K9_DECKS = {
+    "switch_diode": (netlists.DIODE_SWITCH.replace(".tran 0.00001 0.01",
+                                                   ".tran 0.00001 0.002"),
+                     "spicey", "N3", {"RR1": 1e3}),
+    "ring": (decks.RING_NET.replace(".tran 0.1u 10u", ".tran 0.1u 5u"),
+             "extended", "n1", {"c1": 1e-9, "mn1": 2e-3}),
+}
+
+
+def _k9_inputs(deck, B, device):
+    from spicey_tpu_torch.analysis import batch as tbatch
+    from spicey_tpu_torch.analysis import mc as tmc
+
+    net, dialect, node, nominal = K9_DECKS[deck]
+    rng = np.random.default_rng(6)
+    ov = {k: v * (1 + 0.1 * rng.random(B)) for k, v in nominal.items()}
+    ckt = st.parse_netlist(net, dialect=dialect)
+    t = st.build_tensors(ckt)
+    dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
+    f32 = torch.float32
+    vs = torch.as_tensor(sample_source_values(ckt, np.arange(steps + 1) * dt),
+                         dtype=f32, device=device)
+
+    def vals(base, names):
+        return torch.as_tensor(tbatch._batch_values(base, names, ov, B),
+                               dtype=f32, device=device)
+
+    values = tmc.tran_value_slab(
+        t, vals(t.r_vals, t.r_names), vals(t.c_vals, t.c_names),
+        vals(t.l_vals, t.l_names),
+        tbatch._batched_ext(t, ov, B, device, f32),
+        tbatch._batched_nl(t, ov, B, device, f32), dt)
+    pattern = tmc._fused_tran_pattern(ckt, t, "pallas", "f32", "be", False,
+                                      device)
+    nr, max_nr = tmc._nr_mode(t)
+    node_idx = [n.upper() for n in t.node_names].index(node.upper())
+    return vs, values, pattern, node_idx, dict(
+        vd_scale=float(t.vt) / st.VT_300K, nr=nr, max_nr=max_nr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deck", sorted(K9_DECKS))
+def test_k9_matches_plain(cuda, deck):
+    vs, values, pattern, node_idx, kw = _k9_inputs(deck, 300, cuda)
+    before = mc_tran_fused.K9[torch.float32].launches
+    got, valid = mc_tran_fused.mc_tran_fused(vs, values, pattern, node_idx,
+                                             **kw)
+    assert mc_tran_fused.K9[torch.float32].launches == before + 1
+    want, pvalid = mc_tran_fused.mc_tran_fused_nr_plain(vs, values, pattern,
+                                                        node_idx, **kw)
+    assert torch.equal(valid, pvalid) and bool(valid.all())
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_k9_wrapper_refuses_bad_input():
+    vs, values, pattern, node_idx, kw = _k9_inputs("switch_diode", 3, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        mc_tran_fused.mc_tran_fused_nr_cuda(vs, values, pattern, node_idx,
+                                            **kw)
+    with pytest.raises(TypeError, match="float32"):
+        mc_tran_fused.mc_tran_fused_nr_cuda(vs, values.double(), pattern,
+                                            node_idx, **kw)
+    with pytest.raises(ValueError, match="n_rows"):
+        mc_tran_fused.mc_tran_fused_nr_cuda(vs, values[:1], pattern,
+                                            node_idx, **kw)
+    with pytest.raises(ValueError, match="nr must be"):
+        mc_tran_fused.mc_tran_fused_nr_cuda(vs, values, pattern, node_idx,
+                                            nr="newton")
+    linear = mc_tran_fused.pack_tran_pattern(
+        mc_tran_fused.build_tran_pattern(2, np.array([[0, 1]]),
+                                         np.zeros((0, 2)), np.zeros((0, 2)),
+                                         np.array([[0, 2, 1]]), 0), 2, "cpu")
+    with pytest.raises(ValueError, match="nonlinear"):
+        mc_tran_fused.mc_tran_fused_nr_cuda(vs, values, linear, 0, **kw)
+    # N = 17: a diode at the end of a 16-section RC ladder
+    n = 17
+    big = mc_tran_fused.pack_tran_pattern(mc_tran_fused.build_tran_pattern(
+        n, np.array([[i, i + 1] for i in range(n - 2)]), np.zeros((0, 2)),
+        np.zeros((0, 2)), np.array([[0, n, n - 1]]), 0,
+        d_idx=np.array([[n - 2, n]])), n, "cpu")
+    with pytest.raises(ValueError, match="N <= 16"):
+        mc_tran_fused.mc_tran_fused_nr_cuda(
+            vs, torch.ones((big.n_rows, 3), dtype=torch.float32), big, 0,
+            **kw)

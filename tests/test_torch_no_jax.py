@@ -1,10 +1,11 @@
 """The port runs where jax is absent, as on the GPU machine.
 
 A subprocess blocks ``import jax`` and reproduces the basics01 golden
-through ``spicey_tpu_torch``, runs the boost-converter transient and a
+through ``spicey_tpu_torch``, runs the boost-converter transient, a
 small transient Monte-Carlo on both routes (the batched loop and the
-fused tier's plain version); an AST scan asserts that no module of the
-port imports jax or the JAX package.
+fused tier's plain versions, linear and nonlinear), the MOSFET ring
+through ``simulate`` and a small ring Monte-Carlo; an AST scan asserts
+that no module of the port imports jax or the JAX package.
 """
 
 import ast
@@ -13,6 +14,7 @@ import pathlib
 import subprocess
 import sys
 
+from spicey_tpu_torch import decks
 from tests.fixtures import netlists
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -38,6 +40,18 @@ for method, precision in (("gj", "f64"), ("pallas", "f32")):
     ts = st.mc_tran_stats(rc, {"R1": [1e3, 1.1e3, 1.2e3]}, node="2",
                           method=method, precision=precision, device="cpu")
     assert ts.n_valid == 3 and ts.mean.shape == (201,)
+ring = open(sys.argv[5]).read()
+tran = st.simulate(ring, dialect="extended", device="cpu").tran
+assert len(tran.times) == 51 and "mn1" in tran.element_currents
+for method, precision in (("gj", "f64"), ("pallas", "f32")):
+    ts = st.mc_tran_stats(ring, {"c1": [1e-9, 1.05e-9], "mn1": [2e-3, 2.1e-3]},
+                          node="n1", method=method, precision=precision,
+                          dialect="extended", device="cpu")
+    assert ts.n_valid == 2 and ts.mean.shape == (51,)
+bs = st.mc_tran_stats(open(sys.argv[3]).read(), {"RR1": [1e3, 1.05e3]},
+                      node="N3", method="pallas", precision="f32",
+                      device="cpu")
+assert bs.n_valid == 2
 print("OK")
 """
 
@@ -49,6 +63,8 @@ c1 2 0 100u
 .end
 """
 
+RING = decks.RING_NET.replace(".tran 0.1u 10u", ".tran 0.1u 5u")
+
 
 def test_port_runs_with_jax_blocked(tmp_path, fixtures_dir):
     deck = tmp_path / "basics01.cir"
@@ -57,11 +73,13 @@ def test_port_runs_with_jax_blocked(tmp_path, fixtures_dir):
     boost.write_text(netlists.BOOST_CONVERTER)
     rc = tmp_path / "rc.cir"
     rc.write_text(netlists.RC_PULSE)
+    ring = tmp_path / "ring.cir"
+    ring.write_text(RING)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
         [sys.executable, "-c", _SCRIPT, str(deck),
          os.path.join(fixtures_dir, "basics01_golden.txt"), str(boost),
-         str(rc)],
+         str(rc), str(ring)],
         capture_output=True, text=True, env=env, cwd=tmp_path, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "OK"

@@ -7,7 +7,11 @@ with the reference Newton loop (``nr="converged"`` is in
 ``test_torch_tran_converged.py``), held at ``tests/test_tran.py``'s
 tolerances: 1e-9/1e-12 on the linear and switch decks, 1e-7/1e-9 on the
 boost converter, 1e-6/1e-9 on the diode rectifier. The reference mode is
-also held to the NumPy oracle (tests/oracle.py) step for step.
+also held to the NumPy oracle (tests/oracle.py) step for step. The
+extended nonlinear decks (MOSFET ring, BJT amplifiers NPN and PNP, a
+JFET stage, diode TT/CJO and BJT junction charge) match at 1e-9/1e-12,
+node voltages and element currents, fresh and resumed from a JAX
+checkpoint.
 """
 
 import numpy as np
@@ -15,7 +19,7 @@ import pytest
 import torch
 
 import spicey_tpu
-from spicey_tpu_torch import (TranState, compare_voltage_levels,
+from spicey_tpu_torch import (TranState, compare_voltage_levels, decks,
                               format_tran_result, formatTranResult,
                               parse_netlist, simulate, simulate_tran,
                               simulateTRAN, spicey_tran_to_vgraphs)
@@ -247,23 +251,34 @@ def test_singular_and_absent_tran():
 UNPORTED = {
     "mutual inductance": ("* k\nv1 1 0 PULSE(0 1 0 1n 1n 5u 10u)\n"
                           "l1 1 0 1m\nl2 2 0 1m\nr1 2 0 1k\nk1 l1 l2 0.5\n"
-                          ".tran 1u 10u\n.end\n", r"item 4"),
+                          ".tran 1u 10u\n.end\n", r"item 2"),
     "transmission line": ("tline deck\nV1 in 0 PULSE(0 1 0 1n 1n 50n 200n)\n"
                           "R1 in a 50\nT1 a 0 b 0 Z0=50 TD=10n\nR2 b 0 50\n"
-                          ".tran 1n 200n\n.end\n", r"item 4"),
+                          ".tran 1n 200n\n.end\n", r"item 2"),
     "behavioral source": ("* b\nvin in 0 PULSE(0 2 0 1u 1u 40u 100u)\n"
                           "r1 in 0 1k\nbq out 0 I=1m*tanh(3*v(in))\n"
-                          "rload out 0 2k\n.tran 1u 10u\n.end\n", r"item 4"),
+                          "rload out 0 2k\n.tran 1u 10u\n.end\n", r"item 2"),
+}
+
+# the extended nonlinear devices: MOSFET/JFET (level 1), BJT (Ebers-Moll)
+# and junction charge
+NONLINEAR = {
     "mosfet": ("* m\n.model mn nmos(vto=1 kp=2m)\nvdd vdd 0 5\n"
                "vg g 0 PULSE(0 5 0 1u 1u 5u 10u)\nrd vdd d 1k\nm1 d g 0 mn\n"
-               ".tran 1u 10u\n.end\n", r"item 3"),
+               ".tran 1u 10u\n.end\n"),
     "bjt": ("* q\n.model qn npn(is=1e-16 bf=100)\nvcc vcc 0 5\n"
             "vin bs 0 SIN(0.7 0.005 100k)\nrc vcc c 1k\nq1 c bs 0 qn\n"
-            ".tran 1u 10u\n.end\n", r"item 3"),
+            ".tran 1u 10u\n.end\n"),
     "diode charge": ("* d\nV1 a 0 PULSE(0 5 0 1u 1u 40u 100u)\n"
                      "R1 a b 1k\nD1 b 0 DX\n"
                      ".model DX d(is=1e-14 tt=100n cjo=10p)\n"
-                     ".tran 1u 10u\n.end\n", r"item 3"),
+                     ".tran 1u 10u\n.end\n"),
+    "ring": decks.RING_NET,
+    "bjt_net": decks.BJT_NET,
+    "bjt charge": decks.QC_NET.replace(".tran 0.2u 40u", ".tran 0.2u 20u"),
+    "jfet": decks.JFET_NET,
+    "pnp": decks.PNP_NET,
+    "varactor": decks.CJ_NET,
 }
 
 
@@ -274,8 +289,65 @@ def test_unported_devices_raise(what):
         _port(net, dialect="extended")
 
 
+@pytest.mark.parametrize("deck,integration", [
+    (d, "be") for d in sorted(NONLINEAR)] + [
+    ("ring", "trap"), ("bjt_net", "gear2"), ("diode charge", "trap")])
+def test_nonlinear_decks_match_jax(deck, integration):
+    """MOSFET/JFET/BJT decks (Newton to convergence, as the JAX package
+    upgrades them) and junction-charge decks, node voltages and element
+    currents at 1e-9."""
+    net = NONLINEAR[deck]
+    want = _jax(net, dialect="extended", integration=integration)
+    got = _port(net, dialect="extended", integration=integration)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("deck", ["diode charge", "bjt charge", "ring",
+                                  "pnp"])
+def test_jax_nonlinear_checkpoint_resumes_in_the_port(deck):
+    """A JAX checkpoint carries the junction seeds (vm_prev, vq_prev) and
+    the committed junction charges (q_prev_d, q_prev_q); the port resumes
+    it and must equal the JAX full run's second half."""
+    net = NONLINEAR[deck]
+    ckt = spicey_tpu.parse_netlist(net, dialect="extended")
+    tstop = ckt.tran.tstop
+    ckt.tran.tstop = tstop / 2
+    first = spicey_tpu.simulate_tran(ckt, return_state=True)
+    ckt.tran.tstop = tstop
+    full = spicey_tpu.simulate_tran(ckt)
+    pckt = parse_netlist(net, dialect="extended")
+    pckt.tran.tstop = tstop / 2
+    state = TranState(carry=first.state.carry, t=first.state.t,
+                      dt=first.state.dt)
+    second = simulate_tran(pckt, state=state, return_state=True,
+                           device="cpu")
+    assert len(second.state.carry) == len(first.state.carry)
+    k = len(first.times)
+    m = min(len(second.times), len(full.times) - k)
+    assert m >= len(full.times) - k - 1
+    for series, ref in ((second.node_voltages, full.node_voltages),
+                        (second.element_currents, full.element_currents)):
+        for name, w in ref.items():
+            np.testing.assert_allclose(series[name][:m], w[k:k + m],
+                                       rtol=1e-9, atol=1e-12, err_msg=name)
+
+
+@pytest.mark.parametrize("deck", ["ring", "bjt_amp"])
+def test_simulate_runs_the_bench_nonlinear_decks(deck):
+    """The JAX package's bench latency decks (bench.py:453-474) through
+    ``simulate()``, formatted output equal to the JAX package's."""
+    nets = {
+        "ring": NONLINEAR["ring"].replace(".tran 0.1u 10u", ".tran 0.2u 30u"),
+        "bjt_amp": NONLINEAR["bjt"].replace(".tran 1u 10u", ".tran 0.2u 20u"),
+    }
+    want = spicey_tpu.simulate(nets[deck], dialect="extended").tran
+    got = simulate(nets[deck], dialect="extended", device="cpu")
+    assert got.ac is None
+    _close(got.tran, want)
+
+
 def test_schur_method_raises():
-    with pytest.raises(NotImplementedError, match=r"Schur.*item 8"):
+    with pytest.raises(NotImplementedError, match=r"Schur.*item 6"):
         _port(netlists.RC_PULSE, method="schur")
 
 

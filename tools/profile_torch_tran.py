@@ -16,8 +16,15 @@ variants x 201 steps, R1 and C1 at U(1, 1.2) x nominal) at f32 through the
 fused kernel K8, at f32 and f64 through the batched loop with the
 factor-once inverse K3, and the on-device-sampled f32 run; boost-100k
 (bench.py's boost converter, 100k variants x 101 steps, RR1 at U(1, 1.1)
-x 1k) at f64 and f32, K2 on every Newton pass; and two single decks on
-the card, RC_PULSE (linear, K3) and DIODE_SWITCH (switch + diode, K2).
+x 1k) at f64 and f32, K2 on every Newton pass; two single decks on the
+card, RC_PULSE (linear, K3) and DIODE_SWITCH (switch + diode, K2); and
+the nonlinear Monte-Carlo of K9: the bench's MOSFET ring (bench.py:
+646-661, c1 and c2 at U(1, 1.1) x 1 nF) at 4096 variants through K9 and
+through the f64 loop, and at 100k through K9; the bench's switch_diode
+boost (100k, RR1 at U(1, 1.1) x 1k) through K9 on its 1 ms grid and on
+DIODE_SWITCH's 10 us grid; BJT_NET with Q1's Is at U(1, 1.2) x 1e-15,
+100k through K9; and the bench's ring latency deck through simulate().
+The decks are ``spicey_tpu_torch/decks.py``'s, as in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -38,23 +45,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import spicey_tpu_torch as st  # noqa: E402
+from spicey_tpu_torch.decks import (BJT_NET, BOOST_FINE,  # noqa: E402
+                                    BOOST_NET, RING_DECK, RING_NET,
+                                    TRAN_NET)
 from profile_torch_ac import device_breakdown, wall  # noqa: E402
 from tests.fixtures import netlists  # noqa: E402
-
-TRAN_NET = ("TRAN bench\nV1 1 0 PULSE(0 5 0 1n 1n 5u 10u)\nR1 1 2 1k\n"
-            "C1 2 0 1u\n.tran 0.1u 20u\n.end\n")
-BOOST_NET = """a boost-converter bench (reference fixture)
-.MODEL D D
-.MODEL SWMOD SW
-LL1 N1 N2 1
-DD1 N2 N3 D
-CC1 N3 0 10U
-RR1 N3 0 1K
-SM1 N2 0 N4 0 SWMOD
-Vs0 N1 0 DC 5
-Vs1 N4 0 PULSE(0 10 0 1n 1n 0.00068 0.001)
-.tran 0.001 0.1 uic
-"""
 
 
 def workloads(seed: int) -> dict:
@@ -63,6 +58,11 @@ def workloads(seed: int) -> dict:
     tran = {"R1": 1e3 * (1 + 0.2 * rng.random(B)),
             "C1": 1e-6 * (1 + 0.2 * rng.random(B))}
     boost = {"RR1": 1e3 * (1 + 0.1 * rng.random(100_000))}
+    ring = {"c1": 1e-9 * (1 + 0.1 * rng.random(100_000)),
+            "c2": 1e-9 * (1 + 0.1 * rng.random(100_000))}
+    ring4k = {k: v[:4096] for k, v in ring.items()}
+    bjt = {"Q1": 1e-15 * (1 + 0.2 * rng.random(100_000))}
+    k9 = dict(method="pallas", precision="f32", device="cuda")
     dev = "cuda"
     return {
         "tran-1M f32 K8": lambda: st.mc_tran_stats(
@@ -85,6 +85,20 @@ def workloads(seed: int) -> dict:
             netlists.RC_PULSE, device=dev),
         "DIODE_SWITCH f64 (simulate)": lambda: st.simulate(
             netlists.DIODE_SWITCH, device=dev),
+        "ring-4096 f32 K9": lambda: st.mc_tran_stats(
+            RING_NET, ring4k, node="n1", dialect="extended", **k9),
+        "ring-4096 f64 loop": lambda: st.mc_tran_stats(
+            RING_NET, ring4k, node="n1", dialect="extended", device=dev),
+        "ring-100k f32 K9": lambda: st.mc_tran_stats(
+            RING_NET, ring, node="n1", dialect="extended", **k9),
+        "switch-diode-100k f32 K9": lambda: st.mc_tran_stats(
+            BOOST_NET, boost, node="N3", **k9),
+        "switch-diode-100k 10us grid f32 K9": lambda: st.mc_tran_stats(
+            BOOST_FINE, boost, node="N3", **k9),
+        "bjt-100k f32 K9": lambda: st.mc_tran_stats(
+            BJT_NET, bjt, node="c1", dialect="extended", **k9),
+        "ring_deck f64 (simulate)": lambda: st.simulate(
+            RING_DECK, dialect="extended", device=dev),
     }
 
 
