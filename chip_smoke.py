@@ -5,10 +5,11 @@ needs one CUDA card and the CUDA toolkit (nvcc), imports nothing of JAX,
 and exits nonzero on the first failure (nothing is caught). Phases, one
 line each:
 
-  1. build kernels K1 (csrc/gj_complex.cu), K2 + K3 (csrc/gj_real.cu),
-     K5 (csrc/mc_ac_fused.cu), K8 (csrc/mc_tran_fused.cu) and K9
-     (csrc/mc_tran_nr.cu) with nvcc, one process per source, all started
-     together; print the build seconds and the card's name/power limit;
+  1. build kernels K1 + K4 (csrc/gj_complex.cu), K2 + K3
+     (csrc/gj_real.cu), K5 (csrc/mc_ac_fused.cu), K8
+     (csrc/mc_tran_fused.cu) and K9 (csrc/mc_tran_nr.cu) with nvcc, one
+     process per source, all started together; print the build seconds
+     and the card's name/power limit;
   2. every kernel instantiation against its plain PyTorch version on the
      card, on the same inputs: K1 at N in {3, 8, 64, 128} with singular
      lanes and at the main path's shapes (the basics01 planes, the N = 64
@@ -27,7 +28,14 @@ line each:
      stage, the TT and CJO diode decks, the BJT-charge deck): ``valid``
      identical, every lane within 1e-4 x max|V| (f32 Newton iterates
      rounded differently), or, where a lane lands on the other side of a
-     threshold, mean/min/max within 2e-4 with the count of such lanes;
+     threshold, mean/min/max within 2e-4 with the count of such lanes; K4
+     (the complex inverse) at N in {3, 8, 64, 128} and at the .noise
+     shapes of phases 16 and 17 (901 x 11, 901 x 64), with an all-zero
+     and a zero-row system, f64 at 1e-12 and f32 at 1e-5, and in f64 on
+     the .noise planes themselves (the amplifier's and the ladder's 901
+     systems at their operating points; in f32 these are beyond single
+     precision at the GHz end, so no tolerance tells a right f32 inverse
+     from a wrong one there);
   3-8. the main path through the public entry points, each phase with
      every launch counter zeroed first and read after: the basics01
      golden on cuda (character-exact); the 1M-variant AC yield at f32
@@ -52,14 +60,28 @@ line each:
      ring and BJT-amplifier latency decks through ``simulate()`` on cuda,
      equal to the CPU path at 1e-9. The decks are
      ``spicey_tpu_torch/decks.py``'s;
-  9. every instantiation launched during 3-8 and 10-13 (printed after
-     them); CUDA-event times of each
+  14-17. the operating point and the small-signal analyses through the
+     public entry points on cuda, each equal to the CPU path at 1e-9: the
+     bench's op/dc/tf deck through ``simulate()`` (K2); the MOSFET output
+     characteristics as one 2D .dc of 25,551 points and ``op_batch`` of
+     BJT_NET's bias over 100k Is variants (K2; n_valid == B, a 64-lane
+     subset against the CPU path, Newton passes per lane); a two-stage BJT
+     amplifier through ``simulate()`` with .op, .tf, ``.options acop``
+     .ac and .noise over 901 frequencies (K2, K1, K4); the thermal noise
+     of the N = 64 RC ladder over 901 frequencies (K4); each .noise run
+     prints how many systems its residual guard solved again (K1);
+  9. every instantiation launched during 3-8 and 10-17 (printed after
+     them; K4's f32 instance is on no main path and is checked in phase 2
+     only); CUDA-event times of each
      kernel, its plain version and, where one PyTorch call computes the
      same function, that call (``torch.linalg.solve`` for K1/K2,
-     ``torch.linalg.inv`` for K3), at the main path's shapes, beside the
+     ``torch.linalg.inv`` for K3 and, on complex128, K4), at the main
+     path's shapes (K4 f64 at both .noise shapes), beside the
      kernel's bound: the larger of its bytes over 3.35 TB/s and its
-     operations over the H100's non-tensor peak (67 TFLOP/s f32, 34
-     TFLOP/s f64, NVIDIA's H100 SXM data sheet); K9 against its plain
+     operations over the H100's peak for the type (67 TFLOP/s in f32
+     outside the tensor cores, 67 TFLOP/s in f64 on them; NVIDIA's H100
+     SXM data sheet), the operations those of the cheapest direct method
+     (``solve_flops``, ``inverse_flops``); K9 against its plain
      version at each 100k shape of phases 10-12 (the boost on both grids,
      the ring, BJT_NET; the same tolerances as in phase 2), with the
      Newton passes per lane there and K9's time at each, its plain
@@ -126,10 +148,24 @@ GOLDENS = ("RC_PULSE", "TWO_PROBES", "SERIES_RLC", "SWITCH_VT_VH",
            "VSWITCH_PWL", "BOOST_CONVERTER", "DIODE_SWITCH")
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 TAG = {torch.float64: "f64", torch.float32: "f32"}
-# the H100 SXM's peaks (NVIDIA data sheet): HBM3 bytes/s; FLOP/s outside
-# the tensor cores
+# the H100 SXM's peaks (NVIDIA data sheet): HBM3 bytes/s; FLOP/s for the
+# type: f32 outside the tensor cores (their TF32 rounds the operands), f64
+# on them (full f64; 34 TFLOP/s outside them)
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+
+
+def solve_flops(n: int, complex_: bool = False) -> float:
+    """Real flops of one dense n x n solve by the cheapest direct method:
+    an LU factorization (2n^3/3) and two triangular solves (2n^2); a
+    complex multiply-add is four real ones."""
+    return (4.0 if complex_ else 1.0) * (2.0 * n ** 3 / 3.0 + 2.0 * n * n)
+
+
+def inverse_flops(n: int, complex_: bool = False) -> float:
+    """Real flops of one dense n x n inverse: n^3 multiply-adds, as an
+    in-place Gauss-Jordan inverse does them."""
+    return (4.0 if complex_ else 1.0) * 2.0 * n ** 3
 
 
 def bound(flops: float, nbytes: float, dtype: torch.dtype
@@ -195,10 +231,13 @@ def main() -> int:
     from spicey_tpu_torch.analysis import ac as tac
     from spicey_tpu_torch.analysis import batch as tbatch
     from spicey_tpu_torch.analysis import mc as tmc
+    from spicey_tpu_torch.analysis import noise as tnoise
     from spicey_tpu_torch.analysis import tran as ttran
-    from spicey_tpu_torch.decks import (BJT_AMP_DECK, BJT_NET, BOOST_FINE,
-                                        BOOST_NET, CJ_NET, JFET_NET, PNP_NET,
-                                        QC_NET, RING_DECK, RING_NET, TRAN_NET,
+    from spicey_tpu_torch.decks import (AMP_DECK, BJT_AMP_DECK, BJT_NET,
+                                        BOOST_FINE, BOOST_NET, CJ_NET,
+                                        JFET_NET, LADDER_NOISE, MOS_IV_DECK,
+                                        OPDCTF_DECK, PNP_NET, QC_NET,
+                                        RING_DECK, RING_NET, TRAN_NET,
                                         TT_NET)
     from spicey_tpu_torch.ir.circuit import (effective_time_step,
                                              sample_source_values)
@@ -212,7 +251,10 @@ def main() -> int:
                list(gj.K1.values()) + list(mc_ac_fused.K5.values())
                + list(gj_real.K2.values()) + list(gj_real.K3.values())
                + list(mc_tran_fused.K8.values())
-               + list(mc_tran_fused.K9.values())}
+               + list(mc_tran_fused.K9.values())
+               # the .noise path runs K4 in f64; its f32 instance exists to
+               # be held against the TPU kernel and runs in phase 2 only
+               + [gj.K4[torch.float64]]}
     err = {name: 0.0 for name in kernels}
     # name -> (kernel ms, plain ms, library ms or None, bound ms, bound by)
     ms: dict[str, tuple] = {}
@@ -234,7 +276,7 @@ def main() -> int:
             k.launches = 0
 
     # ---- 1. build --------------------------------------------------------
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.build(["gj_complex", "gj_real", "mc_ac_fused", "mc_tran_fused",
                   "mc_tran_nr"])
     for mod in (gj, gj_real, mc_ac_fused, mc_tran_fused):
@@ -303,6 +345,55 @@ def main() -> int:
                 raise AssertionError(f"K1 N={n}: {nv}/{nt} valid")
             say("2 compare", f"K1 {TAG[dtype]} N={n} B={B} valid {nv}/{nt} "
                 f"max_abs_err {e:.3e}")
+
+    def k4_vs_plain(Ar, Ai, dtype, what, main_shape):
+        """K4 against its plain version: ``valid`` identical, the inverses
+        at rtol."""
+        mr, mi, v = gj.gj_inverse_planes_cuda(Ar, Ai)
+        pr, pi, pv = linsolve.gj_inverse_planes(Ar, Ai)
+        if not torch.equal(v, pv):
+            raise AssertionError(f"K4 {what}: valid flags differ")
+        e = max(check_close(mr[pv], pr[pv], TOL[dtype], f"K4 {what} re"),
+                check_close(mi[pv], pi[pv], TOL[dtype], f"K4 {what} im"))
+        if main_shape:
+            name = gj.K4[dtype].name
+            err[name] = max(err[name], e)
+        return e, int(pv.sum()), pv.numel()
+
+    # random systems at N in {3, 8, 64, 128} and at the .noise shapes of
+    # phases 16 and 17
+    for dtype in (torch.float64, torch.float32):
+        for B, n in ((512, 3), (512, 8), (512, 64), (512, 128), (901, 11),
+                     (901, 64)):
+            Ar = rng.standard_normal((B, n, n)) + n * np.eye(n)
+            Ai = rng.standard_normal((B, n, n))
+            Ar[0] = Ai[0] = 0.0             # all-zero system
+            Ar[1, n // 2] = Ai[1, n // 2] = 0.0  # one zero row
+            e, nv, nt = k4_vs_plain(
+                *[torch.as_tensor(a, dtype=dtype, device=dev)
+                  for a in (Ar, Ai)], dtype, f"{TAG[dtype]} N={n}", False)
+            if nv != nt - 2:
+                raise AssertionError(f"K4 N={n}: {nv}/{nt} valid")
+            say("2 compare", f"K4 {TAG[dtype]} N={n} B={B} valid {nv}/{nt} "
+                f"max_abs_err {e:.3e}")
+
+    # the .noise systems of phases 16 and 17 (the amplifier, N = 11, and
+    # the N = 64 ladder, 901 frequencies each) at their operating points,
+    # in f64 as .noise runs them
+    noise_planes = {}
+    for label, net in (("amp", AMP_DECK), ("ladder", LADDER_NOISE)):
+        ckt = st.parse_netlist(net, dialect="extended")
+        t = st.build_tensors(ckt)
+        op = st.simulate_op(ckt, tensors=t, device=dev)
+        _f, planes, _e, _p, _n = tnoise.noise_system(ckt, t, op, dev)
+        Ar, Ai = (p.contiguous() for p in planes[:2])
+        noise_planes[label] = (Ar, Ai)
+        e, nv, nt = k4_vs_plain(Ar, Ai, torch.float64,
+                                f"f64 {label} noise planes", True)
+        if nv != nt:
+            raise AssertionError(f"K4 {label}: {nv}/{nt} valid")
+        say("2 compare", f"K4 f64 {label} noise planes ({nt}, "
+            f"{Ar.shape[1]}) valid {nv}/{nt} max_abs_err {e:.3e}")
 
     def assembled(net, overrides, B, dtype, dialect="spicey"):
         """The planes the K1 route assembles for a deck, flattened to
@@ -972,6 +1063,113 @@ def main() -> int:
             f"equals the CPU path at 1e-9; {g_s:.3f} s wall")
     counted("13 single decks", [gj_real.K2[f64]])
 
+    def same(got, want, what, rtol=1e-9, atol=1e-12):
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                   err_msg=what)
+
+    def same_op(got, want, what):
+        for series, ref in ((got.node_voltages, want.node_voltages),
+                            (got.element_currents, want.element_currents)):
+            if list(series) != list(ref):
+                raise AssertionError(f"{what}: result keys differ")
+            for name, v in ref.items():
+                same(series[name], v, f"{what} {name}")
+
+    def same_noise(got, want, what):
+        """Output PSD and gain at 1e-9; every contribution within 1e-9 of
+        its own value or of the total output PSD at its frequency."""
+        same(got.output_psd, want.output_psd, f"{what} psd", atol=0.0)
+        # the ladder's far-end gain underflows to 0 at the top of the
+        # sweep: held at the scale of the sweep there
+        same(got.gain, want.gain, f"{what} gain",
+             atol=1e-12 * float(np.abs(want.gain).max()))
+        for name, c in want.contributions.items():
+            bad = (np.abs(got.contributions[name] - c)
+                   > 1e-9 * (np.abs(c) + want.output_psd))
+            if bad.any():
+                raise AssertionError(f"{what} contribution {name}")
+
+    # ---- 14. the bench's op/dc/tf deck through simulate() ----------------
+    t_op = time.perf_counter()
+    got, g_s = timed(lambda: st.simulate(OPDCTF_DECK, dialect="extended",
+                                         device=dev))
+    want = st.simulate(OPDCTF_DECK, dialect="extended", device="cpu")
+    same_op(got.op, want.op, "opdctf .op")
+    for name, v in want.dc.node_voltages.items():
+        same(got.dc.node_voltages[name], v, f"opdctf .dc {name}")
+    for f in ("transfer_function", "input_impedance", "output_impedance"):
+        same(getattr(got.tf, f), getattr(want.tf, f), f"opdctf .tf {f}")
+    say("14 op/dc/tf", f".op, .dc ({len(got.dc.sweep)} points, Newton "
+        f"passes per point mean {got.dc.passes.mean():.1f} max "
+        f"{got.dc.passes.max()}) and .tf on cuda equal the CPU path at "
+        f"1e-9; {g_s:.3f} s wall")
+    counted("14 op/dc/tf", [gj_real.K2[f64]])
+
+    # ---- 15. dc-2d-25k and op-batch-100k -----------------------------------
+    iv, iv_s = timed(lambda: st.simulate(MOS_IV_DECK, dialect="extended",
+                                         device=dev).dc)
+    n_iv = len(iv.sweep)
+    if n_iv != 25_551 or not iv.valid.all():
+        raise AssertionError(f"dc-2d: {int(iv.valid.sum())}/{n_iv} valid")
+    lanes = np.sort(rng.choice(n_iv, 64, replace=False))
+    sub = st.op_batch(MOS_IV_DECK, {"vds": iv.sweep[lanes],
+                                    "vgs": iv.sweep2[lanes]},
+                      dialect="extended", device="cpu")
+    for name in ("d", "gt"):
+        same(iv.node_voltages[name][lanes], sub.node_voltage(name),
+             f"dc-2d {name}")
+    say("15 dc-2d-25k", f"MOSFET output characteristics {iv.shape2d} = "
+        f"{n_iv} points on cuda: n_valid {int(iv.valid.sum())}; a 64-point "
+        f"subset equals the CPU path at 1e-9; Newton passes per point mean "
+        f"{iv.passes.mean():.2f} max {iv.passes.max()}; {iv_s:.3f} s wall")
+    ob_over = {"Q1": 1e-15 * (1 + 0.2 * rng.random(BOOST_B)),
+               "VIN": np.full(BOOST_B, 0.65)}
+    ob, ob_s = timed(lambda: st.op_batch(BJT_NET, ob_over,
+                                         dialect="extended", device=dev))
+    if not ob.valid.all():
+        raise AssertionError(f"op-batch: {int(ob.valid.sum())} valid")
+    sub = st.op_batch(BJT_NET, {k: v[:64] for k, v in ob_over.items()},
+                      dialect="extended", device="cpu")
+    same(ob.x[:64], sub.x, "op-batch subset")
+    say("15 op-batch-100k", f"BJT_NET bias (VIN 0.65 V, Q1 Is at U(1, 1.2)"
+        f" x 1e-15), {BOOST_B} variants on cuda: n_valid "
+        f"{int(ob.valid.sum())}; 64 equal the CPU path at 1e-9; Newton "
+        f"passes per variant mean {ob.passes.mean():.2f} max "
+        f"{ob.passes.max()}; {ob_s:.3f} s wall")
+    counted("15 dc-2d/op-batch", [gj_real.K2[f64]])
+
+    # ---- 16. the two-stage amplifier: .op, .tf, acop .ac, .noise -----------
+    amp, amp_s = timed(lambda: st.simulate(AMP_DECK, dialect="extended",
+                                           device=dev))
+    want = st.simulate(AMP_DECK, dialect="extended", device="cpu")
+    same_op(amp.op, want.op, "amp .op")
+    for f in ("transfer_function", "input_impedance", "output_impedance"):
+        same(getattr(amp.tf, f), getattr(want.tf, f), f"amp .tf {f}")
+    for name, z in want.ac.node_voltages.items():
+        same(amp.ac.node_voltages[name], z, f"amp .ac {name}")
+    same_noise(amp.noise, want.noise, "amp .noise")
+    say("16 amp", f"N={st.build_tensors(amp.circuit).nvar}, "
+        f"{len(amp.noise.freqs)} frequencies: .op, .tf, .options acop .ac "
+        f"and .noise on cuda equal the CPU path at 1e-9; guard re-solves "
+        f"{amp.noise.guard_resolves} (CPU path "
+        f"{want.noise.guard_resolves}); output noise "
+        f"{amp.noise.total_output_rms:.4e} Vrms; {amp_s:.3f} s wall")
+    counted("16 amp", [gj.K4[f64], gj.K1[f64], gj_real.K2[f64]])
+
+    # ---- 17. ladder-64 noise: an RC interconnect's thermal noise -----------
+    lad_n, lad_s = timed(lambda: st.simulate(LADDER_NOISE,
+                                             dialect="extended",
+                                             device=dev).noise)
+    want = st.simulate(LADDER_NOISE, dialect="extended", device="cpu").noise
+    same_noise(lad_n, want, "ladder .noise")
+    say("17 ladder noise", f"N=64, {len(lad_n.freqs)} frequencies on cuda "
+        f"equal the CPU path at 1e-9; guard re-solves "
+        f"{lad_n.guard_resolves} (CPU path {want.guard_resolves}); output "
+        f"noise {lad_n.total_output_rms:.4e} Vrms; {lad_s:.3f} s wall; "
+        f"phases 14-17 {time.perf_counter() - t_op:.1f} s with their CPU "
+        "comparisons")
+    counted("17 ladder noise", [gj.K4[f64]])
+
     # ---- 9. launches and times --------------------------------------------
     missing = [name for name, n in launches.items() if n == 0]
     if missing:
@@ -988,7 +1186,7 @@ def main() -> int:
         ms[name] = (cuda_ms(lambda: gj.gj_solve_planes_cuda(*planes), 5),
                     cuda_ms(lambda: linsolve.gj_solve_planes(*planes), 2),
                     cuda_ms(lambda: torch.linalg.solve(Ac, bc), 3),
-                    *bound(nb * 8.0 * n * n * (n + 1),
+                    *bound(nb * solve_flops(n, True),
                            el * nb * (2 * n * n + 4 * n) + nb, dtype))
         del Ac, bc
     for dtype, inputs in big_inputs.items():
@@ -999,7 +1197,7 @@ def main() -> int:
         shape[name] = f"RC ({nb}, {F})"
         ms[name] = (cuda_ms(lambda: mc_ac_fused.mc_ac_fused_cuda(*inputs), 5),
                     cuda_ms(lambda: plain_chunked(*inputs), 1), None,
-                    *bound(F * nb * (8.0 * n * n * (n + 1)
+                    *bound(F * nb * (solve_flops(n, True)
                                      + 2 * packed.terms.shape[0]),
                            el * (values.numel() + F) + F * nb * (el + 1),
                            dtype))
@@ -1010,7 +1208,7 @@ def main() -> int:
         ms[name] = (cuda_ms(lambda: gj_real.gj_solve_cuda(A, b), 20),
                     cuda_ms(lambda: linsolve.gj_solve(A, b), 5),
                     cuda_ms(lambda: torch.linalg.solve(A, b), 5),
-                    *bound(nb * 2.0 * n * n * (n + 1),
+                    *bound(nb * solve_flops(n),
                            el * nb * (n * n + 2 * n) + nb, dtype))
     for dtype, A in rc_mat.items():
         nb, n, el = A.shape[0], A.shape[1], A.element_size()
@@ -1019,8 +1217,27 @@ def main() -> int:
         ms[name] = (cuda_ms(lambda: gj_real.gj_inverse_cuda(A), 20),
                     cuda_ms(lambda: linsolve.gj_inverse(A), 5),
                     cuda_ms(lambda: torch.linalg.inv(A), 5),
-                    *bound(nb * 4.0 * n ** 3, el * nb * 2 * n * n + nb,
+                    *bound(nb * inverse_flops(n), el * nb * 2 * n * n + nb,
                            dtype))
+    # K4 at both .noise shapes: the planes read once, the inverse and
+    # valid written once
+    name = gj.K4[f64].name
+    for label, (Ar, Ai) in noise_planes.items():
+        nb, n = Ar.shape[0], Ar.shape[1]
+        Ac = torch.complex(Ar, Ai)
+        t_k4 = (cuda_ms(lambda: gj.gj_inverse_planes_cuda(Ar, Ai), 20),
+                cuda_ms(lambda: linsolve.gj_inverse_planes(Ar, Ai), 2),
+                cuda_ms(lambda: torch.linalg.inv(Ac), 5),
+                *bound(nb * inverse_flops(n, True),
+                       Ar.element_size() * nb * 4 * n * n + nb, f64))
+        say("9 times", f"{name} at {label} noise ({nb}, {n}): kernel "
+            f"{t_k4[0]:.4f} ms, plain {t_k4[1]:.3f} ms, library "
+            f"{t_k4[2]:.3f} ms (linalg.inv, {Ac.dtype}), bound "
+            f"{t_k4[3]:.4f} ms ({t_k4[4]}) (CUDA events) | {smi}")
+        if label == "ladder":
+            shape[name] = f"ladder noise ({nb}, {n})"
+            ms[name] = t_k4
+        del Ac
     vs, values, pattern, _node = tran_big_inputs
     s1, nb, n = vs.shape[0], values.shape[1], pattern.n
     n_b = bin(pattern.b_rows).count("1")
@@ -1032,7 +1249,7 @@ def main() -> int:
                     *tran_big_inputs), 5),
                 cuda_ms(lambda: mc_tran_fused.mc_tran_fused_plain(
                     *tran_big_inputs), 1), None,
-                *bound(nb * (4.0 * n ** 3 + s1 * per_step
+                *bound(nb * (inverse_flops(n) + s1 * per_step
                              + 2 * pattern.terms.shape[0]),
                        4 * (values.numel() + vs.numel() + s1 * nb) + nb,
                        torch.float32))
@@ -1072,7 +1289,7 @@ def main() -> int:
             ms[name] = (t_ms, cuda_ms(
                 lambda: mc_tran_fused.mc_tran_fused_nr_plain(
                     vs, values, pattern, node_idx, **kw), 1), None,
-                *bound(lane_passes * (2.0 * n ** 3 / 3.0 + n * n),
+                *bound(lane_passes * solve_flops(n),
                        4 * (values.numel() + vs.numel() + s1 * nt) + nt,
                        torch.float32))
         del k9_in, vs, values, passes
@@ -1088,6 +1305,8 @@ def main() -> int:
             f"plain {p_ms:.3f} ms, library {lib}, bound {b_ms:.4f} ms "
             f"({b_by}) (CUDA events) | {smi}")
 
+    say("done", f"all phases in {time.perf_counter() - t_start:.1f} s "
+        "(host clock, builds included)")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[name],

@@ -13,8 +13,11 @@ fixtures), the Monte-Carlo AC yield (``mc_ac_stats``/``mc_ac_sampled``)
 through kernels K1 (complex Gauss-Jordan) and K5 (fused
 assemble-and-solve), and the Monte-Carlo transient
 (``mc_tran_stats``/``mc_tran_sampled``) through K2 (real Gauss-Jordan,
-every Newton pass), K3 (the factor-once inverse of linear decks) and K8
-(the fused linear whole transient). The host layer (parsing, IR,
+every Newton pass), K3 (the factor-once inverse of linear decks), K8
+(the fused linear whole transient) and K9 (the fused nonlinear one), and
+the DC operating point and the analyses built on it: ``.op``, ``.dc``,
+``op_batch`` and ``.tf`` (K2), AC ``linearize="op"`` (K1) and ``.noise``
+through K4 (the complex inverse). The host layer (parsing, IR,
 formatting) is a jax-free copy of the JAX package's. Public entry points
 run on the CUDA card unless called with ``device="cpu"``, and state
 float64 or float32 at every tensor creation.
@@ -25,13 +28,19 @@ from __future__ import annotations
 from .analysis.ac import simulate_ac
 from .analysis.mc import (MCStats, mc_ac_sampled, mc_ac_stats,
                           mc_tran_sampled, mc_tran_stats)
+from .analysis.noise import NoiseResult, simulate_noise
+from .analysis.op import (BatchOPResult, DCResult, OPResult, op_batch,
+                          simulate_dc, simulate_op)
 from .analysis.results import ACResult, SimulationResult, TranResult
 from .analysis.simulate import simulate
+from .analysis.tf import TFResult, simulate_tf
 from .analysis.tran import TranState, simulate_tran
 from .constants import EPS, VT_300K
 from .formatting.jsnum import to_precision
 from .formatting.compare import compare_voltage_levels
-from .formatting.text import format_ac_result, format_tran_result
+from .formatting.text import (format_ac_result, format_dc_result,
+                              format_noise_result, format_op_result,
+                              format_tf_result, format_tran_result)
 from .formatting.vgraph import (eec_engine_tran_to_vgraphs,
                                 spicey_tran_to_vgraphs)
 from .ir.circuit import CircuitTensors, build_tensors, from_jax_tensors
@@ -48,11 +57,16 @@ eecEngineTranToVGraphs = eec_engine_tran_to_vgraphs
 
 __all__ = [
     "ACResult",
+    "BatchOPResult",
     "CircuitTensors",
+    "DCResult",
     "EPS",
     "MCStats",
+    "NoiseResult",
+    "OPResult",
     "ParsedCircuit",
     "SimulationResult",
+    "TFResult",
     "TranResult",
     "TranState",
     "VT_300K",
@@ -61,6 +75,10 @@ __all__ = [
     "eecEngineTranToVGraphs",
     "eec_engine_tran_to_vgraphs",
     "format_ac_result",
+    "format_dc_result",
+    "format_noise_result",
+    "format_op_result",
+    "format_tf_result",
     "format_tran_result",
     "formatAcResult",
     "formatTranResult",
@@ -69,12 +87,17 @@ __all__ = [
     "mc_ac_stats",
     "mc_tran_sampled",
     "mc_tran_stats",
+    "op_batch",
     "parseNetlist",
     "parse_netlist",
     "simulate",
     "simulateAC",
     "simulateTRAN",
     "simulate_ac",
+    "simulate_dc",
+    "simulate_noise",
+    "simulate_op",
+    "simulate_tf",
     "simulate_tran",
     "spiceyTranToVGraphs",
     "spicey_tran_to_vgraphs",

@@ -17,13 +17,17 @@ Stamp semantics per frequency f (simulateAC.ts:24-60):
     |2*pi*f*L| < EPS                                  -> imaginary part;
   - V as phasor fromPolar(acMag, acPhaseDeg) on its branch row.
 Switches and diodes are NOT stamped in AC (no DC operating point / small-
-signal linearization exists in the reference).
+signal linearization exists in the reference). ``linearize="op"`` (or
+``.options acop``) is the JAX package's extension: the DC operating point
+is solved first (op.py) and every diode/switch/MOSFET/BJT contributes its
+small-signal conductances as extra VCCS rows, and its junction
+capacitances as extra C rows (``small_signal_rows``,
+``diode_smallsignal_caps``, shared with .tf and .noise).
 
-Not ported yet, each raising ``NotImplementedError``: ``linearize="op"``
-(needs the operating point, ROADMAP §1 item 4), the Schur tier
-(``method="schur"``, item 6), K coupling and T lines (item 2). The JAX
-package's host interp tier for tiny decks has no counterpart: the device
-path is the path.
+Not ported yet, each raising ``NotImplementedError``: the Schur tier
+(``method="schur"``, item 6), K coupling, T lines and, for
+``linearize="op"``, B sources (item 2). The JAX package's host interp tier
+for tiny decks has no counterpart: the device path is the path.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import math
 import numpy as np
 import torch
 
-from ..constants import EPS
+from ..constants import DIODE_VD_MAX, DIODE_VD_MIN, EPS, GMIN, VT_300K
 from ..ir.circuit import (CircuitTensors, build_tensors, bv_branch_rows,
                           ext_arrays)
 from ..ops.linsolve import solve_planes
@@ -46,7 +50,9 @@ from ..ops.stamps import (
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
 from ..utils.logspace import linear_grid, logspace, octspace
+from ..models.devices import bjt_ebers_moll, diode_charge_cap, mos_level1
 from .results import ACResult
+from .tran import _host
 
 
 def build_frequency_array(mode: str, N: int, f1: float, f2: float) -> np.ndarray:
@@ -203,6 +209,158 @@ def ac_vsource_arrays(ckt: ParsedCircuit, tensors: CircuitTensors):
     return v_idx, v_re, v_im
 
 
+def _op_voltage_pad(tensors: CircuitTensors, op) -> np.ndarray:
+    """Node voltages of an OPResult laid out as a padded tran/AC-ordering
+    solution vector (ground dump slot = 0 V)."""
+    x_pad = np.zeros(tensors.nvar + 1)
+    for i, name in enumerate(tensors.node_names):
+        x_pad[i] = op.node_voltages[name]
+    return x_pad
+
+
+def find_input_source(tensors: CircuitTensors, name: str,
+                      directive: str) -> tuple[int | None, int | None]:
+    """Locate a named independent source for .tf/.noise input referencing.
+    Returns (v_pos, i_pos) — exactly one is set — or raises."""
+    key = name.upper()
+    v_pos = next((k for k, n in enumerate(tensors.v_names)
+                  if n.upper() == key), None)
+    i_pos = next((k for k, n in enumerate(tensors.i_names)
+                  if n.upper() == key), None)
+    if v_pos is None and i_pos is None:
+        raise ValueError(
+            f"Unknown source {name} in {directive} (must be a V or I element)")
+    return v_pos, i_pos
+
+
+def format_out_spec(out_pos: str, out_neg: str | None) -> str:
+    """``v(out)`` / ``v(out,ref)`` display string for .tf/.noise results."""
+    return f"v({out_pos})" if out_neg is None else f"v({out_pos},{out_neg})"
+
+
+def small_signal_rows(tensors: CircuitTensors, op
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """Small-signal conductances of every nonlinear device at the DC
+    operating point, expressed as VCCS rows ((n,4) idx, (n,) gm), on the
+    host.
+
+    An admittance g between (a, b) is the self-controlled VCCS
+    [a, b, a, b]; the MOSFET gm is [d, s, g, s]; the BJT transport terms
+    are [c, e, b, e] (+gmf) and [c, e, b, c] (-gmr)."""
+    x_pad = _op_voltage_pad(tensors, op)
+    rows: list[np.ndarray] = []
+    vals: list[np.ndarray] = []
+
+    def adm(idx2, g):
+        rows.append(np.concatenate([idx2, idx2], axis=1))
+        vals.append(np.asarray(g, np.float64))
+
+    if tensors.n_d:
+        vd = x_pad[tensors.d_idx[:, 0]] - x_pad[tensors.d_idx[:, 1]]
+        tscale = tensors.vt / VT_300K  # see tran._stamp_system
+        vd_lim = np.clip(vd, DIODE_VD_MIN * tscale, DIODE_VD_MAX * tscale)
+        v_th = tensors.d_n * VT_300K
+        g_d = np.maximum(tensors.d_is / v_th * np.exp(vd_lim / v_th), GMIN)
+        adm(tensors.d_idx, g_d)
+    if tensors.n_s:
+        on = np.asarray([op.switch_states[n] for n in tensors.s_names])
+        r_sw = np.where(on, tensors.s_ron, tensors.s_roff)
+        adm(tensors.s_idx[:, :2], 1.0 / np.maximum(np.abs(r_sw), EPS))
+    if tensors.n_m:
+        mi = tensors.m_idx
+        vgs = x_pad[mi[:, 1]] - x_pad[mi[:, 2]]
+        vds = x_pad[mi[:, 0]] - x_pad[mi[:, 2]]
+        gm, gds, _, _ = _host(mos_level1, vgs, vds, tensors.m_beta,
+                              tensors.m_vto, tensors.m_lambda,
+                              tensors.m_polarity)
+        rows.append(mi[:, [0, 2, 1, 2]])
+        vals.append(gm)
+        adm(mi[:, [0, 2]], gds)
+    if tensors.n_q:
+        qi = tensors.q_idx
+        vbe = x_pad[qi[:, 1]] - x_pad[qi[:, 2]]
+        vbc = x_pad[qi[:, 1]] - x_pad[qi[:, 0]]
+        gbe, gbc, gmf, gmr, *_ = _host(
+            bjt_ebers_moll, vbe, vbc, tensors.q_is, tensors.q_bf,
+            tensors.q_br, tensors.q_polarity, tensors.vt,
+            tensors.q_polarity * vbe, tensors.q_polarity * vbc)
+        adm(qi[:, [1, 2]], gbe)
+        adm(qi[:, [1, 0]], gbc)
+        rows.append(qi[:, [0, 2, 1, 2]])
+        vals.append(gmf)
+        rows.append(qi[:, [0, 2, 1, 0]])
+        vals.append(-gmr)
+    if not rows:
+        return np.zeros((0, 4), np.int32), np.zeros((0,), np.float64)
+    return (np.concatenate(rows, axis=0).astype(np.int32),
+            np.concatenate(vals, axis=0))
+
+
+def diode_smallsignal_caps(tensors: CircuitTensors, op
+                           ) -> tuple[np.ndarray, np.ndarray]:
+    """Junction capacitances C(v) at the operating point — diode TT/CJO
+    plus BJT TF/TR/CJE/CJC junctions — as extra linear C rows for
+    op-linearized AC/noise. Returns (idx (n,2), c_vals); empty when no
+    device stores charge."""
+    rows: list[np.ndarray] = []
+    caps: list[np.ndarray] = []
+    x_pad = _op_voltage_pad(tensors, op)
+    if tensors.has_d_charge:
+        vd = x_pad[tensors.d_idx[:, 0]] - x_pad[tensors.d_idx[:, 1]]
+        v_th = tensors.d_n * VT_300K
+        # the op converged at the true junction voltage; cap the exponent
+        # only against overflow (vd beyond ~2 V never happens at an op)
+        vd_c = np.minimum(vd, 2.0)
+        ev = np.exp(vd_c / v_th)
+        _, c = _host(diode_charge_cap, vd_c, tensors.d_is * (ev - 1.0),
+                     np.maximum(tensors.d_is / v_th * ev, GMIN),
+                     tensors.d_tt, tensors.d_cjo, tensors.d_vj,
+                     tensors.d_m, tensors.d_fc)
+        rows.append(tensors.d_idx)
+        caps.append(c)
+    if tensors.has_q_charge:
+        qi = tensors.q_idx
+        s = tensors.q_polarity
+        g = tensors.q_chg
+        vt = tensors.vt
+        for pair, v_r, tt, cjo, vj, m in (
+            (qi[:, [1, 2]],
+             s * (x_pad[qi[:, 1]] - x_pad[qi[:, 2]]),
+             g[:, 0], g[:, 2], g[:, 3], g[:, 4]),
+            (qi[:, [1, 0]],
+             s * (x_pad[qi[:, 1]] - x_pad[qi[:, 0]]),
+             g[:, 1], g[:, 5], g[:, 6], g[:, 7]),
+        ):
+            v_c = np.minimum(v_r, 2.0)
+            ev = np.exp(v_c / vt)
+            _, c = _host(diode_charge_cap, v_c, tensors.q_is * (ev - 1.0),
+                         np.maximum(tensors.q_is / vt * ev, GMIN),
+                         tt, cjo, vj, m, g[:, 8])
+            rows.append(pair.astype(np.int32))
+            caps.append(c)
+    if not rows:
+        return np.zeros((0, 2), np.int32), np.zeros((0,))
+    return (np.concatenate(rows, axis=0).astype(np.int32),
+            np.concatenate(caps))
+
+
+def op_linearized_extras(tensors: CircuitTensors, op
+                         ) -> tuple[np.ndarray, ...]:
+    """The small-signal VCCS rows and the C rows with the junction
+    capacitances added, at the operating point ``op``: (ss_idx, ss_g,
+    c_idx, c_vals), host arrays. Shared by AC ``linearize="op"`` and
+    .noise. B sources, whose gradients the JAX package adds here
+    (``_bsource_small_signal``), are refused before (``op.check_ported_op``,
+    ROADMAP §1 item 2)."""
+    ss_idx, ss_g = small_signal_rows(tensors, op)
+    c_idx_eff, c_vals_eff = tensors.c_idx, tensors.c_vals
+    cj_idx, cj_vals = diode_smallsignal_caps(tensors, op)
+    if cj_idx.shape[0]:
+        c_idx_eff = np.concatenate([tensors.c_idx, cj_idx], axis=0)
+        c_vals_eff = np.concatenate([tensors.c_vals, cj_vals])
+    return ss_idx, ss_g, c_idx_eff, c_vals_eff
+
+
 def check_ported(tensors: CircuitTensors, method: str) -> None:
     """Raise ``NotImplementedError`` for what the AC slice does not carry
     yet, naming the ROADMAP item that brings it."""
@@ -231,9 +389,11 @@ def simulate_ac(
     device: torch.device | str | None = None,
 ) -> ACResult | None:
     """AC sweep in float64 on ``device`` (the card unless
-    ``device="cpu"``). ``linearize=None`` (the only ported mode) keeps
-    reference parity: nonlinear devices are NOT stamped
-    (simulateAC.ts:24-60)."""
+    ``device="cpu"``). ``linearize=None`` (default) keeps reference
+    parity: nonlinear devices are NOT stamped (simulateAC.ts:24-60). With
+    ``linearize="op"`` the DC operating point is solved first and every
+    diode/switch/MOSFET/BJT contributes its small-signal conductances and
+    junction capacitances."""
     device = resolve_device(device)
     if ckt.ac is None:
         return None
@@ -244,10 +404,6 @@ def simulate_ac(
         tensors = build_tensors(ckt)
     if linearize not in (None, "op"):
         raise ValueError("linearize must be None or 'op'")
-    if linearize == "op":
-        raise NotImplementedError(
-            "linearize='op' needs the operating point, which is not "
-            "ported yet (ROADMAP §1 item 4)")
     check_ported(tensors, method)
     freqs = build_frequency_array(ckt.ac.mode, ckt.ac.N, ckt.ac.f1, ckt.ac.f2)
     v_idx_ac, v_re, v_im = ac_vsource_arrays(ckt, tensors)
@@ -259,15 +415,28 @@ def simulate_ac(
         return torch.as_tensor(np.asarray(a, np.float64), dtype=f64,
                                device=device)[None]
 
+    ext = ext_arrays(tensors, device, f64)
+    c_idx_eff, c_vals_eff = tensors.c_idx, tensors.c_vals
+    if linearize == "op":
+        from .op import check_ported_op, simulate_op
+
+        check_ported_op(ckt, tensors, method, "AC linearize='op'")
+        op = simulate_op(ckt, tensors=tensors, method=method, device=device)
+        ss_idx, ss_g, c_idx_eff, c_vals_eff = op_linearized_extras(tensors,
+                                                                   op)
+        ext["g_idx"] = torch.cat([ext["g_idx"],
+                                  index_tensor(ss_idx, device)])
+        ext["g_gm"] = torch.cat([ext["g_gm"], vals(ss_g)[0]])
+
     x_re, x_im, valid = _ac_sweep_core(
         torch.as_tensor(freqs, dtype=f64, device=device),
         index_tensor(tensors.r_idx, device), vals(tensors.r_vals),
-        index_tensor(tensors.c_idx, device), vals(tensors.c_vals),
+        index_tensor(c_idx_eff, device), vals(c_vals_eff),
         index_tensor(tensors.l_idx, device), vals(tensors.l_vals),
         index_tensor(v_idx_ac, device), vals(v_re), vals(v_im),
         tensors.nvar, method=method,
         ext={k: (v if k.endswith("idx") else v[None])
-             for k, v in ext_arrays(tensors, device, f64).items()},
+             for k, v in ext.items()},
         i_re=vals(tensors.i_ac_mag * np.cos(iph))[0],
         i_im=vals(tensors.i_ac_mag * np.sin(iph))[0],
     )

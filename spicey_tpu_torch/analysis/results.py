@@ -5,6 +5,8 @@ Shapes mirror the reference's return records:
           (spicey/lib/analysis/simulateAC.ts:129)
   - TRAN: {times, nodeVoltages, elementCurrents}
           (spicey/lib/analysis/simulateTRAN.ts:251)
+The extended analyses' results (OPResult, DCResult, TFResult, NoiseResult)
+live beside their analyses, as in the JAX package.
 Series are NumPy arrays instead of JS number lists; dict insertion order
 matches the reference's recording order (nodes in discovery order, then
 element currents in R, C, L, V[, S, D] stamp order).
@@ -54,6 +56,10 @@ class SimulationResult:
     circuit: object
     ac: ACResult | None
     tran: TranResult | None
+    op: object | None = None  # OPResult when the extended .op directive ran
+    dc: object | None = None  # DCResult when the extended .dc directive ran
+    tf: object | None = None  # TFResult when the extended .tf directive ran
+    noise: object | None = None  # NoiseResult when the extended .noise ran
     op: object | None = None  # OPResult when the extended .op directive ran
     dc: object | None = None  # DCResult when the extended .dc directive ran
     tf: object | None = None  # TFResult when the extended .tf directive ran

@@ -1,9 +1,11 @@
-"""Universal entry point: parse -> AC -> TRAN.
+"""Universal entry point: parse -> [OP] -> DC -> TF -> NOISE -> AC -> TRAN.
 
-Contract: spicey/lib/analysis/simulate.ts:5-10. This package runs the AC
-and transient analyses; a deck that asks for an analysis not ported yet
-raises ``NotImplementedError`` naming the ROADMAP item that brings it,
-rather than returning ``None`` for it.
+Contract: spicey/lib/analysis/simulate.ts:5-10, with the JAX package's
+extended analyses (spicey_tpu/analysis/simulate.py:38-60): the operating
+point is solved once and shared by ``.op``, ``.tf`` and ``.noise``. A deck
+that asks for an analysis not ported yet raises ``NotImplementedError``
+naming the ROADMAP item that brings it, rather than returning ``None`` for
+it.
 """
 
 from __future__ import annotations
@@ -14,15 +16,14 @@ from ..ir.circuit import build_tensors
 from ..parsing.netlist import ParsedCircuit, parse_netlist
 from ..utils.device import resolve_device
 from .ac import simulate_ac
+from .noise import simulate_noise
+from .op import simulate_dc, simulate_op
 from .results import SimulationResult
+from .tf import simulate_tf
 from .tran import simulate_tran
 
 # analysis -> ROADMAP §1 item that ports it
 _NOT_PORTED = (
-    (".op", "item 4", lambda c: c.op),
-    (".dc", "item 4", lambda c: c.dc is not None),
-    (".tf", "item 8", lambda c: c.tf is not None),
-    (".noise", "item 8", lambda c: c.noise is not None),
     (".pz", "item 8", lambda c: c.pz is not None),
     (".sens", "item 8", lambda c: c.sens is not None),
     (".four", "item 8", lambda c: c.four is not None),
@@ -65,17 +66,32 @@ def simulate(netlist_text: str, method: str = "gj",
     """Parse and run every requested analysis on ``device`` (the card
     unless ``device="cpu"``).
 
-    ``ac_linearize="op"`` (or ``.options acop``) needs the operating
-    point and raises until it is ported. ``base_dir`` resolves relative
-    ``.include``/``.lib`` paths (extended dialect)."""
+    ``ac_linearize="op"`` (or ``.options acop``; the argument wins when
+    given) makes the AC sweep linearize nonlinear devices around the DC
+    operating point; the default keeps the reference's behaviour of not
+    stamping them. ``base_dir`` resolves relative ``.include``/``.lib``
+    paths (extended dialect)."""
     device = resolve_device(device)
     circuit = parse_netlist(netlist_text, dialect=dialect, base_dir=base_dir)
     _require_ported(circuit)
     tensors = build_tensors(circuit)
+    # .tf and .noise both linearize at the operating point: solve it once
+    # and share it rather than re-running Newton per analysis
+    need_op = (circuit.op or circuit.tf is not None
+               or circuit.noise is not None)
+    op_point = (simulate_op(circuit, tensors=tensors, method=method,
+                            device=device) if need_op else None)
+    dc = simulate_dc(circuit, tensors=tensors, method=method, device=device)
+    tf = simulate_tf(circuit, tensors=tensors, method=method, op=op_point,
+                     device=device)
+    noise = simulate_noise(circuit, tensors=tensors, method=method,
+                           op=op_point, device=device)
     if ac_linearize is None and circuit.options.get("acop"):
         ac_linearize = "op"
     ac = simulate_ac(circuit, tensors=tensors, method=method,
                      linearize=ac_linearize, device=device)
     tran = simulate_tran(circuit, tensors=tensors, method=method,
                          device=device, **_tran_options(circuit.options))
-    return SimulationResult(circuit=circuit, ac=ac, tran=tran)
+    return SimulationResult(circuit=circuit, ac=ac, tran=tran,
+                            op=op_point if circuit.op else None, dc=dc,
+                            tf=tf, noise=noise)

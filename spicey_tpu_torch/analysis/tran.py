@@ -181,11 +181,16 @@ def _nl_index_sets(nl: dict) -> dict:
 
 
 def _stamp_nonlinear(A: torch.Tensor, b: torch.Tensor, nl: dict, sets: dict,
-                     x_pad: torch.Tensor, it: int, vm_prev: torch.Tensor,
-                     vq_prev: torch.Tensor) -> None:
+                     x_pad: torch.Tensor, it: int,
+                     vm_prev: torch.Tensor | None,
+                     vq_prev: torch.Tensor | None,
+                     vq_lim: torch.Tensor | None = None) -> None:
     """MOSFET/BJT Newton companions (spicey_tpu/analysis/tran.py:152-198).
     Seeds follow the diode convention: the previous step's junction
-    voltages on pass 0, the current iterate after."""
+    voltages on pass 0, the current iterate after (the operating point
+    passes ``it=1``). ``vq_lim``: (..., nQ, 2) reflected-frame
+    pnjlim-limited (vbe, vbc) from the operating-point Newton (op.py), in
+    place of the absolute clamp."""
     m_idx, q_idx = nl["m_idx"], nl["q_idx"]
     if m_idx.shape[0]:
         if it == 0:
@@ -206,7 +211,9 @@ def _stamp_nonlinear(A: torch.Tensor, b: torch.Tensor, nl: dict, sets: dict,
             vbc = x_pad[..., q_idx[:, 1]] - x_pad[..., q_idx[:, 0]]
         gbe, gbc, gmf, gmr, ibe_eq, ibc_eq, ict_eq, _, _ = bjt_ebers_moll(
             vbe, vbc, nl["q_is"], nl["q_bf"], nl["q_br"], nl["q_pol"],
-            vt=nl["vt"])
+            vt=nl["vt"],
+            vbe_lim=None if vq_lim is None else vq_lim[..., 0],
+            vbc_lim=None if vq_lim is None else vq_lim[..., 1])
         stamp_admittance(A, sets["q_be"], gbe)
         stamp_admittance(A, sets["q_bc"], gbc)
         stamp_vccs(A, sets["q_gmf"], gmf)

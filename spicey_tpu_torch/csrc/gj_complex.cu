@@ -1,4 +1,5 @@
-// K1: batched complex Gauss-Jordan on (re, im) planes, one block per system.
+// K1: batched complex Gauss-Jordan on (re, im) planes, one block per system,
+// and K4, the batched complex inverse by the same elimination.
 //
 // Replaces the TPU kernel spicey_tpu/ops/pallas_gj.py:_gj_complex_kernel
 // (pallas_call in _solve_complex_f32_batchlast, loop body
@@ -11,6 +12,18 @@
 //
 // Layout: batch-first A_re, A_im (B, N, N), b_re, b_im (B, N) ->
 // x_re, x_im (B, N), valid (B,) as bytes (a torch.bool tensor).
+//
+// K4 replaces spicey_tpu/ops/pallas_gj.py:_gj_inv_complex_kernel
+// (pallas_call in _inverse_complex_f32): it reduces [A | I] (width 2N) on
+// the same planes with the same pivot rule, as
+// spicey_tpu_torch/ops/linsolve.py:gj_inverse_planes does, and writes the
+// TRUE inverse M_re, M_im (B, N, N): the TPU kernel returns the
+// row-permuted M and its pivot map (colidx); this kernel un-permutes
+// before it writes, as K3 does (csrc/gj_real.cu). The .noise analysis
+// applies one inverse per frequency to the forward and the adjoint
+// right-hand sides. Its planes are 32 N^2 bytes in f64, so they stay in
+// shared memory up to N = 84 (f64) / 119 (f32) and use the caller's
+// global workspace above.
 //
 // What bounds it on the H100: at the slice's sizes (N = 3..128, 1e3..1e5
 // systems) the elimination is N steps of an O(N^2) update, each ending in
@@ -76,9 +89,86 @@ __global__ void gj_complex_kernel(const T* __restrict__ A_re,
   if (tid == 0) valid_out[sys] = (uint8_t)(*s.ok_all);
 }
 
+// K4: one block reduces [A | I] of one system and writes its inverse.
+template <typename T>
+__global__ void gj_complex_inv_kernel(const T* __restrict__ A_re,
+                                      const T* __restrict__ A_im,
+                                      T* __restrict__ M_re,
+                                      T* __restrict__ M_im,
+                                      uint8_t* __restrict__ valid_out,
+                                      T* __restrict__ workspace, int n,
+                                      T eps2) {
+  extern __shared__ unsigned char smem_raw[];
+  const long long sys = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int w = 2 * n;
+  const int nw = n * w;
+  const int nn = n * n;
+
+  T* base = reinterpret_cast<T*>(smem_raw);
+  T *ar, *ai;
+  if (workspace == nullptr) {
+    ar = base;
+    ai = base + nw;
+    base += 2 * nw;
+  } else {
+    ar = workspace + sys * 2 * nw;
+    ai = ar + nw;
+  }
+  const gj::BlockScratch<T, 2> s = gj::carve<T, 2>(base, n, w);
+
+  const T* Ar0 = A_re + sys * nn;
+  const T* Ai0 = A_im + sys * nn;
+  for (int idx = tid; idx < nw; idx += nt) {
+    int i = idx / w, j = idx - i * w;
+    if (j < n) {
+      ar[idx] = Ar0[i * n + j];
+      ai[idx] = Ai0[i * n + j];
+    } else {
+      ar[idx] = j - n == i ? T(1) : T(0);
+      ai[idx] = T(0);
+    }
+  }
+  T* const planes[2] = {ar, ai};
+  gj::block_gj<T, 2>(planes, n, w, eps2, s);
+  // pivot row perm[k] carries row k of the inverse in its right block
+  for (int idx = tid; idx < nn; idx += nt) {
+    const int k = idx / n, j = idx - k * n;
+    const size_t q = (size_t)s.perm[k] * w + n + j;
+    M_re[sys * nn + idx] = ar[q];
+    M_im[sys * nn + idx] = ai[q];
+  }
+  if (tid == 0) valid_out[sys] = (uint8_t)(*s.ok_all);
+}
+
 template <typename T>
 size_t smem_bytes(int n, bool planes_in_smem) {
   return gj::block_smem_bytes<T, 2>(n, n + 1, planes_in_smem);
+}
+
+template <typename T>
+size_t inv_smem_bytes(int n, bool planes_in_smem) {
+  return gj::block_smem_bytes<T, 2>(n, 2 * n, planes_in_smem);
+}
+
+template <typename T>
+int launch_inv(const void* A_re, const void* A_im, void* M_re, void* M_im,
+               void* valid, void* workspace, int batch, int n, double eps,
+               void* stream) {
+  int threads = n <= 8 ? 32 : (n <= 24 ? 128 : 256);
+  size_t smem = inv_smem_bytes<T>(n, workspace == nullptr);
+  if (smem > gj::SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gj_complex_inv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (batch > 0) {
+    gj_complex_inv_kernel<T><<<batch, threads, smem, (cudaStream_t)stream>>>(
+        (const T*)A_re, (const T*)A_im, (T*)M_re, (T*)M_im, (uint8_t*)valid,
+        (T*)workspace, n, (T)(eps * eps));
+  }
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -124,6 +214,26 @@ int gj_complex_f64(const void* A_re, const void* A_im, const void* b_re,
                    void* stream) {
   return launch<double>(A_re, A_im, b_re, b_im, x_re, x_im, valid, workspace,
                         batch, n, eps, stream);
+}
+
+// K4: shared-memory bytes of a block whose planes stay on chip.
+size_t gj_complex_inv_smem_bytes(int n, int is_double) {
+  return is_double ? inv_smem_bytes<double>(n, true)
+                   : inv_smem_bytes<float>(n, true);
+}
+
+int gj_complex_inverse_f32(const void* A_re, const void* A_im, void* M_re,
+                           void* M_im, void* valid, void* workspace,
+                           int batch, int n, double eps, void* stream) {
+  return launch_inv<float>(A_re, A_im, M_re, M_im, valid, workspace, batch,
+                           n, eps, stream);
+}
+
+int gj_complex_inverse_f64(const void* A_re, const void* A_im, void* M_re,
+                           void* M_im, void* valid, void* workspace,
+                           int batch, int n, double eps, void* stream) {
+  return launch_inv<double>(A_re, A_im, M_re, M_im, valid, workspace, batch,
+                            n, eps, stream);
 }
 
 }  // extern "C"

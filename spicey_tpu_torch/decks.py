@@ -1,11 +1,14 @@
-"""The netlists of the port's transient workloads, each beside its source.
+"""The netlists of the port's workloads, each beside its source.
 
-``chip_smoke.py``, ``tools/profile_torch_tran.py`` and the port's tests
-read them from here, so that what is profiled on the card is what is
+``chip_smoke.py``, ``tools/profile_torch_tran.py``,
+``tools/profile_torch_op.py`` and the port's tests read them from here,
+so that what is profiled on the card is what is
 checked there and on the CPU. The decks are the JAX package's own bench
 and test decks (``bench.py``, ``tests/test_pallas_fused.py``,
 ``tests/fixtures/netlists.py``), copied: the port imports nothing of the
-JAX package or its tests.
+JAX package or its tests. The small-signal decks at the end (the bench's
+op/dc/tf deck, a two-stage BJT amplifier, an RC-ladder noise deck) are
+the operating-point slice's.
 """
 
 from __future__ import annotations
@@ -101,3 +104,69 @@ PNP_NET = ("a pnp ce amp\n.model qp pnp(is=1e-15 bf=80 br=2)\n"
            "VEE vee 0 5\nVIN in 0 PULSE(4.4 4.3 0 1u 1u 10u 20u)\n"
            "RB in b1 10k\nRC c1 0 1k\nQ1 c1 b1 vee qp\nCL c1 0 1n\n"
            ".tran 0.2u 20u\n.end\n")
+
+# bench.py:434-444, the op/dc/tf interactive deck: a diode biased through
+# 1k, its operating point, DC transfer curve and small-signal gain
+OPDCTF_DECK = ("op bias bench deck\nV1 in 0 dc 5\nR1 in out 1k\n"
+               "D1 out 0 DD\n.model DD d(is=1e-14)\n.op\n.dc V1 0 5 0.5\n"
+               ".tf v(out) V1\n.end\n")
+
+# the NMOS of tests/test_op.py:179 (kp=2m lambda=0.02) as a curve tracer:
+# Vds 0-5 V in 10 mV steps x Vgs 0-5 V in 0.1 V steps, 501 x 51 = 25,551
+# operating points in one 2D .dc
+MOS_IV_DECK = ("a mosfet output characteristics deck\n"
+               ".model mn nmos(vto=1 kp=2m lambda=0.02)\n"
+               "vds d 0 1\nvgs gt 0 1\nm1 d gt 0 mn\n"
+               ".dc vds 0 5 0.01 vgs 0 5 0.1\n.end\n")
+
+# a two-stage common-emitter amplifier: divider bias, emitter degeneration
+# with bypass capacitors, coupling capacitors, BJT junction charge (TF,
+# CJE, CJC), N = 11; its bias, DC gain from the supply, op-linearized AC
+# and noise from 1 Hz to 1 GHz (901 points)
+AMP_DECK = """a two-stage bjt amplifier
+.model qn npn(is=1e-15 bf=100 tf=0.3n cje=2p cjc=1p)
+vcc vcc 0 dc 12
+vin in 0 dc 0 ac 1
+rs in s 1k
+c1 s b1 10u
+r1 vcc b1 47k
+r2 b1 0 10k
+rc1 vcc c1 4.7k
+re1 e1 0 1k
+ce1 e1 0 100u
+q1 c1 b1 e1 qn
+c2 c1 b2 10u
+r3 vcc b2 47k
+r4 b2 0 10k
+rc2 vcc out 2.2k
+re2 e2 0 470
+ce2 e2 0 100u
+q2 out b2 e2 qn
+rl out 0 100k
+.op
+.tf v(out) vcc
+.options acop
+.ac dec 100 1 1g
+.noise v(out) vin dec 100 1 1g
+.end
+"""
+
+
+def ladder_noise_netlist(sections: int, per_decade: int = 100,
+                         fstop: str = "1g") -> str:
+    """The thermal noise at the far end of an RC interconnect: the ladder
+    of ``chip_smoke.py``'s ladder-64 cell (``sections`` stages, R_i = 100
+    + i ohm, 1 uF each, N = sections + 2) with a .noise sweep from 1 Hz."""
+    lines = ["an rc ladder noise deck", "v1 in 0 dc 0 ac 1"]
+    prev = "in"
+    for i in range(1, sections + 1):
+        lines.append(f"r{i} {prev} n{i} {100 + i}")
+        lines.append(f"c{i} n{i} 0 1u")
+        prev = f"n{i}"
+    lines.append(f".noise v({prev}) v1 dec {per_decade} 1 {fstop}")
+    lines.append(".end")
+    return "\n".join(lines) + "\n"
+
+
+# N = 64, 901 frequencies (dec 100, 1 Hz - 1 GHz)
+LADDER_NOISE = ladder_noise_netlist(62)

@@ -7,6 +7,9 @@ Contract:
     the ``∠`` glyph) is the basics01 golden-snapshot contract.
   - format_tran_result: spicey/lib/formatting/formatTranResult.ts:1-23
     header ``t(s), <node>:V, ...``; 6-sig-fig rows.
+  - format_dc_result, format_tf_result, format_noise_result,
+    format_op_result: the extended analyses' tables, copies of
+    spicey_tpu/formatting/text.py:67-158.
 """
 
 from __future__ import annotations
@@ -20,7 +23,10 @@ import numpy as np
 from .jsnum import to_precision
 
 if TYPE_CHECKING:  # import-cycle-free annotations only
+    from ..analysis.noise import NoiseResult
+    from ..analysis.op import DCResult, OPResult
     from ..analysis.results import ACResult, TranResult
+    from ..analysis.tf import TFResult
 
 
 def _abs_phase(z: complex) -> tuple[float, float]:
@@ -57,4 +63,73 @@ def format_tran_result(tran: TranResult | None) -> str:
         for n in nodes:
             row.append(to_precision(float(tran.node_voltages[n][k]), 6))
         lines.append(", ".join(row))
+    return "\n".join(lines)
+
+
+def format_dc_result(dc: DCResult | None) -> str:
+    """Text table for the extended-dialect .dc sweep (no reference analog;
+    mirrors format_tran_result's 6-sig-fig layout with the swept value as
+    the first column)."""
+    if dc is None:
+        return "No DC analysis.\n"
+    nodes = list(dc.node_voltages.keys())
+    header = ", ".join(["sweep"] + [f"{n}:V" for n in nodes])
+    lines = [header]
+    sweep = np.asarray(dc.sweep)
+    for k in range(len(sweep)):
+        row = [to_precision(float(sweep[k]), 6)]
+        for n in nodes:
+            row.append(to_precision(float(dc.node_voltages[n][k]), 6))
+        lines.append(", ".join(row))
+    return "\n".join(lines)
+
+
+def format_tf_result(tf: TFResult | None) -> str:
+    """Text summary for the extended-dialect .tf analysis (ngspice-style
+    three-line report)."""
+    if tf is None:
+        return "No TF analysis.\n"
+    return "\n".join([
+        f"transfer_function({tf.out_spec}/{tf.src_name}) = "
+        f"{to_precision(tf.transfer_function, 6)}",
+        f"input_impedance({tf.src_name}) = "
+        f"{to_precision(tf.input_impedance, 6)}",
+        f"output_impedance({tf.out_spec}) = "
+        f"{to_precision(tf.output_impedance, 6)}",
+    ])
+
+
+def format_noise_result(noise: NoiseResult | None) -> str:
+    """Text table for the extended-dialect .noise analysis."""
+    if noise is None:
+        return "No NOISE analysis.\n"
+    lines = [
+        f"Noise analysis at {noise.out_spec}, input {noise.src_name}, "
+        f"total output noise = "
+        f"{to_precision(float(noise.total_output_rms), 6)} Vrms",
+        "f(Hz), onoise(V/sqrt(Hz)), inoise(V/sqrt(Hz)), |gain|",
+    ]
+    onoise = noise.output_v_per_sqrt_hz
+    inoise = noise.input_v_per_sqrt_hz
+    gain = np.abs(noise.gain)
+    for k in range(len(noise.freqs)):
+        lines.append(", ".join([
+            to_precision(float(noise.freqs[k]), 6),
+            to_precision(float(onoise[k]), 6),
+            to_precision(float(inoise[k]), 6),
+            to_precision(float(gain[k]), 6),
+        ]))
+    return "\n".join(lines)
+
+
+def format_op_result(op: OPResult | None) -> str:
+    """Text table for the extended-dialect .op operating point."""
+    if op is None:
+        return "No OP analysis.\n"
+    lines = ["node, V"]
+    for name, v in op.node_voltages.items():
+        lines.append(f"{name}, {to_precision(float(v), 6)}")
+    lines.append("element, I")
+    for name, i in op.element_currents.items():
+        lines.append(f"{name}, {to_precision(float(i), 6)}")
     return "\n".join(lines)

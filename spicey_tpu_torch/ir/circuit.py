@@ -582,12 +582,16 @@ def from_jax_tensors(t: object) -> CircuitTensors:
 
 
 def nl_arrays(tensors: CircuitTensors, device: torch.device | str,
-              dtype: torch.dtype = torch.float64) -> dict:
+              dtype: torch.dtype = torch.float64,
+              dump: int | None = None) -> dict:
     """Nonlinear extended-device arrays (MOSFET/BJT) as one dict, with the
     thermal voltage at the circuit's .temp (``vt``, which also scales the
     junction clamp window ``[-1.0, 0.8] * vt / VT_300K``). Index arrays
-    are int64, values ``dtype``."""
+    are int64, values ``dtype``; ``dump`` re-targets the ground slot as in
+    ``ext_arrays``."""
     def idx(a: np.ndarray) -> torch.Tensor:
+        if dump is not None:
+            a = np.where(a == tensors.nvar, dump, a)
         return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
     def val(a: object) -> torch.Tensor:

@@ -1,10 +1,14 @@
-"""K1: the batched complex Gauss-Jordan kernel (csrc/gj_complex.cu).
+"""K1 and K4: the batched complex Gauss-Jordan kernels (csrc/gj_complex.cu).
 
-Replaces ``spicey_tpu/ops/pallas_gj.py:_gj_complex_kernel``. The TPU
-kernel runs in f32 only (its f64 tier is f32 solves plus refinement
-outside the kernel); Hopper has native f64, so this kernel is
+K1 replaces ``spicey_tpu/ops/pallas_gj.py:_gj_complex_kernel`` (the
+solve) and K4 ``_gj_inv_complex_kernel`` (the inverse of [A | I], which
+``.noise`` applies to its forward and adjoint right-hand sides). The TPU
+kernels run in f32 only (their f64 tier is f32 eliminations plus
+refinement outside the kernel); Hopper has native f64, so both are
 instantiated in float and double and the f64 instance is the fidelity
-tier itself. Its plain PyTorch version is ``ops/linsolve.gj_solve_planes``.
+tier itself. K4 writes the true inverse, not the TPU kernel's
+row-permuted one. Their plain PyTorch versions are
+``ops/linsolve.gj_solve_planes`` and ``ops/linsolve.gj_inverse_planes``.
 """
 
 from __future__ import annotations
@@ -23,14 +27,24 @@ K1 = {dt: Kernel(name=f"gj_complex_{tag}",
                  source="spicey_tpu_torch/csrc/gj_complex.cu",
                  replaces="spicey_tpu/ops/pallas_gj.py:651")
       for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64"))}
+K4 = {dt: Kernel(name=f"gj_inv_complex_{tag}",
+                 source="spicey_tpu_torch/csrc/gj_complex.cu",
+                 replaces="spicey_tpu/ops/pallas_gj.py:514")
+      for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64"))}
 
 
 _LAUNCH_ARGS = [ctypes.c_void_p] * 8 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
+_INV_ARGS = [ctypes.c_void_p] * 6 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
 _SIGNATURES = {
     "gj_complex_smem_bytes": ([ctypes.c_int, ctypes.c_int], ctypes.c_size_t),
     "gj_complex_f32": (_LAUNCH_ARGS, ctypes.c_int),
     "gj_complex_f64": (_LAUNCH_ARGS, ctypes.c_int),
+    "gj_complex_inv_smem_bytes": ([ctypes.c_int, ctypes.c_int],
+                                  ctypes.c_size_t),
+    "gj_complex_inverse_f32": (_INV_ARGS, ctypes.c_int),
+    "gj_complex_inverse_f64": (_INV_ARGS, ctypes.c_int),
 }
 
 
@@ -83,3 +97,46 @@ def gj_solve_planes_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
     check(code, "gj_complex launch")
     K1[A_re.dtype].launches += 1
     return x_re, x_im, valid
+
+
+def gj_inverse_planes_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
+                           eps: float = EPS
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Launch K4 on batch-first planes A_* (B, N, N), CUDA, contiguous, one
+    float dtype (float32 or float64). Returns (M_re, M_im, valid) shaped
+    (B, N, N), (B, N, N), (B,): the true inverse of every valid system."""
+    if A_re.ndim != 3 or A_re.shape[1] != A_re.shape[2]:
+        raise ValueError(f"A_re must be (B, N, N), got {tuple(A_re.shape)}")
+    nb, n = A_re.shape[0], A_re.shape[1]
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"K4 inverts 1 <= N <= {MAX_N}, got N={n}")
+    if nb >= 2**31:
+        raise ValueError(f"K4 takes fewer than 2^31 systems, got {nb}")
+    if A_im.shape != A_re.shape:
+        raise ValueError("plane shapes disagree")
+    if A_re.dtype not in (torch.float32, torch.float64) \
+            or A_im.dtype != A_re.dtype:
+        raise TypeError("K4 takes float32 or float64 planes of one dtype")
+    if not (A_re.is_cuda and A_im.is_cuda) or A_im.device != A_re.device:
+        raise ValueError("K4 takes CUDA tensors on one device")
+    if not (A_re.is_contiguous() and A_im.is_contiguous()):
+        raise ValueError("K4 takes contiguous tensors")
+    lib = load_library()
+    dbl = A_re.dtype == torch.float64
+    m_re = torch.empty_like(A_re)
+    m_im = torch.empty_like(A_re)
+    valid = torch.empty((nb,), dtype=torch.bool, device=A_re.device)
+    ws = None
+    if lib.gj_complex_inv_smem_bytes(n, int(dbl)) > SMEM_MAX:
+        # [A | I] in f64 overflows shared memory above N = 84: eliminate
+        # in place in a global workspace instead
+        ws = torch.empty((nb, 2, n, 2 * n), dtype=A_re.dtype,
+                         device=A_re.device)
+    fn = lib.gj_complex_inverse_f64 if dbl else lib.gj_complex_inverse_f32
+    code = fn(ptr(A_re), ptr(A_im), ptr(m_re), ptr(m_im), ptr(valid),
+              ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,
+              float(eps), stream_ptr(A_re.device))
+    check(code, "gj_complex inverse launch")
+    K4[A_re.dtype].launches += 1
+    return m_re, m_im, valid

@@ -6,8 +6,10 @@ Batched code cannot throw, so singularity is a per-system ``valid`` flag
 that callers surface at the host boundary.
 
 ``gj_solve_planes`` is the plain PyTorch version of kernel K1
-(ops/gj.py, csrc/gj_complex.cu), written batch-first: a leading batch
-dimension instead of ``vmap``. It keeps the JAX package's semantics
+(ops/gj.py, csrc/gj_complex.cu) and ``gj_inverse_planes``, the same
+elimination of [A | I], that of kernel K4 (the complex inverse, same
+files), both written batch-first: a leading batch dimension instead of
+``vmap``. They keep the JAX package's semantics
 exactly: the pivot of column k is the unused row with the largest |a|²,
 ties to the lowest row (``torch.argmax`` returns the first maximum, as
 ``jnp.argmax`` does); a system is invalid when |pivot|² < EPS²; elimination
@@ -22,12 +24,12 @@ unused row with the largest |a|, ties to the lowest row, invalid when
 [A | I] with the same pivot order, so column j of its inverse is
 ``gj_solve(A, e_j)``, the JAX package's ``inv_of`` (analysis/tran.py).
 
-``solve_planes``, ``solve`` and ``inverse`` dispatch by the tensor's
-device: a CUDA tensor always launches the kernel (the instantiation
-follows the dtype), a CPU tensor runs the plain version. There is no
-other branch. The JAX package's f32-kernel-plus-f64-refinement wrapper
-(``pallas_gj.py:562-640``) has no counterpart: the card solves f64
-natively.
+``solve_planes``, ``inverse_planes``, ``solve`` and ``inverse`` dispatch
+by the tensor's device: a CUDA tensor always launches the kernel (the
+instantiation follows the dtype), a CPU tensor runs the plain version.
+There is no other branch. The JAX package's
+f32-kernel-plus-f64-refinement wrapper (``pallas_gj.py:562-640``) has no
+counterpart: the card solves f64 natively.
 """
 
 from __future__ import annotations
@@ -37,45 +39,38 @@ import torch
 from ..constants import EPS
 
 
-def gj_solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
-                    b_re: torch.Tensor, b_im: torch.Tensor,
-                    eps: float = EPS
-                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Complex Gauss-Jordan with |pivot|² pivoting, batched.
-
-    A_*: (..., N, N); b_*: (..., N). Returns (x_re, x_im, valid) shaped
-    (..., N), (..., N) and (...). Works on copies; the inputs are unchanged.
-    """
-    lead = A_re.shape[:-2]
-    N = A_re.shape[-1]
-    dtype = A_re.dtype
-    Ar = torch.cat([A_re, b_re[..., None]], dim=-1).reshape(-1, N, N + 1)
-    Ai = torch.cat([A_im, b_im[..., None]], dim=-1).reshape(-1, N, N + 1)
-    nb = Ar.shape[0]
+def _gj_complex(Ar: torch.Tensor, Ai: torch.Tensor, n: int, eps: float
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """Reduce the batch of complex augmented systems (Ar, Ai) (nb, n, w)
+    on copies. Returns (reduced Ar, reduced Ai, perm (nb, n), valid (nb,));
+    pivot row perm[k] carries row k of the answer in its right block."""
+    nb, _, w = Ar.shape
+    dtype = Ar.dtype
     dev = Ar.device
-    used = torch.zeros((nb, N), dtype=torch.bool, device=dev)
-    perm = torch.zeros((nb, N), dtype=torch.int64, device=dev)
+    used = torch.zeros((nb, n), dtype=torch.bool, device=dev)
+    perm = torch.zeros((nb, n), dtype=torch.int64, device=dev)
     valid = torch.ones((nb,), dtype=torch.bool, device=dev)
-    rows = torch.arange(N, device=dev)
+    rows = torch.arange(n, device=dev)
     neg_one = torch.tensor(-1.0, dtype=dtype, device=dev)
     zero = torch.tensor(0.0, dtype=dtype, device=dev)
     one = torch.tensor(1.0, dtype=dtype, device=dev)
     eps2 = eps * eps
-    for k in range(N):
+    for k in range(n):
         cr = Ar[:, :, k]
         ci = Ai[:, :, k]
         mag2 = cr * cr + ci * ci
         score = torch.where(used, neg_one, mag2)
         p = torch.argmax(score, dim=1)                       # (nb,)
-        onehot = rows[None, :] == p[:, None]                 # (nb, N)
+        onehot = rows[None, :] == p[:, None]                 # (nb, n)
         pvr = cr.gather(1, p[:, None])[:, 0]
         pvi = ci.gather(1, p[:, None])[:, 0]
         d = pvr * pvr + pvi * pvi
         ok = d >= eps2  # |pivot| >= eps, the reference threshold
         valid = valid & ok
         inv_d = (1.0 / torch.where(ok, d, one))[:, None]
-        pidx = p[:, None, None].expand(nb, 1, N + 1)
-        prr = Ar.gather(1, pidx)[:, 0, :]                    # (nb, N+1)
+        pidx = p[:, None, None].expand(nb, 1, w)
+        prr = Ar.gather(1, pidx)[:, 0, :]                    # (nb, w)
         pri = Ai.gather(1, pidx)[:, 0, :]
         # pivot_row / pivot (complex divide)
         prow_r = (prr * pvr[:, None] + pri * pvi[:, None]) * inv_d
@@ -88,10 +83,49 @@ def gj_solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
         Ai = torch.where(onehot[:, :, None], prow_i[:, None, :], Ai)
         used = used | onehot
         perm[:, k] = p
+    return Ar, Ai, perm, valid
+
+
+def gj_solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
+                    b_re: torch.Tensor, b_im: torch.Tensor,
+                    eps: float = EPS
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Complex Gauss-Jordan with |pivot|² pivoting, batched (plain K1).
+
+    A_*: (..., N, N); b_*: (..., N). Returns (x_re, x_im, valid) shaped
+    (..., N), (..., N) and (...). Works on copies; the inputs are unchanged.
+    """
+    lead = A_re.shape[:-2]
+    N = A_re.shape[-1]
+    Ar = torch.cat([A_re, b_re[..., None]], dim=-1).reshape(-1, N, N + 1)
+    Ai = torch.cat([A_im, b_im[..., None]], dim=-1).reshape(-1, N, N + 1)
+    Ar, Ai, perm, valid = _gj_complex(Ar, Ai, N, eps)
     # pivot row perm[k] carries x[k] in its RHS entry
     x_re = Ar[:, :, N].gather(1, perm)
     x_im = Ai[:, :, N].gather(1, perm)
     return (x_re.reshape(lead + (N,)), x_im.reshape(lead + (N,)),
+            valid.reshape(lead))
+
+
+def gj_inverse_planes(A_re: torch.Tensor, A_im: torch.Tensor,
+                      eps: float = EPS
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The true complex inverse by reducing [A | I] on (re, im) planes,
+    batched (plain K4), with the pivot order of ``gj_solve_planes``: column
+    j of the inverse is ``gj_solve_planes(A, e_j)``'s elimination.
+
+    A_*: (..., N, N). Returns (M_re, M_im (..., N, N), valid (...))."""
+    lead = A_re.shape[:-2]
+    n = A_re.shape[-1]
+    Ar = A_re.reshape(-1, n, n)
+    nb = Ar.shape[0]
+    eye = torch.eye(n, dtype=A_re.dtype, device=A_re.device).expand(nb, n, n)
+    Ar = torch.cat([Ar, eye], dim=-1)
+    Ai = torch.cat([A_im.reshape(-1, n, n), torch.zeros_like(eye)], dim=-1)
+    Ar, Ai, perm, valid = _gj_complex(Ar, Ai, n, eps)
+    rows = perm[:, :, None].expand(-1, -1, n)
+    return (Ar[:, :, n:].gather(1, rows).reshape(lead + (n, n)),
+            Ai[:, :, n:].gather(1, rows).reshape(lead + (n, n)),
             valid.reshape(lead))
 
 
@@ -120,6 +154,25 @@ def solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
         return (xr.reshape(lead + (n,)), xi.reshape(lead + (n,)),
                 valid.reshape(lead))
     return gj_solve_planes(A_re, A_im, b_re, b_im, eps=eps)
+
+
+def inverse_planes(A_re: torch.Tensor, A_im: torch.Tensor,
+                   eps: float = EPS
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The true complex inverse of a batch on (re, im) planes: K4 on a
+    CUDA tensor, in the tensor's precision; the plain
+    ``gj_inverse_planes`` on the CPU. A_*: (..., N, N)."""
+    if A_re.is_cuda:
+        from .gj import gj_inverse_planes_cuda
+
+        lead = A_re.shape[:-2]
+        n = A_re.shape[-1]
+        mr, mi, valid = gj_inverse_planes_cuda(
+            A_re.reshape(-1, n, n).contiguous(),
+            A_im.reshape(-1, n, n).contiguous(), eps=eps)
+        return (mr.reshape(lead + (n, n)), mi.reshape(lead + (n, n)),
+                valid.reshape(lead))
+    return gj_inverse_planes(A_re, A_im, eps=eps)
 
 
 def _gj_real(Ab: torch.Tensor, n: int, eps: float

@@ -131,14 +131,22 @@ def test_from_jax_tensors_rejects_other_fields():
 
 
 def test_unported_analyses_raise():
+    """What the port does not run yet raises NotImplementedError naming its
+    ROADMAP item; .op/.dc/.tf/.noise and linearize="op" are ported."""
+    pz = BASICS01.replace(".end", ".pz v(1) v(0) v(2) v(0) vol pz\n.end")
+    with pytest.raises(NotImplementedError, match=r"\.pz .*ROADMAP §1 item 8"):
+        simulate(pz, dialect="extended", device="cpu")
+    step = BASICS01.replace(".end", ".step param r1 10 30 10\n.end")
+    with pytest.raises(NotImplementedError, match=r"\.step .*item 1"):
+        simulate(step, dialect="extended", device="cpu")
     dc = BASICS01.replace(".ac dec 100 1 100", ".dc v1 0 1 0.5")
-    with pytest.raises(NotImplementedError, match=r"\.dc .*ROADMAP §1 item 4"):
-        simulate(dc, dialect="extended", device="cpu")
+    assert simulate(dc, dialect="extended", device="cpu").dc.valid.all()
     op = BASICS01.replace(".end", ".op\n.end")
-    with pytest.raises(NotImplementedError, match=r"\.op"):
-        simulate(op, dialect="extended", device="cpu")
-    with pytest.raises(NotImplementedError, match="operating point"):
-        simulate(BASICS01, ac_linearize="op", device="cpu")
+    assert simulate(op, dialect="extended", device="cpu").op is not None
+    lin = simulate(BASICS01, ac_linearize="op", device="cpu").ac
+    plain = simulate(BASICS01, device="cpu").ac
+    np.testing.assert_array_equal(lin.node_voltages["2"],
+                                  plain.node_voltages["2"])
     with pytest.raises(NotImplementedError, match=r"\.meas"):
         parse_netlist(BASICS01.replace(
             ".end", ".meas ac vmax max vm(2)\n.end"), dialect="extended")

@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K3, K5, K8 and K9 against their plain versions, on the
-card.
+"""Kernels K1, K2, K3, K4, K5, K8 and K9 against their plain versions,
+and the .noise residual guard's re-solves, on the card.
 
 Tests marked ``cuda`` need an NVIDIA GPU with the CUDA toolkit and skip
 elsewhere; run them on the card with
@@ -317,3 +317,133 @@ def test_k9_wrapper_refuses_bad_input():
         mc_tran_fused.mc_tran_fused_nr_cuda(
             vs, torch.ones((big.n_rows, 3), dtype=torch.float32), big, 0,
             **kw)
+
+
+# K4: the complex inverse, and the operating-point slice on the card
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [3, 11, 64, 85, 128])
+def test_k4_matches_plain(cuda, n, dtype):
+    Ar, Ai, _br, _bi = _systems(n, 33, dtype)
+    Ar[1, n // 2] = Ai[1, n // 2] = 0.0  # one zero row
+    before = gj.K4[dtype].launches
+    mr, mi, valid = linsolve.inverse_planes(Ar.to(cuda), Ai.to(cuda))
+    assert gj.K4[dtype].launches == before + 1
+    rr, ri, rv = linsolve.gj_inverse_planes(Ar, Ai)
+    assert torch.equal(valid.cpu(), rv) and not rv[:2].any() and rv[2:].all()
+    for got, want in ((mr, rr), (mi, ri)):
+        torch.testing.assert_close(got.cpu()[rv], want[rv], rtol=TOL[dtype],
+                                   atol=TOL[dtype] * float(
+                                       want[rv].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deck", ["OPDCTF_DECK", "AMP_DECK", "MOS_IV"])
+def test_op_slice_on_cuda_equals_cpu(cuda, deck):
+    net = (decks.MOS_IV_DECK.replace("0.01 vgs 0 5 0.1", "0.5 vgs 0 5 1")
+           if deck == "MOS_IV" else getattr(decks, deck))
+    k4 = gj.K4[torch.float64].launches
+    got = st.simulate(net, dialect="extended", device=cuda)
+    want = st.simulate(net, dialect="extended", device="cpu")
+    if got.noise is not None:
+        assert gj.K4[torch.float64].launches > k4
+        for f in ("output_psd", "gain"):
+            np.testing.assert_allclose(getattr(got.noise, f),
+                                       getattr(want.noise, f), rtol=1e-9,
+                                       atol=1e-30)
+    if got.op is not None:
+        for name, v in want.op.node_voltages.items():
+            np.testing.assert_allclose(got.op.node_voltages[name], v,
+                                       rtol=1e-9, atol=1e-12)
+    if got.dc is not None:
+        assert got.dc.valid.all()
+        for name, v in want.dc.node_voltages.items():
+            np.testing.assert_allclose(got.dc.node_voltages[name], v,
+                                       rtol=1e-9, atol=1e-12)
+
+
+def guard_systems():
+    """Six complex 5 x 5 systems as ``analysis/noise._noise_core`` takes
+    them, float64 on the CPU: (A_re, A_im, b_re, b_im, e_out (1, 5)).
+    Systems 0-2 have cond(A) = 1e10 with b along the largest singular
+    direction of A and the real e_out along that of A^T: there x = M b
+    and z = M^T e_out are O(1) sums of O(1e10) terms, whose rounding
+    leaves a residual ~cond * eps, so the residual guard solves them again,
+    forward and adjoint; systems 3-5 are well conditioned."""
+    rng = np.random.default_rng(11)
+    F, n = 6, 5
+
+    def unitary(first=None):
+        a = rng.standard_normal((F, n, n)) + 1j * rng.standard_normal(
+            (F, n, n))
+        if first is not None:
+            a[:, :, 0] = first
+        return np.linalg.qr(a)[0]
+
+    w = rng.standard_normal(n)
+    w /= np.linalg.norm(w)
+    U = unitary()
+    V = np.swapaxes(unitary(w), -1, -2)  # row 0 is +-w
+    A = (U * np.logspace(0, -10, n)[None, None, :]) @ V
+    A[3:] = rng.standard_normal((3, n, n)) + n * np.eye(n)
+    b = U[:, :, 0].copy()
+    b[3:] = rng.standard_normal((3, n))
+    return tuple(torch.as_tensor(a.copy()) for a in (
+        A.real, A.imag, b.real, b.imag, w[None]))
+
+
+@pytest.mark.cuda
+def test_noise_guard_resolves_on_cuda(cuda):
+    """The residual guard's re-solve branch on the card: after K4, systems
+    0-2 of ``guard_systems`` fail the guard forward and adjoint and K1
+    solves them again, on A and on A^T. Their answers are K1's direct
+    solves, leave a residual within 1e-12 and agree with the CPU path to
+    1e-5 of their size (cond(A) * eps ~ 2e-6 is as far as two direct
+    solves of them agree); systems 3-5 equal the CPU path at 1e-9."""
+    from spicey_tpu_torch.analysis import noise as tnoise
+
+    f64 = torch.float64
+    cpu = guard_systems()
+    A_re, A_im, b_re, b_im, e = (t.to(cuda) for t in cpu)
+    k1, k4 = gj.K1[f64].launches, gj.K4[f64].launches
+    got = tnoise._noise_core(A_re, A_im, b_re, b_im, e, "gj")
+    assert gj.K4[f64].launches == k4 + 1 and gj.K1[f64].launches == k1 + 2
+    want = tnoise._noise_core(*cpu, "gj")
+    assert got[-1] == want[-1] == 6
+    x_re, x_im, z_re, z_im, ok_f, ok_a, _ = got
+    assert bool(ok_f.all()) and bool(ok_a.all())
+    et = e.expand(b_re.shape)[:3]
+    fr, fi, _ = linsolve.solve_planes(A_re[:3], A_im[:3], b_re[:3], b_im[:3])
+    ar, ai, _ = linsolve.solve_planes(A_re[:3].transpose(-1, -2),
+                                      A_im[:3].transpose(-1, -2), et,
+                                      torch.zeros_like(et))
+    for g, w in ((x_re, fr), (x_im, fi), (z_re, ar), (z_im, ai)):
+        assert torch.equal(g[:3], w)
+    ez = e.expand(b_re.shape)
+    assert bool((tnoise._rel_residual(A_re, A_im, x_re, x_im, b_re, b_im,
+                                      False) <= 1e-12).all())
+    assert bool((tnoise._rel_residual(A_re, A_im, z_re, z_im, ez,
+                                      torch.zeros_like(ez), True)
+                 <= 1e-12).all())
+    for k in (0, 2):  # x, then z, as complex vectors
+        g = got[k].cpu().numpy() + 1j * got[k + 1].cpu().numpy()
+        w = want[k].numpy() + 1j * want[k + 1].numpy()
+        np.testing.assert_allclose(g[3:], w[3:], rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(g[:3], w[:3], rtol=0,
+                                   atol=1e-5 * np.abs(w[:3]).max())
+
+
+def test_k4_wrapper_refuses_bad_input():
+    Ar, Ai, _br, _bi = _systems(4, 2, torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        gj.gj_inverse_planes_cuda(Ar, Ai)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        gj.gj_inverse_planes_cuda(Ar.half(), Ai.half())
+    with pytest.raises(TypeError, match="float32 or float64"):
+        gj.gj_inverse_planes_cuda(Ar, Ai.float())
+    with pytest.raises(ValueError, match=r"\(B, N, N\)"):
+        gj.gj_inverse_planes_cuda(Ar[:, :3], Ai[:, :3])
+    big = _systems(129, 1, torch.float64)
+    with pytest.raises(ValueError, match="N <= 128"):
+        gj.gj_inverse_planes_cuda(big[0], big[1])

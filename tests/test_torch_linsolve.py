@@ -243,3 +243,88 @@ def test_real_solve_and_inverse_dispatch_on_the_cpu():
     assert torch.equal(inv.reshape(6, 5, 5), rinv)
     with pytest.raises(ValueError, match="unknown solve method"):
         tlin.solve(A, b, method="lax")
+
+
+# ---- the complex inverse: plain K4 ---------------------------------------
+
+def _unpermuted(M, colidx):
+    """The TPU kernel's row-permuted inverse un-permuted by its pivot map
+    (``pallas_gj._unperm_onehot``): row r of M is row colidx[r] of the
+    true inverse."""
+    out = np.zeros_like(M)
+    for s in range(M.shape[0]):
+        out[s, colidx[s]] = M[s]
+    return out
+
+
+@pytest.mark.parametrize("kind,N", [("random", 3), ("mna", 6),
+                                    ("singular", 5), ("random", 8)])
+def test_f32_inverse_matches_pallas_kernel_interpret(kind, N):
+    from spicey_tpu.ops import pallas_gj
+
+    rng = np.random.default_rng(500 + N)
+    make = {"random": _random, "mna": _mna_like, "singular": _singular}[kind]
+    Ar, Ai = [a.astype(np.float32) for a in make(rng, 16, N)[:2]]
+    Mr, Mi, colidx, jv = [np.asarray(a) for a in
+                          pallas_gj._inverse_complex_f32(
+                              jnp.asarray(Ar), jnp.asarray(Ai), 1e-15, True)]
+    colidx = colidx.astype(int)
+    jr, ji = _unpermuted(Mr, colidx), _unpermuted(Mi, colidx)
+    tr, ti, tv = tlin.gj_inverse_planes(torch.as_tensor(Ar),
+                                        torch.as_tensor(Ai))
+    assert tr.dtype == torch.float32
+    np.testing.assert_array_equal(tv.numpy(), jv)
+    ok = jv.copy()
+    if kind == "singular":
+        # as in the solve: the duplicated-row lane keeps a rounding
+        # residue as its last pivot, valid in both with garbage values
+        assert not ok[[0, 2]].any()
+        ok[:3] = False
+    scale = np.max(np.abs(jr[ok]))
+    np.testing.assert_allclose(tr.numpy()[ok], jr[ok], rtol=1e-5,
+                               atol=1e-5 * scale)
+    np.testing.assert_allclose(ti.numpy()[ok], ji[ok], rtol=1e-5,
+                               atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("kind,N", [("random", 4), ("mna", 8),
+                                    ("singular", 6)])
+def test_f64_inverse_matches_jax_plane_gj_columns(kind, N):
+    """Column j of the plain K4 inverse is JAX's f64 plane GJ solve of
+    A x = e_j, at 1e-12, with the same ``valid``."""
+    rng = np.random.default_rng(600 + N)
+    make = {"random": _random, "mna": _mna_like, "singular": _singular}[kind]
+    Ar, Ai = make(rng, 10, N)[:2]
+    eye = np.eye(N)
+    f = jax.jit(jax.vmap(jax.vmap(jlin.gj_solve_planes,
+                                  in_axes=(None, None, 0, 0)),
+                         in_axes=(0, 0, None, None)))
+    xr, xi, oks = [np.asarray(a) for a in f(jnp.asarray(Ar), jnp.asarray(Ai),
+                                            jnp.asarray(eye),
+                                            jnp.zeros((N, N)))]
+    jv = oks.all(axis=1)
+    tr, ti, tv = tlin.gj_inverse_planes(torch.as_tensor(Ar),
+                                        torch.as_tensor(Ai))
+    np.testing.assert_array_equal(tv.numpy(), jv)
+    if kind == "singular":
+        assert not jv[:3].any() and jv[3:].all()
+    # (B, col, row) -> (B, row, col)
+    jr, ji = np.swapaxes(xr, -1, -2), np.swapaxes(xi, -1, -2)
+    np.testing.assert_allclose(tr.numpy()[jv], jr[jv], rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(ti.numpy()[jv], ji[jv], rtol=1e-12,
+                               atol=1e-12)
+    if kind == "random":  # the true inverse
+        np.testing.assert_allclose((tr + 1j * ti).numpy(),
+                                   np.linalg.inv(Ar + 1j * Ai), rtol=1e-10,
+                                   atol=1e-12)
+
+
+def test_inverse_planes_dispatch_on_the_cpu():
+    rng = np.random.default_rng(12)
+    Ar, Ai = [torch.as_tensor(a) for a in _random(rng, 6, 4)[:2]]
+    got = tlin.inverse_planes(Ar.reshape(2, 3, 4, 4), Ai.reshape(2, 3, 4, 4))
+    ref = tlin.gj_inverse_planes(Ar, Ai)
+    assert got[0].shape == (2, 3, 4, 4) and got[2].shape == (2, 3)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.reshape(r.shape), r)

@@ -4,7 +4,9 @@ A subprocess blocks ``import jax`` and reproduces the basics01 golden
 through ``spicey_tpu_torch``, runs the boost-converter transient, a
 small transient Monte-Carlo on both routes (the batched loop and the
 fused tier's plain versions, linear and nonlinear), the MOSFET ring
-through ``simulate`` and a small ring Monte-Carlo; an AST scan asserts
+through ``simulate``, a small ring Monte-Carlo, the bench's op/dc/tf deck,
+the two-stage amplifier's .op/.tf/.ac/.noise and an ``op_batch``; an AST
+scan asserts
 that no module of the port imports jax or the JAX package.
 """
 
@@ -52,6 +54,15 @@ bs = st.mc_tran_stats(open(sys.argv[3]).read(), {"RR1": [1e3, 1.05e3]},
                       node="N3", method="pallas", precision="f32",
                       device="cpu")
 assert bs.n_valid == 2
+from spicey_tpu_torch import decks
+r = st.simulate(decks.OPDCTF_DECK, dialect="extended", device="cpu")
+assert r.op is not None and r.dc.valid.all() and r.tf is not None
+amp = st.simulate(decks.AMP_DECK, dialect="extended", device="cpu")
+assert amp.noise.output_psd.shape == (901,) and amp.ac is not None
+assert st.format_noise_result(amp.noise).startswith("Noise analysis at")
+ob = st.op_batch(decks.BJT_NET, {"Q1": [1e-15, 1.1e-15], "VIN": [0.65, 0.65]},
+                 dialect="extended", device="cpu")
+assert ob.valid.all()
 print("OK")
 """
 
