@@ -6,7 +6,7 @@ and exits nonzero on the first failure (nothing is caught). Phases, one
 line each:
 
   1. build kernels K1 + K4 (csrc/gj_complex.cu), K2 + K3
-     (csrc/gj_real.cu), K5 (csrc/mc_ac_fused.cu), K8
+     (csrc/gj_real.cu), K5 + K7 (csrc/mc_ac_fused.cu), K8
      (csrc/mc_tran_fused.cu) and K9 (csrc/mc_tran_nr.cu) with nvcc, one
      process per source, all started together; print the build seconds
      and the card's name/power limit;
@@ -35,7 +35,11 @@ line each:
      the .noise planes themselves (the amplifier's and the ladder's 901
      systems at their operating points; in f32 these are beyond single
      precision at the GHz end, so no tolerance tells a right f32 inverse
-     from a wrong one there);
+     from a wrong one there); K7 (the fused full-solution AC) with the
+     pattern's RHS and with external RHS planes, f64 and f32, on dense
+     random systems at N in {3, 8, 16} with an all-zero and a zero-row
+     variant (tests/fused_systems.py) and at phase 18's shape (f32 there
+     by k1_vs_plain's rule: the ladder is ill-conditioned);
   3-8. the main path through the public entry points, each phase with
      every launch counter zeroed first and read after: the basics01
      golden on cuda (character-exact); the 1M-variant AC yield at f32
@@ -70,13 +74,28 @@ line each:
      .ac and .noise over 901 frequencies (K2, K1, K4); the thermal noise
      of the N = 64 RC ladder over 901 frequencies (K4); each .noise run
      prints how many systems its residual guard solved again (K1);
-  9. every instantiation launched during 3-8 and 10-17 (printed after
-     them; K4's f32 instance is on no main path and is checked in phase 2
-     only); CUDA-event times of each
+  18-20. the batched corner sweeps through the public entry points on
+     cuda, counted the same way: ``simulate_ac_batch(method="pallas")``
+     of ``rc_ladder_netlist(14, 201)`` (N = 16) with all 14 R and 14 C at
+     U(0.9, 1.1) x nominal over 16,384 variants x 201 frequencies through
+     K7 in f64 (every system valid, 64 variants equal the CPU path and
+     1024 the K1 route at 1e-9), then the N = 64 ladder of phase 5 with
+     full solutions (K1, 2048 x 51, 64 variants against the CPU path);
+     ``simulate_tran_batch`` of the RC deck (100k, K3), the boost
+     converter (100k, K2) and the ring (4096, K2, Newton to convergence),
+     each valid, 64 variants equal to the CPU path at 1e-9; and
+     ``decks.STEP_DECK`` through ``simulate(method="pallas")``: .op, .ac
+     and .tran over 1,001 ``.step`` lanes equal to the CPU path at 1e-9,
+     each lane's .op the divider's closed form;
+  9. every instantiation launched during 3-8 and 10-20 (printed after
+     them; the f32 instances of K4 and K7 are on no main path and are
+     checked in phase 2 and timed here only); CUDA-event times of each
      kernel, its plain version and, where one PyTorch call computes the
      same function, that call (``torch.linalg.solve`` for K1/K2,
      ``torch.linalg.inv`` for K3 and, on complex128, K4), at the main
-     path's shapes (K4 f64 at both .noise shapes), beside the
+     path's shapes (K4 f64 at both .noise shapes, K4 f32 at the amp's;
+     K7 at phase 18's, its library call ``torch.linalg.solve`` on the
+     same systems pre-assembled as complex planes), beside the
      kernel's bound: the larger of its bytes over 3.35 TB/s and its
      operations over the H100's peak for the type (67 TFLOP/s in f32
      outside the tensor cores, 67 TFLOP/s in f64 on them; NVIDIA's H100
@@ -177,21 +196,13 @@ def bound(flops: float, nbytes: float, dtype: torch.dtype
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def rc_ladder_netlist(sections: int, freqs: int = 51) -> str:
-    """RC ladder with ``sections`` stages: Nvar = sections + 2."""
-    lines = ["* ladder bench", "v1 in 0 dc 0 ac 1"]
-    prev = "in"
-    for i in range(1, sections + 1):
-        lines.append(f"r{i} {prev} n{i} {100 + i}")
-        lines.append(f"c{i} n{i} 0 1u")
-        prev = f"n{i}"
-    lines.append(f".ac lin {freqs} 1 10k")
-    lines.append(".end")
-    return "\n".join(lines) + "\n"
+_T0 = time.perf_counter()
 
 
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of the run, with the seconds since the script started."""
+    print(f"[{phase}] {msg} (at {time.perf_counter() - _T0:.1f} s)",
+          flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -237,13 +248,14 @@ def main() -> int:
                                         BOOST_FINE, BOOST_NET, CJ_NET,
                                         JFET_NET, LADDER_NOISE, MOS_IV_DECK,
                                         OPDCTF_DECK, PNP_NET, QC_NET,
-                                        RING_DECK, RING_NET, TRAN_NET,
-                                        TT_NET)
+                                        RING_DECK, RING_NET, STEP_DECK,
+                                        TRAN_NET, TT_NET, rc_ladder_netlist)
     from spicey_tpu_torch.ir.circuit import (effective_time_step,
                                              sample_source_values)
     from spicey_tpu_torch.ops import (_build, gj, gj_real, linsolve,
                                       mc_ac_fused, mc_tran_fused)
     from tests.fixtures import netlists
+    from tests.fused_systems import FREQS, dense_pattern, dense_values
     from tests.oracle import oracle_tran
 
     dev = torch.device("cuda")
@@ -252,9 +264,10 @@ def main() -> int:
                + list(gj_real.K2.values()) + list(gj_real.K3.values())
                + list(mc_tran_fused.K8.values())
                + list(mc_tran_fused.K9.values())
-               # the .noise path runs K4 in f64; its f32 instance exists to
-               # be held against the TPU kernel and runs in phase 2 only
-               + [gj.K4[torch.float64]]}
+               # the .noise path runs K4 in f64 and the batch AC K7 in
+               # f64; their f32 instances exist to be held against the TPU
+               # kernels and run in phases 2 and 9 only
+               + [gj.K4[torch.float64], mc_ac_fused.K7[torch.float64]]}
     err = {name: 0.0 for name in kernels}
     # name -> (kernel ms, plain ms, library ms or None, bound ms, bound by)
     ms: dict[str, tuple] = {}
@@ -469,7 +482,7 @@ def main() -> int:
             i_im=torch.as_tensor(t.i_ac_mag * np.sin(iph), dtype=dtype,
                                  device=dev), dtype=dtype)
         node_idx = [n.upper() for n in t.node_names].index(node.upper())
-        packed = tmc._fused_pattern(ckt, t, "pallas", dev)
+        packed = tbatch._fused_pattern(ckt, t, "pallas", dev)
         return (torch.as_tensor(freqs, dtype=dtype, device=dev), values,
                 packed, node_idx)
 
@@ -510,6 +523,117 @@ def main() -> int:
             raise AssertionError(f"K5 1M: {nv}/{nt} valid")
         say("2 compare", f"K5 {TAG[dtype]} RC (1M, 201) valid {nv}/{nt} "
             f"max_abs_err {e:.3e}")
+
+    def plain_x_chunked(freqs, values, packed, rhs, chunk=2048):
+        """K7's plain version over blocks of ``chunk`` variants (at the
+        phase-18 shape its whole planes would take ~14 GB in f64)."""
+        parts = [mc_ac_fused.mc_ac_fused_x_plain(
+            freqs, values[:, s:s + chunk].contiguous(), packed,
+            None if rhs is None else tuple(r[..., s:s + chunk] for r in rhs))
+            for s in range(0, values.shape[1], chunk)]
+        return tuple(torch.cat([p[k] for p in parts], dim=-1)
+                     for k in range(3))
+
+    def k7_vs_plain(inputs, rhs, dtype, what, main_shape,
+                    conditioned=False):
+        """K7 against its plain version: ``valid`` identical, the full
+        solutions of the valid systems at rtol; ``conditioned`` applies
+        k1_vs_plain's rule (K7 as accurate as the plain version against
+        an f64 solve of the same inputs)."""
+        freqs, values, packed = inputs
+        xr, xi, v = mc_ac_fused.mc_ac_fused_x_cuda(freqs, values, packed, rhs)
+        pr, pi, pv = plain_x_chunked(freqs, values, packed, rhs)
+        if not torch.equal(v, pv):
+            raise AssertionError(f"K7 {what}: valid flags differ")
+
+        def sel(x):  # (F, N, B) -> (valid systems, N)
+            return x.permute(0, 2, 1)[pv]
+
+        if conditioned:
+            tr, ti, _ = plain_x_chunked(
+                freqs.double(), values.double(), packed,
+                None if rhs is None else tuple(r.double() for r in rhs))
+            scale = float(sel(tr).abs().max())
+
+            def err_vs(a, b):
+                return float(torch.maximum(
+                    (sel(a).double() - sel(tr)).abs().max(),
+                    (sel(b).double() - sel(ti)).abs().max()))
+
+            e_plain, e_k7 = err_vs(pr, pi), err_vs(xr, xi)
+            if e_k7 > 2 * e_plain + TOL[dtype] * scale:
+                raise AssertionError(f"K7 {what}: error vs f64 {e_k7:.3e}, "
+                                     f"plain's {e_plain:.3e}")
+            say("2 compare", f"K7 {what}: error vs an f64 solve "
+                f"{e_k7:.3e}, the plain f32 version's {e_plain:.3e}")
+            e = float(torch.maximum((sel(xr) - sel(pr)).abs().max(),
+                                    (sel(xi) - sel(pi)).abs().max()))
+        else:
+            e = max(check_close(sel(xr), sel(pr), TOL[dtype],
+                                f"K7 {what} re"),
+                    check_close(sel(xi), sel(pi), TOL[dtype],
+                                f"K7 {what} im"))
+        if main_shape:
+            name = mc_ac_fused.K7[dtype].name
+            err[name] = max(err[name], e)
+        return e, int(pv.sum()), pv.numel()
+
+    def rhs_planes(F, n, B, dtype):
+        return tuple(torch.as_tensor(rng.standard_normal((F, n, B)),
+                                     dtype=dtype, device=dev)
+                     for _ in range(2))
+
+    # dense random systems (tests/fused_systems.py), an all-zero and a
+    # zero-row variant each, in both modes
+    for dtype in (torch.float64, torch.float32):
+        for n in (3, 8, 16):
+            B = 512
+            freqs = torch.as_tensor(FREQS, dtype=dtype, device=dev)
+            values = torch.as_tensor(dense_values(n, B, SEED), dtype=dtype,
+                                     device=dev)
+            for ext_rhs in (False, True):
+                packed = mc_ac_fused.pack_pattern(dense_pattern(n), n, dev,
+                                                  ext_rhs=ext_rhs)
+                rhs = rhs_planes(3, n, B, dtype) if ext_rhs else None
+                mode = "external RHS" if ext_rhs else "pattern RHS"
+                e, nv, nt = k7_vs_plain((freqs, values, packed), rhs, dtype,
+                                        f"{TAG[dtype]} N={n} {mode}", False)
+                if nv != nt - 2 * 3:
+                    raise AssertionError(f"K7 N={n}: {nv}/{nt} valid")
+                say("2 compare", f"K7 {TAG[dtype]} N={n} {mode} (3, {B}) "
+                    f"valid {nv}/{nt} max_abs_err {e:.3e}")
+
+    # the phase-18 shape: the N = 16 ladder, 16,384 variants x 201
+    # frequencies, every R and C at U(0.9, 1.1) x nominal
+    AC16_B = 16_384
+    lad16 = rc_ladder_netlist(14, 201)
+    lad16_t = st.build_tensors(st.parse_netlist(lad16))
+    ac16_over = {n: v * rng.uniform(0.9, 1.1, AC16_B) for n, v in
+                 zip(lad16_t.r_names + lad16_t.c_names,
+                     np.concatenate([lad16_t.r_vals, lad16_t.c_vals]))}
+    lad16_ext = mc_ac_fused.pack_pattern(mc_ac_fused.build_stamp_pattern(
+        lad16_t.nvar, lad16_t.r_idx, lad16_t.c_idx, lad16_t.l_idx,
+        lad16_t.v_idx), lad16_t.nvar, dev, ext_rhs=True)
+    lad16_inputs = {}
+    for dtype in (torch.float64, torch.float32):
+        freqs, values, packed, _node = fused_inputs(lad16, "n14", ac16_over,
+                                                    AC16_B, dtype)
+        lad16_inputs[dtype] = (freqs, values, packed)
+        F, n = freqs.shape[0], packed.n
+        for ext_rhs in (False, True):
+            rhs = rhs_planes(F, n, AC16_B, dtype) if ext_rhs else None
+            mode = "external RHS" if ext_rhs else "pattern RHS"
+            e, nv, nt = k7_vs_plain(
+                (freqs, values, lad16_ext if ext_rhs else packed), rhs,
+                dtype, f"{TAG[dtype]} ladder-16 {mode}",
+                dtype == torch.float64 and not ext_rhs,
+                conditioned=dtype == torch.float32)
+            if nv != nt:
+                raise AssertionError(f"K7 ladder-16: {nv}/{nt} valid")
+            say("2 compare", f"K7 {TAG[dtype]} ladder N={n} {mode} "
+                f"({AC16_B}, {F}) valid {nv}/{nt} max_abs_err {e:.3e}")
+            del rhs
+    torch.cuda.empty_cache()
     # K2 and K3: random systems with an all-zero and a zero-row system
     def k2_vs_plain(A, b, dtype, what, main_shape):
         x, v = gj_real.gj_solve_cuda(A, b)
@@ -1170,6 +1294,98 @@ def main() -> int:
         "comparisons")
     counted("17 ladder noise", [gj.K4[f64]])
 
+    def same_x(got, want, what):
+        """Complex solutions at rtol 1e-9, atol 1e-12 of the largest
+        (the far taps of a ladder are many decades below its input)."""
+        same(got, want, what, atol=1e-12 * float(np.abs(want).max()))
+
+    # ---- 18. batch-ac-16k: every tap of the N = 16 ladder (K7) -----------
+    ac16, ac16_s = timed(lambda: st.simulate_ac_batch(
+        lad16, ac16_over, method="pallas", device=dev))
+    if ac16.x.shape != (AC16_B, 201, 16) or not ac16.valid.all():
+        raise AssertionError(f"batch-ac-16k: {ac16.x.shape}, "
+                             f"{int(ac16.valid.sum())} valid")
+    sub = {k: v[:64] for k, v in ac16_over.items()}
+    same_x(ac16.x[:64], st.simulate_ac_batch(
+        lad16, sub, method="pallas", device="cpu").x, "batch-ac-16k cpu")
+    sub = {k: v[:1024] for k, v in ac16_over.items()}
+    k1_16, k1_16_s = timed(lambda: st.simulate_ac_batch(
+        lad16, sub, method="gj", device=dev))
+    same_x(ac16.x[:1024], k1_16.x, "batch-ac-16k K1 route")
+    say("18 batch-ac-16k", f"N=16 ladder, {AC16_B} variants x 201 "
+        f"frequencies through K7 (f64): valid {int(ac16.valid.sum())}/"
+        f"{ac16.valid.size}; 64 variants equal the CPU path and 1024 the K1 "
+        f"route at 1e-9; wall {ac16_s:.3f} s (K1 route on 1024: "
+        f"{k1_16_s:.3f} s), x {ac16.x.nbytes / 1e6:.0f} MB on the host")
+    counted("18 batch-ac-16k", [mc_ac_fused.K7[f64], gj.K1[f64]])
+    del ac16, k1_16
+    lad64, lad64_s = timed(lambda: st.simulate_ac_batch(
+        ladder, lad_over, method="pallas", device=dev))
+    if not lad64.valid.all():
+        raise AssertionError("batch-ladder-64: invalid systems")
+    sub = {"r1": lad_over["r1"][:64]}
+    same_x(lad64.x[:64], st.simulate_ac_batch(ladder, sub, device="cpu").x,
+           "batch-ladder-64 cpu")
+    say("18 batch-ladder-64", f"N=64 ladder, {LB} variants x 51 frequencies "
+        f"with full solutions through K1: valid {int(lad64.valid.sum())}/"
+        f"{lad64.valid.size}; 64 equal the CPU path at 1e-9; wall "
+        f"{lad64_s:.3f} s")
+    counted("18 batch-ladder-64", [gj.K1[f64]])
+    del lad64
+    torch.cuda.empty_cache()
+
+    # ---- 19. batch transient: full trajectories (K3, K2) ------------------
+    for label, net, dialect, over in (
+            ("RC 100k (K3)", TRAN_NET, "spicey",
+             {"R1": r_tran[:BOOST_B], "C1": c_tran[:BOOST_B]}),
+            ("boost 100k (K2)", BOOST_NET, "spicey", boost_over),
+            ("ring 4096 (K2, Newton to convergence)", RING_NET, "extended",
+             r4k)):
+        bt, bt_s = timed(lambda: st.simulate_tran_batch(
+            net, over, dialect=dialect, device=dev))
+        nb = len(next(iter(over.values())))
+        n_sw = st.build_tensors(st.parse_netlist(net, dialect=dialect)).n_s
+        if not bt.valid.all() \
+                or bt.sw_states.shape != (nb, len(bt.times), n_sw):
+            raise AssertionError(f"batch-tran {label}: "
+                                 f"{int(bt.valid.sum())} valid, sw_states "
+                                 f"{bt.sw_states.shape}")
+        cpu = st.simulate_tran_batch(net, {k: v[:64] for k, v in over.items()},
+                                     dialect=dialect, device="cpu")
+        same(bt.xs[:64], cpu.xs, f"batch-tran {label}",
+             atol=1e-12 * float(np.abs(cpu.xs).max()))
+        np.testing.assert_array_equal(bt.sw_states[:64], cpu.sw_states)
+        say("19 batch-tran", f"{label}: {nb} variants x {len(bt.times)} "
+            f"steps, valid {int(bt.valid.sum())}; 64 equal the CPU path at "
+            f"1e-9; wall {bt_s:.3f} s, xs {bt.xs.nbytes / 1e6:.0f} MB")
+        del bt
+    counted("19 batch-tran", [gj_real.K3[f64], gj_real.K2[f64]])
+
+    # ---- 20. .step through simulate(): 1,001 corners of an RLC low-pass ---
+    stp, stp_s = timed(lambda: st.simulate(STEP_DECK, dialect="extended",
+                                           method="pallas", device=dev))
+    want = st.simulate(STEP_DECK, dialect="extended", method="pallas",
+                       device="cpu").step
+    got = stp.step
+    if len(got.values) != 1001:
+        raise AssertionError(f".step: {len(got.values)} lanes")
+    for what, g, w in (("ac", got.ac.x, want.ac.x),
+                       ("tran", got.tran.xs, want.tran.xs),
+                       ("op", got.op.x, want.op.x)):
+        same_x(g, w, f".step {what}")
+    if not (got.ac.valid.all() and got.tran.valid.all()
+            and got.op.valid.all()):
+        raise AssertionError(".step: invalid lanes")
+    same(got.op.node_voltage("out"), 10.0 * 1e3 / (got.values + 1e3),
+         ".step .op divider")
+    say("20 step", f"r1 stepped over {len(got.values)} values: .op, .ac "
+        f"({got.ac.x.shape[1]} points, K7) and .tran ({got.tran.xs.shape[1]}"
+        f" points) on cuda equal the CPU path at 1e-9, .op the divider's "
+        f"closed form; {stp_s:.3f} s wall")
+    counted("20 step", [mc_ac_fused.K7[f64], gj_real.K3[f64],
+                        gj_real.K2[f64], gj.K1[f64]])
+    torch.cuda.empty_cache()
+
     # ---- 9. launches and times --------------------------------------------
     missing = [name for name, n in launches.items() if n == 0]
     if missing:
@@ -1238,6 +1454,54 @@ def main() -> int:
             shape[name] = f"ladder noise ({nb}, {n})"
             ms[name] = t_k4
         del Ac
+    # K4's f32 instance (on no main path) at the amp noise shape
+    Ar, Ai = (p.float() for p in noise_planes["amp"])
+    nb, n = Ar.shape[0], Ar.shape[1]
+    Ac = torch.complex(Ar, Ai)
+    t_k4 = (cuda_ms(lambda: gj.gj_inverse_planes_cuda(Ar, Ai), 20),
+            cuda_ms(lambda: linsolve.gj_inverse_planes(Ar, Ai), 2),
+            cuda_ms(lambda: torch.linalg.inv(Ac), 5),
+            *bound(nb * inverse_flops(n, True), 4 * nb * 4 * n * n + nb,
+                   torch.float32))
+    say("9 times", f"{gj.K4[torch.float32].name} at amp noise ({nb}, {n}): "
+        f"kernel {t_k4[0]:.4f} ms, plain {t_k4[1]:.3f} ms, library "
+        f"{t_k4[2]:.3f} ms (linalg.inv, {Ac.dtype}), bound {t_k4[3]:.4f} ms "
+        f"({t_k4[4]}) (CUDA events) | {smi}")
+    del Ac, Ar, Ai
+    # K7 at the phase-18 shape, pattern RHS; the library call solves the
+    # same systems pre-assembled as complex planes (assembly excluded),
+    # built a block of variants at a time into one tensor
+    for dtype, inputs in lad16_inputs.items():
+        freqs, values, packed = inputs
+        F, nb, n = freqs.shape[0], values.shape[1], packed.n
+        el = values.element_size()
+        cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+        Ac = torch.empty((nb * F, n, n), dtype=cdt, device=dev)
+        bc = torch.empty((nb * F, n), dtype=cdt, device=dev)
+        for s0 in range(0, nb, 2048):
+            part = {k: v[s0:s0 + 2048] for k, v in ac16_over.items()}
+            Ar, Ai, br, bi = assembled(lad16, part, len(part["r1"]), dtype)
+            Ac[s0 * F:s0 * F + Ar.shape[0]] = torch.complex(Ar, Ai)
+            bc[s0 * F:s0 * F + Ar.shape[0]] = torch.complex(br, bi)
+            del Ar, Ai, br, bi
+        t_k7 = (cuda_ms(lambda: mc_ac_fused.mc_ac_fused_x_cuda(*inputs), 3),
+                cuda_ms(lambda: plain_x_chunked(*inputs, None), 1),
+                cuda_ms(lambda: torch.linalg.solve(Ac, bc), 2),
+                *bound(F * nb * (solve_flops(n, True)
+                                 + 2 * packed.terms.shape[0]),
+                       el * (values.numel() + F) + F * nb * (2 * n * el + 1),
+                       dtype))
+        name = mc_ac_fused.K7[dtype].name
+        say("9 times", f"{name} at batch-ac-16k ({nb}, {F}, N={n}): kernel "
+            f"{t_k7[0]:.3f} ms, plain {t_k7[1]:.3f} ms, library "
+            f"{t_k7[2]:.3f} ms (linalg.solve on pre-assembled {cdt} planes, "
+            f"assembly excluded), bound {t_k7[3]:.4f} ms ({t_k7[4]}) (CUDA "
+            f"events) | {smi}")
+        if name in kernels:
+            shape[name] = f"batch-ac-16k ({nb}, {F}, N={n})"
+            ms[name] = t_k7
+        del Ac, bc
+        torch.cuda.empty_cache()
     vs, values, pattern, _node = tran_big_inputs
     s1, nb, n = vs.shape[0], values.shape[1], pattern.n
     n_b = bin(pattern.b_rows).count("1")

@@ -17,7 +17,10 @@ every Newton pass), K3 (the factor-once inverse of linear decks), K8
 (the fused linear whole transient) and K9 (the fused nonlinear one), and
 the DC operating point and the analyses built on it: ``.op``, ``.dc``,
 ``op_batch`` and ``.tf`` (K2), AC ``linearize="op"`` (K1) and ``.noise``
-through K4 (the complex inverse). The host layer (parsing, IR,
+through K4 (the complex inverse), and the batched corner sweeps:
+``simulate_ac_batch`` (full solutions; K7, the fused full-solution
+kernel, or K1), ``simulate_tran_batch`` (K2, K3) and ``.step`` in
+``simulate()``. The host layer (parsing, IR,
 formatting) is a jax-free copy of the JAX package's. Public entry points
 run on the CUDA card unless called with ``device="cpu"``, and state
 float64 or float32 at every tensor creation.
@@ -26,12 +29,15 @@ float64 or float32 at every tensor creation.
 from __future__ import annotations
 
 from .analysis.ac import simulate_ac
+from .analysis.batch import (BatchACResult, BatchTranResult,
+                             simulate_ac_batch, simulate_tran_batch)
 from .analysis.mc import (MCStats, mc_ac_sampled, mc_ac_stats,
                           mc_tran_sampled, mc_tran_stats)
 from .analysis.noise import NoiseResult, simulate_noise
 from .analysis.op import (BatchOPResult, DCResult, OPResult, op_batch,
                           simulate_dc, simulate_op)
-from .analysis.results import ACResult, SimulationResult, TranResult
+from .analysis.results import (ACResult, SimulationResult, StepResult,
+                               TranResult)
 from .analysis.simulate import simulate
 from .analysis.tf import TFResult, simulate_tf
 from .analysis.tran import TranState, simulate_tran
@@ -57,7 +63,9 @@ eecEngineTranToVGraphs = eec_engine_tran_to_vgraphs
 
 __all__ = [
     "ACResult",
+    "BatchACResult",
     "BatchOPResult",
+    "BatchTranResult",
     "CircuitTensors",
     "DCResult",
     "EPS",
@@ -66,6 +74,7 @@ __all__ = [
     "OPResult",
     "ParsedCircuit",
     "SimulationResult",
+    "StepResult",
     "TFResult",
     "TranResult",
     "TranState",
@@ -94,11 +103,13 @@ __all__ = [
     "simulateAC",
     "simulateTRAN",
     "simulate_ac",
+    "simulate_ac_batch",
     "simulate_dc",
     "simulate_noise",
     "simulate_op",
     "simulate_tf",
     "simulate_tran",
+    "simulate_tran_batch",
     "spiceyTranToVGraphs",
     "spicey_tran_to_vgraphs",
     "to_precision",

@@ -1,18 +1,84 @@
-"""Batch helpers shared by the Monte-Carlo analyses.
+"""Batched corner sweeps: every parameter variant of one topology at once.
 
-Overrides map element names (case-insensitive) to (B,) value arrays; the
-helpers tile netlist values to a leading variants axis and apply them.
-The batched analyses themselves (``simulate_ac_batch``,
-``simulate_tran_batch``) are not ported yet (ROADMAP §1 item 1).
+Contract: spicey_tpu/analysis/batch.py. The reference simulates one
+netlist per call; here thousands of parameter variants of one topology
+solve in one call, with a leading variants axis on the element values.
+
+API:
+  overrides = {"r1": values_B, "c1": values_B, "v1": dc_values_B, ...}
+  simulate_ac_batch(netlist_or_ckt, overrides)   -> BatchACResult
+  simulate_tran_batch(netlist_or_ckt, overrides) -> BatchTranResult
+
+Element names match case-insensitively. Voltage- and current-source
+overrides set the DC value (the whole time grid of a source without a
+waveform); overriding a waveform-driven source raises.
+
+Routes on a CUDA tensor, each solve a kernel launch (their plain versions
+on a CPU tensor), all in float64:
+  - AC, ``method="pallas"``, N <= 16: the fused full-solution kernel K7
+    (ops/mc_ac_fused.py), which builds and solves every (variant,
+    frequency) system on chip, so the (B*F, N, N+1) planes never exist
+    in device memory; every other AC deck assembles the planes in torch
+    and solves them with K1 (``analysis/ac._ac_sweep_core``);
+  - the transient: the batched time loop of analysis/tran.py with a
+    (B,) lead, K2 every Newton pass, or K3 once for a linear deck.
+V-kind B sources stamp as 0 V shorts in AC, as the JAX package's batch AC
+does. Not ported yet, each raising ``NotImplementedError`` with its
+ROADMAP item: K coupling, T lines, and B sources in the transient (§1
+item 2). ``time_parallel`` keeps the JAX package's switch, but "auto"
+and "never" both run the sequential loop until the time-parallel core is
+ported (item 3). The JAX package's ``device_put`` sharding hook (item 9)
+and ``interpret`` have no counterpart. Entry points run on the card
+unless ``device="cpu"``.
+
+The helpers tile netlist values to the variants axis for these analyses
+and for the Monte-Carlo statistics (analysis/mc.py) and ``op_batch``.
 """
 
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from ..ir.circuit import CircuitTensors, ext_arrays, nl_arrays
+from ..ir.circuit import (CircuitTensors, build_tensors, bv_branch_rows,
+                          effective_time_step, ext_arrays, nl_arrays,
+                          sample_source_values)
+from ..ops.mc_ac_fused import (FUSED_MAX_N, PackedPattern,
+                               build_stamp_pattern, combine_values,
+                               mc_ac_fused_x, pack_pattern)
 from ..parsing.netlist import ParsedCircuit, parse_netlist
+from ..utils.device import resolve_device
+from .ac import (_ac_sweep_core, build_frequency_array, check_ported,
+                 index_tensor)
+from .tran import _tran_core, check_ported_tran, tran_arrays, vt_scale_of
+
+
+@dataclass
+class BatchACResult:
+    freqs: np.ndarray          # (F,)
+    node_names: tuple[str, ...]
+    x: np.ndarray              # (B, F, nvar) complex128 solution
+    valid: np.ndarray          # (B, F) bool
+
+    def node_voltage(self, name: str) -> np.ndarray:
+        i = [n.upper() for n in self.node_names].index(name.upper())
+        return self.x[..., i]
+
+
+@dataclass
+class BatchTranResult:
+    times: np.ndarray          # (S+1,)
+    node_names: tuple[str, ...]
+    xs: np.ndarray             # (B, S+1, nvar)
+    sw_states: np.ndarray      # (B, S+1, nS)
+    valid: np.ndarray          # (B,)
+
+    def node_voltage(self, name: str) -> np.ndarray:
+        i = [n.upper() for n in self.node_names].index(name.upper())
+        return self.xs[..., i]
 
 
 def _resolve(ckt: ParsedCircuit | str,
@@ -85,3 +151,187 @@ def _consumed(names_groups, overrides) -> set[str]:
     if unknown:
         raise ValueError(f"overrides reference unknown elements: {sorted(unknown)}")
     return known
+
+
+def _v_idx_ac(ckt, tensors):
+    """v_idx with V-kind behavioral branch rows appended as 0 V shorts
+    (the batch AC policy for B sources)."""
+    bv = bv_branch_rows(ckt, tensors.nvar)
+    if bv.shape[0] == 0:
+        return tensors.v_idx
+    return np.concatenate([tensors.v_idx, bv], axis=0)
+
+
+def _pad_v_phasors(ckt, v_re: torch.Tensor, v_im: torch.Tensor):
+    """Zero-pad AC drive phasors for the appended behavioral branch rows."""
+    n_bv = sum(1 for b in ckt.B if b.kind == "v")
+    if n_bv == 0:
+        return v_re, v_im
+    z = v_re.new_zeros(v_re.shape[:-1] + (n_bv,))
+    return torch.cat([v_re, z], dim=-1), torch.cat([v_im, z], dim=-1)
+
+
+def _fused_pattern(ckt: ParsedCircuit, tensors, method: str,
+                   device: torch.device | str) -> PackedPattern | None:
+    """Packed stamp pattern for the fused assemble+solve tier (K5, K7), or
+    None when ineligible: non-pallas methods, or N past FUSED_MAX_N (K and
+    T elements never reach here). Both precisions qualify."""
+    if method != "pallas" or not 0 < tensors.nvar <= FUSED_MAX_N:
+        return None
+    ext_idx = {"i_idx": tensors.i_idx, "g_idx": tensors.g_idx,
+               "e_idx": tensors.e_idx, "f_idx": tensors.f_idx,
+               "h_idx": tensors.h_idx}
+    pattern = build_stamp_pattern(
+        tensors.nvar, tensors.r_idx, tensors.c_idx, tensors.l_idx,
+        _v_idx_ac(ckt, tensors), ext_idx)
+    return pack_pattern(pattern, tensors.nvar, device)
+
+
+def simulate_ac_batch(
+    circuit: ParsedCircuit | str,
+    overrides: dict[str, np.ndarray],
+    tensors: CircuitTensors | None = None,
+    method: str = "gj",
+    dialect: str = "spicey",
+    device: torch.device | str | None = None,
+) -> BatchACResult:
+    """One batched AC sweep over all parameter variants, in float64 on
+    ``device`` (the card unless ``device="cpu"``): the full (B, F, nvar)
+    solution of every variant at every frequency. ``method="pallas"``
+    takes K7 where the circuit qualifies (N <= 16), ``"gj"`` always
+    assembles the planes and solves them with K1."""
+    device = resolve_device(device)
+    ckt = _resolve(circuit, dialect=dialect)
+    if ckt.ac is None:
+        raise ValueError("netlist has no .ac analysis")
+    if tensors is None:
+        tensors = build_tensors(ckt)
+    check_ported(tensors, method)
+    B = _batch_size(overrides)
+    _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
+               tensors.v_names, tensors.i_names, tensors.g_names,
+               tensors.e_names, tensors.f_names, tensors.h_names], overrides)
+    r_vals = _batch_values(tensors.r_vals, tensors.r_names, overrides, B)
+    c_vals = _batch_values(tensors.c_vals, tensors.c_names, overrides, B)
+    l_vals = _batch_values(tensors.l_vals, tensors.l_names, overrides, B)
+    if np.any(r_vals <= 0):
+        bad = tensors.r_names[int(np.argwhere(r_vals <= 0)[0][1])]
+        raise ValueError(f"R {bad} must be > 0")
+    f64 = torch.float64
+
+    def dev(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=f64, device=device)
+
+    ext = _batched_ext(tensors, overrides, B, device, f64)
+    freqs = build_frequency_array(ckt.ac.mode, ckt.ac.N, ckt.ac.f1, ckt.ac.f2)
+    ph = tensors.v_ac_phase_deg * math.pi / 180.0
+    v_re, v_im = _pad_v_phasors(
+        ckt, dev(tensors.v_ac_mag * np.cos(ph)).expand(B, tensors.n_v),
+        dev(tensors.v_ac_mag * np.sin(ph)).expand(B, tensors.n_v))
+    iph = tensors.i_ac_phase_deg * math.pi / 180.0
+    i_re = dev(tensors.i_ac_mag * np.cos(iph))
+    i_im = dev(tensors.i_ac_mag * np.sin(iph))
+    pattern = _fused_pattern(ckt, tensors, method, device)
+    if pattern is not None:
+        values = combine_values(dev(r_vals), dev(c_vals), dev(l_vals), v_re,
+                                v_im, ext=ext, i_re=i_re, i_im=i_im,
+                                dtype=f64)
+        xr, xi, valid = mc_ac_fused_x(dev(freqs), values, pattern)
+        # (F, N, B) -> (B, F, N), permuted once on the device
+        x = torch.complex(xr, xi).permute(2, 0, 1)
+        valid = valid.T
+    else:
+        x_re, x_im, valid = _ac_sweep_core(
+            dev(freqs), index_tensor(tensors.r_idx, device), dev(r_vals),
+            index_tensor(tensors.c_idx, device), dev(c_vals),
+            index_tensor(tensors.l_idx, device), dev(l_vals),
+            index_tensor(_v_idx_ac(ckt, tensors), device), v_re, v_im,
+            tensors.nvar, method=method, ext=ext, i_re=i_re, i_im=i_im)
+        x = torch.complex(x_re, x_im)
+    # one contiguous device->host copy of the complex128 solution
+    return BatchACResult(freqs=freqs, node_names=tensors.node_names,
+                         x=x.contiguous().cpu().numpy(),
+                         valid=valid.cpu().numpy())
+
+
+def simulate_tran_batch(
+    circuit: ParsedCircuit | str,
+    overrides: dict[str, np.ndarray],
+    tensors: CircuitTensors | None = None,
+    method: str = "gj",
+    dialect: str = "spicey",
+    time_parallel: str = "auto",
+    device: torch.device | str | None = None,
+) -> BatchTranResult:
+    """One batched transient run over all parameter variants, in float64
+    on ``device`` (the card unless ``device="cpu"``): the full (B, S+1,
+    nvar) trajectories. ``overrides`` sweep R/C/L values, the extended
+    G/E/F/H gains, MOSFET/JFET betas (by M/J name), BJT Is (by Q name)
+    and the DC value of waveform-less V/I sources. Decks with MOSFETs or
+    BJTs iterate Newton to convergence, as in the JAX package."""
+    device = resolve_device(device)
+    ckt = _resolve(circuit, dialect=dialect)
+    if ckt.tran is None:
+        raise ValueError("netlist has no .tran analysis")
+    if tensors is None:
+        tensors = build_tensors(ckt)
+    check_ported_tran(ckt, tensors, method)
+    if time_parallel not in ("auto", "never"):
+        raise ValueError("time_parallel must be 'auto' or 'never'")
+    B = _batch_size(overrides)
+    _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
+               tensors.v_names, tensors.i_names, tensors.g_names,
+               tensors.e_names, tensors.f_names, tensors.h_names,
+               tensors.m_names, tensors.q_names], overrides)
+    f64 = torch.float64
+
+    def vals(base: np.ndarray, names: tuple) -> torch.Tensor:
+        return torch.as_tensor(_batch_values(base, names, overrides, B),
+                               dtype=f64, device=device)
+
+    # MOSFET/BJT Newton needs convergence iterations (see
+    # tran.simulate_tran; B sources, which also ask for it, are refused)
+    nr = "converged" if (tensors.n_m or tensors.n_q) else "spicey"
+    dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
+    times = np.arange(steps + 1, dtype=np.float64) * dt
+    vs = torch.as_tensor(sample_source_values(ckt, times), dtype=f64,
+                         device=device)               # (S+1, nV+nI)
+    # DC overrides of waveform-less sources batch the source grid, laid
+    # out time-major (S+1, B, nSrc) as the loop reads it (V columns first,
+    # then extended-dialect I columns; ir/circuit.py)
+    src = {n.lower(): i for i, n in enumerate(tensors.v_names)}
+    src.update({n.lower(): tensors.n_v + i
+                for i, n in enumerate(tensors.i_names)})
+    has_wave = np.concatenate([tensors.v_has_waveform,
+                               tensors.i_has_waveform])
+    src_over = {k: v for k, v in overrides.items() if k.lower() in src}
+    if src_over:
+        vs = vs[:, None, :].expand(vs.shape[0], B, vs.shape[1]).clone()
+        for key, v in src_over.items():
+            i = src[key.lower()]
+            if has_wave[i]:
+                raise ValueError(
+                    f"cannot override waveform-driven source {key!r}")
+            vs[:, :, i] = torch.as_tensor(np.asarray(v, np.float64),
+                                          dtype=f64, device=device)
+    arr = tran_arrays(tensors, device, f64,
+                      r_vals=vals(tensors.r_vals, tensors.r_names),
+                      c_vals=vals(tensors.c_vals, tensors.c_names),
+                      l_vals=vals(tensors.l_vals, tensors.l_names),
+                      ext=_batched_ext(tensors, overrides, B, device, f64),
+                      nl=_batched_nl(tensors, overrides, B, device, f64))
+    xs, sw_states, valid, _carry = _tran_core(
+        vs, dt, arr, tensors.nvar, method=method, nr=nr, lead=(B,),
+        vt_scale=vt_scale_of(tensors, device, f64))
+    # one device->host copy of [solution | switch states], variants first
+    packed = torch.cat([xs, sw_states.to(f64)], dim=-1).permute(1, 0, 2)
+    packed = packed.contiguous().cpu().numpy()
+    xs_np = packed[..., :tensors.nvar]
+    sw_np = packed[..., tensors.nvar:] > 0.5
+    tstart = getattr(ckt.tran, "tstart", 0.0)
+    if tstart > 0.0:  # extended record window (see tran.simulate_tran)
+        keep = times >= tstart - 1e-15
+        times, xs_np, sw_np = times[keep], xs_np[:, keep], sw_np[:, keep]
+    return BatchTranResult(times=times, node_names=tensors.node_names,
+                           xs=xs_np, sw_states=sw_np,
+                           valid=valid.cpu().numpy())

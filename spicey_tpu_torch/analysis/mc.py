@@ -42,18 +42,17 @@ import numpy as np
 import torch
 
 from ..constants import EPS, MAX_NR_ITERS, VT_300K
-from ..ir.circuit import (bv_branch_rows, build_tensors, effective_time_step,
-                          ext_arrays, nl_arrays, sample_source_values)
+from ..ir.circuit import (build_tensors, effective_time_step, ext_arrays,
+                          nl_arrays, sample_source_values)
 from ..ops import mc_tran_fused as mtf
-from ..ops.mc_ac_fused import (FUSED_MAX_N, PackedPattern,
-                               build_stamp_pattern, combine_values,
-                               mc_ac_fused, pack_pattern)
+from ..ops.mc_ac_fused import PackedPattern, combine_values, mc_ac_fused
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
 from .ac import (_ac_sweep_core, build_frequency_array, check_ported,
                  index_tensor)
 from .batch import (_batch_size, _batch_values, _batched_ext, _batched_nl,
-                    _consumed, _resolve)
+                    _consumed, _fused_pattern, _pad_v_phasors, _resolve,
+                    _v_idx_ac)
 from .tran import _tran_core, check_ported_tran, tran_arrays, vt_scale_of
 
 _DTYPES = {"f64": torch.float64, "f32": torch.float32}
@@ -170,22 +169,6 @@ def _unpack_stats(packed: np.ndarray, quantiles, grid) -> MCStats:
     )
 
 
-def _fused_pattern(ckt: ParsedCircuit, tensors, method: str,
-                   device: torch.device | str) -> PackedPattern | None:
-    """Packed stamp pattern for the fused assemble+solve tier (K5), or
-    None when ineligible: non-pallas methods, or N past FUSED_MAX_N (K and
-    T elements never reach here). Both precisions qualify."""
-    if method != "pallas" or not 0 < tensors.nvar <= FUSED_MAX_N:
-        return None
-    ext_idx = {"i_idx": tensors.i_idx, "g_idx": tensors.g_idx,
-               "e_idx": tensors.e_idx, "f_idx": tensors.f_idx,
-               "h_idx": tensors.h_idx}
-    pattern = build_stamp_pattern(
-        tensors.nvar, tensors.r_idx, tensors.c_idx, tensors.l_idx,
-        _v_idx_ac(ckt, tensors), ext_idx)
-    return pack_pattern(pattern, tensors.nvar, device)
-
-
 def _mc_ac_stats_core(freqs: torch.Tensor, idx: dict,
                       r_vals: torch.Tensor, c_vals: torch.Tensor,
                       l_vals: torch.Tensor, v_re: torch.Tensor,
@@ -227,24 +210,6 @@ def _mc_ac_stats_core(freqs: torch.Tensor, idx: dict,
     stats = _stats_of(mag, valid, qs, q_method=q_method)
     n_valid = valid.all(dim=-1).sum()
     return _pack_stats(stats, n_valid)
-
-
-def _v_idx_ac(ckt, tensors):
-    """v_idx with V-kind behavioral branch rows appended as 0 V shorts
-    (the batch AC policy for B sources)."""
-    bv = bv_branch_rows(ckt, tensors.nvar)
-    if bv.shape[0] == 0:
-        return tensors.v_idx
-    return np.concatenate([tensors.v_idx, bv], axis=0)
-
-
-def _pad_v_phasors(ckt, v_re: torch.Tensor, v_im: torch.Tensor):
-    """Zero-pad AC drive phasors for the appended behavioral branch rows."""
-    n_bv = sum(1 for b in ckt.B if b.kind == "v")
-    if n_bv == 0:
-        return v_re, v_im
-    z = v_re.new_zeros(v_re.shape[:-1] + (n_bv,))
-    return torch.cat([v_re, z], dim=-1), torch.cat([v_im, z], dim=-1)
 
 
 def _check_args(precision: str, quantile_method: str) -> torch.dtype:

@@ -5,8 +5,10 @@ Shapes mirror the reference's return records:
           (spicey/lib/analysis/simulateAC.ts:129)
   - TRAN: {times, nodeVoltages, elementCurrents}
           (spicey/lib/analysis/simulateTRAN.ts:251)
-The extended analyses' results (OPResult, DCResult, TFResult, NoiseResult)
-live beside their analyses, as in the JAX package.
+The extended analyses' results (OPResult, DCResult, TFResult, NoiseResult,
+and the batched BatchACResult, BatchTranResult, BatchOPResult) live beside
+their analyses, as in the JAX package; ``.step`` gathers the batched ones
+in a StepResult.
 Series are NumPy arrays instead of JS number lists; dict insertion order
 matches the reference's recording order (nodes in discovery order, then
 element currents in R, C, L, V[, S, D] stamp order).
@@ -52,6 +54,22 @@ class TranResult:
 
 
 @dataclass
+class StepResult:
+    """Extended ``.step``: every step value is one lane of a batched run.
+
+    ``ac``/``tran``/``op`` are the Batch* results (lane order follows
+    ``values``); ``meas`` maps each .meas name to its per-step array
+    (always None here: ``.meas`` is not ported, ROADMAP §1 item 8)."""
+
+    param: str
+    values: np.ndarray                 # (S,) step values
+    ac: object | None = None           # BatchACResult
+    tran: object | None = None         # BatchTranResult
+    op: object | None = None           # BatchOPResult
+    meas: dict | None = None           # {name: (S,)}
+
+
+@dataclass
 class SimulationResult:
     circuit: object
     ac: ACResult | None
@@ -60,11 +78,7 @@ class SimulationResult:
     dc: object | None = None  # DCResult when the extended .dc directive ran
     tf: object | None = None  # TFResult when the extended .tf directive ran
     noise: object | None = None  # NoiseResult when the extended .noise ran
-    op: object | None = None  # OPResult when the extended .op directive ran
-    dc: object | None = None  # DCResult when the extended .dc directive ran
-    tf: object | None = None  # TFResult when the extended .tf directive ran
     four: object | None = None  # FourierResult when the extended .four ran
-    noise: object | None = None  # NoiseResult when the extended .noise ran
     meas: dict | None = None  # {name: value} when extended .meas lines ran
     pz: object | None = None  # PZResult when the extended .pz directive ran
     sens: object | None = None  # SensResult when the extended .sens ran

@@ -1,24 +1,28 @@
-"""Universal entry point: parse -> [OP] -> DC -> TF -> NOISE -> AC -> TRAN.
+"""Universal entry point: parse -> [OP] -> DC -> TF -> NOISE -> AC -> TRAN
+-> STEP.
 
 Contract: spicey/lib/analysis/simulate.ts:5-10, with the JAX package's
-extended analyses (spicey_tpu/analysis/simulate.py:38-60): the operating
-point is solved once and shared by ``.op``, ``.tf`` and ``.noise``. A deck
-that asks for an analysis not ported yet raises ``NotImplementedError``
-naming the ROADMAP item that brings it, rather than returning ``None`` for
-it.
+extended analyses (spicey_tpu/analysis/simulate.py:38-115): the operating
+point is solved once and shared by ``.op``, ``.tf`` and ``.noise``; a
+``.step`` sweep runs each of ``.ac``, ``.tran`` and ``.op`` once more as a
+batched call with one lane per step value. A deck that asks for an
+analysis not ported yet raises ``NotImplementedError`` naming the ROADMAP
+item that brings it, rather than returning ``None`` for it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ir.circuit import build_tensors
 from ..parsing.netlist import ParsedCircuit, parse_netlist
 from ..utils.device import resolve_device
 from .ac import simulate_ac
+from .batch import simulate_ac_batch, simulate_tran_batch
 from .noise import simulate_noise
-from .op import simulate_dc, simulate_op
-from .results import SimulationResult
+from .op import op_batch, simulate_dc, simulate_op
+from .results import SimulationResult, StepResult
 from .tf import simulate_tf
 from .tran import simulate_tran
 
@@ -27,7 +31,6 @@ _NOT_PORTED = (
     (".pz", "item 8", lambda c: c.pz is not None),
     (".sens", "item 8", lambda c: c.sens is not None),
     (".four", "item 8", lambda c: c.four is not None),
-    (".step", "item 1", lambda c: c.step is not None),
     (".control", "item 8", lambda c: bool(c.control)),
 )
 
@@ -94,4 +97,25 @@ def simulate(netlist_text: str, method: str = "gj",
                          device=device, **_tran_options(circuit.options))
     return SimulationResult(circuit=circuit, ac=ac, tran=tran,
                             op=op_point if circuit.op else None, dc=dc,
-                            tf=tf, noise=noise)
+                            tf=tf, noise=noise,
+                            step=_step(circuit, method, device))
+
+
+def _step(circuit: ParsedCircuit, method: str,
+          device: torch.device) -> StepResult | None:
+    """Extended ``.step``: each value is one lane of a batched run of
+    ``.ac``, ``.tran`` and ``.op``; the single-circuit results keep the
+    base element values. ``.meas`` is refused when the deck is parsed
+    (ROADMAP §1 item 8), so ``meas`` stays None."""
+    if circuit.step is None:
+        return None
+    vals = np.asarray(circuit.step.values, dtype=np.float64)
+    ov = {circuit.step.param: vals}
+    kw = dict(method=method, device=device)
+    return StepResult(
+        param=circuit.step.param, values=vals,
+        ac=(simulate_ac_batch(circuit, ov, **kw)
+            if circuit.ac is not None else None),
+        tran=(simulate_tran_batch(circuit, ov, **kw)
+              if circuit.tran is not None else None),
+        op=op_batch(circuit, ov, **kw) if circuit.op else None)

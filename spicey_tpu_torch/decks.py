@@ -170,3 +170,39 @@ def ladder_noise_netlist(sections: int, per_decade: int = 100,
 
 # N = 64, 901 frequencies (dec 100, 1 Hz - 1 GHz)
 LADDER_NOISE = ladder_noise_netlist(62)
+
+
+def rc_ladder_netlist(sections: int, freqs: int = 51) -> str:
+    """The RC ladder of ``chip_smoke.py``'s ladder-64 cell (``sections``
+    stages, R_i = 100 + i ohm, 1 uF each, N = sections + 2) with an AC
+    sweep of ``freqs`` points from 1 Hz to 10 kHz: an interconnect or
+    filter whose every tap's response a designer wants. At 14 sections
+    (N = 16) it is the fused tier's full width."""
+    lines = ["* ladder bench", "v1 in 0 dc 0 ac 1"]
+    prev = "in"
+    for i in range(1, sections + 1):
+        lines.append(f"r{i} {prev} n{i} {100 + i}")
+        lines.append(f"c{i} n{i} 0 1u")
+        prev = f"n{i}"
+    lines.append(f".ac lin {freqs} 1 10k")
+    lines.append(".end")
+    return "\n".join(lines) + "\n"
+
+
+# the first corner sweep of a filter design, in the form of
+# tests/test_step.py's decks: an RLC low-pass with a load resistor (so its
+# DC point is a divider, V(out) = 10 r2 / (r1 + r2)), its bias, AC at dec
+# 50 from 1 Hz to 1 MHz (301 points) and a 200-step transient, with the
+# source resistor stepped from 100 to 1100 ohm by 1 ohm: 1,001 lanes of
+# each analysis
+STEP_DECK = """* rlc step deck
+v1 in 0 dc 10 ac 1
+r1 in a 100
+l1 a out 1m
+c1 out 0 1u
+r2 out 0 1k
+.op
+.ac dec 50 1 1meg
+.tran 1u 200u
+.step param r1 100 1100 1
+"""

@@ -1,13 +1,17 @@
-"""Fused Monte-Carlo AC assemble-and-solve: kernel K5 (csrc/mc_ac_fused.cu).
+"""Fused AC assemble-and-solve: kernels K5 and K7 (csrc/mc_ac_fused.cu).
 
-Replaces ``spicey_tpu/ops/pallas_mc_ac.py:_fused_kernel`` (and, by role,
-its f64-fidelity twin ``_fused_dd_kernel``: Hopper has native f64, so the
-f64 instance of this kernel is the fidelity tier and needs no df32
+K5 replaces ``spicey_tpu/ops/pallas_mc_ac.py:_fused_kernel`` (and, by
+role, its f64-fidelity twin ``_fused_dd_kernel``: Hopper has native f64,
+so the f64 instance of this kernel is the fidelity tier and needs no df32
 refinement loop). Per (variant, frequency) system it builds the augmented
 (N, N+1) complex planes on chip from the static stamp pattern and the
 (n_rows, B) element values, runs the complex one-hot-pivot Gauss-Jordan,
 and writes only |V(node)| and ``valid``: the planes never exist in device
-memory.
+memory. K7 replaces ``_fused_x_kernel``: the same assembly and
+elimination, writing the whole solution (F, N, B) and ``valid`` (F, B);
+with an external RHS (rr, ri) (F, N, B) the pattern's RHS column is
+replaced, from tables packed without it (``pack_pattern(ext_rhs=True)``).
+``simulate_ac_batch(method="pallas")`` runs it in f64.
 
 The stamp pattern is the same static-index information the scatter
 assembly uses, precomputed on the host as per-entry term lists; each term
@@ -22,9 +26,10 @@ is (kind, value_row, sign) with kind encoding the frequency dependence:
 
 The TPU kernel unrolls the pattern at trace time; here ``pack_pattern``
 flattens it into int32 tables that the kernel reads at run time, so one
-nvcc build serves every deck. ``mc_ac_fused_plain`` is the plain PyTorch
-version: dense assembly from the same tables, then the plain
-``gj_solve_planes``, then |x[node]|.
+nvcc build serves every deck. ``mc_ac_fused_plain`` and
+``mc_ac_fused_x_plain`` are the plain PyTorch versions: dense assembly
+from the same tables, then the plain ``gj_solve_planes`` (then |x[node]|
+for K5).
 """
 
 from __future__ import annotations
@@ -51,6 +56,10 @@ KINDS = {"one": 0, "inv": 1, "lin": 2, "w": 3, "winv": 4}
 K5 = {dt: Kernel(name=f"mc_ac_fused_{tag}",
                  source="spicey_tpu_torch/csrc/mc_ac_fused.cu",
                  replaces="spicey_tpu/ops/pallas_mc_ac.py:982")
+      for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64"))}
+K7 = {dt: Kernel(name=f"mc_ac_fused_x_{tag}",
+                 source="spicey_tpu_torch/csrc/mc_ac_fused.cu",
+                 replaces="spicey_tpu/ops/pallas_mc_ac.py:384")
       for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64"))}
 
 
@@ -162,13 +171,16 @@ class PackedPattern:
     system: ``plane * n*(n+1) + i*(n+1) + j`` (plane 0 real, 1 imag).
     ``ent`` (n_ent, 3) = [position, first term, end term]; ``terms``
     (n_terms, 3) = [kind, value row, sign]; ``zeros`` (n_zero,) = the
-    positions no entry writes, which the kernel zeroes."""
+    positions no entry writes, which the kernel zeroes. ``ext_rhs``: the
+    tables leave the RHS column out (no entries there, none of its
+    positions zeroed), for K7 with external RHS planes."""
 
     n: int
     n_rows: int
     ent: torch.Tensor
     terms: torch.Tensor
     zeros: torch.Tensor
+    ext_rhs: bool = False
 
 
 def pack_entries(planes: tuple, n: int, width: int,
@@ -198,13 +210,23 @@ def int32_table(rows: list, width: int,
     return torch.as_tensor(a, device=device)
 
 
-def pack_pattern(pattern: tuple, n: int,
-                 device: torch.device | str) -> PackedPattern:
+def pack_pattern(pattern: tuple, n: int, device: torch.device | str,
+                 ext_rhs: bool = False) -> PackedPattern:
+    """Pack ``build_stamp_pattern``'s output. ``ext_rhs=True`` packs the
+    tables of K7's external-RHS mode: the caller's planes fill column n,
+    so the pattern's RHS entries are dropped and column n is left out of
+    the zeroed positions, as ``_fused_x_kernel`` filters them
+    (pallas_mc_ac.py:273-288)."""
     n_rows, re_entries, im_entries = pattern
+    if ext_rhs:
+        re_entries, im_entries = (tuple(e for e in entries if e[0][1] < n)
+                                  for entries in (re_entries, im_entries))
     ent, terms, zeros = pack_entries((re_entries, im_entries), n, n + 1,
                                      device)
+    if ext_rhs:
+        zeros = zeros[zeros % (n + 1) != n].contiguous()
     return PackedPattern(n=n, n_rows=int(n_rows), ent=ent, terms=terms,
-                         zeros=zeros)
+                         zeros=zeros, ext_rhs=ext_rhs)
 
 
 def combine_values(r_vals: torch.Tensor, c_vals: torch.Tensor,
@@ -248,38 +270,83 @@ def _term_values(packed: PackedPattern, values: torch.Tensor,
     return torch.where(k == KINDS["winv"], winv, out)
 
 
-def mc_ac_fused_plain(freqs: torch.Tensor, values: torch.Tensor,
-                      packed: PackedPattern, node_idx: int,
-                      eps: float = EPS) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K5. freqs (F,), values (n_rows, B) -> (mag (B, F),
-    valid (B, F)), in the dtype of ``values``."""
+def _plain_planes(freqs: torch.Tensor, values: torch.Tensor,
+                  packed: PackedPattern, eps: float) -> torch.Tensor:
+    """The dense assembly of the plain versions: (2, n, n+1, F, B) planes,
+    zero where no entry writes, each entry the sum of its terms in table
+    order."""
     n = packed.n
     F, B = freqs.shape[0], values.shape[1]
     w = (2.0 * math.pi) * freqs.to(values.dtype)
     tv = _term_values(packed, values, w, eps)
     planes = torch.zeros((2 * n * (n + 1), F, B), dtype=values.dtype,
                          device=values.device)
-    # each entry is the sum of its terms in table order
     for pos, t0, t1 in packed.ent.cpu().tolist():
         acc = tv[t0]
         for t in range(t0 + 1, t1):
             acc = acc + tv[t]
         planes[pos] = acc
-    planes = planes.reshape(2, n, n + 1, F, B).permute(0, 3, 4, 1, 2)
-    x_re, x_im, valid = gj_solve_planes(
-        planes[0, ..., :n], planes[1, ..., :n],
-        planes[0, ..., n], planes[1, ..., n], eps=eps)
+    return planes.reshape(2, n, n + 1, F, B)
+
+
+def _solve(planes: torch.Tensor, eps: float
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain ``gj_solve_planes`` of (2, n, n+1, F, B) planes: (x_re,
+    x_im (F, B, n), valid (F, B))."""
+    n = planes.shape[1]
+    planes = planes.permute(0, 3, 4, 1, 2)
+    return gj_solve_planes(planes[0, ..., :n], planes[1, ..., :n],
+                           planes[0, ..., n], planes[1, ..., n], eps=eps)
+
+
+def mc_ac_fused_plain(freqs: torch.Tensor, values: torch.Tensor,
+                      packed: PackedPattern, node_idx: int,
+                      eps: float = EPS) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K5. freqs (F,), values (n_rows, B) -> (mag (B, F),
+    valid (B, F)), in the dtype of ``values``."""
+    x_re, x_im, valid = _solve(_plain_planes(freqs, values, packed, eps),
+                               eps)
     xr, xi = x_re[..., node_idx], x_im[..., node_idx]
     return torch.sqrt(xr * xr + xi * xi).T, valid.T
 
 
-_LAUNCH_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+def _check_rhs_mode(packed: PackedPattern, rhs: tuple | None) -> None:
+    if (rhs is None) == packed.ext_rhs:
+        raise ValueError(
+            "K7 takes an external RHS exactly with tables packed for it "
+            "(pack_pattern(..., ext_rhs=True))")
+
+
+def mc_ac_fused_x_plain(freqs: torch.Tensor, values: torch.Tensor,
+                        packed: PackedPattern,
+                        rhs: tuple[torch.Tensor, torch.Tensor] | None = None,
+                        eps: float = EPS
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K7. freqs (F,), values (n_rows, B), optional rhs =
+    (rr, ri) (F, N, B) replacing the pattern's RHS column -> (xr, xi
+    (F, N, B), valid (F, B) bool), in the dtype of ``values``."""
+    _check_rhs_mode(packed, rhs)
+    planes = _plain_planes(freqs, values, packed, eps)
+    if rhs is not None:
+        n = packed.n
+        for c in range(2):
+            planes[c, :, n] = rhs[c].to(values.dtype).permute(1, 0, 2)
+    x_re, x_im, valid = _solve(planes, eps)
+    return (x_re.permute(0, 2, 1).contiguous(),
+            x_im.permute(0, 2, 1).contiguous(), valid)
+
+
+_TABLE_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_int]
+_LAUNCH_ARGS = _TABLE_ARGS + [ctypes.c_int, ctypes.c_double] \
+    + [ctypes.c_void_p] * 3
+_LAUNCH_X_ARGS = _TABLE_ARGS + [ctypes.c_double] + [ctypes.c_void_p] * 6
 _SIGNATURES = {
     "mc_ac_fused_f32": (_LAUNCH_ARGS, ctypes.c_int),
     "mc_ac_fused_f64": (_LAUNCH_ARGS, ctypes.c_int),
+    "mc_ac_fused_x_f32": (_LAUNCH_X_ARGS, ctypes.c_int),
+    "mc_ac_fused_x_f64": (_LAUNCH_X_ARGS, ctypes.c_int),
 }
 
 
@@ -288,34 +355,45 @@ def load_library() -> ctypes.CDLL:
     return load("mc_ac_fused", _SIGNATURES)
 
 
+def _check_launch(freqs: torch.Tensor, values: torch.Tensor,
+                  packed: PackedPattern, what: str,
+                  extra: tuple = ()) -> None:
+    """The argument checks K5 and K7 share; ``extra`` tensors must also be
+    CUDA, contiguous and on the values' device."""
+    n = packed.n
+    if not 1 <= n <= FUSED_MAX_N:
+        raise ValueError(f"{what} takes 1 <= N <= {FUSED_MAX_N}, got N={n}")
+    if values.ndim != 2 or values.shape[0] != packed.n_rows \
+            or freqs.ndim != 1:
+        raise ValueError("values must be (n_rows, B) and freqs (F,)")
+    if values.dtype not in (torch.float32, torch.float64) \
+            or freqs.dtype != values.dtype:
+        raise TypeError(f"{what} takes float32 or float64 freqs and values")
+    tables = (packed.ent, packed.terms, packed.zeros)
+    if any(t.dtype != torch.int32 for t in tables):
+        raise TypeError(f"{what} takes int32 pattern tables")
+    ts = (freqs, values) + tables + extra
+    if any(not t.is_cuda or t.device != values.device for t in ts):
+        raise ValueError(f"{what} takes CUDA tensors on one device")
+    if any(not t.is_contiguous() for t in ts):
+        raise ValueError(f"{what} takes contiguous tensors")
+    if freqs.shape[0] > 65535 or values.shape[1] >= 2**31:
+        raise ValueError(f"{what} takes at most 65535 frequencies (one grid "
+                         "row each) and fewer than 2^31 variants")
+
+
 def mc_ac_fused_cuda(freqs: torch.Tensor, values: torch.Tensor,
                      packed: PackedPattern, node_idx: int,
                      eps: float = EPS) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K5. freqs (F,), values (n_rows, B), both CUDA, contiguous and
     of one dtype (float32 or float64); the pattern's tables on the same
     device. Returns (mag, valid) as (B, F) views of (F, B) outputs."""
+    if packed.ext_rhs:
+        raise ValueError("K5 takes tables with the pattern's RHS column")
+    _check_launch(freqs, values, packed, "K5")
     n = packed.n
-    if not 1 <= n <= FUSED_MAX_N:
-        raise ValueError(f"K5 takes 1 <= N <= {FUSED_MAX_N}, got N={n}")
-    if values.ndim != 2 or values.shape[0] != packed.n_rows \
-            or freqs.ndim != 1:
-        raise ValueError("values must be (n_rows, B) and freqs (F,)")
-    if values.dtype not in (torch.float32, torch.float64) \
-            or freqs.dtype != values.dtype:
-        raise TypeError("K5 takes float32 or float64 freqs and values")
-    tables = (packed.ent, packed.terms, packed.zeros)
-    if any(t.dtype != torch.int32 for t in tables):
-        raise TypeError("K5 takes int32 pattern tables")
-    ts = (freqs, values) + tables
-    if any(not t.is_cuda or t.device != values.device for t in ts):
-        raise ValueError("K5 takes CUDA tensors on one device")
-    if any(not t.is_contiguous() for t in ts):
-        raise ValueError("K5 takes contiguous tensors")
     if not 0 <= node_idx < n:
         raise ValueError(f"node index {node_idx} outside the system")
-    if freqs.shape[0] > 65535 or values.shape[1] >= 2**31:
-        raise ValueError("K5 takes at most 65535 frequencies (one grid "
-                         "row each) and fewer than 2^31 variants")
     lib = load_library()
     F, B = freqs.shape[0], values.shape[1]
     mag = torch.empty((F, B), dtype=values.dtype, device=values.device)
@@ -329,6 +407,51 @@ def mc_ac_fused_cuda(freqs: torch.Tensor, values: torch.Tensor,
     check(code, "mc_ac_fused launch")
     K5[values.dtype].launches += 1
     return mag.T, valid.T
+
+
+def mc_ac_fused_x_cuda(freqs: torch.Tensor, values: torch.Tensor,
+                       packed: PackedPattern,
+                       rhs: tuple[torch.Tensor, torch.Tensor] | None = None,
+                       eps: float = EPS
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch K7. freqs (F,), values (n_rows, B) as for K5; ``rhs`` =
+    (rr, ri), each (F, N, B) CUDA, contiguous, of the values' dtype, with
+    tables packed for it. Returns (xr, xi (F, N, B), valid (F, B) bool)."""
+    _check_rhs_mode(packed, rhs)
+    extra = () if rhs is None else tuple(rhs)
+    _check_launch(freqs, values, packed, "K7", extra)
+    n = packed.n
+    F, B = freqs.shape[0], values.shape[1]
+    if any(r.shape != (F, n, B) or r.dtype != values.dtype for r in extra):
+        raise ValueError("K7 takes rhs planes (F, N, B) of the values' "
+                         "dtype")
+    lib = load_library()
+    xr = torch.empty((F, n, B), dtype=values.dtype, device=values.device)
+    xi = torch.empty_like(xr)
+    valid = torch.empty((F, B), dtype=torch.bool, device=values.device)
+    fn = lib.mc_ac_fused_x_f64 if values.dtype == torch.float64 \
+        else lib.mc_ac_fused_x_f32
+    rr, ri = (None, None) if rhs is None else (ptr(rhs[0]), ptr(rhs[1]))
+    code = fn(ptr(freqs), ptr(values), F, B, ptr(packed.ent),
+              packed.ent.shape[0], ptr(packed.terms), ptr(packed.zeros),
+              packed.zeros.shape[0], n, float(eps), rr, ri, ptr(xr), ptr(xi),
+              ptr(valid), stream_ptr(values.device))
+    check(code, "mc_ac_fused_x launch")
+    K7[values.dtype].launches += 1
+    return xr, xi, valid
+
+
+def mc_ac_fused_x(freqs: torch.Tensor, values: torch.Tensor,
+                  packed: PackedPattern,
+                  rhs: tuple[torch.Tensor, torch.Tensor] | None = None,
+                  eps: float = EPS
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused assemble+solve with full solutions: K7 on CUDA tensors, the
+    plain version on the CPU. freqs (F,), values (n_rows, B), optional rhs
+    (rr, ri) (F, N, B) -> (xr, xi (F, N, B), valid (F, B))."""
+    if values.is_cuda:
+        return mc_ac_fused_x_cuda(freqs, values, packed, rhs, eps)
+    return mc_ac_fused_x_plain(freqs, values, packed, rhs, eps)
 
 
 def mc_ac_fused(freqs: torch.Tensor, values: torch.Tensor,

@@ -132,13 +132,14 @@ def test_from_jax_tensors_rejects_other_fields():
 
 def test_unported_analyses_raise():
     """What the port does not run yet raises NotImplementedError naming its
-    ROADMAP item; .op/.dc/.tf/.noise and linearize="op" are ported."""
+    ROADMAP item; .op/.dc/.tf/.noise, linearize="op" and .step are
+    ported."""
     pz = BASICS01.replace(".end", ".pz v(1) v(0) v(2) v(0) vol pz\n.end")
     with pytest.raises(NotImplementedError, match=r"\.pz .*ROADMAP §1 item 8"):
         simulate(pz, dialect="extended", device="cpu")
     step = BASICS01.replace(".end", ".step param r1 10 30 10\n.end")
-    with pytest.raises(NotImplementedError, match=r"\.step .*item 1"):
-        simulate(step, dialect="extended", device="cpu")
+    stepped = simulate(step, dialect="extended", device="cpu").step
+    assert stepped.ac.x.shape == (3, 201, 3) and stepped.ac.valid.all()
     dc = BASICS01.replace(".ac dec 100 1 100", ".dc v1 0 1 0.5")
     assert simulate(dc, dialect="extended", device="cpu").dc.valid.all()
     op = BASICS01.replace(".end", ".op\n.end")

@@ -1,5 +1,7 @@
-"""Kernels K1, K2, K3, K4, K5, K8 and K9 against their plain versions,
-and the .noise residual guard's re-solves, on the card.
+"""Kernels K1, K2, K3, K4, K5, K7, K8 and K9 against their plain
+versions, the .noise residual guard's re-solves, and the batched corner
+sweeps (``simulate_ac_batch``, ``simulate_tran_batch``, ``.step``) against
+the CPU path, on the card.
 
 Tests marked ``cuda`` need an NVIDIA GPU with the CUDA toolkit and skip
 elsewhere; run them on the card with
@@ -25,6 +27,7 @@ from spicey_tpu_torch.ir.circuit import (effective_time_step,
 from spicey_tpu_torch.ops import (gj, gj_real, linsolve, mc_ac_fused,
                                   mc_tran_fused)
 from tests.fixtures import netlists
+from tests.fused_systems import FREQS, dense_pattern, dense_values
 from tests.oracle import oracle_tran
 
 RC = ("* rc\nv1 1 0 dc 0 ac 1\nr1 1 2 30\nc1 2 0 100u\n"
@@ -447,3 +450,111 @@ def test_k4_wrapper_refuses_bad_input():
     big = _systems(129, 1, torch.float64)
     with pytest.raises(ValueError, match="N <= 128"):
         gj.gj_inverse_planes_cuda(big[0], big[1])
+
+
+# K7: the fused full-solution AC kernel, and the batched corner sweeps
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext_rhs", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [3, 8, 16])
+def test_k7_matches_plain(cuda, n, dtype, ext_rhs):
+    """Dense random systems (tests/fused_systems.py) with an all-zero and
+    a zero-row variant, in both modes."""
+    B, F = 70, 3
+    packed = mc_ac_fused.pack_pattern(dense_pattern(n), n, "cpu",
+                                      ext_rhs=ext_rhs)
+    values = torch.as_tensor(dense_values(n, B), dtype=dtype)
+    freqs = torch.as_tensor(FREQS, dtype=dtype)
+    rng = np.random.default_rng(4)
+    rhs = (tuple(torch.as_tensor(rng.standard_normal((F, n, B)), dtype=dtype)
+                 for _ in range(2)) if ext_rhs else None)
+    want = mc_ac_fused.mc_ac_fused_x(freqs, values, packed, rhs)
+    on = mc_ac_fused.PackedPattern(
+        n=n, n_rows=packed.n_rows, ent=packed.ent.to(cuda),
+        terms=packed.terms.to(cuda), zeros=packed.zeros.to(cuda),
+        ext_rhs=ext_rhs)
+    before = mc_ac_fused.K7[dtype].launches
+    xr, xi, valid = mc_ac_fused.mc_ac_fused_x(
+        freqs.to(cuda), values.to(cuda), on,
+        None if rhs is None else tuple(r.to(cuda) for r in rhs))
+    assert mc_ac_fused.K7[dtype].launches == before + 1
+    assert torch.equal(valid.cpu(), want[2])
+    assert not want[2][:, :2].any() and want[2][:, 2:].all()
+    ok = want[2]
+    for got, w in ((xr, want[0]), (xi, want[1])):
+        got, w = got.cpu().permute(0, 2, 1)[ok], w.permute(0, 2, 1)[ok]
+        torch.testing.assert_close(got, w, rtol=TOL[dtype],
+                                   atol=TOL[dtype] * float(w.abs().max()))
+
+
+def test_k7_wrapper_refuses_bad_input():
+    n = 3
+    full = mc_ac_fused.pack_pattern(dense_pattern(n), n, "cpu")
+    ext = mc_ac_fused.pack_pattern(dense_pattern(n), n, "cpu", ext_rhs=True)
+    freqs = torch.ones(2, dtype=torch.float64)
+    values = torch.as_tensor(dense_values(n, 4))
+    rhs = (torch.zeros((2, n, 4), dtype=torch.float64),) * 2
+    with pytest.raises(ValueError, match="CUDA"):
+        mc_ac_fused.mc_ac_fused_x_cuda(freqs, values, full)
+    with pytest.raises(ValueError, match="ext_rhs=True"):
+        mc_ac_fused.mc_ac_fused_x_cuda(freqs, values, ext)
+    with pytest.raises(ValueError, match="ext_rhs=True"):
+        mc_ac_fused.mc_ac_fused_x_cuda(freqs, values, full, rhs)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        mc_ac_fused.mc_ac_fused_x_cuda(freqs.float(), values, full)
+    with pytest.raises(ValueError, match="n_rows"):
+        mc_ac_fused.mc_ac_fused_x_cuda(freqs, values[:1], full)
+    with pytest.raises(ValueError, match="K5 takes tables"):
+        mc_ac_fused.mc_ac_fused_cuda(freqs, values, ext, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["pallas", "gj"])
+def test_ac_batch_on_cuda_equals_cpu(cuda, method):
+    net = decks.rc_ladder_netlist(14, 21)
+    rng = np.random.default_rng(2)
+    ov = {f"r{i}": (100 + i) * rng.uniform(0.9, 1.1, 300)
+          for i in range(1, 15)}
+    counter = (mc_ac_fused.K7 if method == "pallas" else gj.K1)[
+        torch.float64]
+    before = counter.launches
+    got = st.simulate_ac_batch(net, ov, method=method, device=cuda)
+    assert counter.launches == before + 1
+    want = st.simulate_ac_batch(net, ov, method=method, device="cpu")
+    assert got.valid.all() and want.valid.all()
+    np.testing.assert_allclose(got.x, want.x, rtol=1e-9,
+                               atol=1e-12 * np.abs(want.x).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deck", ["rc", "boost", "ring"])
+def test_tran_batch_on_cuda_equals_cpu(cuda, deck):
+    net, dialect, nominal = {
+        "rc": (decks.TRAN_NET, "spicey", {"R1": 1e3, "C1": 1e-6}),
+        "boost": (decks.BOOST_NET, "spicey", {"RR1": 1e3}),
+        "ring": (decks.RING_NET.replace(".tran 0.1u 10u", ".tran 0.1u 3u"),
+                 "extended", {"c1": 1e-9})}[deck]
+    rng = np.random.default_rng(5)
+    ov = {k: v * (1 + 0.1 * rng.random(40)) for k, v in nominal.items()}
+    got = st.simulate_tran_batch(net, ov, dialect=dialect, device=cuda)
+    want = st.simulate_tran_batch(net, ov, dialect=dialect, device="cpu")
+    assert got.valid.all() and want.valid.all()
+    np.testing.assert_array_equal(got.sw_states, want.sw_states)
+    np.testing.assert_allclose(got.xs, want.xs, rtol=1e-9,
+                               atol=1e-12 * np.abs(want.xs).max())
+
+
+@pytest.mark.cuda
+def test_step_on_cuda_equals_cpu(cuda):
+    net = decks.STEP_DECK.replace("100 1100 1", "100 1100 100")
+    k7 = mc_ac_fused.K7[torch.float64].launches
+    got = st.simulate(net, dialect="extended", method="pallas",
+                      device=cuda).step
+    assert mc_ac_fused.K7[torch.float64].launches == k7 + 1
+    want = st.simulate(net, dialect="extended", method="pallas",
+                       device="cpu").step
+    for g, w in ((got.ac.x, want.ac.x), (got.tran.xs, want.tran.xs),
+                 (got.op.x, want.op.x)):
+        np.testing.assert_allclose(g, w, rtol=1e-9,
+                                   atol=1e-12 * np.abs(w).max())

@@ -5,8 +5,9 @@ through ``spicey_tpu_torch``, runs the boost-converter transient, a
 small transient Monte-Carlo on both routes (the batched loop and the
 fused tier's plain versions, linear and nonlinear), the MOSFET ring
 through ``simulate``, a small ring Monte-Carlo, the bench's op/dc/tf deck,
-the two-stage amplifier's .op/.tf/.ac/.noise and an ``op_batch``; an AST
-scan asserts
+the two-stage amplifier's .op/.tf/.ac/.noise, an ``op_batch``, a
+``simulate_ac_batch`` through the fused full-solution route and a
+``.step`` deck; an AST scan asserts
 that no module of the port imports jax or the JAX package.
 """
 
@@ -63,6 +64,14 @@ assert st.format_noise_result(amp.noise).startswith("Noise analysis at")
 ob = st.op_batch(decks.BJT_NET, {"Q1": [1e-15, 1.1e-15], "VIN": [0.65, 0.65]},
                  dialect="extended", device="cpu")
 assert ob.valid.all()
+ab = st.simulate_ac_batch(decks.rc_ladder_netlist(14, 3),
+                          {"r1": [115.0, 120.0]}, method="pallas",
+                          device="cpu")
+assert ab.x.shape == (2, 3, 16) and ab.valid.all()
+step = st.simulate(decks.STEP_DECK.replace("100 1100 1", "100 1100 500"),
+                   dialect="extended", device="cpu").step
+assert step.ac.x.shape == (3, 301, 4) and step.tran.valid.all()
+assert step.op.valid.all() and step.tran.xs.shape[:2] == (3, 201)
 print("OK")
 """
 

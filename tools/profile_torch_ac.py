@@ -5,13 +5,18 @@ Run on a CUDA card from the repo root: ``python3 tools/profile_torch_ac.py
 (host clock around a call that ends in ``torch.cuda.synchronize()``;
 median, min and max of ``--reps`` calls), then one call under
 ``torch.profiler``: the device time by kernel name (top entries), the
-device busy time (the union of the kernels' and copies' intervals) and the
-idle share of that call's wall time. The JSON record goes to ``--out``
+device busy time (the union of the kernels' and copies' intervals), the
+idle share of that call's wall time, and the kernel launches and host
+synchronizations of the call. The JSON record goes to ``--out``
 (default ``build/profile_torch_ac.json``). Imports nothing of JAX.
 
 Workloads: yield-1M (the RC deck, 1M variants x 201 frequencies, N = 3,
 f32 and f64, plus the on-device-sampled f32 run), ladder-64 (N = 64,
-2048 x 51, f32 and f64) and basics01 (one circuit, f64).
+2048 x 51, f32 and f64), basics01 (one circuit, f64), and the batched
+AC with full solutions of ``chip_smoke.py`` phase 18: batch-ac-16k (the
+N = 16 ladder, every R and C at U(0.9, 1.1) x nominal, 16,384 variants x
+201 frequencies through K7) and batch-ladder-64 (ladder-64's systems
+through K1, every unknown returned).
 """
 
 from __future__ import annotations
@@ -33,20 +38,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import spicey_tpu_torch as st  # noqa: E402
+from spicey_tpu_torch.decks import rc_ladder_netlist  # noqa: E402
 
 RC_NET = ("AC bench\nv1 1 0 dc 0 ac 1\nr1 1 2 30\nc1 2 0 100u\n"
           ".ac dec 100 1 100\n.end\n")
 BASICS01 = ("Demo of a simple AC circuit\nv1 1 0 dc 0 ac 1\nr1 1 2 30\n"
             "c1 2 0 100u\n.ac dec 100 1 100\n.end\n")
-
-
-def ladder_netlist(sections: int = 62, freqs: int = 51) -> str:
-    lines = ["* ladder bench", "v1 in 0 dc 0 ac 1"]
-    prev = "in"
-    for i in range(1, sections + 1):
-        lines += [f"r{i} {prev} n{i} {100 + i}", f"c{i} n{i} 0 1u"]
-        prev = f"n{i}"
-    return "\n".join(lines + [f".ac lin {freqs} 1 10k", ".end"]) + "\n"
 
 
 def workloads(seed: int) -> dict:
@@ -55,7 +52,12 @@ def workloads(seed: int) -> dict:
     big = {"r1": 30.0 * (1 + 0.2 * rng.random(B)),
            "c1": 100e-6 * (1 + 0.2 * rng.random(B))}
     lad = {"r1": 101.0 * (1 + 0.2 * rng.random(2048))}
-    ladder = ladder_netlist()
+    ladder = rc_ladder_netlist(62)
+    lad16 = rc_ladder_netlist(14, 201)
+    t16 = st.build_tensors(st.parse_netlist(lad16))
+    ac16 = {n: v * rng.uniform(0.9, 1.1, 16_384) for n, v in
+            zip(t16.r_names + t16.c_names,
+                np.concatenate([t16.r_vals, t16.c_vals]))}
     dev = "cuda"
     return {
         "yield-1M f32": lambda: st.mc_ac_stats(
@@ -74,6 +76,10 @@ def workloads(seed: int) -> dict:
             ladder, lad, node="n62", method="pallas", precision="f64",
             device=dev),
         "basics01 f64": lambda: st.simulate(BASICS01, device=dev),
+        "batch-ac-16k f64 K7": lambda: st.simulate_ac_batch(
+            lad16, ac16, method="pallas", device=dev),
+        "batch-ladder-64 f64 K1": lambda: st.simulate_ac_batch(
+            ladder, lad, method="pallas", device=dev),
     }
 
 
@@ -127,6 +133,26 @@ def device_breakdown(fn, top: int) -> dict:
                     for n, v in rows[:top]]}
 
 
+def host_counts(fn) -> dict:
+    """Kernel launches and host synchronizations of one call, from the
+    profiler's CPU-side events."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CPU]
+    return {
+        "launches": sum(n in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                              "cuLaunchKernel", "cuLaunchKernelEx")
+                        for n in names),
+        "syncs": sum(n in ("cudaStreamSynchronize",
+                           "cudaDeviceSynchronize") for n in names),
+        "d2h_copies": sum(n == "aten::_local_scalar_dense" for n in names),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -147,16 +173,19 @@ def main() -> int:
         fn()  # warm: kernel builds, allocator, first launches
         times = wall(fn, args.reps)
         brk = device_breakdown(fn, top=8)
+        counts = host_counts(fn)
         record["workloads"][name] = {
             "wall_s": {"median": statistics.median(times),
                        "min": min(times), "max": max(times),
                        "n": len(times)},
-            "profiled": brk}
+            "profiled": brk, "host": counts}
         print(f"{name}: wall median {statistics.median(times):.4f} s "
               f"(min {min(times):.4f}, max {max(times):.4f}, n "
               f"{len(times)}); profiled call {brk['wall_ms']:.1f} ms, "
               f"device busy {brk['device_busy_ms']:.1f} ms, idle "
-              f"{brk['idle_share']:.1%}", flush=True)
+              f"{brk['idle_share']:.1%}; {counts['launches']} launches, "
+              f"{counts['syncs']} stream syncs, {counts['d2h_copies']} "
+              "scalar reads", flush=True)
         for row in brk["top"]:
             print(f"    {row['ms']:9.3f} ms  x{row['count']:<4d} "
                   f"{row['name']}", flush=True)

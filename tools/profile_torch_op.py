@@ -38,8 +38,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import spicey_tpu_torch as st  # noqa: E402
 from spicey_tpu_torch.decks import (AMP_DECK, BJT_NET,  # noqa: E402
                                     LADDER_NOISE, MOS_IV_DECK, OPDCTF_DECK)
-from profile_torch_ac import device_breakdown, wall  # noqa: E402
-from profile_torch_tran import host_counts  # noqa: E402
+from profile_torch_ac import device_breakdown, host_counts, wall  # noqa: E402
 
 
 def workloads(seed: int) -> dict:

@@ -23,7 +23,10 @@ the nonlinear Monte-Carlo of K9: the bench's MOSFET ring (bench.py:
 through the f64 loop, and at 100k through K9; the bench's switch_diode
 boost (100k, RR1 at U(1, 1.1) x 1k) through K9 on its 1 ms grid and on
 DIODE_SWITCH's 10 us grid; BJT_NET with Q1's Is at U(1, 1.2) x 1e-15,
-100k through K9; and the bench's ring latency deck through simulate().
+100k through K9; the bench's ring latency deck through simulate(); and
+batch-tran-boost-100k, the boost-100k variants' full trajectories
+through ``simulate_tran_batch`` (``chip_smoke.py`` phase 19, K2 every
+Newton pass).
 The decks are ``spicey_tpu_torch/decks.py``'s, as in ``chip_smoke.py``.
 """
 
@@ -48,7 +51,7 @@ import spicey_tpu_torch as st  # noqa: E402
 from spicey_tpu_torch.decks import (BJT_NET, BOOST_FINE,  # noqa: E402
                                     BOOST_NET, RING_DECK, RING_NET,
                                     TRAN_NET)
-from profile_torch_ac import device_breakdown, wall  # noqa: E402
+from profile_torch_ac import device_breakdown, host_counts, wall  # noqa: E402
 from tests.fixtures import netlists  # noqa: E402
 
 
@@ -99,26 +102,8 @@ def workloads(seed: int) -> dict:
             BJT_NET, bjt, node="c1", dialect="extended", **k9),
         "ring_deck f64 (simulate)": lambda: st.simulate(
             RING_DECK, dialect="extended", device=dev),
-    }
-
-
-def host_counts(fn) -> dict:
-    """Kernel launches and host synchronizations of one call, from the
-    profiler's CPU-side events."""
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CPU]
-    return {
-        "launches": sum(n in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                              "cuLaunchKernel", "cuLaunchKernelEx")
-                        for n in names),
-        "syncs": sum(n in ("cudaStreamSynchronize",
-                           "cudaDeviceSynchronize") for n in names),
-        "d2h_copies": sum(n == "aten::_local_scalar_dense" for n in names),
+        "batch-tran-boost-100k f64": lambda: st.simulate_tran_batch(
+            BOOST_NET, boost, device=dev),
     }
 
 
