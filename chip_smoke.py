@@ -7,9 +7,9 @@ line each:
 
   1. build kernels K1 + K4 (csrc/gj_complex.cu), K2 + K3
      (csrc/gj_real.cu), K5 + K7 (csrc/mc_ac_fused.cu), K8
-     (csrc/mc_tran_fused.cu) and K9 (csrc/mc_tran_nr.cu) with nvcc, one
-     process per source, all started together; print the build seconds
-     and the card's name/power limit;
+     (csrc/mc_tran_fused.cu), K9 (csrc/mc_tran_nr.cu) and K10a + K10b
+     (csrc/mxu_gj.cu) with nvcc, one process per source, all started
+     together; print the build seconds and the card's name/power limit;
   2. every kernel instantiation against its plain PyTorch version on the
      card, on the same inputs: K1 at N in {3, 8, 64, 128} with singular
      lanes and at the main path's shapes (the basics01 planes, the N = 64
@@ -39,7 +39,14 @@ line each:
      pattern's RHS and with external RHS planes, f64 and f32, on dense
      random systems at N in {3, 8, 16} with an all-zero and a zero-row
      variant (tests/fused_systems.py) and at phase 18's shape (f32 there
-     by k1_vs_plain's rule: the ladder is ill-conditioned);
+     by k1_vs_plain's rule: the ladder is ill-conditioned); K10a and
+     K10b (the panel tier) at N in {40, 48, 64, 67, 100, 128}, each batch
+     with an all-zero, a zero-row and an MNA zero-diagonal system, and at
+     the solver sweep's N = 64 and 128 ladder planes (complex for K10b,
+     their real part for K10a): ``valid`` identical, f64 at 1e-12, f32 by
+     k1_vs_plain's rule (the panel form's 1/pv - 1 step cancels, so two
+     f32 summation orders differ beyond 1e-5); K1-K4 at N in {129, 256}
+     in f64 and f32 (their global-workspace route) at 1e-12 / 1e-5;
   3-8. the main path through the public entry points, each phase with
      every launch counter zeroed first and read after: the basics01
      golden on cuda (character-exact); the 1M-variant AC yield at f32
@@ -87,7 +94,17 @@ line each:
      ``decks.STEP_DECK`` through ``simulate(method="pallas")``: .op, .ac
      and .tran over 1,001 ``.step`` lanes equal to the CPU path at 1e-9,
      each lane's .op the divider's closed form;
-  9. every instantiation launched during 3-8 and 10-20 (printed after
+  21. flat decks past N = 128 through the public entry points on cuda,
+     counted the same way: ``mc_ac_stats`` of ``rc_ladder_netlist(254)``
+     (N = 256, 16 variants x 51 frequencies, f64, K1; 2 variants equal
+     the CPU path at 1e-9), and ``rc_ladder_netlist(127)`` (N = 129):
+     ``simulate()`` .ac, ``simulate_op`` at 1 V DC and a ``simulate()``
+     .tran of the same ladder under a pulse (K3 once), each equal to the
+     CPU path at 1e-9;
+  22. K10's path: ``tools/profile_torch_solver.py``'s sweep at N = 64 and
+     128 (2 reps): K10a/K10b against K2/K1 and ``torch.linalg.solve`` in
+     systems/s on the ladder planes, K10 within 1e-9 of K1/K2 in f64;
+  9. every instantiation launched during 3-8 and 10-22 (printed after
      them; the f32 instances of K4 and K7 are on no main path and are
      checked in phase 2 and timed here only); CUDA-event times of each
      kernel, its plain version and, where one PyTorch call computes the
@@ -106,7 +123,9 @@ line each:
      Newton passes per lane there and K9's time at each, its plain
      version's time and bound at the boost-100k shape, its operations
      counted from the lane passes its plain version runs on the same
-     inputs.
+     inputs; K10a/K10b in f32 and f64 at the sweep's N = 64 and 128
+     shapes beside their plain versions, ``torch.linalg.solve`` and their
+     bound (the JSON line keeps N = 64), and K1 f64 at phase 21's N = 256.
 
 Then a JSON line of the kernels, the nvidia-smi line, and the result line.
 """
@@ -238,6 +257,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # the plain K10 versions' products must be true f32, as the kernel's
+    # are (PyTorch's default; set, not assumed)
+    torch.backends.cuda.matmul.allow_tf32 = False
     import spicey_tpu_torch as st
     from spicey_tpu_torch.analysis import ac as tac
     from spicey_tpu_torch.analysis import batch as tbatch
@@ -253,7 +275,8 @@ def main() -> int:
     from spicey_tpu_torch.ir.circuit import (effective_time_step,
                                              sample_source_values)
     from spicey_tpu_torch.ops import (_build, gj, gj_real, linsolve,
-                                      mc_ac_fused, mc_tran_fused)
+                                      mc_ac_fused, mc_tran_fused, mxu)
+    from tools import profile_torch_solver as solver
     from tests.fixtures import netlists
     from tests.fused_systems import FREQS, dense_pattern, dense_values
     from tests.oracle import oracle_tran
@@ -267,7 +290,9 @@ def main() -> int:
                # the .noise path runs K4 in f64 and the batch AC K7 in
                # f64; their f32 instances exist to be held against the TPU
                # kernels and run in phases 2 and 9 only
-               + [gj.K4[torch.float64], mc_ac_fused.K7[torch.float64]]}
+               + [gj.K4[torch.float64], mc_ac_fused.K7[torch.float64]]
+               # K10's path is the solver sweep of phase 22
+               + list(mxu.K10a.values()) + list(mxu.K10b.values())}
     err = {name: 0.0 for name in kernels}
     # name -> (kernel ms, plain ms, library ms or None, bound ms, bound by)
     ms: dict[str, tuple] = {}
@@ -291,8 +316,8 @@ def main() -> int:
     # ---- 1. build --------------------------------------------------------
     t_start = t0 = time.perf_counter()
     _build.build(["gj_complex", "gj_real", "mc_ac_fused", "mc_tran_fused",
-                  "mc_tran_nr"])
-    for mod in (gj, gj_real, mc_ac_fused, mc_tran_fused):
+                  "mc_tran_nr", "mxu_gj"])
+    for mod in (gj, gj_real, mc_ac_fused, mc_tran_fused, mxu):
         mod.load_library()
     mc_tran_fused.load_nr_library()
     smi = subprocess.run(
@@ -411,32 +436,8 @@ def main() -> int:
     def assembled(net, overrides, B, dtype, dialect="spicey"):
         """The planes the K1 route assembles for a deck, flattened to
         (B*F, N, N) and (B*F, N) as K1 takes them."""
-        ckt = st.parse_netlist(net, dialect=dialect)
-        t = st.build_tensors(ckt)
-        freqs = tac.build_frequency_array(ckt.ac.mode, ckt.ac.N, ckt.ac.f1,
-                                          ckt.ac.f2)
-        v_idx, v_re, v_im = tac.ac_vsource_arrays(ckt, t)
-
-        def vals(base, names):
-            return torch.as_tensor(
-                tbatch._batch_values(base, names, overrides, B),
-                dtype=dtype, device=dev)
-
-        iph = np.deg2rad(t.i_ac_phase_deg)
-        planes = tac._assemble_grid(
-            torch.as_tensor(freqs, dtype=dtype, device=dev),
-            tac.index_tensor(t.r_idx, dev), vals(t.r_vals, t.r_names),
-            tac.index_tensor(t.c_idx, dev), vals(t.c_vals, t.c_names),
-            tac.index_tensor(t.l_idx, dev), vals(t.l_vals, t.l_names),
-            tac.index_tensor(v_idx, dev),
-            torch.as_tensor(v_re, dtype=dtype, device=dev).expand(B, -1),
-            torch.as_tensor(v_im, dtype=dtype, device=dev).expand(B, -1),
-            t.nvar, ext=tbatch._batched_ext(t, overrides, B, dev, dtype),
-            i_re=torch.as_tensor(t.i_ac_mag * np.cos(iph), dtype=dtype,
-                                 device=dev),
-            i_im=torch.as_tensor(t.i_ac_mag * np.sin(iph), dtype=dtype,
-                                 device=dev))
-        return [p.reshape((-1,) + p.shape[2:]).contiguous() for p in planes]
+        return solver.assemble_planes(net, overrides, B, dtype, dev,
+                                      dialect)
 
     e, nv, nt = k1_vs_plain(assembled(BASICS01, {}, 1, torch.float64),
                             torch.float64, "basics01", True)
@@ -869,6 +870,147 @@ def main() -> int:
             f"{e:.3e}, lanes beyond 1e-4 x max|V|: {beyond}; Newton "
             f"passes per lane mean {pm:.1f} max {px} "
             f"({pm / steps1:.3f} per step), warp max / mean {wf:.2f}")
+    torch.cuda.empty_cache()
+
+    # K10a/K10b, the panel tier, against their plain versions. f64 at rtol
+    # 1e-12. In f32 the panel form's pivot-row step (1/pv - 1) cancels,
+    # amplifying rounding by ~|pv|, so two f32 runs that sum in another
+    # order (FMA, the product's order) differ beyond 1e-5 even on
+    # well-conditioned systems; there the kernel must be as accurate as
+    # the plain f32 version against the plain f64 solve (k1_vs_plain's
+    # rule).
+    def k10_vs_plain(ts, dtype, what, main_shape, truth=None):
+        """K10a (ts = A, b) or K10b (ts = Ar, Ai, br, bi) against its
+        plain version; ``truth``, for f32, is the plain f64 answer (by
+        default that of ``ts`` in f64). Returns (max abs err, n_valid, B,
+        the plain answer)."""
+        cplx = len(ts) == 4
+        name = (mxu.K10b if cplx else mxu.K10a)[dtype].name
+        if cplx:
+            got = mxu.mxu_solve_complex(*ts)
+            want = mxu.mxu_solve_complex_plain(*ts)
+        else:
+            got = mxu.mxu_solve_real(*ts)
+            want = mxu.mxu_solve_real_plain(*ts)
+        pv = want[-1]
+        if not torch.equal(got[-1], pv):
+            raise AssertionError(f"{name} {what}: valid flags differ")
+        if dtype == torch.float64:
+            e = max(check_close(g[pv], w_[pv], TOL[dtype],
+                                f"{name} {what}")
+                    for g, w_ in zip(got[:-1], want[:-1]))
+        else:
+            if truth is None:
+                truth = (mxu.mxu_solve_complex_plain if cplx
+                         else mxu.mxu_solve_real_plain)(
+                    *[t.double() for t in ts])
+            scale = max(float(t[pv].abs().max()) for t in truth[:-1])
+
+            def err_vs(xs):
+                return max(float((x.double() - t)[pv].abs().max())
+                           for x, t in zip(xs[:-1], truth[:-1]))
+
+            e_plain, e_k = err_vs(want), err_vs(got)
+            if e_k > 2 * e_plain + TOL[dtype] * scale:
+                raise AssertionError(f"{name} {what}: error vs f64 "
+                                     f"{e_k:.3e}, plain's {e_plain:.3e}")
+            say("2 compare", f"{name} {what}: error vs the f64 solve "
+                f"{e_k:.3e}, the plain f32 version's {e_plain:.3e} (scale "
+                f"{scale:.3e})")
+            e = max(float((g - w_)[pv].abs().max())
+                    for g, w_ in zip(got[:-1], want[:-1]))
+        if main_shape:
+            err[name] = max(err[name], e)
+        return e, int(pv.sum()), pv.numel(), want
+
+    def k10_systems(n, B, cplx):
+        """B random systems (+ n I): the first all zero, the second with a
+        zero row, the third MNA-shaped, two branch rows with zero
+        diagonals (tests/test_pallas_mxu.py:98-118)."""
+        A = rng.standard_normal((B, n, n)) + n * np.eye(n)
+        A[0] = 0.0
+        A[1, n // 2] = 0.0
+        A[2] = 0.0
+        A[2, :n - 2, :n - 2] = (rng.standard_normal((n - 2, n - 2))
+                                + 8 * np.eye(n - 2))
+        A[2, n - 2, 0] = A[2, 0, n - 2] = A[2, n - 1, 1] = A[2, 1, n - 1] = 1
+        b = rng.standard_normal((B, n))
+        if not cplx:
+            return [A, b]
+        Ai = rng.standard_normal((B, n, n))
+        Ai[0] = Ai[2] = 0.0
+        Ai[1, n // 2] = 0.0
+        return [A, Ai, b, rng.standard_normal((B, n))]
+
+    for n in (40, 48, 64, 67, 100, 128):
+        for cplx in (False, True):
+            arrays = k10_systems(n, 256, cplx)
+            for dtype in (torch.float64, torch.float32):
+                ts = [torch.as_tensor(a, dtype=dtype, device=dev)
+                      for a in arrays]
+                e, nv, nt, _ = k10_vs_plain(ts, dtype, f"{TAG[dtype]} N={n}",
+                                            False)
+                if nv != nt - 2:
+                    raise AssertionError(f"K10 N={n}: {nv}/{nt} valid")
+                say("2 compare", f"{'K10b' if cplx else 'K10a'} "
+                    f"{TAG[dtype]} N={n} B={nt} (zero, zero-row, MNA) valid "
+                    f"{nv}/{nt} max_abs_err {e:.3e}")
+
+    def sweep_planes(n, dtype):
+        """The solver sweep's planes at N (tools/profile_torch_solver.py):
+        rc_ladder_netlist(N - 2), 2048 variants (1024 at N = 128) x 51
+        frequencies, r1 at 101 x U(1, 1.2) drawn from SEED + N."""
+        SB = 1024 if n == 128 else 2048
+        r1 = 101.0 * (1 + 0.2 * np.random.default_rng(SEED + n).random(SB))
+        return assembled(rc_ladder_netlist(n - 2), {"r1": r1}, SB, dtype)
+
+    # the sweep's ladder shapes: the complex planes (K10b) and their real
+    # part (K10a), f64, then the same planes rounded to f32 held to the
+    # f64 pass's plain answer
+    for n in (64, 128):
+        planes = sweep_planes(n, torch.float64)
+        for cplx in (True, False):
+            ts = planes if cplx else [planes[0], planes[2]]
+            e, nv, nt, truth = k10_vs_plain(ts, torch.float64,
+                                            f"f64 ladder N={n}", True)
+            e32, nv32, _, _ = k10_vs_plain([t.float() for t in ts],
+                                           torch.float32,
+                                           f"f32 ladder N={n}", True, truth)
+            if nv != nt or nv32 != nt:
+                raise AssertionError(f"K10 ladder N={n}: {nv}, {nv32}/{nt}")
+            say("2 compare", f"{'K10b' if cplx else 'K10a'} ladder planes "
+                f"({nt}, {n}) valid {nv}/{nt}; max_abs_err f64 {e:.3e}, f32 "
+                f"{e32:.3e}")
+            del truth
+        del planes, ts
+        torch.cuda.empty_cache()
+
+    # K1-K4 past N = 128: the planes overflow shared memory, so each
+    # eliminates in its global workspace
+    for dtype in (torch.float64, torch.float32):
+        for n in (129, 256):
+            B = 64
+            Ar = rng.standard_normal((B, n, n)) + n * np.eye(n)
+            Ai = rng.standard_normal((B, n, n))
+            br, bi = rng.standard_normal((2, B, n))
+            Ar[0] = Ai[0] = 0.0             # all-zero system
+            Ar[1, n // 2] = Ai[1, n // 2] = 0.0  # one zero row
+            planes = [torch.as_tensor(a, dtype=dtype, device=dev)
+                      for a in (Ar, Ai, br, bi)]
+            e1, nv1, nt = k1_vs_plain(planes, dtype, f"{TAG[dtype]} N={n}",
+                                      False)
+            e4, nv4, _ = k4_vs_plain(planes[0], planes[1], dtype,
+                                     f"{TAG[dtype]} N={n}", False)
+            e2, nv2, _ = k2_vs_plain(planes[0], planes[2], dtype,
+                                     f"{TAG[dtype]} N={n}", False)
+            e3, nv3, _ = k3_vs_plain(planes[0], dtype, f"{TAG[dtype]} N={n}",
+                                     False)
+            if {nv1, nv2, nv3, nv4} != {nt - 2}:
+                raise AssertionError(f"K1-K4 N={n}: {nv1}, {nv2}, {nv3}, "
+                                     f"{nv4}/{nt} valid")
+            say("2 compare", f"K1/K2/K3/K4 {TAG[dtype]} N={n} B={B} "
+                f"(workspace) valid {nv1}/{nt} max_abs_err {e1:.3e} / "
+                f"{e2:.3e} / {e3:.3e} / {e4:.3e}")
     torch.cuda.empty_cache()
 
     # ---- 3-8. the main path, counted per phase ---------------------------
@@ -1386,6 +1528,88 @@ def main() -> int:
                         gj_real.K2[f64], gj.K1[f64]])
     torch.cuda.empty_cache()
 
+    # ---- 21. flat decks past N = 128 through the public entry points ------
+    flat256 = rc_ladder_netlist(254)
+    f256_over = {"r1": 101.0 * (1 + 0.2 * rng.random(16))}
+    s256, s256_s = timed(lambda: st.mc_ac_stats(flat256, f256_over,
+                                                node="n254", device=dev))
+    if s256.n_valid != 16:
+        raise AssertionError(f"flat-256: n_valid {s256.n_valid}")
+    # the CPU path's cost grows as N^3: two variants (~30 s of CPU)
+    sub = {"r1": f256_over["r1"][:2]}
+    k_sub = st.mc_ac_stats(flat256, sub, node="n254", device=dev)
+    p_sub, p_s = timed(lambda: st.mc_ac_stats(flat256, sub, node="n254",
+                                              device="cpu"))
+    if k_sub.n_valid != 2 or p_sub.n_valid != 2:
+        raise AssertionError("flat-256 subset: invalid variants")
+    for f in ("mean", "std", "min", "max"):
+        want = getattr(p_sub, f)
+        same(getattr(k_sub, f), want, f"flat-256 {f}",
+             atol=1e-12 * float(np.abs(want).max()))
+    say("21 past 128", f"mc_ac_stats of rc_ladder_netlist(254), N=256, 16 "
+        f"variants x {len(s256.grid)} frequencies (K1 f64, workspace): "
+        f"n_valid {s256.n_valid}, wall {s256_s:.3f} s; 2 variants equal the "
+        f"CPU path at 1e-9 (CPU {p_s:.1f} s)")
+    lad129 = rc_ladder_netlist(127)
+    ac129, ac129_s = timed(lambda: st.simulate(lad129, device=dev).ac)
+    want = st.simulate(lad129, device="cpu").ac
+    for series, ref in ((ac129.node_voltages, want.node_voltages),
+                        (ac129.element_currents, want.element_currents)):
+        for name, z in ref.items():
+            same(series[name], z, f"ac-129 {name}")
+    dc129 = lad129.replace("v1 in 0 dc 0 ac 1", "v1 in 0 dc 1")
+    op129, op129_s = timed(lambda: st.simulate_op(st.parse_netlist(dc129),
+                                                  device=dev))
+    same_op(op129, st.simulate_op(st.parse_netlist(dc129), device="cpu"),
+            "op-129")
+    same(op129.node_voltages["n127"], 1.0, "op-129 far tap")
+    tr129 = lad129.replace(
+        "v1 in 0 dc 0 ac 1", "v1 in 0 PULSE(0 5 0 1n 1n 50u 100u)").replace(
+        ".ac lin 51 1 10k", ".tran 1u 50u")
+    got, tr129_s = timed(lambda: st.simulate(tr129, device=dev).tran)
+    want = st.simulate(tr129, device="cpu").tran
+    np.testing.assert_array_equal(got.times, want.times)
+    for series, ref in ((got.node_voltages, want.node_voltages),
+                        (got.element_currents, want.element_currents)):
+        for name, v in ref.items():
+            same(series[name], v, f"tran-129 {name}")
+    say("21 past 128", f"rc_ladder_netlist(127), N=129, on cuda equals the "
+        f"CPU path at 1e-9: simulate() .ac ({len(ac129.freqs)} points, "
+        f"{ac129_s:.3f} s), simulate_op at 1 V DC (refused before; "
+        f"{op129_s:.3f} s), simulate() .tran ({len(got.times)} points, "
+        f"factor-once; {tr129_s:.3f} s)")
+    counted("21 past 128", [gj.K1[f64], gj_real.K2[f64], gj_real.K3[f64]])
+    del s256, k_sub, got
+    torch.cuda.empty_cache()
+
+    # ---- 22. K10 on its path: the solver sweep at N = 64 and 128 ---------
+    t22 = time.perf_counter()
+    sweep_rows = solver.sweep((64, 128), reps=2, seed=SEED, dev=dev,
+                              emit=lambda line: say("22 sweep row", line))
+    for row in sweep_rows:
+        mc = row["mc_ac_stats"]
+        for tag, sv in row["solvers"].items():
+            sps = {r["name"]: r["systems_per_s"] for r in sv["rows"]}
+            lib_c = next(k for k in sps if k.startswith("linalg.solve c"))
+            lib_r = next(k for k in sps if k.startswith("linalg.solve f"))
+            if tag == "f64" and max(sv["K10b_vs_K1"], sv["K10a_vs_K2"]) > 1e-9:
+                raise AssertionError(f"sweep N={row['n']}: K10 off K1/K2 by "
+                                     f"{sv['K10b_vs_K1']:.2e} / "
+                                     f"{sv['K10a_vs_K2']:.2e}")
+            say("22 K10 sweep", f"N={row['n']} {tag}, {sv['systems']} "
+                f"systems, systems/s: complex K10b {sps['K10b']:.4g}, K1 "
+                f"{sps['K1']:.4g}, {lib_c} {sps[lib_c]:.4g}; real K10a "
+                f"{sps['K10a']:.4g}, K2 {sps['K2']:.4g}, {lib_r} "
+                f"{sps[lib_r]:.4g}; K10 - K1/K2 {sv['K10b_vs_K1']:.2e} / "
+                f"{sv['K10a_vs_K2']:.2e} of max|x| | {smi}")
+        say("22 K10 sweep", f"N={row['n']} mc_ac_stats through K1: f32 "
+            f"{mc['pallas_f32']['systems_per_s']:.4g}, f64 "
+            f"{mc['gj_f64']['systems_per_s']:.4g} systems/s (host clock)")
+    say("22 K10 sweep", f"{time.perf_counter() - t22:.1f} s")
+    counted("22 K10 sweep", list(mxu.K10a.values()) + list(mxu.K10b.values())
+            + list(gj.K1.values()) + list(gj_real.K2.values()))
+    torch.cuda.empty_cache()
+
     # ---- 9. launches and times --------------------------------------------
     missing = [name for name, n in launches.items() if n == 0]
     if missing:
@@ -1502,6 +1726,58 @@ def main() -> int:
             ms[name] = t_k7
         del Ac, bc
         torch.cuda.empty_cache()
+    # K10a/K10b at the sweep's N = 64 and 128 shapes, f64 and f32, beside
+    # their plain versions and torch.linalg.solve on the same planes (the
+    # complex ones, and their real part for K10a); the JSON line keeps
+    # N = 64, ladder-64's shape, where K1's entry was timed
+    for n in (64, 128):
+        for dtype in (torch.float64, torch.float32):
+            planes = sweep_planes(n, dtype)
+            Ar, Ai, br, bi = planes
+            nb, el = Ar.shape[0], Ar.element_size()
+            Ac, bc = torch.complex(Ar, Ai), torch.complex(br, bi)
+            t10 = {
+                mxu.K10b[dtype].name: (
+                    cuda_ms(lambda: mxu.mxu_solve_complex(*planes), 3),
+                    cuda_ms(lambda: mxu.mxu_solve_complex_plain(*planes), 1),
+                    cuda_ms(lambda: torch.linalg.solve(Ac, bc), 2),
+                    *bound(nb * solve_flops(n, True),
+                           el * nb * (2 * n * n + 4 * n) + nb, dtype))}
+            del Ac, bc
+            torch.cuda.empty_cache()
+            t10[mxu.K10a[dtype].name] = (
+                cuda_ms(lambda: mxu.mxu_solve_real(Ar, br), 3),
+                cuda_ms(lambda: mxu.mxu_solve_real_plain(Ar, br), 1),
+                cuda_ms(lambda: torch.linalg.solve(Ar, br), 3),
+                *bound(nb * solve_flops(n), el * nb * (n * n + 2 * n) + nb,
+                       dtype))
+            for name, t in t10.items():
+                lib = "complex" if "complex" in name else "real"
+                say("9 times", f"{name} at sweep N={n} ({nb}, {n}): kernel "
+                    f"{t[0]:.3f} ms, plain {t[1]:.3f} ms, library "
+                    f"{t[2]:.3f} ms (linalg.solve, {lib} {TAG[dtype]}), "
+                    f"bound {t[3]:.4f} ms ({t[4]}) (CUDA events) | {smi}")
+                if n == 64:
+                    shape[name] = f"sweep N=64 ({nb}, {n})"
+                    ms[name] = t
+            del planes, Ar, Ai, br, bi
+            torch.cuda.empty_cache()
+    # K1 f64 at phase 21's N = 256 planes (16 variants x 51 frequencies)
+    planes = assembled(flat256, f256_over, 16, f64)
+    nb, n = planes[0].shape[0], planes[0].shape[1]
+    Ac, bc = (torch.complex(planes[0], planes[1]),
+              torch.complex(planes[2], planes[3]))
+    t_k1 = (cuda_ms(lambda: gj.gj_solve_planes_cuda(*planes), 5),
+            cuda_ms(lambda: linsolve.gj_solve_planes(*planes), 1),
+            cuda_ms(lambda: torch.linalg.solve(Ac, bc), 5),
+            *bound(nb * solve_flops(n, True),
+                   8 * nb * (2 * n * n + 4 * n) + nb, f64))
+    say("9 times", f"{gj.K1[f64].name} at flat-256 ({nb}, {n}, workspace): "
+        f"kernel {t_k1[0]:.3f} ms, plain {t_k1[1]:.3f} ms, library "
+        f"{t_k1[2]:.3f} ms (linalg.solve, complex128), bound "
+        f"{t_k1[3]:.4f} ms ({t_k1[4]}) (CUDA events) | {smi}")
+    del planes, Ac, bc
+    torch.cuda.empty_cache()
     vs, values, pattern, _node = tran_big_inputs
     s1, nb, n = vs.shape[0], values.shape[1], pattern.n
     n_b = bin(pattern.b_rows).count("1")

@@ -24,6 +24,13 @@ small-signal conductances as extra VCCS rows, and its junction
 capacitances as extra C rows (``small_signal_rows``,
 ``diode_smallsignal_caps``, shared with .tf and .noise).
 
+Past N = 128 ``method="gj"`` solves dense on every deck (K1 in a global
+workspace where a system overflows shared memory), as the JAX package does
+on a deck with no subcircuit structure; on a subcircuit board the JAX
+package plans a Schur partition there and retries dense, and the port's
+answer is that dense one. The structured route and the automatic Schur
+dispatch wait for the Schur tier (item 6).
+
 Not ported yet, each raising ``NotImplementedError``: the Schur tier
 (``method="schur"``, item 6), K coupling, T lines and, for
 ``linearize="op"``, B sources (item 2). The JAX package's host interp tier

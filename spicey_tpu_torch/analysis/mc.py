@@ -28,6 +28,14 @@ Transient routes, as the JAX package routes them:
 On a CPU tensor the same routes run their plain versions. Entry points
 run on the card unless ``device="cpu"``.
 
+Past N = 128 ``method="gj"`` solves dense on every deck (K1, K2 or K3 in
+a global workspace where a system overflows shared memory; ``chunk``
+bounds that workspace, B N (N + 1) elements per plane), as the JAX
+package does on a deck with no subcircuit structure; on a subcircuit board
+the JAX package plans a Schur partition there and retries dense, and the
+port's answer is that dense one. The structured route and the automatic
+Schur dispatch wait for the Schur tier (item 6).
+
 Exact quantiles follow ``jnp.nanpercentile``'s linear interpolation, done
 by hand: ``torch.quantile`` refuses inputs above 2^24 elements, and the
 1M-variant x 201-frequency response is 2e8.

@@ -30,6 +30,13 @@ plus base flicker; MOSFET channel thermal by region at the operating point
 ((8/3)kT*gm in saturation, 4kT*gds in triode, zero in cutoff) plus flicker.
 kT uses the circuit's ``.temp``.
 
+Past N = 128 ``method="gj"`` solves dense on every deck (K4 in a global
+workspace where a system overflows shared memory), as the JAX package does
+on a deck with no subcircuit structure; on a subcircuit board the JAX
+package plans a Schur partition there and retries dense, and the port's
+answer is that dense one. The structured route and the automatic Schur
+dispatch wait for the Schur tier (item 6).
+
 Not ported yet, each raising ``NotImplementedError``: K coupling, T lines
 and B sources (§1 item 2), the Schur tier (item 6).
 """

@@ -24,10 +24,17 @@ convergence aids, tried in order when plain Newton fails: gmin stepping
 stepping (10% to 100%), each stage seeded from the last; ``.nodeset`` seeds
 the first Newton iterate.
 
+Past N = 128 ``method="gj"`` solves dense on every deck (K2 in a global
+workspace where a system overflows shared memory), as the JAX package
+does on a deck with no subcircuit structure. On a subcircuit board the JAX
+package plans a Schur partition there and retries dense where the block
+pivots fail; the port's answer is its dense one.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
 K coupling, T lines and B sources (§1 item 2); the Schur tier
-(``method="schur"``, and op systems past N = 128, where the dense kernels
-stop, item 6). The JAX package's host interp tier and its measured
+(``method="schur"``, and with it the structured route and the automatic
+Schur dispatch on subcircuit boards past N = 128, item 6). The JAX
+package's host interp tier and its measured
 ``newton_tol_floor`` probe are TPU machinery (item 10): the tolerance floor
 keeps its dtype term, 16 ulps.
 """
@@ -43,7 +50,6 @@ import torch
 from ..constants import EPS, GMIN, VT_300K
 from ..ir.circuit import CircuitTensors, build_tensors, ext_arrays, nl_arrays
 from ..models.devices import bjt_ebers_moll, mos_level1
-from ..ops.gj_real import MAX_N  # the dense kernels' limit (K2)
 from ..ops.linsolve import solve
 from ..ops.stamps import (pad_solution, stamp_admittance, stamp_current,
                           stamp_extended, stamp_voltage_source)
@@ -222,12 +228,6 @@ def check_ported_op(ckt: ParsedCircuit, tensors: CircuitTensors,
     if method == "schur":
         raise NotImplementedError(
             "the Schur tier is not ported yet (ROADMAP §1 item 6)")
-    nvar_op = tensors.nvar + tensors.n_l
-    if nvar_op > MAX_N:
-        raise NotImplementedError(
-            f"{what} has {nvar_op} unknowns; past {MAX_N} the JAX package "
-            "solves on the Schur tier, which is not ported yet (ROADMAP §1 "
-            "item 6)")
     for kind, present in (("K (mutual inductance) elements", tensors.n_k),
                           ("T (transmission line) elements", tensors.n_t),
                           ("B (behavioral) sources", len(ckt.B))):

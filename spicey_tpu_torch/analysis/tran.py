@@ -35,6 +35,13 @@ the true one). A deck with MOSFETs or BJTs iterates to convergence
 ``integration="trap"|"gear2"`` and ``nr="converged"`` are the JAX
 package's.
 
+Past N = 128 ``method="gj"`` solves dense on every deck (K2 or K3 in a global
+workspace where a system overflows shared memory), as the JAX package does
+on a deck with no subcircuit structure; on a subcircuit board the JAX
+package plans a Schur partition there and retries dense, and the port's
+answer is that dense one. The structured route and the automatic Schur
+dispatch wait for the Schur tier (item 6).
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
 item: K coupling, T lines and B sources (§1 item 2); the Schur tier
 (item 6). The JAX package's host interp tier, placement and

@@ -1,6 +1,6 @@
-// The one-hot-pivot Gauss-Jordan elimination shared by kernels K1, K2, K3,
-// K5, K8 and K9, templated on the element type: P = 1 real plane, P = 2
-// complex (re, im) planes.
+// The one-hot-pivot Gauss-Jordan elimination shared by kernels K1-K5, K7,
+// K8 and K9 (and the block pivot search of K10a/K10b), templated on the
+// element type: P = 1 real plane, P = 2 complex (re, im) planes.
 //
 // Semantics are those of the plain versions in
 // spicey_tpu_torch/ops/linsolve.py: the pivot of column k is the unused
@@ -52,6 +52,44 @@ __device__ __forceinline__ T score(T* const (&a)[P], size_t q) {
 
 // ---- one block per system ------------------------------------------------
 
+// The pivot search of column k by a whole block (blockDim.x a multiple of
+// 32): each thread's best over its rows (ascending, so a strict > keeps
+// the lowest row on ties), then a warp reduction whose lane 0 leaves the
+// warp's best in red_s/red_r[warp]. After a barrier one thread takes
+// block_best. Shared by block_gj and the panel elimination (mxu_gj.cu).
+template <typename T, int P>
+__device__ __forceinline__ void warp_best(T* const (&a)[P], int n, int w,
+                                          int k, const int* used, T* red_s,
+                                          int* red_r) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  T best_s = T(-2);
+  int best_r = n;
+  for (int i = tid; i < n; i += nt) {
+    T sc = used[i] ? T(-1) : score<T, P>(a, (size_t)i * w + k);
+    if (better(sc, i, best_s, best_r)) { best_s = sc; best_r = i; }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    T os = __shfl_down_sync(0xffffffffu, best_s, off);
+    int orow = __shfl_down_sync(0xffffffffu, best_r, off);
+    if (better(os, orow, best_s, best_r)) { best_s = os; best_r = orow; }
+  }
+  if ((tid & 31) == 0) { red_s[tid >> 5] = best_s; red_r[tid >> 5] = best_r; }
+}
+
+// The block's pivot row from the warps' bests.
+template <typename T>
+__device__ __forceinline__ int block_best(const T* red_s, const int* red_r,
+                                          int nwarps) {
+  T bs = red_s[0];
+  int br = red_r[0];
+  for (int q = 1; q < nwarps; ++q)
+    if (better(red_s[q], red_r[q], bs, br)) {
+      bs = red_s[q];
+      br = red_r[q];
+    }
+  return br;
+}
+
 // Shared-memory bytes of block_gj's scratch for an (n, w) system, plus
 // the planes themselves when they live in shared memory.
 template <typename T, int P>
@@ -100,35 +138,16 @@ template <typename T, int P>
 __device__ void block_gj(T* const (&a)[P], int n, int w, T thr,
                          const BlockScratch<T, P>& s) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = (nt + 31) >> 5;
+  const int nwarps = (nt + 31) >> 5;
   const int nw = n * w;
   for (int i = tid; i < n; i += nt) s.used[i] = 0;
   if (tid == 0) *s.ok_all = 1;
   __syncthreads();
   for (int k = 0; k < n; ++k) {
-    // pivot search: per-thread best over its rows (ascending, so a strict
-    // > keeps the lowest row on ties), then warp and block reductions
-    T best_s = T(-2);
-    int best_r = n;
-    for (int i = tid; i < n; i += nt) {
-      T sc = s.used[i] ? T(-1) : score<T, P>(a, (size_t)i * w + k);
-      if (better(sc, i, best_s, best_r)) { best_s = sc; best_r = i; }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      T os = __shfl_down_sync(0xffffffffu, best_s, off);
-      int orow = __shfl_down_sync(0xffffffffu, best_r, off);
-      if (better(os, orow, best_s, best_r)) { best_s = os; best_r = orow; }
-    }
-    if (lane == 0) { s.red_s[warp] = best_s; s.red_r[warp] = best_r; }
+    warp_best<T, P>(a, n, w, k, s.used, s.red_s, s.red_r);
     __syncthreads();
     if (tid == 0) {
-      T bs = s.red_s[0];
-      int br = s.red_r[0];
-      for (int q = 1; q < nwarps; ++q)
-        if (better(s.red_s[q], s.red_r[q], bs, br)) {
-          bs = s.red_s[q];
-          br = s.red_r[q];
-        }
+      const int br = block_best(s.red_s, s.red_r, nwarps);
       const size_t pq = (size_t)br * w + k;
       if constexpr (P == 1) {
         T pv = a[0][pq];

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -133,6 +134,21 @@ def check(code: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def workspace(shape: tuple, like: torch.Tensor, what: str) -> torch.Tensor:
+    """A global workspace of ``shape`` in ``like``'s dtype and device, for
+    a kernel whose systems overflow shared memory. Its size grows as
+    B N (N + 1); when the card cannot hold it, say how many bytes it asked
+    for, so the caller can pass a smaller ``chunk``."""
+    try:
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+    except torch.cuda.OutOfMemoryError as exc:
+        nbytes = math.prod(shape) * like.element_size()
+        raise RuntimeError(
+            f"{what}: the global workspace {tuple(shape)} takes {nbytes} "
+            "bytes, more than the card has free; solve fewer systems per "
+            "call (a smaller chunk)") from exc
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

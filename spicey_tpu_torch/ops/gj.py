@@ -9,6 +9,13 @@ instantiated in float and double and the f64 instance is the fidelity
 tier itself. K4 writes the true inverse, not the TPU kernel's
 row-permuted one. Their plain PyTorch versions are
 ``ops/linsolve.gj_solve_planes`` and ``ops/linsolve.gj_inverse_planes``.
+
+N has no upper limit: where a system's planes overflow the 227 KB of
+shared memory a block may hold (the solve from N = 119 in f64 and 169 in
+f32, the inverse above N = 84 in f64 and 119 in f32), the block
+eliminates in a global workspace of B N (N + 1) (solve) or 2 B N^2
+(inverse) elements per plane, so a flat deck past N = 128 solves dense,
+as the JAX package solves a deck that has no subcircuit structure there.
 """
 
 from __future__ import annotations
@@ -18,9 +25,7 @@ import ctypes
 import torch
 
 from ..constants import EPS
-from ._build import SMEM_MAX, Kernel, check, load, ptr, stream_ptr
-
-MAX_N = 128  # the JAX dense tiers stop here; larger systems go to Schur
+from ._build import SMEM_MAX, Kernel, check, load, ptr, stream_ptr, workspace
 
 # one launch counter per instantiation
 K1 = {dt: Kernel(name=f"gj_complex_{tag}",
@@ -64,8 +69,8 @@ def gj_solve_planes_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
     if A_re.ndim != 3 or A_re.shape[1] != A_re.shape[2]:
         raise ValueError(f"A_re must be (B, N, N), got {tuple(A_re.shape)}")
     nb, n = A_re.shape[0], A_re.shape[1]
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"K1 solves 1 <= N <= {MAX_N}, got N={n}")
+    if n < 1:
+        raise ValueError(f"K1 solves N >= 1, got N={n}")
     if nb >= 2**31:
         raise ValueError(f"K1 takes fewer than 2^31 systems, got {nb}")
     if A_im.shape != A_re.shape or b_re.shape != (nb, n) \
@@ -85,10 +90,9 @@ def gj_solve_planes_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
     valid = torch.empty((nb,), dtype=torch.bool, device=A_re.device)
     ws = None
     if lib.gj_complex_smem_bytes(n, int(dbl)) > SMEM_MAX:
-        # the f64 planes near N=128 overflow shared memory: eliminate in
-        # place in a global workspace instead
-        ws = torch.empty((nb, 2, n, n + 1), dtype=A_re.dtype,
-                         device=A_re.device)
+        # the planes overflow shared memory (f64 from N = 119, f32 past
+        # ~168): eliminate in place in a global workspace instead
+        ws = workspace((nb, 2, n, n + 1), A_re, "K1")
     fn = lib.gj_complex_f64 if dbl else lib.gj_complex_f32
     code = fn(ptr(A_re), ptr(A_im), ptr(b_re), ptr(b_im), ptr(x_re),
               ptr(x_im), ptr(valid),
@@ -109,8 +113,8 @@ def gj_inverse_planes_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
     if A_re.ndim != 3 or A_re.shape[1] != A_re.shape[2]:
         raise ValueError(f"A_re must be (B, N, N), got {tuple(A_re.shape)}")
     nb, n = A_re.shape[0], A_re.shape[1]
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"K4 inverts 1 <= N <= {MAX_N}, got N={n}")
+    if n < 1:
+        raise ValueError(f"K4 inverts N >= 1, got N={n}")
     if nb >= 2**31:
         raise ValueError(f"K4 takes fewer than 2^31 systems, got {nb}")
     if A_im.shape != A_re.shape:
@@ -129,10 +133,9 @@ def gj_inverse_planes_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
     valid = torch.empty((nb,), dtype=torch.bool, device=A_re.device)
     ws = None
     if lib.gj_complex_inv_smem_bytes(n, int(dbl)) > SMEM_MAX:
-        # [A | I] in f64 overflows shared memory above N = 84: eliminate
-        # in place in a global workspace instead
-        ws = torch.empty((nb, 2, n, 2 * n), dtype=A_re.dtype,
-                         device=A_re.device)
+        # [A | I] overflows shared memory (f64 above N = 84, f32 above
+        # ~119): eliminate in place in a global workspace instead
+        ws = workspace((nb, 2, n, 2 * n), A_re, "K4")
     fn = lib.gj_complex_inverse_f64 if dbl else lib.gj_complex_inverse_f32
     code = fn(ptr(A_re), ptr(A_im), ptr(m_re), ptr(m_im), ptr(valid),
               ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,

@@ -9,7 +9,10 @@ float and double and the f64 instance is the fidelity tier itself. K3
 writes the true inverse, not the TPU kernel's row-permuted one. Their
 plain PyTorch versions are ``ops/linsolve.gj_solve`` and
 ``ops/linsolve.gj_inverse``; both kernels share the elimination of K1
-(csrc/gj_common.cuh).
+(csrc/gj_common.cuh). N has no upper limit: where a system overflows
+shared memory (f64 [A | I] past N = 119, f64 [A | b] past N = 168), the
+block route eliminates in a global workspace, so a flat deck past
+N = 128 solves dense, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,9 +22,7 @@ import ctypes
 import torch
 
 from ..constants import EPS
-from ._build import Kernel, check, load, ptr, stream_ptr
-
-MAX_N = 128  # the JAX dense tiers stop here; larger systems go to Schur
+from ._build import Kernel, check, load, ptr, stream_ptr, workspace
 
 # one launch counter per instantiation
 K2 = {dt: Kernel(name=f"gj_real_{tag}",
@@ -56,8 +57,8 @@ def _check_systems(A: torch.Tensor, what: str) -> tuple[int, int]:
         raise ValueError(f"{what}: A must be (B, N, N), got "
                          f"{tuple(A.shape)}")
     nb, n = A.shape[0], A.shape[1]
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"{what} solves 1 <= N <= {MAX_N}, got N={n}")
+    if n < 1:
+        raise ValueError(f"{what} solves N >= 1, got N={n}")
     if nb >= 2**31:
         raise ValueError(f"{what} takes fewer than 2^31 systems, got {nb}")
     if A.dtype not in (torch.float32, torch.float64):
@@ -78,12 +79,12 @@ def _check_tensors(ts: tuple, what: str) -> None:
 def _workspace(lib: ctypes.CDLL, A: torch.Tensor, n: int,
                inv: bool) -> torch.Tensor | None:
     """The global workspace of the block route where its planes overflow
-    shared memory (f64 [A | I] near N = 128), else None."""
+    shared memory (f64 [A | I] past N = 119), else None."""
     dbl = A.dtype == torch.float64
     if not lib.gj_real_needs_workspace(n, int(inv), int(dbl)):
         return None
     w = 2 * n if inv else n + 1
-    return torch.empty((A.shape[0], n, w), dtype=A.dtype, device=A.device)
+    return workspace((A.shape[0], n, w), A, "K3" if inv else "K2")
 
 
 def gj_solve_cuda(A: torch.Tensor, b: torch.Tensor, eps: float = EPS

@@ -1,7 +1,8 @@
-"""Kernels K1, K2, K3, K4, K5, K7, K8 and K9 against their plain
-versions, the .noise residual guard's re-solves, and the batched corner
-sweeps (``simulate_ac_batch``, ``simulate_tran_batch``, ``.step``) against
-the CPU path, on the card.
+"""Kernels K1, K2, K3, K4, K5, K7, K8, K9, K10a and K10b against their
+plain versions (K1-K4 also past N = 128), the .noise residual guard's
+re-solves, the batched corner sweeps (``simulate_ac_batch``,
+``simulate_tran_batch``, ``.step``) and a flat N = 129 ladder's .ac and
+.op against the CPU path, on the card.
 
 Tests marked ``cuda`` need an NVIDIA GPU with the CUDA toolkit and skip
 elsewhere; run them on the card with
@@ -104,9 +105,12 @@ def test_k1_wrapper_refuses_bad_input():
         gj.gj_solve_planes_cuda(*cpu)
     with pytest.raises(TypeError, match="float32 or float64"):
         gj.gj_solve_planes_cuda(*[t.to(torch.float16) for t in cpu])
-    big = _systems(129, 1, torch.float64)
-    with pytest.raises(ValueError, match="N <= 128"):
-        gj.gj_solve_planes_cuda(*big)
+    # no upper limit on N (a global workspace past shared memory), but
+    # an empty system is refused
+    empty = _systems(1, 1, torch.float64)
+    with pytest.raises(ValueError, match="N >= 1"):
+        gj.gj_solve_planes_cuda(*[t[:, :0, :0] if t.ndim == 3 else t[:, :0]
+                                  for t in empty])
 
 
 def test_k5_wrapper_refuses_bad_input():
@@ -213,9 +217,10 @@ def test_k2_k3_wrappers_refuse_bad_input():
         gj_real.gj_solve_cuda(A, b[:, :3])
     with pytest.raises(ValueError, match=r"\(B, N, N\)"):
         gj_real.gj_inverse_cuda(A[:, :3])
-    big, _ = _real_systems(129, 2, torch.float64)
-    with pytest.raises(ValueError, match="N <= 128"):
-        gj_real.gj_inverse_cuda(big)
+    # no upper limit on N (a global workspace past shared memory), but
+    # an empty system is refused
+    with pytest.raises(ValueError, match="N >= 1"):
+        gj_real.gj_inverse_cuda(A[:, :0, :0])
 
 
 def test_k8_wrapper_refuses_bad_input():
@@ -447,9 +452,10 @@ def test_k4_wrapper_refuses_bad_input():
         gj.gj_inverse_planes_cuda(Ar, Ai.float())
     with pytest.raises(ValueError, match=r"\(B, N, N\)"):
         gj.gj_inverse_planes_cuda(Ar[:, :3], Ai[:, :3])
-    big = _systems(129, 1, torch.float64)
-    with pytest.raises(ValueError, match="N <= 128"):
-        gj.gj_inverse_planes_cuda(big[0], big[1])
+    # no upper limit on N (a global workspace past shared memory), but
+    # an empty system is refused
+    with pytest.raises(ValueError, match="N >= 1"):
+        gj.gj_inverse_planes_cuda(Ar[:, :0, :0], Ai[:, :0, :0])
 
 
 # K7: the fused full-solution AC kernel, and the batched corner sweeps
@@ -558,3 +564,110 @@ def test_step_on_cuda_equals_cpu(cuda):
                  (got.op.x, want.op.x)):
         np.testing.assert_allclose(g, w, rtol=1e-9,
                                    atol=1e-12 * np.abs(w).max())
+
+
+# K10a/K10b: the panel-blocked Gauss-Jordan tier, and K1-K4 past N = 128
+
+def _k10_vs_f64(got, plain, truth, valid, dtype):
+    """f64: the kernel at rtol 1e-12 of its plain version. f32: the panel
+    form's pivot-row step (1/pv - 1) cancels, amplifying rounding by ~|pv|,
+    so two f32 runs that sum in another order differ by more than 1e-5;
+    the kernel must then be as accurate as the plain version against an
+    f64 solve of the same systems."""
+    if dtype == torch.float64:
+        for g, p in zip(got, plain):
+            torch.testing.assert_close(g.cpu()[valid], p[valid], rtol=1e-12,
+                                       atol=1e-12 * float(p[valid].abs().max()))
+        return
+    scale = max(float(t[valid].abs().max()) for t in truth)
+    e_k = max(float((g.cpu().double() - t)[valid].abs().max())
+              for g, t in zip(got, truth))
+    e_p = max(float((p.double() - t)[valid].abs().max())
+              for p, t in zip(plain, truth))
+    assert e_k <= 2 * e_p + 1e-5 * scale, (e_k, e_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [40, 48, 64, 67, 100, 128])
+def test_k10_matches_plain(cuda, n, dtype):
+    from spicey_tpu_torch.ops import mxu
+
+    A, b = _real_systems(n, 24, torch.float64)
+    k10a = mxu.K10a[dtype].launches
+    x, v = mxu.mxu_solve_real(A.to(cuda, dtype), b.to(cuda, dtype))
+    assert mxu.K10a[dtype].launches == k10a + 1
+    px, pv = mxu.mxu_solve_real_plain(A.to(dtype), b.to(dtype))
+    tx, _ = mxu.mxu_solve_real_plain(A, b)
+    assert torch.equal(v.cpu(), pv) and not pv[:2].any() and pv[2:].all()
+    _k10_vs_f64((x,), (px,), (tx,), pv, dtype)
+
+    planes = _systems(n, 24, torch.float64, seed=1)
+    k10b = mxu.K10b[dtype].launches
+    got = mxu.mxu_solve_complex(*[t.to(cuda, dtype) for t in planes])
+    assert mxu.K10b[dtype].launches == k10b + 1
+    plain = mxu.mxu_solve_complex_plain(*[t.to(dtype) for t in planes])
+    truth = mxu.mxu_solve_complex_plain(*planes)
+    assert torch.equal(got[2].cpu(), plain[2]) and not plain[2][0]
+    _k10_vs_f64(got[:2], plain[:2], truth[:2], plain[2], dtype)
+
+
+def test_k10_wrappers_refuse_bad_input():
+    from spicey_tpu_torch.ops import mxu
+
+    A, b = _real_systems(48, 2, torch.float64)
+    planes = _systems(48, 2, torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        mxu.mxu_solve_real_cuda(A, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        mxu.mxu_solve_complex_cuda(*planes)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        mxu.mxu_solve_real_cuda(A, b.float())
+    with pytest.raises(ValueError, match=r"\(B, N\)"):
+        mxu.mxu_solve_complex_cuda(*planes[:3], planes[3][:, :5])
+    small, sb = _real_systems(39, 2, torch.float64)
+    with pytest.raises(ValueError, match=r"N in \[40, 128\]"):
+        mxu.mxu_solve_real_cuda(small, sb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [129, 256])
+def test_k1_to_k4_past_128_match_plain(cuda, n, dtype):
+    """Past N = 128 every dense kernel runs (in a global workspace where
+    shared memory overflows) and equals its plain version."""
+    A, b = _real_systems(n, 6, dtype)
+    x, v = linsolve.solve(A.to(cuda), b.to(cuda))
+    inv, iv = linsolve.inverse(A.to(cuda))
+    rx, rv = linsolve.gj_solve(A, b)
+    rinv, riv = linsolve.gj_inverse(A)
+    assert torch.equal(v.cpu(), rv) and torch.equal(iv.cpu(), riv)
+    assert not rv[:2].any() and rv[2:].all()
+    planes = _systems(n, 6, dtype)
+    xr, xi, cv = linsolve.solve_planes(*[t.to(cuda) for t in planes])
+    mr, mi, mv = linsolve.inverse_planes(planes[0].to(cuda),
+                                         planes[1].to(cuda))
+    pr, pi, pv = linsolve.gj_solve_planes(*planes)
+    qr, qi, qv = linsolve.gj_inverse_planes(*planes[:2])
+    assert torch.equal(cv.cpu(), pv) and torch.equal(mv.cpu(), qv)
+    for got, want, ok in ((x, rx, rv), (inv, rinv, riv), (xr, pr, pv),
+                          (xi, pi, pv), (mr, qr, qv), (mi, qi, qv)):
+        torch.testing.assert_close(got.cpu()[ok], want[ok], rtol=TOL[dtype],
+                                   atol=TOL[dtype] * float(
+                                       want[ok].abs().max()))
+
+
+@pytest.mark.cuda
+def test_flat_ladder_past_128_on_cuda_equals_cpu(cuda):
+    net = decks.rc_ladder_netlist(127, 11)
+    dc = net.replace("v1 in 0 dc 0 ac 1", "v1 in 0 dc 1")
+    got = st.simulate(net, device=cuda).ac
+    want = st.simulate(net, device="cpu").ac
+    for name, w in want.node_voltages.items():
+        np.testing.assert_allclose(got.node_voltages[name], w, rtol=1e-9,
+                                   atol=1e-12)
+    got = st.simulate_op(st.parse_netlist(dc), device=cuda)
+    want = st.simulate_op(st.parse_netlist(dc), device="cpu")
+    for name, w in want.node_voltages.items():
+        np.testing.assert_allclose(got.node_voltages[name], w, rtol=1e-9,
+                                   atol=1e-12)

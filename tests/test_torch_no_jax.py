@@ -6,9 +6,9 @@ small transient Monte-Carlo on both routes (the batched loop and the
 fused tier's plain versions, linear and nonlinear), the MOSFET ring
 through ``simulate``, a small ring Monte-Carlo, the bench's op/dc/tf deck,
 the two-stage amplifier's .op/.tf/.ac/.noise, an ``op_batch``, a
-``simulate_ac_batch`` through the fused full-solution route and a
-``.step`` deck; an AST scan asserts
-that no module of the port imports jax or the JAX package.
+``simulate_ac_batch`` through the fused full-solution route, a
+``.step`` deck and the panel-blocked solves of ``ops/mxu.py``; an AST
+scan asserts that no module of the port imports jax or the JAX package.
 """
 
 import ast
@@ -72,6 +72,14 @@ step = st.simulate(decks.STEP_DECK.replace("100 1100 1", "100 1100 500"),
                    dialect="extended", device="cpu").step
 assert step.ac.x.shape == (3, 301, 4) and step.tran.valid.all()
 assert step.op.valid.all() and step.tran.xs.shape[:2] == (3, 201)
+import torch
+from spicey_tpu_torch.ops import mxu
+A = torch.eye(40, dtype=torch.float64).expand(2, 40, 40) * 2.0
+x, v = mxu.mxu_solve_real(A, torch.ones((2, 40), dtype=torch.float64))
+assert v.all() and torch.allclose(x, torch.full((2, 40), 0.5, dtype=x.dtype))
+xr, xi, v = mxu.mxu_solve_complex(A, A, torch.ones((2, 40)).double(),
+                                  torch.zeros((2, 40)).double())
+assert v.all() and torch.allclose(xr, -xi) and torch.allclose(xr, 0.25 + 0 * xr)
 print("OK")
 """
 

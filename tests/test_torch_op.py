@@ -124,12 +124,16 @@ def test_unported_op_raises():
     with pytest.raises(NotImplementedError, match="Schur.*item 6"):
         st.simulate_op(st.parse_netlist(OP_DECKS["divider"][0]),
                        method="schur", device="cpu")
-    # 131 unknowns: past the dense kernels' N = 128 the JAX package plans
-    # a Schur partition
+    # 131 unknowns of a flat divider chain: past N = 128 the port solves
+    # dense, as the JAX package does on a deck with no subcircuit
+    # structure (refused here before; tests/test_torch_large_n.py holds
+    # such decks to the JAX package)
     big = "t\nv1 n0 0 dc 1\n" + "".join(
         f"r{i} n{i} n{i + 1} 1k\n" for i in range(129)) + "r129 n129 0 1k\n"
-    with pytest.raises(NotImplementedError, match="131 unknowns.*item 6"):
-        st.simulate_op(st.parse_netlist(big), device="cpu")
+    op = st.simulate_op(st.parse_netlist(big), device="cpu")
+    for k in (1, 65, 129):
+        np.testing.assert_allclose(op.node_voltages[f"n{k}"], 1 - k / 130,
+                                   rtol=RTOL, atol=ATOL)
 
 
 # ---- .dc sweeps and op_batch ---------------------------------------------
