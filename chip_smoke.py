@@ -46,7 +46,16 @@ line each:
      their real part for K10a): ``valid`` identical, f64 at 1e-12, f32 by
      k1_vs_plain's rule (the panel form's 1/pv - 1 step cancels, so two
      f32 summation orders differ beyond 1e-5); K1-K4 at N in {129, 256}
-     in f64 and f32 (their global-workspace route) at 1e-12 / 1e-5;
+     in f64 and f32 (their global-workspace route) at 1e-12 / 1e-5; every
+     tier of K1 (warp, block, panel) and K2 (thread, warp, block, panel),
+     forced, in f64 and f32, at N in {3, 8, 16, 17, 31, 32, 33, 64, 128,
+     129, 256} and each crossover of ops/gj.py and ops/gj_real.py +- 1,
+     each batch with an all-zero, a NaN and a zero-column lane: ``valid``
+     identical on every lane, f64 within 1e-12 x max|x|, f32 by
+     k1_vs_plain's rule; and the panel and block tiers, with the same
+     lanes and rule, on either side of the N past which the panel tier's
+     [panel | C] lives in the workspace (``PANEL_SMEM_EDGE``) and at
+     complex f64 N = 512 and real f64 N = 1024;
   3-8. the main path through the public entry points, each phase with
      every launch counter zeroed first and read after: the basics01
      golden on cuda (character-exact); the 1M-variant AC yield at f32
@@ -95,15 +104,18 @@ line each:
      and .tran over 1,001 ``.step`` lanes equal to the CPU path at 1e-9,
      each lane's .op the divider's closed form;
   21. flat decks past N = 128 through the public entry points on cuda,
-     counted the same way: ``mc_ac_stats`` of ``rc_ladder_netlist(254)``
+     counted the same way, and failing unless flat-256 (K1 f64) and the
+     N = 129 decks (K1 and K2 f64) ran the panel tier: ``mc_ac_stats`` of ``rc_ladder_netlist(254)``
      (N = 256, 16 variants x 51 frequencies, f64, K1; 2 variants equal
      the CPU path at 1e-9), and ``rc_ladder_netlist(127)`` (N = 129):
      ``simulate()`` .ac, ``simulate_op`` at 1 V DC and a ``simulate()``
      .tran of the same ladder under a pulse (K3 once), each equal to the
      CPU path at 1e-9;
-  22. K10's path: ``tools/profile_torch_solver.py``'s sweep at N = 64 and
-     128 (2 reps): K10a/K10b against K2/K1 and ``torch.linalg.solve`` in
-     systems/s on the ladder planes, K10 within 1e-9 of K1/K2 in f64;
+  22. the solver sweep, K10's path: ``tools/profile_torch_solver.py``'s
+     sweep at N = 32 (K1 and K2 must run their warp tier there), then at
+     N = 64 and 128 (2 reps): K1/K2 in their chosen tier, K10a/K10b and
+     ``torch.linalg.solve`` in systems/s on the ladder planes, K10 within
+     1e-9 of K1/K2 in f64;
   9. every instantiation launched during 3-8 and 10-22 (printed after
      them; the f32 instances of K4 and K7 are on no main path and are
      checked in phase 2 and timed here only); CUDA-event times of each
@@ -123,9 +135,15 @@ line each:
      Newton passes per lane there and K9's time at each, its plain
      version's time and bound at the boost-100k shape, its operations
      counted from the lane passes its plain version runs on the same
-     inputs; K10a/K10b in f32 and f64 at the sweep's N = 64 and 128
-     shapes beside their plain versions, ``torch.linalg.solve`` and their
-     bound (the JSON line keeps N = 64), and K1 f64 at phase 21's N = 256.
+     inputs; every tier of K1 and K2 and K10a/K10b (from N = 40) in f32
+     and f64 at the sweep's N = 16, 32, 64 and 128 shapes, and every tier
+     of K1 and K2 f64 at phase 21's N = 256 planes and on random systems
+     at N = 512 (64 of them) and 1024 (16), each beside the plain
+     version, ``torch.linalg.solve`` on the same planes and the bound, with
+     the share of the bound reached (the JSON line keeps K10 at N = 64).
+     Every phase prints the launches of each tier of K1 and K2 beside the
+     kernels' (phase 16 fails unless the amp's .ac ran K1's warp tier); the
+     JSON line adds them to K1's and K2's entries as ``tiers``.
 
 Then a JSON line of the kernels, the nvidia-smi line, and the result line.
 """
@@ -186,6 +204,15 @@ GOLDENS = ("RC_PULSE", "TWO_PROBES", "SERIES_RLC", "SWITCH_VT_VH",
            "VSWITCH_PWL", "BOOST_CONVERTER", "DIODE_SWITCH")
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 TAG = {torch.float64: "f64", torch.float32: "f32"}
+# the largest N whose [panel | C] fits in one block's shared memory in the
+# panel tier of K1 (complex) and K2 (real), gj_panel.cuh:smem_bytes; past
+# it [panel | C] lives in the workspace (gj_panel.cuh:PANEL_GLOBAL)
+PANEL_SMEM_EDGE = {(True, torch.float64): 401, (True, torch.float32): 822,
+                   (False, torch.float64): 822, (False, torch.float32): 1629}
+# (complex, dtype, N) of phase 2's cases on either side of that edge
+PAST_PANEL_SMEM = [(c, dt, n) for (c, dt), e in PANEL_SMEM_EDGE.items()
+                   for n in (e, e + 1)] + [(True, torch.float64, 512),
+                                           (False, torch.float64, 1024)]
 # the H100 SXM's peaks (NVIDIA data sheet): HBM3 bytes/s; FLOP/s for the
 # type: f32 outside the tensor cores (their TF32 rounds the operands), f64
 # on them (full f64; 34 TFLOP/s outside them)
@@ -224,10 +251,12 @@ def say(phase: str, msg: str) -> None:
           flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean device milliseconds of ``fn`` over ``reps`` runs after one warm
-    run, by CUDA events around the whole batch of runs."""
-    fn()
+    run (none with ``warm=False``, for the plain versions at large N: torch
+    ops need no build), by CUDA events around the whole batch of runs."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -298,20 +327,40 @@ def main() -> int:
     ms: dict[str, tuple] = {}
     launches = {name: 0 for name in kernels}
 
-    def counted(phase: str, expect: list) -> None:
+    # the tiers of K1 and K2: name -> that instantiation's tier counters
+    tier_counts = {gj.K1[dt].name: gj.K1_TIERS[dt] for dt in gj.K1}
+    tier_counts.update({gj_real.K2[dt].name: gj_real.K2_TIERS[dt]
+                        for dt in gj_real.K2})
+    tier_launches = {name: dict.fromkeys(c, 0)
+                     for name, c in tier_counts.items()}
+
+    def zero_counts() -> None:
+        for k in kernels.values():
+            k.launches = 0
+        for c in tier_counts.values():
+            c.update(dict.fromkeys(c, 0))
+
+    def counted(phase: str, expect: list, tiers: tuple = ()) -> None:
         """Add this phase's launches to the totals and fail unless every
-        kernel it must drive launched; then zero the counters for the
-        next phase."""
+        kernel it must drive launched, and every (kernel, tier) of
+        ``tiers`` ran that tier; then zero the counters for the next
+        phase."""
         got = {name: k.launches for name, k in kernels.items()}
         for name, n in got.items():
             launches[name] += n
+        for name, c in tier_counts.items():
+            for tier, n in c.items():
+                tier_launches[name][tier] += n
         missing = [k.name for k in expect if got[k.name] == 0]
+        missing += [f"{k.name} {tier}" for k, tier in tiers
+                    if tier_counts[k.name][tier] == 0]
         if missing:
             raise AssertionError(f"{phase}: never launched {missing}")
         say(phase, "launches " + json.dumps(
-            {n: c for n, c in got.items() if c}))
-        for k in kernels.values():
-            k.launches = 0
+            {n: c for n, c in got.items() if c}) + "; tiers " + json.dumps(
+            {name: {t: n for t, n in c.items() if n}
+             for name, c in tier_counts.items() if any(c.values())}))
+        zero_counts()
 
     # ---- 1. build --------------------------------------------------------
     t_start = t0 = time.perf_counter()
@@ -1013,10 +1062,122 @@ def main() -> int:
                 f"{e2:.3e} / {e3:.3e} / {e4:.3e}")
     torch.cuda.empty_cache()
 
+    # ---- every tier of K1 and K2 against the plain versions ----------------
+    # at the tier edges and past them, each batch with an all-zero lane, a
+    # NaN lane and a zero-column lane: valid identical on every lane; f64
+    # within 1e-12 x max|x|; f32 by k1_vs_plain's rule (error against an f64
+    # solve of the same planes at most twice the plain f32 version's, plus
+    # 1e-5 x max|x|: the tiers sum in other orders than the torch ops)
+    def tier_lanes(n, B):
+        Ar = rng.standard_normal((B, n, n)) + n * np.eye(n)
+        Ai = rng.standard_normal((B, n, n))
+        br, bi = rng.standard_normal((2, B, n))
+        Ar[0] = Ai[0] = 0.0                        # all-zero lane
+        Ar[1, n // 2, n - 1] = np.nan              # NaN lane
+        Ar[2, :, n // 3] = Ai[2, :, n // 3] = 0.0  # zero-column lane
+        return Ar, Ai, br, bi
+
+    def tier_err(got, plain, truth, ok, dtype, what):
+        """Max error of ``got`` against ``truth`` over max|truth| on the
+        valid lanes, held to the rule above."""
+        scale = max(float(t[ok].abs().max()) for t in truth)
+        e = max(float((g.double() - t)[ok].abs().max())
+                for g, t in zip(got, truth))
+        limit = TOL[dtype] * scale
+        if dtype == torch.float32:
+            limit += 2 * max(float((p.double() - t)[ok].abs().max())
+                             for p, t in zip(plain, truth))
+        if e > limit:
+            raise AssertionError(f"{what}: error {e:.3e} above {limit:.3e}")
+        return e / scale
+
+    edges = {3, 8, 16, 17, 31, 32, 33, 64, 128, 129, 256}
+    for t in (gj.K1_WARP_MAX, gj.K1_PANEL_MIN, gj_real.K2_WARP_MAX,
+              gj_real.K2_PANEL_MIN, *gj_real.K2_THREAD_MAX.values()):
+        edges |= {m for m in (t - 1, t, t + 1) if m >= 1}
+    t2 = time.perf_counter()
+    for dtype in (torch.float64, torch.float32):
+        for n in sorted(edges):
+            B = 64 if n > 128 else 256
+            planes = [torch.as_tensor(a, dtype=dtype, device=dev)
+                      for a in tier_lanes(n, B)]
+            pr, pi, pv = linsolve.gj_solve_planes(*planes)
+            px, pvx = linsolve.gj_solve(planes[0], planes[2])
+            for v in (pv, pvx):
+                if v[:3].any() or not v[3:].all():
+                    raise AssertionError(f"tiers N={n}: plain flags "
+                                         f"{v[:4].tolist()}")
+            truth_c, truth_r = (pr, pi), (px,)
+            if dtype == torch.float32:
+                tr, ti, _ = linsolve.gj_solve_planes(*[p.double()
+                                                       for p in planes])
+                truth_c = (tr, ti)
+                truth_r = (linsolve.gj_solve(planes[0].double(),
+                                             planes[2].double())[0],)
+            errs = []
+            for tier in gj.TIERS:
+                if tier == "warp" and n > gj.WARP_MAX_N:
+                    continue
+                xr, xi, v = gj.gj_solve_planes_cuda(*planes, tier=tier)
+                if not torch.equal(v, pv):
+                    raise AssertionError(f"K1 {tier} N={n}: valid differs")
+                e = tier_err((xr, xi), (pr, pi), truth_c, pv, dtype,
+                             f"K1 {tier} {TAG[dtype]} N={n}")
+                errs.append(f"K1 {tier} {e:.1e}")
+            for tier in gj_real.TIERS:
+                if (tier == "warp" and n > gj_real.WARP_MAX_N) or (
+                        tier == "thread" and n > gj_real.THREAD_MAX_N):
+                    continue
+                x, v = gj_real.gj_solve_cuda(planes[0], planes[2], tier=tier)
+                if not torch.equal(v, pvx):
+                    raise AssertionError(f"K2 {tier} N={n}: valid differs")
+                e = tier_err((x,), (px,), truth_r, pvx, dtype,
+                             f"K2 {tier} {TAG[dtype]} N={n}")
+                errs.append(f"K2 {tier} {e:.1e}")
+            say("2 tiers", f"{TAG[dtype]} N={n} B={B}: valid identical, "
+                f"lanes 0-2 (zero, NaN, zero column) flagged; error / "
+                f"max|x|: {', '.join(errs)}")
+            del planes, pr, pi, px, truth_c, truth_r
+    torch.cuda.empty_cache()
+    # past the N where the panel tier's [panel | C] fits in shared memory
+    # (gj_panel.cuh:PANEL_GLOBAL: complex f64 from 402, real f64 and
+    # complex f32 from 823, real f32 from 1630), the panel and block tiers
+    # on either side of that edge, 8 systems with the same three lanes
+    for cplx, dtype, n in PAST_PANEL_SMEM:
+        planes = [torch.as_tensor(a, dtype=dtype, device=dev)
+                  for a in tier_lanes(n, 8)]
+        solve = linsolve.gj_solve_planes if cplx else linsolve.gj_solve
+        some = planes if cplx else planes[::2]
+        plain = solve(*some)
+        truth = plain if dtype == torch.float64 else solve(
+            *[p.double() for p in some])
+        pv = plain[-1]
+        if pv[:3].any() or not pv[3:].all():
+            raise AssertionError(f"tiers N={n}: plain flags "
+                                 f"{pv[:4].tolist()}")
+        errs = []
+        for tier in ("panel", "block"):
+            if cplx:
+                got = gj.gj_solve_planes_cuda(*planes, tier=tier)
+            else:
+                got = gj_real.gj_solve_cuda(planes[0], planes[2], tier=tier)
+            what = f"{'K1' if cplx else 'K2'} {tier} {TAG[dtype]} N={n}"
+            if not torch.equal(got[-1], pv):
+                raise AssertionError(f"{what}: valid differs")
+            e = tier_err(got[:-1], plain[:-1], truth[:-1], pv, dtype, what)
+            errs.append(f"{tier} {e:.1e}")
+            del got
+        say("2 tiers", f"{'K1' if cplx else 'K2'} {TAG[dtype]} N={n} B=8 "
+            f"(past [panel | C]'s shared memory from "
+            f"{PANEL_SMEM_EDGE[(cplx, dtype)] + 1}): valid identical, lanes "
+            f"0-2 flagged; error / max|x|: {', '.join(errs)}")
+        del planes, plain, truth
+        torch.cuda.empty_cache()
+    say("2 tiers", f"{time.perf_counter() - t2:.1f} s")
+
     # ---- 3-8. the main path, counted per phase ---------------------------
     f64 = torch.float64
-    for k in kernels.values():
-        k.launches = 0
+    zero_counts()
     with open("tests/fixtures/basics01_golden.txt") as fh:
         golden = fh.read()
     out = st.format_ac_result(st.simulate(BASICS01, device=dev).ac)
@@ -1420,7 +1581,8 @@ def main() -> int:
         f"{amp.noise.guard_resolves} (CPU path "
         f"{want.noise.guard_resolves}); output noise "
         f"{amp.noise.total_output_rms:.4e} Vrms; {amp_s:.3f} s wall")
-    counted("16 amp", [gj.K4[f64], gj.K1[f64], gj_real.K2[f64]])
+    counted("16 amp", [gj.K4[f64], gj.K1[f64], gj_real.K2[f64]],
+            tiers=[(gj.K1[f64], "warp")])
 
     # ---- 17. ladder-64 noise: an RC interconnect's thermal noise -----------
     lad_n, lad_s = timed(lambda: st.simulate(LADDER_NOISE,
@@ -1547,9 +1709,11 @@ def main() -> int:
         same(getattr(k_sub, f), want, f"flat-256 {f}",
              atol=1e-12 * float(np.abs(want).max()))
     say("21 past 128", f"mc_ac_stats of rc_ladder_netlist(254), N=256, 16 "
-        f"variants x {len(s256.grid)} frequencies (K1 f64, workspace): "
-        f"n_valid {s256.n_valid}, wall {s256_s:.3f} s; 2 variants equal the "
-        f"CPU path at 1e-9 (CPU {p_s:.1f} s)")
+        f"variants x {len(s256.grid)} frequencies (K1 f64, "
+        f"{gj.tier_for(256, f64)} tier): n_valid {s256.n_valid}, wall "
+        f"{s256_s:.3f} s; 2 variants equal the CPU path at 1e-9 (CPU "
+        f"{p_s:.1f} s)")
+    counted("21 flat-256", [gj.K1[f64]], tiers=[(gj.K1[f64], "panel")])
     lad129 = rc_ladder_netlist(127)
     ac129, ac129_s = timed(lambda: st.simulate(lad129, device=dev).ac)
     want = st.simulate(lad129, device="cpu").ac
@@ -1578,37 +1742,58 @@ def main() -> int:
         f"{ac129_s:.3f} s), simulate_op at 1 V DC (refused before; "
         f"{op129_s:.3f} s), simulate() .tran ({len(got.times)} points, "
         f"factor-once; {tr129_s:.3f} s)")
-    counted("21 past 128", [gj.K1[f64], gj_real.K2[f64], gj_real.K3[f64]])
+    counted("21 N=129 decks", [gj.K1[f64], gj_real.K2[f64], gj_real.K3[f64]],
+            tiers=[(gj.K1[f64], "panel"), (gj_real.K2[f64], "panel")])
     del s256, k_sub, got
     torch.cuda.empty_cache()
 
-    # ---- 22. K10 on its path: the solver sweep at N = 64 and 128 ---------
+    # ---- 22. the solver sweep at N = 32, 64 and 128 (K10's path) ---------
+    # N = 32 must run K1 and K2 in their warp tier, N = 64 and 128 each in
+    # the tier ops/gj.py and ops/gj_real.py choose
     t22 = time.perf_counter()
-    sweep_rows = solver.sweep((64, 128), reps=2, seed=SEED, dev=dev,
-                              emit=lambda line: say("22 sweep row", line))
-    for row in sweep_rows:
-        mc = row["mc_ac_stats"]
-        for tag, sv in row["solvers"].items():
-            sps = {r["name"]: r["systems_per_s"] for r in sv["rows"]}
-            lib_c = next(k for k in sps if k.startswith("linalg.solve c"))
-            lib_r = next(k for k in sps if k.startswith("linalg.solve f"))
-            if tag == "f64" and max(sv["K10b_vs_K1"], sv["K10a_vs_K2"]) > 1e-9:
-                raise AssertionError(f"sweep N={row['n']}: K10 off K1/K2 by "
-                                     f"{sv['K10b_vs_K1']:.2e} / "
-                                     f"{sv['K10a_vs_K2']:.2e}")
-            say("22 K10 sweep", f"N={row['n']} {tag}, {sv['systems']} "
-                f"systems, systems/s: complex K10b {sps['K10b']:.4g}, K1 "
-                f"{sps['K1']:.4g}, {lib_c} {sps[lib_c]:.4g}; real K10a "
-                f"{sps['K10a']:.4g}, K2 {sps['K2']:.4g}, {lib_r} "
-                f"{sps[lib_r]:.4g}; K10 - K1/K2 {sv['K10b_vs_K1']:.2e} / "
-                f"{sv['K10a_vs_K2']:.2e} of max|x| | {smi}")
-        say("22 K10 sweep", f"N={row['n']} mc_ac_stats through K1: f32 "
-            f"{mc['pallas_f32']['systems_per_s']:.4g}, f64 "
-            f"{mc['gj_f64']['systems_per_s']:.4g} systems/s (host clock)")
-    say("22 K10 sweep", f"{time.perf_counter() - t22:.1f} s")
-    counted("22 K10 sweep", list(mxu.K10a.values()) + list(mxu.K10b.values())
-            + list(gj.K1.values()) + list(gj_real.K2.values()))
-    torch.cuda.empty_cache()
+    for ns in ((32,), (64, 128)):
+        sweep_rows = solver.sweep(ns, reps=2, seed=SEED, dev=dev,
+                                  emit=lambda line: say("22 sweep row",
+                                                        line))
+        for row in sweep_rows:
+            mc = row["mc_ac_stats"]
+            for tag, sv in row["solvers"].items():
+                rows = {r["name"]: r for r in sv["rows"]}
+                sps = {k: r["systems_per_s"] for k, r in rows.items()}
+                lib_c = next(k for k in sps if k.startswith("linalg.solve c"))
+                lib_r = next(k for k in sps if k.startswith("linalg.solve f"))
+                k10 = ""
+                if "K10b" in sps:
+                    if tag == "f64" and max(sv["K10b_vs_K1"],
+                                            sv["K10a_vs_K2"]) > 1e-9:
+                        raise AssertionError(
+                            f"sweep N={row['n']}: K10 off K1/K2 by "
+                            f"{sv['K10b_vs_K1']:.2e} / "
+                            f"{sv['K10a_vs_K2']:.2e}")
+                    k10 = (f"; K10b {sps['K10b']:.4g}, K10a "
+                           f"{sps['K10a']:.4g}, K10 - K1/K2 "
+                           f"{sv['K10b_vs_K1']:.2e} / "
+                           f"{sv['K10a_vs_K2']:.2e} of max|x|")
+                say("22 sweep", f"N={row['n']} {tag}, {sv['systems']} "
+                    f"systems, systems/s: complex K1 ({rows['K1']['tier']}) "
+                    f"{sps['K1']:.4g}, {lib_c} {sps[lib_c]:.4g}; real K2 "
+                    f"({rows['K2']['tier']}) {sps['K2']:.4g}, {lib_r} "
+                    f"{sps[lib_r]:.4g}{k10} | {smi}")
+            say("22 sweep", f"N={row['n']} mc_ac_stats through K1: f32 "
+                f"{mc['pallas_f32']['systems_per_s']:.4g}, f64 "
+                f"{mc['gj_f64']['systems_per_s']:.4g} systems/s (host "
+                "clock)")
+        if ns == (32,):
+            counted("22 sweep N=32", list(gj.K1.values())
+                    + list(gj_real.K2.values()),
+                    tiers=[(k, "warp") for k in list(gj.K1.values())
+                           + list(gj_real.K2.values())])
+        else:
+            counted("22 sweep N=64, 128", list(mxu.K10a.values())
+                    + list(mxu.K10b.values()) + list(gj.K1.values())
+                    + list(gj_real.K2.values()))
+        torch.cuda.empty_cache()
+    say("22 sweep", f"{time.perf_counter() - t22:.1f} s")
 
     # ---- 9. launches and times --------------------------------------------
     missing = [name for name, n in launches.items() if n == 0]
@@ -1726,58 +1911,100 @@ def main() -> int:
             ms[name] = t_k7
         del Ac, bc
         torch.cuda.empty_cache()
-    # K10a/K10b at the sweep's N = 64 and 128 shapes, f64 and f32, beside
-    # their plain versions and torch.linalg.solve on the same planes (the
-    # complex ones, and their real part for K10a); the JSON line keeps
-    # N = 64, ladder-64's shape, where K1's entry was timed
-    for n in (64, 128):
+    def ms_line(name, where, t, lib):
+        say("9 times", f"{name} at {where}: kernel {t[0]:.3f} ms, plain "
+            f"{t[1]:.3f} ms, library {t[2]:.3f} ms ({lib}), bound "
+            f"{t[3]:.4f} ms ({t[4]}), {100 * t[3] / t[0]:.2f}% of it (CUDA "
+            f"events) | {smi}")
+
+    def tiers_of(module, n):
+        return [t for t in module.TIERS
+                if not (t == "warp" and n > module.WARP_MAX_N)
+                and not (t == "thread" and n > gj_real.THREAD_MAX_N)]
+
+    def time_tiers(planes, dtype, where, reps, cold):
+        """Every tier of K1 on the complex planes and of K2 on their real
+        part (and K10b / K10a where N is in their [40, 128]), each beside the plain
+        version, torch.linalg.solve on the same planes and the bound;
+        returns {kernel name: times} of K10 for the JSON line."""
+        Ar, Ai, br, bi = planes
+        nb, n, el = Ar.shape[0], Ar.shape[1], Ar.element_size()
+        out = {}
+        Ac, bc = torch.complex(Ar, Ai), torch.complex(br, bi)
+        lib = cuda_ms(lambda: torch.linalg.solve(Ac, bc), 2)
+        del Ac, bc
+        torch.cuda.empty_cache()
+        bnd = bound(nb * solve_flops(n, True),
+                    el * nb * (2 * n * n + 4 * n) + nb, dtype)
+        plain = cuda_ms(lambda: linsolve.gj_solve_planes(*planes), 1,
+                        warm=not cold)
+        for tier in tiers_of(gj, n):
+            t = (cuda_ms(lambda: gj.gj_solve_planes_cuda(*planes, tier=tier),
+                         reps), plain, lib, *bnd)
+            chosen = " (chosen)" if tier == gj.tier_for(n, dtype) else ""
+            ms_line(f"{gj.K1[dtype].name} {tier}{chosen}", where, t,
+                    f"linalg.solve, complex {TAG[dtype]}")
+        if mxu.MXU_MIN_N <= n <= mxu.MXU_MAX_N:
+            t = out[mxu.K10b[dtype].name] = (
+                cuda_ms(lambda: mxu.mxu_solve_complex(*planes), reps),
+                cuda_ms(lambda: mxu.mxu_solve_complex_plain(*planes), 1,
+                        warm=not cold), lib, *bnd)
+            ms_line(mxu.K10b[dtype].name, where, t,
+                    f"linalg.solve, complex {TAG[dtype]}")
+        lib = cuda_ms(lambda: torch.linalg.solve(Ar, br), 3)
+        bnd = bound(nb * solve_flops(n), el * nb * (n * n + 2 * n) + nb,
+                    dtype)
+        plain = cuda_ms(lambda: linsolve.gj_solve(Ar, br), 1, warm=not cold)
+        for tier in tiers_of(gj_real, n):
+            t = (cuda_ms(lambda: gj_real.gj_solve_cuda(Ar, br, tier=tier),
+                         reps), plain, lib, *bnd)
+            chosen = " (chosen)" if tier == gj_real.tier_for(n, dtype) \
+                else ""
+            ms_line(f"{gj_real.K2[dtype].name} {tier}{chosen}", where, t,
+                    f"linalg.solve, real {TAG[dtype]}")
+        if mxu.MXU_MIN_N <= n <= mxu.MXU_MAX_N:
+            t = out[mxu.K10a[dtype].name] = (
+                cuda_ms(lambda: mxu.mxu_solve_real(Ar, br), reps),
+                cuda_ms(lambda: mxu.mxu_solve_real_plain(Ar, br), 1,
+                        warm=not cold), lib, *bnd)
+            ms_line(mxu.K10a[dtype].name, where, t,
+                    f"linalg.solve, real {TAG[dtype]}")
+        return out
+
+    # every tier of K1 and K2 and K10a/K10b at the sweep's N = 16, 32, 64
+    # and 128 shapes, f64 and f32; the JSON line keeps K10 at N = 64,
+    # ladder-64's shape, where K1's entry was timed
+    t9 = time.perf_counter()
+    for n in (16, 32, 64, 128):
         for dtype in (torch.float64, torch.float32):
             planes = sweep_planes(n, dtype)
-            Ar, Ai, br, bi = planes
-            nb, el = Ar.shape[0], Ar.element_size()
-            Ac, bc = torch.complex(Ar, Ai), torch.complex(br, bi)
-            t10 = {
-                mxu.K10b[dtype].name: (
-                    cuda_ms(lambda: mxu.mxu_solve_complex(*planes), 3),
-                    cuda_ms(lambda: mxu.mxu_solve_complex_plain(*planes), 1),
-                    cuda_ms(lambda: torch.linalg.solve(Ac, bc), 2),
-                    *bound(nb * solve_flops(n, True),
-                           el * nb * (2 * n * n + 4 * n) + nb, dtype))}
-            del Ac, bc
-            torch.cuda.empty_cache()
-            t10[mxu.K10a[dtype].name] = (
-                cuda_ms(lambda: mxu.mxu_solve_real(Ar, br), 3),
-                cuda_ms(lambda: mxu.mxu_solve_real_plain(Ar, br), 1),
-                cuda_ms(lambda: torch.linalg.solve(Ar, br), 3),
-                *bound(nb * solve_flops(n), el * nb * (n * n + 2 * n) + nb,
-                       dtype))
-            for name, t in t10.items():
-                lib = "complex" if "complex" in name else "real"
-                say("9 times", f"{name} at sweep N={n} ({nb}, {n}): kernel "
-                    f"{t[0]:.3f} ms, plain {t[1]:.3f} ms, library "
-                    f"{t[2]:.3f} ms (linalg.solve, {lib} {TAG[dtype]}), "
-                    f"bound {t[3]:.4f} ms ({t[4]}) (CUDA events) | {smi}")
-                if n == 64:
-                    shape[name] = f"sweep N=64 ({nb}, {n})"
+            t10 = time_tiers(planes, dtype, f"sweep N={n} "
+                             f"({planes[0].shape[0]}, {n})", 3, n >= 64)
+            if n == 64:
+                for name, t in t10.items():
+                    shape[name] = f"sweep N=64 ({planes[0].shape[0]}, {n})"
                     ms[name] = t
-            del planes, Ar, Ai, br, bi
+            del planes
             torch.cuda.empty_cache()
-    # K1 f64 at phase 21's N = 256 planes (16 variants x 51 frequencies)
+    # every tier of K1 f64 at phase 21's N = 256 planes (16 variants x 51
+    # frequencies), and of K2 f64 on their real part
     planes = assembled(flat256, f256_over, 16, f64)
-    nb, n = planes[0].shape[0], planes[0].shape[1]
-    Ac, bc = (torch.complex(planes[0], planes[1]),
-              torch.complex(planes[2], planes[3]))
-    t_k1 = (cuda_ms(lambda: gj.gj_solve_planes_cuda(*planes), 5),
-            cuda_ms(lambda: linsolve.gj_solve_planes(*planes), 1),
-            cuda_ms(lambda: torch.linalg.solve(Ac, bc), 5),
-            *bound(nb * solve_flops(n, True),
-                   8 * nb * (2 * n * n + 4 * n) + nb, f64))
-    say("9 times", f"{gj.K1[f64].name} at flat-256 ({nb}, {n}, workspace): "
-        f"kernel {t_k1[0]:.3f} ms, plain {t_k1[1]:.3f} ms, library "
-        f"{t_k1[2]:.3f} ms (linalg.solve, complex128), bound "
-        f"{t_k1[3]:.4f} ms ({t_k1[4]}) (CUDA events) | {smi}")
-    del planes, Ac, bc
+    time_tiers(planes, f64, f"flat-256 ({planes[0].shape[0]}, 256)", 5,
+               True)
+    del planes
     torch.cuda.empty_cache()
+    # every tier of K1 and K2 f64 past the N where the panel tier's
+    # [panel | C] fits in shared memory (complex from 402, real from 823),
+    # on random well-conditioned systems: the measurement that keeps the
+    # panel tier there rather than the block tier
+    for n, nb in ((512, 64), (1024, 16)):
+        planes = [torch.as_tensor(a, dtype=f64, device=dev) for a in (
+            rng.standard_normal((nb, n, n)) + n * np.eye(n),
+            rng.standard_normal((nb, n, n)), *rng.standard_normal((2, nb, n)))]
+        time_tiers(planes, f64, f"random ({nb}, {n})", 1, True)
+        del planes
+        torch.cuda.empty_cache()
+    say("9 times", f"tiers and K10: {time.perf_counter() - t9:.1f} s")
     vs, values, pattern, _node = tran_big_inputs
     s1, nb, n = vs.shape[0], values.shape[1], pattern.n
     n_b = bin(pattern.b_rows).count("1")
@@ -1852,7 +2079,8 @@ def main() -> int:
          "replaces": k.replaces, "launches": launches[name],
          "max_abs_err": err[name], "ms": ms[name][0],
          "plain_ms": ms[name][1], "bound_ms": ms[name][3],
-         "bound_by": ms[name][4], "library_ms": ms[name][2]}
+         "bound_by": ms[name][4], "library_ms": ms[name][2],
+         **({"tiers": tier_launches[name]} if name in tier_launches else {})}
         for name, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,14 +11,22 @@
 // Every row, the pivot row included, is updated over all w columns, as
 // the plain versions update them.
 //
-// Two layouts:
+// Three layouts here, and a fourth in gj_panel.cuh:
 //   block_gj   one block per system, the (n, w) planes row-major in shared
 //              memory or a global workspace, thread-strided updates with a
-//              barrier per step (K1, and K2/K3 above THREAD_MAX_N);
+//              barrier per step (K3 and K4 at every N above THREAD_MAX_N;
+//              K1 and K2 in the N range of their block tier);
+//   warp_gj    one warp per system, n <= 32, row i in lane i, the planes in
+//              the warp's own slice of shared memory; the pivot search is a
+//              shuffle argmax and the only barrier is __syncwarp (the warp
+//              tier of K1 and K2);
 //   thread_gj  one thread per system, element q of plane c at
 //              a[c][q * stride] (the system index fastest, so a warp's
 //              accesses are consecutive words), no barriers (K2/K3 up to
-//              THREAD_MAX_N, K5, K8, K9).
+//              THREAD_MAX_N, K5, K8, K9);
+//   gj_panel.cuh: one block per system in panels of PW = 16 columns, the
+//              trailing columns updated by one product per panel (the panel
+//              tier of K1 and K2).
 
 #pragma once
 
@@ -198,6 +206,160 @@ __device__ void block_gj(T* const (&a)[P], int n, int w, T thr,
     }
     __syncthreads();
   }
+}
+
+// ---- one warp per system ---------------------------------------------------
+
+constexpr int WARP_MAX_N = 32;
+
+// Eliminate one (n, w) system, n <= WARP_MAX_N, by the calling warp (all
+// 32 lanes call it; every shuffle names the full mask). Row i lives in
+// lane i at a[c][i * ld + j] in the warp's own shared memory (ld odd, so
+// the lanes' rows fall in distinct banks). Each step: a butterfly argmax
+// by __shfl_xor_sync ranks the lanes' column entries with better(), so
+// every lane ends with the same pivot row; the pivot value comes from its
+// lane by a shuffle; the lanes divide the pivot row's later columns among
+// themselves (lane l takes l, l + 32), then each other row subtracts its
+// factor times that row. Columns <= k are left as they are: no later step
+// and no answer reads them (the solve reads column n). Returns validity;
+// lane k's ``perm_k`` is the pivot row of column k.
+template <typename T, int P>
+__device__ bool warp_gj(T* const (&a)[P], int n, int w, int ld, T thr,
+                        int& perm_k) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const bool has_row = lane < n;
+  bool used = false, ok_all = true;
+  perm_k = 0;
+  for (int k = 0; k < n; ++k) {
+    T e[P];
+    for (int c = 0; c < P; ++c)
+      e[c] = has_row ? a[c][lane * ld + k] : T(0);
+    T best_s;
+    if (!has_row) {
+      best_s = T(-2);
+    } else if (used) {
+      best_s = T(-1);
+    } else if constexpr (P == 1) {
+      best_s = fabs(e[0]);
+    } else {
+      best_s = e[0] * e[0] + e[1] * e[1];
+    }
+    int best_r = lane;
+    for (int off = 16; off > 0; off >>= 1) {
+      const T os = __shfl_xor_sync(full, best_s, off);
+      const int orow = __shfl_xor_sync(full, best_r, off);
+      if (better(os, orow, best_s, best_r)) { best_s = os; best_r = orow; }
+    }
+    const int p = best_r;
+    T pv[P];
+    for (int c = 0; c < P; ++c) pv[c] = __shfl_sync(full, e[c], p);
+    if (lane == p) used = true;
+    if (lane == k) perm_k = p;
+    T* prow[P];
+    for (int c = 0; c < P; ++c) prow[c] = a[c] + p * ld;
+    if constexpr (P == 1) {
+      const bool ok = fabs(pv[0]) >= thr;
+      ok_all = ok_all && ok;
+      const T d = ok ? pv[0] : T(1);
+      for (int j = k + 1 + lane; j < w; j += 32) prow[0][j] = prow[0][j] / d;
+    } else {
+      const T d = pv[0] * pv[0] + pv[1] * pv[1];
+      const bool ok = d >= thr;
+      ok_all = ok_all && ok;
+      const T inv_d = T(1) / (ok ? d : T(1));
+      for (int j = k + 1 + lane; j < w; j += 32) {
+        const T prr = prow[0][j], pri = prow[1][j];
+        prow[0][j] = (prr * pv[0] + pri * pv[1]) * inv_d;
+        prow[1][j] = (pri * pv[0] - prr * pv[1]) * inv_d;
+      }
+    }
+    __syncwarp();
+    if (has_row && lane != p) {
+      T* row[P];
+      for (int c = 0; c < P; ++c) row[c] = a[c] + lane * ld;
+      if constexpr (P == 1) {
+        const T f = e[0];
+        for (int j = k + 1; j < w; ++j) row[0][j] = row[0][j] - f * prow[0][j];
+      } else {
+        const T fr = e[0], fi = e[1];
+        for (int j = k + 1; j < w; ++j) {
+          const T qr = prow[0][j], qi = prow[1][j];
+          row[0][j] = row[0][j] - (fr * qr - fi * qi);
+          row[1][j] = row[1][j] - (fr * qi + fi * qr);
+        }
+      }
+    }
+    __syncwarp();
+  }
+  return ok_all;
+}
+
+constexpr int WARPS_PER_BLOCK = 4;
+
+// Shared-memory bytes of a warp-tier block solving (n, n) systems: per
+// warp, P planes of n rows at the odd stride (n + 1) | 1.
+template <typename T, int P>
+__host__ __device__ inline size_t warp_smem_bytes(int n) {
+  return (size_t)WARPS_PER_BLOCK * P * n * ((n + 1) | 1) * sizeof(T);
+}
+
+// The warp tier's solve: warp q of block b solves system
+// b * WARPS_PER_BLOCK + q of A (B, n, n) and b (B, n) per plane, loading it
+// with the warp's own coalesced reads; no block barrier anywhere.
+template <typename T, int P>
+__global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
+    warp_solve_kernel(const T* __restrict__ A0, const T* __restrict__ A1,
+                      const T* __restrict__ b0, const T* __restrict__ b1,
+                      T* __restrict__ x0, T* __restrict__ x1,
+                      uint8_t* __restrict__ valid_out, int batch, int n,
+                      T thr) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long sys = (long long)blockIdx.x * WARPS_PER_BLOCK + warp;
+  if (sys >= batch) return;  // the whole warp: no barrier follows
+  const int ld = (n + 1) | 1, nn = n * n;
+  T* base = reinterpret_cast<T*>(smem_raw) + (size_t)warp * P * n * ld;
+  T* a[P];
+  for (int c = 0; c < P; ++c) a[c] = base + (size_t)c * n * ld;
+  const T* A[2] = {A0 + sys * nn, P == 2 ? A1 + sys * nn : nullptr};
+  const T* b[2] = {b0 + sys * n, P == 2 ? b1 + sys * n : nullptr};
+  for (int idx = lane; idx < nn; idx += 32) {
+    const int i = idx / n, j = idx - i * n;
+    for (int c = 0; c < P; ++c) a[c][i * ld + j] = A[c][idx];
+  }
+  for (int i = lane; i < n; i += 32)
+    for (int c = 0; c < P; ++c) a[c][i * ld + n] = b[c][i];
+  __syncwarp();
+  int perm_k;
+  const bool ok = warp_gj<T, P>(a, n, n + 1, ld, thr, perm_k);
+  // pivot row perm[k] (held by lane k) carries x[k] in column n
+  T* x[2] = {x0, x1};
+  if (lane < n)
+    for (int c = 0; c < P; ++c) x[c][sys * n + lane] = a[c][perm_k * ld + n];
+  if (lane == 0) valid_out[sys] = ok ? 1 : 0;
+}
+
+// Launch the warp tier on ``stream``.
+template <typename T, int P>
+int warp_launch(const void* A0, const void* A1, const void* b0,
+                const void* b1, void* x0, void* x1, void* valid, int batch,
+                int n, T thr, void* stream) {
+  if (n < 1 || n > WARP_MAX_N) return (int)cudaErrorInvalidValue;
+  const size_t smem = warp_smem_bytes<T, P>(n);
+  cudaError_t err = cudaFuncSetAttribute(
+      warp_solve_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (batch > 0) {
+    const int blocks = (int)(((long long)batch + WARPS_PER_BLOCK - 1) /
+                             WARPS_PER_BLOCK);
+    warp_solve_kernel<T, P><<<blocks, 32 * WARPS_PER_BLOCK, smem,
+                              (cudaStream_t)stream>>>(
+        (const T*)A0, (const T*)A1, (const T*)b0, (const T*)b1, (T*)x0,
+        (T*)x1, (uint8_t*)valid, batch, n, thr);
+  }
+  return (int)cudaGetLastError();
 }
 
 // ---- one thread per system -------------------------------------------------

@@ -1,5 +1,6 @@
-// K1: batched complex Gauss-Jordan on (re, im) planes, one block per system,
-// and K4, the batched complex inverse by the same elimination.
+// K1: batched complex Gauss-Jordan on (re, im) planes in three tiers (a warp,
+// a block or a panel-blocked block per system), and K4, the batched complex
+// inverse by the block tier's elimination.
 //
 // Replaces the TPU kernel spicey_tpu/ops/pallas_gj.py:_gj_complex_kernel
 // (pallas_call in _solve_complex_f32_batchlast, loop body
@@ -7,8 +8,9 @@
 // spicey_tpu_torch/ops/linsolve.py:gj_solve_planes: the pivot of column k
 // is the unused row with the largest |a|^2, ties to the lowest row; a
 // system is invalid when |pivot|^2 < eps^2, and elimination continues
-// through an invalid pivot with a unit divisor. The elimination is
-// gj_common.cuh:block_gj with complex elements, shared with K2 and K3.
+// through an invalid pivot with a unit divisor. The eliminations are
+// gj_common.cuh's warp_gj and block_gj and gj_panel.cuh's, with complex
+// elements, shared with K2 and K3.
 //
 // Layout: batch-first A_re, A_im (B, N, N), b_re, b_im (B, N) ->
 // x_re, x_im (B, N), valid (B,) as bytes (a torch.bool tensor).
@@ -25,22 +27,35 @@
 // shared memory up to N = 84 (f64) / 119 (f32) and use the caller's
 // global workspace above.
 //
-// What bounds it on the H100: at the slice's sizes (N = 3..128, 1e3..1e5
-// systems) the elimination is N steps of an O(N^2) update, each ending in
-// a block barrier, so it is latency-bound on shared memory and barriers,
-// not on device-memory bandwidth: the system is read once and x written
-// once. The design keeps the whole augmented system in shared memory
-// (dynamic, up to the 227 KB a block may hold) so the N^3 traffic never
-// leaves the SM, and gives one block to each system so thousands of
-// independent blocks fill the 132 SMs. Where the f64 planes do not fit
-// (N >= ~119), the planes live in a global workspace the caller
-// allocates; they stay hot in L2. A warp-level pivot search, several
-// systems per block at small N and register tiling are later work.
+// Three tiers of the solve, chosen by the wrapper (ops/gj.py:tier_for)
+// from N and the dtype, each one elimination with the plain version's
+// pivots and flags:
+//   warp   (N <= 32) gj_common.cuh:warp_gj, one warp per system, four
+//          systems per block. At these sizes a block per system waits
+//          through ~4N block barriers while each step updates a few
+//          elements per thread; a warp needs no block barrier (shuffles and
+//          __syncwarp), and with 4 systems per block many warps per SM
+//          hide the shuffle and shared-memory latency. Bound: latency of
+//          the N dependent steps, then shared-memory bandwidth.
+//   block  gj_common.cuh:block_gj, one block per system, the whole
+//          augmented system rewritten from shared memory (or a global
+//          workspace) at every pivot step.
+//   panel  (N >= 33) gj_panel.cuh: pivot steps on [panel | C] only (n x
+//          2 PW, PW = 16 columns), then one product per panel for the
+//          trailing columns, on DMMA in f64 and register-tiled true f32 on
+//          the CUDA cores; where the planes overflow shared memory the
+//          workspace is read and written once per panel, not once per
+//          step, and past N = 401 (f64) / 822 (f32) [panel | C] lives
+//          there too. Bound: the panel's barriers at mid N, the product at
+//          large N.
+// K4 keeps block_gj at every N: its planes stay in shared memory up to
+// N = 84 (f64) / 119 (f32) and use the caller's global workspace above.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gj_common.cuh"
+#include "gj_panel.cuh"
 
 namespace {
 
@@ -171,10 +186,23 @@ int launch_inv(const void* A_re, const void* A_im, void* M_re, void* M_im,
   return (int)cudaGetLastError();
 }
 
+enum Tier { WARP = 0, BLOCK = 1, PANEL = 2 };
+
 template <typename T>
 int launch(const void* A_re, const void* A_im, const void* b_re,
            const void* b_im, void* x_re, void* x_im, void* valid,
-           void* workspace, int batch, int n, double eps, void* stream) {
+           void* workspace, int batch, int n, double eps, int tier,
+           void* stream) {
+  const T eps2 = (T)(eps * eps);
+  if (tier == WARP) {
+    if (workspace != nullptr) return (int)cudaErrorInvalidValue;
+    return gj::warp_launch<T, 2>(A_re, A_im, b_re, b_im, x_re, x_im, valid,
+                                 batch, n, eps2, stream);
+  }
+  if (tier == PANEL)
+    return gj::panel::launch<T, 2>(A_re, A_im, b_re, b_im, x_re, x_im,
+                                   valid, workspace, batch, n, eps2, stream);
+  if (tier != BLOCK) return (int)cudaErrorInvalidValue;
   int threads = n <= 8 ? 32 : (n <= 24 ? 128 : 256);
   size_t smem = smem_bytes<T>(n, workspace == nullptr);
   cudaError_t err = cudaFuncSetAttribute(
@@ -184,8 +212,7 @@ int launch(const void* A_re, const void* A_im, const void* b_re,
   if (batch > 0) {
     gj_complex_kernel<T><<<batch, threads, smem, (cudaStream_t)stream>>>(
         (const T*)A_re, (const T*)A_im, (const T*)b_re, (const T*)b_im,
-        (T*)x_re, (T*)x_im, (uint8_t*)valid, (T*)workspace, n,
-        (T)(eps * eps));
+        (T*)x_re, (T*)x_im, (uint8_t*)valid, (T*)workspace, n, eps2);
   }
   return (int)cudaGetLastError();
 }
@@ -194,26 +221,34 @@ int launch(const void* A_re, const void* A_im, const void* b_re,
 
 extern "C" {
 
-// Shared-memory bytes a block needs when the planes stay on chip; the
-// wrapper allocates a global workspace when this exceeds its budget.
-size_t gj_complex_smem_bytes(int n, int is_double) {
-  return is_double ? smem_bytes<double>(n, true) : smem_bytes<float>(n, true);
+// Systems of (2, N, N + 1) elements the tier's global workspace must hold
+// for a batch of B, 0 when its planes stay in shared memory: B for the
+// block tier past shared memory, one per resident block for the panel
+// tier's plan (gj_panel.cuh), never for the warp tier.
+int gj_complex_workspace_systems(int n, int batch, int is_double, int tier) {
+  if (tier == WARP) return 0;
+  if (tier == PANEL)
+    return is_double ? gj::panel::workspace_systems<double, 2>(n, batch)
+                     : gj::panel::workspace_systems<float, 2>(n, batch);
+  const size_t bytes =
+      is_double ? smem_bytes<double>(n, true) : smem_bytes<float>(n, true);
+  return bytes > gj::SMEM_MAX ? batch : 0;
 }
 
 int gj_complex_f32(const void* A_re, const void* A_im, const void* b_re,
                    const void* b_im, void* x_re, void* x_im, void* valid,
-                   void* workspace, int batch, int n, double eps,
+                   void* workspace, int batch, int n, double eps, int tier,
                    void* stream) {
   return launch<float>(A_re, A_im, b_re, b_im, x_re, x_im, valid, workspace,
-                       batch, n, eps, stream);
+                       batch, n, eps, tier, stream);
 }
 
 int gj_complex_f64(const void* A_re, const void* A_im, const void* b_re,
                    const void* b_im, void* x_re, void* x_im, void* valid,
-                   void* workspace, int batch, int n, double eps,
+                   void* workspace, int batch, int n, double eps, int tier,
                    void* stream) {
   return launch<double>(A_re, A_im, b_re, b_im, x_re, x_im, valid, workspace,
-                        batch, n, eps, stream);
+                        batch, n, eps, tier, stream);
 }
 
 // K4: shared-memory bytes of a block whose planes stay on chip.

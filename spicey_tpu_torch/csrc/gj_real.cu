@@ -19,24 +19,34 @@
 // What bounds it on the H100: the systems are read once and the answers
 // written once (a few bytes per flop at N = 3..6, where the transient
 // main path runs it), while the elimination is 2N^2(N+1) [K2] or 4N^3
-// [K3] flops from on-chip memory. Two routes:
-//   - N <= 16 (gj::THREAD_MAX_N): one THREAD per system, the augmented
-//     system in shared memory with the system index fastest (conflict-free
-//     warp accesses, no barriers in the elimination), as kernel K5 does.
-//     The block's systems are contiguous in A, so they are loaded with
-//     coalesced reads and scattered into that layout. This is the shape of
-//     the Newton passes (B = 1..1e5, N = 3..7) and of the factor-once
-//     inverse (B up to 1e6, N = 3).
-//   - N > 16: one BLOCK per system (gj::block_gj, the elimination of K1 on
+// [K3] flops from on-chip memory. The solve (K2) has four tiers, chosen
+// by the wrapper (ops/gj_real.py:tier_for) from N and the dtype:
+//   - thread (N <= 16, gj::THREAD_MAX_N): one THREAD per system, the
+//     augmented system in shared memory with the system index fastest
+//     (conflict-free warp accesses, no barriers in the elimination), as
+//     kernel K5 does. The block's systems are contiguous in A, so they are
+//     loaded with coalesced reads and scattered into that layout. This is
+//     the shape of the Newton passes (B = 1..1e5, N = 3..7) and of the
+//     factor-once inverse (B up to 1e6, N = 3).
+//   - warp (N <= 32): one WARP per system (gj_common.cuh:warp_gj), four
+//     systems per block, no block barrier: a shuffle argmax for the pivot
+//     and __syncwarp between the steps.
+//   - block: one BLOCK per system (gj::block_gj, the elimination of K1 on
 //     real elements), planes in dynamic shared memory up to the 227 KB a
 //     block may hold and in a global workspace the wrapper allocates above
 //     that (K3 at N = 128 in f64: [A | I] is 256 KB).
-// Several systems per block at mid N and register tiling are later work.
+//   - panel (N >= 33): gj_panel.cuh, pivot steps on [panel | C] (n x 2 PW,
+//     PW = 16 columns) and one DMMA (f64) or register-tiled f32 product
+//     per panel for the trailing columns; past N = 822 (f64) / 1629 (f32)
+//     [panel | C] lives in the workspace beside the planes.
+// The inverse (K3) keeps the thread route up to N = 16 and block_gj
+// above.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gj_common.cuh"
+#include "gj_panel.cuh"
 
 namespace {
 
@@ -151,28 +161,33 @@ size_t block_smem(int n, bool inv, bool planes_in_smem) {
 }
 
 template <typename T, bool INV>
-int launch(const void* A, const void* b, void* out, void* valid,
-           void* workspace, int batch, int n, double eps, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  if (n <= gj::THREAD_MAX_N) {
-    const size_t per_sys = (size_t)n * width(n, INV) * sizeof(T);
-    int tpb = 256;
-    while (tpb > 32 && tpb * per_sys > SMEM_TARGET) tpb >>= 1;
-    const size_t smem = tpb * per_sys;
-    if (smem > gj::SMEM_MAX) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        gj_real_thread_kernel<T, INV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (batch > 0) {
-      const int blocks = (int)(((long long)batch + tpb - 1) / tpb);
-      gj_real_thread_kernel<T, INV><<<blocks, tpb, smem,
-                                      (cudaStream_t)stream>>>(
-          (const T*)A, (const T*)b, (T*)out, (uint8_t*)valid, batch, n,
-          (T)eps);
-    }
-    return (int)cudaGetLastError();
+int launch_thread(const void* A, const void* b, void* out, void* valid,
+                  int batch, int n, double eps, void* stream) {
+  if (n < 1 || n > gj::THREAD_MAX_N) return (int)cudaErrorInvalidValue;
+  const size_t per_sys = (size_t)n * width(n, INV) * sizeof(T);
+  int tpb = 256;
+  while (tpb > 32 && tpb * per_sys > SMEM_TARGET) tpb >>= 1;
+  const size_t smem = tpb * per_sys;
+  if (smem > gj::SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gj_real_thread_kernel<T, INV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (batch > 0) {
+    const int blocks = (int)(((long long)batch + tpb - 1) / tpb);
+    gj_real_thread_kernel<T, INV><<<blocks, tpb, smem,
+                                    (cudaStream_t)stream>>>(
+        (const T*)A, (const T*)b, (T*)out, (uint8_t*)valid, batch, n,
+        (T)eps);
   }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool INV>
+int launch_block(const void* A, const void* b, void* out, void* valid,
+                 void* workspace, int batch, int n, double eps,
+                 void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
   const int threads = n <= 24 ? 128 : 256;
   const size_t smem = block_smem<T>(n, INV, workspace == nullptr);
   if (smem > gj::SMEM_MAX) return (int)cudaErrorInvalidValue;
@@ -189,45 +204,93 @@ int launch(const void* A, const void* b, void* out, void* valid,
   return (int)cudaGetLastError();
 }
 
+enum Tier { WARP = 0, BLOCK = 1, PANEL = 2, THREAD = 3 };
+
+template <typename T>
+int launch_solve(const void* A, const void* b, void* x, void* valid,
+                 void* workspace, int batch, int n, double eps, int tier,
+                 void* stream) {
+  switch (tier) {
+    case THREAD:
+      if (workspace != nullptr) return (int)cudaErrorInvalidValue;
+      return launch_thread<T, false>(A, b, x, valid, batch, n, eps, stream);
+    case WARP:
+      if (workspace != nullptr) return (int)cudaErrorInvalidValue;
+      return gj::warp_launch<T, 1>(A, nullptr, b, nullptr, x, nullptr, valid,
+                                   batch, n, (T)eps, stream);
+    case BLOCK:
+      return launch_block<T, false>(A, b, x, valid, workspace, batch, n, eps,
+                                    stream);
+    case PANEL:
+      return gj::panel::launch<T, 1>(A, nullptr, b, nullptr, x, nullptr,
+                                     valid, workspace, batch, n, (T)eps,
+                                     stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K3: the thread route up to THREAD_MAX_N, block_gj above.
+template <typename T>
+int launch_inverse(const void* A, void* out, void* valid, void* workspace,
+                   int batch, int n, double eps, void* stream) {
+  if (n <= gj::THREAD_MAX_N)
+    return launch_thread<T, true>(A, nullptr, out, valid, batch, n, eps,
+                                  stream);
+  return launch_block<T, true>(A, nullptr, out, valid, workspace, batch, n,
+                               eps, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// 1 when the block route's planes do not fit in shared memory, so the
-// wrapper must pass a global workspace of (B, N, width) elements.
-int gj_real_needs_workspace(int n, int inv, int is_double) {
-  if (n <= gj::THREAD_MAX_N) return 0;
+// Systems of (N, width) elements the route's global workspace must hold
+// for a batch of B, 0 when its planes stay in shared memory: the solve's
+// ``tier`` (ignored for the inverse, whose route follows N); B for the
+// block route past shared memory, one per resident block for the panel
+// tier's plan (gj_panel.cuh).
+int gj_real_workspace_systems(int n, int batch, int inv, int is_double,
+                              int tier) {
+  if (inv) {
+    if (n <= gj::THREAD_MAX_N) return 0;
+  } else if (tier == THREAD || tier == WARP) {
+    return 0;
+  } else if (tier == PANEL) {
+    return is_double ? gj::panel::workspace_systems<double, 1>(n, batch)
+                     : gj::panel::workspace_systems<float, 1>(n, batch);
+  }
   const size_t bytes = is_double ? block_smem<double>(n, inv, true)
                                  : block_smem<float>(n, inv, true);
-  return bytes > gj::SMEM_MAX ? 1 : 0;
+  return bytes > gj::SMEM_MAX ? batch : 0;
 }
 
 int gj_real_solve_f32(const void* A, const void* b, void* x, void* valid,
                       void* workspace, int batch, int n, double eps,
-                      void* stream) {
-  return launch<float, false>(A, b, x, valid, workspace, batch, n, eps,
-                              stream);
+                      int tier, void* stream) {
+  return launch_solve<float>(A, b, x, valid, workspace, batch, n, eps, tier,
+                             stream);
 }
 
 int gj_real_solve_f64(const void* A, const void* b, void* x, void* valid,
                       void* workspace, int batch, int n, double eps,
-                      void* stream) {
-  return launch<double, false>(A, b, x, valid, workspace, batch, n, eps,
-                               stream);
+                      int tier, void* stream) {
+  return launch_solve<double>(A, b, x, valid, workspace, batch, n, eps, tier,
+                              stream);
 }
 
 int gj_real_inverse_f32(const void* A, void* inv, void* valid,
                         void* workspace, int batch, int n, double eps,
                         void* stream) {
-  return launch<float, true>(A, nullptr, inv, valid, workspace, batch, n,
-                             eps, stream);
+  return launch_inverse<float>(A, inv, valid, workspace, batch, n, eps,
+                               stream);
 }
 
 int gj_real_inverse_f64(const void* A, void* inv, void* valid,
                         void* workspace, int batch, int n, double eps,
                         void* stream) {
-  return launch<double, true>(A, nullptr, inv, valid, workspace, batch, n,
-                              eps, stream);
+  return launch_inverse<double>(A, inv, valid, workspace, batch, n, eps,
+                                stream);
 }
 
 }  // extern "C"

@@ -10,12 +10,23 @@ tier itself. K4 writes the true inverse, not the TPU kernel's
 row-permuted one. Their plain PyTorch versions are
 ``ops/linsolve.gj_solve_planes`` and ``ops/linsolve.gj_inverse_planes``.
 
+K1 runs in three tiers, chosen by ``tier_for`` from N and the dtype
+(``csrc/gj_complex.cu`` says what bounds each): "warp" (N <= 32, one warp
+per system, ``gj_common.cuh:warp_gj``), "block" (one block per system,
+``block_gj``) and "panel" (``csrc/gj_panel.cuh``: pivot steps on a panel
+of PW = 16 columns, then one product per panel, on the tensor cores in
+f64). K4 keeps ``block_gj`` at every N. ``K1_TIERS`` counts each tier's
+launches beside ``K1``'s total.
+
 N has no upper limit: where a system's planes overflow the 227 KB of
-shared memory a block may hold (the solve from N = 119 in f64 and 169 in
-f32, the inverse above N = 84 in f64 and 119 in f32), the block
-eliminates in a global workspace of B N (N + 1) (solve) or 2 B N^2
-(inverse) elements per plane, so a flat deck past N = 128 solves dense,
-as the JAX package solves a deck that has no subcircuit structure there.
+shared memory a block may hold, the kernel eliminates in a global
+workspace. The block tier's solve does so from N = 119 in f64 and 169 in
+f32 (B N (N + 1) elements per plane), the inverse above N = 84 in f64 and
+119 in f32 (2 B N^2). The panel tier keeps one slot per resident block,
+holding the planes where its plan says (complex f64 from N = 100, f32
+from 151) and, past N = 401 in f64 and 822 in f32, its n x 33 [panel | C]
+as well. So a flat deck past N = 128 solves dense, as the JAX package
+solves a deck that has no subcircuit structure there.
 """
 
 from __future__ import annotations
@@ -38,12 +49,46 @@ K4 = {dt: Kernel(name=f"gj_inv_complex_{tag}",
       for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64"))}
 
 
+TIERS = ("warp", "block", "panel")  # the C side's tier codes, in order
+WARP_MAX_N = 32                     # gj_common.cuh:WARP_MAX_N
+# The crossovers: the warp tier up to K1_WARP_MAX, the panel tier from
+# K1_PANEL_MIN, the block tier between (empty where the two meet); the
+# same in f32 and f64. Measured by ``tools/profile_torch_solver.py
+# --tiers`` (every tier forced on the sweep's ladder planes, N = 8-32 and
+# 33-128) on an NVIDIA H100 80GB HBM3 at 700.00 W: the warp tier beat the block tier at every
+# N <= 32 (N = 32: 1.86 / 3.55 ms against 14.5 / 16.5 ms, f32 / f64); the
+# panel tier beat it at every N >= 33 (N = 33: 13.6 / 14.5 ms against
+# 16.0 / 17.9 ms; N = 128: 63.6 / 102.9 ms against 538 / 1462 ms). Past
+# N = 401 (f64) / 822 (f32), where the panel tier keeps its [panel | C]
+# in the workspace, it beat the block tier too (``chip_smoke.py`` phase 9,
+# random systems, same card: complex f64 N = 512, 64 systems, 18.1
+# against 488.9 ms; N = 1024, 16 systems, 95.0 against 3621 ms). So the
+# block tier keeps no N of the solve.
+K1_WARP_MAX = 32
+K1_PANEL_MIN = 33
+# launches of each tier, per instantiation (K1 counts their sum)
+K1_TIERS = {dt: dict.fromkeys(TIERS, 0)
+            for dt in (torch.float32, torch.float64)}
+
+
+def tier_for(n: int, dtype: torch.dtype, inverse: bool = False) -> str:
+    """The tier K1 runs an (n, n) system of ``dtype`` planes in (the same
+    for both dtypes on the card measured); K4 (the inverse) is always
+    "block"."""
+    if inverse:
+        return "block"
+    if n <= K1_WARP_MAX:
+        return "warp"
+    return "panel" if n >= K1_PANEL_MIN else "block"
+
+
 _LAUNCH_ARGS = [ctypes.c_void_p] * 8 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int,
+    ctypes.c_void_p]
 _INV_ARGS = [ctypes.c_void_p] * 6 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
 _SIGNATURES = {
-    "gj_complex_smem_bytes": ([ctypes.c_int, ctypes.c_int], ctypes.c_size_t),
+    "gj_complex_workspace_systems": ([ctypes.c_int] * 4, ctypes.c_int),
     "gj_complex_f32": (_LAUNCH_ARGS, ctypes.c_int),
     "gj_complex_f64": (_LAUNCH_ARGS, ctypes.c_int),
     "gj_complex_inv_smem_bytes": ([ctypes.c_int, ctypes.c_int],
@@ -60,11 +105,12 @@ def load_library() -> ctypes.CDLL:
 
 def gj_solve_planes_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
                          b_re: torch.Tensor, b_im: torch.Tensor,
-                         eps: float = EPS
+                         eps: float = EPS, tier: str | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K1 on batch-first planes: A_* (B, N, N), b_* (B, N), all CUDA,
     contiguous, one float dtype (float32 or float64). Returns (x_re, x_im,
-    valid) shaped (B, N), (B, N), (B,)."""
+    valid) shaped (B, N), (B, N), (B,). ``tier`` forces one of ``TIERS``
+    (for the comparisons and the sweep); None takes ``tier_for``'s."""
     ts = (A_re, A_im, b_re, b_im)
     if A_re.ndim != 3 or A_re.shape[1] != A_re.shape[2]:
         raise ValueError(f"A_re must be (B, N, N), got {tuple(A_re.shape)}")
@@ -79,27 +125,35 @@ def gj_solve_planes_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
     if A_re.dtype not in (torch.float32, torch.float64) \
             or any(t.dtype != A_re.dtype for t in ts):
         raise TypeError("K1 takes float32 or float64 planes of one dtype")
+    tier = tier_for(n, A_re.dtype) if tier is None else tier
+    if tier not in TIERS or (tier == "warp" and n > WARP_MAX_N):
+        raise ValueError(f"K1 has no tier {tier!r} at N={n}")
     if any(not t.is_cuda or t.device != A_re.device for t in ts):
         raise ValueError("K1 takes CUDA tensors on one device")
     if any(not t.is_contiguous() for t in ts):
         raise ValueError("K1 takes contiguous tensors")
+    code_tier = TIERS.index(tier)
     lib = load_library()
     dbl = A_re.dtype == torch.float64
     x_re = torch.empty((nb, n), dtype=A_re.dtype, device=A_re.device)
     x_im = torch.empty_like(x_re)
     valid = torch.empty((nb,), dtype=torch.bool, device=A_re.device)
     ws = None
-    if lib.gj_complex_smem_bytes(n, int(dbl)) > SMEM_MAX:
-        # the planes overflow shared memory (f64 from N = 119, f32 past
-        # ~168): eliminate in place in a global workspace instead
-        ws = workspace((nb, 2, n, n + 1), A_re, "K1")
+    n_ws = lib.gj_complex_workspace_systems(n, nb, int(dbl), code_tier)
+    if n_ws:
+        # the planes live in global memory: the block tier's where they
+        # overflow shared memory (f64 from N = 119, f32 past ~168), one
+        # system each; the panel tier's where its plan keeps them there,
+        # one slot per resident block
+        ws = workspace((n_ws, 2, n, n + 1), A_re, "K1")
     fn = lib.gj_complex_f64 if dbl else lib.gj_complex_f32
     code = fn(ptr(A_re), ptr(A_im), ptr(b_re), ptr(b_im), ptr(x_re),
               ptr(x_im), ptr(valid),
               ctypes.c_void_p(0 if ws is None else ws.data_ptr()),
-              nb, n, float(eps), stream_ptr(A_re.device))
-    check(code, "gj_complex launch")
+              nb, n, float(eps), code_tier, stream_ptr(A_re.device))
+    check(code, f"gj_complex {tier} launch")
     K1[A_re.dtype].launches += 1
+    K1_TIERS[A_re.dtype][tier] += 1
     return x_re, x_im, valid
 
 

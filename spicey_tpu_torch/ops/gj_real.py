@@ -10,9 +10,20 @@ writes the true inverse, not the TPU kernel's row-permuted one. Their
 plain PyTorch versions are ``ops/linsolve.gj_solve`` and
 ``ops/linsolve.gj_inverse``; both kernels share the elimination of K1
 (csrc/gj_common.cuh). N has no upper limit: where a system overflows
-shared memory (f64 [A | I] past N = 119, f64 [A | b] past N = 168), the
-block route eliminates in a global workspace, so a flat deck past
-N = 128 solves dense, as in the JAX package.
+shared memory (f64 [A | I] past N = 119, f64 [A | b] past N = 168 in the
+block tier; in the panel tier the planes where its plan says, and its
+n x 33 [panel | C] past N = 822 in f64 and 1629 in f32), the kernel
+eliminates in a global workspace, so a flat deck past N = 128 solves
+dense, as in the JAX package.
+
+The solve runs in four tiers, chosen by ``tier_for`` from N and the dtype
+(``csrc/gj_real.cu`` says what bounds each): "thread" (N <= 16, one
+thread per system, ``gj_common.cuh:thread_gj``), "warp" (N <= 32, one warp
+per system, ``warp_gj``), "block" (one block per system, ``block_gj``) and
+"panel" (``csrc/gj_panel.cuh``: a panel of PW = 16 columns, then one
+product per panel, on the tensor cores in f64). The inverse keeps its
+route: one thread per system up to N = 16 and ``block_gj`` above.
+``K2_TIERS`` counts each tier's launches beside ``K2``'s total.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ import torch
 
 from ..constants import EPS
 from ._build import Kernel, check, load, ptr, stream_ptr, workspace
+from .gj import WARP_MAX_N
 
 # one launch counter per instantiation
 K2 = {dt: Kernel(name=f"gj_real_{tag}",
@@ -34,12 +46,56 @@ K3 = {dt: Kernel(name=f"gj_inv_real_{tag}",
                  replaces="spicey_tpu/ops/pallas_gj.py:468")
       for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64"))}
 
+TIERS = ("warp", "block", "panel", "thread")  # the C side's tier codes
+THREAD_MAX_N = 16                              # gj_common.cuh:THREAD_MAX_N
+# The crossovers: the thread tier up to K2_THREAD_MAX (per dtype), the
+# warp tier from there up to K2_WARP_MAX, the panel tier from
+# K2_PANEL_MIN, the block tier between (empty where they meet). Measured by
+# ``tools/profile_torch_solver.py --tiers`` (every tier forced on the real
+# part of the sweep's ladder planes) on an NVIDIA H100 80GB HBM3 at
+# 700.00 W. Thread against warp, ``--ns 8 9 10 11 12 13 14 15 16 --reps
+# 5``: the thread tier won up to N = 11 in f32 (0.283 against 0.304 ms)
+# and N = 9 in f64 (0.276 against 0.287 ms); the warp tier won every N
+# from 12 (f32) and 11 (f64) to 16, by 1.3-2.2x (f32) and 1.3-3.7x
+# (f64). At N = 10 in f64 the two swapped places across three runs
+# (thread / warp 0.353 / 0.351, 0.354 / 0.356, 0.340 / 0.333 ms), so it
+# keeps the thread tier. Warp against block and panel against block,
+# ``--ns 8 ... 128``: the warp tier beat the block tier at every N <= 32
+# (N = 32: 1.06 / 1.72 ms against 11.9 / 13.0 ms, f32 / f64); the panel
+# tier beat it at every N >= 33 (N = 33: 10.3 / 12.2 ms against 13.1 /
+# 14.4 ms; N = 128: 30.8 / 39.7 ms against 161 / 345 ms). Past N = 822
+# (f64) / 1629 (f32), where the panel tier keeps its [panel | C] in the
+# workspace, it beat the block tier too (``chip_smoke.py`` phase 9,
+# random systems, same card: f64 N = 1024, 16 systems, 56.2 against 1754
+# ms; N = 512, 64 systems, 5.77 against 236.2 ms). So the block tier
+# keeps no N of the solve.
+K2_THREAD_MAX = {torch.float32: 11, torch.float64: 10}
+K2_WARP_MAX = 32
+K2_PANEL_MIN = 33
+# launches of each tier, per instantiation (K2 counts their sum)
+K2_TIERS = {dt: dict.fromkeys(TIERS, 0)
+            for dt in (torch.float32, torch.float64)}
+
+
+def tier_for(n: int, dtype: torch.dtype, inverse: bool = False) -> str:
+    """The tier K2 runs an (n, n) system of ``dtype`` in; for K3 (the
+    inverse) the route it keeps, "thread" up to N = 16, else "block"."""
+    if inverse:
+        return "thread" if n <= THREAD_MAX_N else "block"
+    if n <= K2_THREAD_MAX[dtype]:
+        return "thread"
+    if n <= K2_WARP_MAX:
+        return "warp"
+    return "panel" if n >= K2_PANEL_MIN else "block"
+
+
 _SOLVE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_double, ctypes.c_void_p]
+                                       ctypes.c_double, ctypes.c_int,
+                                       ctypes.c_void_p]
 _INV_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_double, ctypes.c_void_p]
 _SIGNATURES = {
-    "gj_real_needs_workspace": ([ctypes.c_int] * 3, ctypes.c_int),
+    "gj_real_workspace_systems": ([ctypes.c_int] * 5, ctypes.c_int),
     "gj_real_solve_f32": (_SOLVE_ARGS, ctypes.c_int),
     "gj_real_solve_f64": (_SOLVE_ARGS, ctypes.c_int),
     "gj_real_inverse_f32": (_INV_ARGS, ctypes.c_int),
@@ -77,36 +133,47 @@ def _check_tensors(ts: tuple, what: str) -> None:
 
 
 def _workspace(lib: ctypes.CDLL, A: torch.Tensor, n: int,
-               inv: bool) -> torch.Tensor | None:
-    """The global workspace of the block route where its planes overflow
-    shared memory (f64 [A | I] past N = 119), else None."""
+               inv: bool, tier: str = "block") -> torch.Tensor | None:
+    """The global workspace of a route whose planes live in global memory
+    (the block route past shared memory, f64 [A | I] past N = 119, one
+    system each; the panel tier where its plan says so, one slot per
+    resident block), else None."""
     dbl = A.dtype == torch.float64
-    if not lib.gj_real_needs_workspace(n, int(inv), int(dbl)):
+    n_ws = lib.gj_real_workspace_systems(n, A.shape[0], int(inv), int(dbl),
+                                         TIERS.index(tier))
+    if not n_ws:
         return None
     w = 2 * n if inv else n + 1
-    return workspace((A.shape[0], n, w), A, "K3" if inv else "K2")
+    return workspace((n_ws, n, w), A, "K3" if inv else "K2")
 
 
-def gj_solve_cuda(A: torch.Tensor, b: torch.Tensor, eps: float = EPS
+def gj_solve_cuda(A: torch.Tensor, b: torch.Tensor, eps: float = EPS,
+                  tier: str | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K2: A (B, N, N), b (B, N), CUDA, contiguous, one float dtype.
-    Returns (x (B, N), valid (B,))."""
+    Returns (x (B, N), valid (B,)). ``tier`` forces one of ``TIERS`` (for
+    the comparisons and the sweep); None takes ``tier_for``'s."""
     nb, n = _check_systems(A, "K2")
     if b.shape != (nb, n):
         raise ValueError(f"K2: b must be (B, N) = {(nb, n)}, got "
                          f"{tuple(b.shape)}")
+    tier = tier_for(n, A.dtype) if tier is None else tier
+    if tier not in TIERS or (tier == "warp" and n > WARP_MAX_N) \
+            or (tier == "thread" and n > THREAD_MAX_N):
+        raise ValueError(f"K2 has no tier {tier!r} at N={n}")
     _check_tensors((A, b), "K2")
     lib = load_library()
     x = torch.empty((nb, n), dtype=A.dtype, device=A.device)
     valid = torch.empty((nb,), dtype=torch.bool, device=A.device)
-    ws = _workspace(lib, A, n, inv=False)
+    ws = _workspace(lib, A, n, inv=False, tier=tier)
     fn = lib.gj_real_solve_f64 if A.dtype == torch.float64 \
         else lib.gj_real_solve_f32
     code = fn(ptr(A), ptr(b), ptr(x), ptr(valid),
               ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,
-              float(eps), stream_ptr(A.device))
-    check(code, "gj_real solve launch")
+              float(eps), TIERS.index(tier), stream_ptr(A.device))
+    check(code, f"gj_real {tier} solve launch")
     K2[A.dtype].launches += 1
+    K2_TIERS[A.dtype][tier] += 1
     return x, valid
 
 

@@ -57,7 +57,7 @@ def _systems(n, B, dtype, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n", [3, 16, 64, 128])
+@pytest.mark.parametrize("n", [3, 16, 17, 32, 33, 64, 128, 256])
 def test_k1_matches_plain(cuda, n, dtype):
     cpu = _systems(n, 33, dtype)
     before = gj.K1[dtype].launches
@@ -140,7 +140,7 @@ def _real_systems(n, B, dtype, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n", [3, 6, 16, 17, 64, 128])
+@pytest.mark.parametrize("n", [3, 6, 16, 17, 32, 33, 64, 128, 256])
 def test_k2_k3_match_plain(cuda, n, dtype):
     A, b = _real_systems(n, 40, dtype)
     k2, k3 = gj_real.K2[dtype].launches, gj_real.K3[dtype].launches

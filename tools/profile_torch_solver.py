@@ -1,7 +1,8 @@
 """The port's solver-throughput sweep: K1/K2 against K10a/K10b and torch.linalg.solve.
 
 Run on a CUDA card from the repo root: ``python3 tools/profile_torch_solver.py
-[--seed 0] [--reps 3] [--ns 8 16 32 64 128]``. Imports nothing of JAX.
+[--seed 0] [--reps 3] [--ns 8 16 32 64 128] [--tiers]``. Imports nothing of
+JAX.
 The port's copy of ``bench.py:804-847`` at the bench's shapes: for each N
 the RC ladder ``rc_ladder_netlist(N - 2)`` (N unknowns, 51 frequencies)
 with SB = 2048 variants (1024 at N = 128) and r1 at 101 x U(1, 1.2). It
@@ -15,7 +16,10 @@ limit, and writes every line to ``--out`` (default
     ``pallas_f32`` and ``gj_f64`` columns; the bench's chunks);
   - ``solvers``: on the planes that route assembles (SB x 51 systems,
     ``analysis/ac.py:_assemble_grid``), the CUDA-event milliseconds and
-    systems per second of K1 (``linsolve.solve_planes``), K10b
+    systems per second of K1 (``linsolve.solve_planes``, in the tier
+    ``ops/gj.py:tier_for`` chooses, named in the row; with ``--tiers``
+    also each tier of K1 and K2 forced, rows "K1 warp", "K2 thread", ...),
+    K10b
     (``mxu.mxu_solve_complex``, N >= 40) and ``torch.linalg.solve`` on the
     complex planes; and of K2 (``linsolve.solve``), K10a
     (``mxu.mxu_solve_real``) and ``torch.linalg.solve`` on their real part
@@ -51,7 +55,7 @@ from chip_smoke import bound, cuda_ms, solve_flops  # noqa: E402
 from spicey_tpu_torch.analysis import ac as tac  # noqa: E402
 from spicey_tpu_torch.analysis import batch as tbatch  # noqa: E402
 from spicey_tpu_torch.decks import rc_ladder_netlist  # noqa: E402
-from spicey_tpu_torch.ops import linsolve, mxu  # noqa: E402
+from spicey_tpu_torch.ops import gj, gj_real, linsolve, mxu  # noqa: E402
 
 NS = (8, 16, 32, 64, 128)
 F32, F64 = torch.float32, torch.float64
@@ -117,9 +121,26 @@ def _solver_row(name, fn, reps, nb, n, cplx, nbytes, dtype) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def sweep(ns=NS, reps: int = 3, seed: int = 0, dev="cuda", emit=print
-          ) -> list[dict]:
-    """Run the sweep at each N of ``ns``; ``emit`` each row's JSON line."""
+def _tier_rows(module, label: str, fn, reps, nb, n, cplx, nbytes, dtype
+               ) -> list[dict]:
+    """One row per tier of ``module`` (gj: K1, gj_real: K2) that can take
+    N, forced through the wrapper: "K1 warp", "K1 block", ..."""
+    rows = []
+    for tier in module.TIERS:
+        if (tier == "warp" and n > module.WARP_MAX_N) or (
+                tier == "thread" and n > gj_real.THREAD_MAX_N):
+            continue
+        rows.append(_solver_row(f"{label} {tier}",
+                                lambda t=tier: fn(t), reps, nb, n, cplx,
+                                nbytes, dtype))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sweep(ns=NS, reps: int = 3, seed: int = 0, dev="cuda", emit=print,
+          tiers: bool = False) -> list[dict]:
+    """Run the sweep at each N of ``ns``; ``emit`` each row's JSON line.
+    ``tiers``: also time every tier of K1 and K2 forced, one row each."""
     rng = np.random.default_rng(seed)
     rows = []
     for n in ns:
@@ -157,6 +178,12 @@ def sweep(ns=NS, reps: int = 3, seed: int = 0, dev="cuda", emit=print
                 raise AssertionError(f"N={n} {tag}: K1 flags a system")
             out.append(_solver_row("K1", lambda: linsolve.solve_planes(
                 *planes), reps, nb, n, True, cbytes, dtype))
+            out[-1]["tier"] = gj.tier_for(n, dtype)
+            if tiers:
+                out += _tier_rows(
+                    gj, "K1", lambda t: gj.gj_solve_planes_cuda(*planes,
+                                                                tier=t),
+                    reps, nb, n, True, cbytes, dtype)
             k10 = {}
             if n >= mxu.MXU_MIN_N:
                 got = mxu.mxu_solve_complex(*planes)
@@ -180,6 +207,11 @@ def sweep(ns=NS, reps: int = 3, seed: int = 0, dev="cuda", emit=print
                 raise AssertionError(f"N={n} {tag}: K2 flags a system")
             out.append(_solver_row("K2", lambda: linsolve.solve(Ar, br),
                                    reps, nb, n, False, rbytes, dtype))
+            out[-1]["tier"] = gj_real.tier_for(n, dtype)
+            if tiers:
+                out += _tier_rows(
+                    gj_real, "K2", lambda t: gj_real.gj_solve_cuda(
+                        Ar, br, tier=t), reps, nb, n, False, rbytes, dtype)
             if n >= mxu.MXU_MIN_N:
                 got = mxu.mxu_solve_real(Ar, br)
                 if not torch.equal(got[1], k2[1]):
@@ -206,12 +238,16 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--ns", type=int, nargs="+", default=list(NS))
     ap.add_argument("--out", default="build/profile_torch_solver.json")
+    ap.add_argument("--tiers", action="store_true",
+                    help="also time every tier of K1 and K2 at each N (the "
+                    "run that sets ops/gj.py's and ops/gj_real.py's "
+                    "crossovers)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_solver: no CUDA device", file=sys.stderr)
         return 1
     rows = sweep(args.ns, args.reps, args.seed, "cuda",
-                 emit=lambda line: print(line, flush=True))
+                 emit=lambda line: print(line, flush=True), tiers=args.tiers)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
