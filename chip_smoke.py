@@ -9,7 +9,10 @@ line each:
      (csrc/gj_real.cu), K5 + K7 (csrc/mc_ac_fused.cu), K8
      (csrc/mc_tran_fused.cu), K9 (csrc/mc_tran_nr.cu) and K10a + K10b
      (csrc/mxu_gj.cu) with nvcc, one process per source, all started
-     together; print the build seconds and the card's name/power limit;
+     together; print the build seconds and the card's name/power limit,
+     and the register report of every K7 instance (``cuobjdump
+     --dump-resource-usage``: registers, stack, local memory), failing if
+     one uses local memory (a spill of its register rows);
   2. every kernel instantiation against its plain PyTorch version on the
      card, on the same inputs: K1 at N in {3, 8, 64, 128} with singular
      lanes and at the main path's shapes (the basics01 planes, the N = 64
@@ -37,9 +40,10 @@ line each:
      precision at the GHz end, so no tolerance tells a right f32 inverse
      from a wrong one there); K7 (the fused full-solution AC) with the
      pattern's RHS and with external RHS planes, f64 and f32, on dense
-     random systems at N in {3, 8, 16} with an all-zero and a zero-row
-     variant (tests/fused_systems.py) and at phase 18's shape (f32 there
-     by k1_vs_plain's rule: the ladder is ill-conditioned); K10a and
+     random systems at every group width (N in {1, 3, 4, 5, 8, 9, 15,
+     16}) with an all-zero, a zero-row and a NaN variant
+     (tests/fused_systems.py) and at phase 18's shape (f32 there by
+     k1_vs_plain's rule: the ladder is ill-conditioned); K10a and
      K10b (the panel tier) at N in {40, 48, 64, 67, 100, 128}, each batch
      with an all-zero, a zero-row and an MNA zero-diagonal system, and at
      the solver sweep's N = 64 and 128 ladder planes (complex for K10b,
@@ -55,7 +59,10 @@ line each:
      k1_vs_plain's rule; and the panel and block tiers, with the same
      lanes and rule, on either side of the N past which the panel tier's
      [panel | C] lives in the workspace (``PANEL_SMEM_EDGE``) and at
-     complex f64 N = 512 and real f64 N = 1024;
+     complex f64 N = 512 and real f64 N = 1024; every tier of K4 (warp,
+     block, panel), forced, in f64 and f32 at ``K4_TIER_NS`` (N = 410:
+     past complex f64's [panel | C] edge) with the same three lanes and
+     rule;
   3-8. the main path through the public entry points, each phase with
      every launch counter zeroed first and read after: the basics01
      golden on cuda (character-exact); the 1M-variant AC yield at f32
@@ -87,9 +94,11 @@ line each:
      BJT_NET's bias over 100k Is variants (K2; n_valid == B, a 64-lane
      subset against the CPU path, Newton passes per lane); a two-stage BJT
      amplifier through ``simulate()`` with .op, .tf, ``.options acop``
-     .ac and .noise over 901 frequencies (K2, K1, K4); the thermal noise
-     of the N = 64 RC ladder over 901 frequencies (K4); each .noise run
-     prints how many systems its residual guard solved again (K1);
+     .ac and .noise over 901 frequencies (K2, K1, K4; failing unless K4
+     ran its warp tier); the thermal noise of the N = 64 RC ladder over
+     901 frequencies (K4, failing unless it ran its panel tier); each
+     .noise run prints how many systems its residual guard solved again
+     (K1);
   18-20. the batched corner sweeps through the public entry points on
      cuda, counted the same way: ``simulate_ac_batch(method="pallas")``
      of ``rc_ladder_netlist(14, 201)`` (N = 16) with all 14 R and 14 C at
@@ -122,10 +131,11 @@ line each:
      kernel, its plain version and, where one PyTorch call computes the
      same function, that call (``torch.linalg.solve`` for K1/K2,
      ``torch.linalg.inv`` for K3 and, on complex128, K4), at the main
-     path's shapes (K4 f64 at both .noise shapes, K4 f32 at the amp's;
-     K7 at phase 18's, its library call ``torch.linalg.solve`` on the
-     same systems pre-assembled as complex planes), beside the
-     kernel's bound: the larger of its bytes over 3.35 TB/s and its
+     path's shapes (K4 f64 at both .noise shapes, K4 f32 at the amp's,
+     each in every tier that takes N; K7 f64 and f32 at phase 18's, its
+     library call ``torch.linalg.solve`` on the same systems
+     pre-assembled as complex planes), beside the kernel's bound: the
+     larger of its bytes over 3.35 TB/s and its
      operations over the H100's peak for the type (67 TFLOP/s in f32
      outside the tensor cores, 67 TFLOP/s in f64 on them; NVIDIA's H100
      SXM data sheet), the operations those of the cheapest direct method
@@ -141,9 +151,10 @@ line each:
      at N = 512 (64 of them) and 1024 (16), each beside the plain
      version, ``torch.linalg.solve`` on the same planes and the bound, with
      the share of the bound reached (the JSON line keeps K10 at N = 64).
-     Every phase prints the launches of each tier of K1 and K2 beside the
-     kernels' (phase 16 fails unless the amp's .ac ran K1's warp tier); the
-     JSON line adds them to K1's and K2's entries as ``tiers``.
+     Every phase prints the launches of each tier of K1, K2 and K4 beside
+     the kernels' (phase 16 fails unless the amp's .ac ran K1's warp
+     tier); the JSON line adds them to K1's, K2's and K4's entries as
+     ``tiers``.
 
 Then a JSON line of the kernels, the nvidia-smi line, and the result line.
 """
@@ -151,9 +162,11 @@ Then a JSON line of the kernels, the nvidia-smi line, and the result line.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -213,6 +226,9 @@ PANEL_SMEM_EDGE = {(True, torch.float64): 401, (True, torch.float32): 822,
 PAST_PANEL_SMEM = [(c, dt, n) for (c, dt), e in PANEL_SMEM_EDGE.items()
                    for n in (e, e + 1)] + [(True, torch.float64, 512),
                                            (False, torch.float64, 1024)]
+# K4's tiers in phase 2: each tier edge, the .noise shapes' N (11, 64),
+# past 128 and past complex f64's [panel | C] edge
+K4_TIER_NS = (1, 3, 11, 16, 31, 32, 33, 64, 128, 129, 256, 410)
 # the H100 SXM's peaks (NVIDIA data sheet): HBM3 bytes/s; FLOP/s for the
 # type: f32 outside the tensor cores (their TF32 rounds the operands), f64
 # on them (full f64; 34 TFLOP/s outside them)
@@ -327,10 +343,12 @@ def main() -> int:
     ms: dict[str, tuple] = {}
     launches = {name: 0 for name in kernels}
 
-    # the tiers of K1 and K2: name -> that instantiation's tier counters
+    # the tiers of K1, K2 and K4: name -> that instantiation's tier
+    # counters
     tier_counts = {gj.K1[dt].name: gj.K1_TIERS[dt] for dt in gj.K1}
     tier_counts.update({gj_real.K2[dt].name: gj_real.K2_TIERS[dt]
                         for dt in gj_real.K2})
+    tier_counts.update({gj.K4[dt].name: gj.K4_TIERS[dt] for dt in gj.K4})
     tier_launches = {name: dict.fromkeys(c, 0)
                      for name, c in tier_counts.items()}
 
@@ -376,6 +394,29 @@ def main() -> int:
     say("1 build", f"{time.perf_counter() - t0:.1f} s "
         f"{ {k: round(v, 2) for k, v in _build.build_seconds().items()} } "
         f"torch {torch.__version__} cuda {torch.version.cuda} | {smi}")
+    # K7's register report: each lane's row lives in registers, so any
+    # local memory in an instance is a spill
+    dump = subprocess.run(
+        [str(Path(_build._nvcc()).parent / "cuobjdump"),
+         "--dump-resource-usage", str(_build._target("mc_ac_fused")[1])],
+        capture_output=True, text=True, check=True).stdout.splitlines()
+    k7_usage = {}
+    for line, usage in zip(dump, dump[1:]):
+        inst = re.search(r"mc_ac_fused_x_kernelI([df])Li(\d+)ELb(\d)", line)
+        if inst:
+            dt, g, ext = inst.groups()
+            res = dict(re.findall(r"(REG|STACK|LOCAL):(\d+)", usage))
+            k7_usage[(f"f{'64' if dt == 'd' else '32'} group {g} "
+                      f"{'external' if ext == '1' else 'pattern'} RHS")] = res
+    if len(k7_usage) != 2 * 2 * len(mc_ac_fused.K7_GROUPS):
+        raise AssertionError(f"K7 register report: {len(k7_usage)} "
+                             "instances found")
+    for inst, res in sorted(k7_usage.items()):
+        say("1 registers", f"K7 {inst}: {res['REG']} registers, stack "
+            f"{res['STACK']} B, local {res['LOCAL']} B")
+    spilled = [i for i, r in k7_usage.items() if int(r["LOCAL"])]
+    if spilled:
+        raise AssertionError(f"K7 instances with local memory: {spilled}")
 
     # ---- 2. kernels against plain versions ------------------------------
     rng = np.random.default_rng(SEED)
@@ -633,14 +674,16 @@ def main() -> int:
                                      dtype=dtype, device=dev)
                      for _ in range(2))
 
-    # dense random systems (tests/fused_systems.py), an all-zero and a
-    # zero-row variant each, in both modes
+    # dense random systems (tests/fused_systems.py) at every group width
+    # of K7 (N = 1-4 on 4 lanes, 5-8 on 8, 9-16 on 16), an all-zero, a
+    # zero-row and a NaN variant each, in both modes
     for dtype in (torch.float64, torch.float32):
-        for n in (3, 8, 16):
+        for n in (1, 3, 4, 5, 8, 9, 15, 16):
             B = 512
             freqs = torch.as_tensor(FREQS, dtype=dtype, device=dev)
-            values = torch.as_tensor(dense_values(n, B, SEED), dtype=dtype,
-                                     device=dev)
+            vals = dense_values(n, B, SEED)
+            vals[2 + 2 * (n - 1), 2] = np.nan  # entry (0, n - 1), variant 2
+            values = torch.as_tensor(vals, dtype=dtype, device=dev)
             for ext_rhs in (False, True):
                 packed = mc_ac_fused.pack_pattern(dense_pattern(n), n, dev,
                                                   ext_rhs=ext_rhs)
@@ -648,10 +691,12 @@ def main() -> int:
                 mode = "external RHS" if ext_rhs else "pattern RHS"
                 e, nv, nt = k7_vs_plain((freqs, values, packed), rhs, dtype,
                                         f"{TAG[dtype]} N={n} {mode}", False)
-                if nv != nt - 2 * 3:
+                if nv != nt - 3 * 3:
                     raise AssertionError(f"K7 N={n}: {nv}/{nt} valid")
-                say("2 compare", f"K7 {TAG[dtype]} N={n} {mode} (3, {B}) "
-                    f"valid {nv}/{nt} max_abs_err {e:.3e}")
+                say("2 compare", f"K7 {TAG[dtype]} N={n} (group "
+                    f"{mc_ac_fused.fused_group_for(n)}) {mode} (3, {B}) "
+                    f"valid {nv}/{nt}, the zero, zero-row and NaN variants "
+                    f"flagged; max_abs_err {e:.3e}")
 
     # the phase-18 shape: the N = 16 ladder, 16,384 variants x 201
     # frequencies, every R and C at U(0.9, 1.1) x nominal
@@ -1139,6 +1184,44 @@ def main() -> int:
                 f"max|x|: {', '.join(errs)}")
             del planes, pr, pi, px, truth_c, truth_r
     torch.cuda.empty_cache()
+    # every tier of K4 (the inverse of [A | I]), forced, with the same
+    # lanes (their own generator, so the later phases' draws stay as they
+    # were) and rule; N = 410 is past complex f64's [panel | C] edge
+    # (PANEL_SMEM_EDGE), where the panel tier keeps it in its workspace
+    rng4 = np.random.default_rng(SEED + 4)
+    for dtype in (torch.float64, torch.float32):
+        for n in K4_TIER_NS:
+            B, m = (8 if n > 128 else 64), max(n, 3)
+            Ar = rng4.standard_normal((B, m, m)) + m * np.eye(m)
+            Ai = rng4.standard_normal((B, m, m))
+            Ar, Ai = Ar[:, :n, :n].copy(), Ai[:, :n, :n].copy()
+            Ar[0] = Ai[0] = 0.0                        # all-zero lane
+            Ar[1, n // 2, n - 1] = np.nan              # NaN lane
+            Ar[2, :, n // 3] = Ai[2, :, n // 3] = 0.0  # zero-column lane
+            planes = [torch.as_tensor(a, dtype=dtype, device=dev)
+                      for a in (Ar, Ai)]
+            pr, pi, pv = linsolve.gj_inverse_planes(*planes)
+            if pv[:3].any() or not pv[3:].all():
+                raise AssertionError(f"K4 tiers N={n}: plain flags "
+                                     f"{pv[:4].tolist()}")
+            truth = (pr, pi) if dtype == torch.float64 else \
+                linsolve.gj_inverse_planes(*[p.double() for p in planes])[:2]
+            errs = []
+            for tier in gj.TIERS:
+                if tier == "warp" and n > gj.WARP_MAX_N:
+                    continue
+                mr, mi, v = gj.gj_inverse_planes_cuda(*planes, tier=tier)
+                what = f"K4 {tier} {TAG[dtype]} N={n}"
+                if not torch.equal(v, pv):
+                    raise AssertionError(f"{what}: valid differs")
+                e = tier_err((mr, mi), (pr, pi), truth, pv, dtype, what)
+                errs.append(f"{tier} {e:.1e}")
+                del mr, mi
+            say("2 tiers", f"K4 {TAG[dtype]} N={n} B={B}: valid identical, "
+                f"lanes 0-2 (zero, NaN, zero column) flagged; error / "
+                f"max|M|: {', '.join(errs)}")
+            del planes, pr, pi, truth
+    torch.cuda.empty_cache()
     # past the N where the panel tier's [panel | C] fits in shared memory
     # (gj_panel.cuh:PANEL_GLOBAL: complex f64 from 402, real f64 and
     # complex f32 from 823, real f32 from 1630), the panel and block tiers
@@ -1582,7 +1665,7 @@ def main() -> int:
         f"{want.noise.guard_resolves}); output noise "
         f"{amp.noise.total_output_rms:.4e} Vrms; {amp_s:.3f} s wall")
     counted("16 amp", [gj.K4[f64], gj.K1[f64], gj_real.K2[f64]],
-            tiers=[(gj.K1[f64], "warp")])
+            tiers=[(gj.K1[f64], "warp"), (gj.K4[f64], "warp")])
 
     # ---- 17. ladder-64 noise: an RC interconnect's thermal noise -----------
     lad_n, lad_s = timed(lambda: st.simulate(LADDER_NOISE,
@@ -1596,7 +1679,7 @@ def main() -> int:
         f"noise {lad_n.total_output_rms:.4e} Vrms; {lad_s:.3f} s wall; "
         f"phases 14-17 {time.perf_counter() - t_op:.1f} s with their CPU "
         "comparisons")
-    counted("17 ladder noise", [gj.K4[f64]])
+    counted("17 ladder noise", [gj.K4[f64]], tiers=[(gj.K4[f64], "panel")])
 
     def same_x(got, want, what):
         """Complex solutions at rtol 1e-9, atol 1e-12 of the largest
@@ -1844,39 +1927,37 @@ def main() -> int:
                     cuda_ms(lambda: torch.linalg.inv(A), 5),
                     *bound(nb * inverse_flops(n), el * nb * 2 * n * n + nb,
                            dtype))
-    # K4 at both .noise shapes: the planes read once, the inverse and
-    # valid written once
-    name = gj.K4[f64].name
-    for label, (Ar, Ai) in noise_planes.items():
-        nb, n = Ar.shape[0], Ar.shape[1]
-        Ac = torch.complex(Ar, Ai)
-        t_k4 = (cuda_ms(lambda: gj.gj_inverse_planes_cuda(Ar, Ai), 20),
-                cuda_ms(lambda: linsolve.gj_inverse_planes(Ar, Ai), 2),
-                cuda_ms(lambda: torch.linalg.inv(Ac), 5),
-                *bound(nb * inverse_flops(n, True),
-                       Ar.element_size() * nb * 4 * n * n + nb, f64))
-        say("9 times", f"{name} at {label} noise ({nb}, {n}): kernel "
-            f"{t_k4[0]:.4f} ms, plain {t_k4[1]:.3f} ms, library "
-            f"{t_k4[2]:.3f} ms (linalg.inv, {Ac.dtype}), bound "
-            f"{t_k4[3]:.4f} ms ({t_k4[4]}) (CUDA events) | {smi}")
-        if label == "ladder":
-            shape[name] = f"ladder noise ({nb}, {n})"
-            ms[name] = t_k4
-        del Ac
-    # K4's f32 instance (on no main path) at the amp noise shape
-    Ar, Ai = (p.float() for p in noise_planes["amp"])
-    nb, n = Ar.shape[0], Ar.shape[1]
-    Ac = torch.complex(Ar, Ai)
-    t_k4 = (cuda_ms(lambda: gj.gj_inverse_planes_cuda(Ar, Ai), 20),
-            cuda_ms(lambda: linsolve.gj_inverse_planes(Ar, Ai), 2),
-            cuda_ms(lambda: torch.linalg.inv(Ac), 5),
-            *bound(nb * inverse_flops(n, True), 4 * nb * 4 * n * n + nb,
-                   torch.float32))
-    say("9 times", f"{gj.K4[torch.float32].name} at amp noise ({nb}, {n}): "
-        f"kernel {t_k4[0]:.4f} ms, plain {t_k4[1]:.3f} ms, library "
-        f"{t_k4[2]:.3f} ms (linalg.inv, {Ac.dtype}), bound {t_k4[3]:.4f} ms "
-        f"({t_k4[4]}) (CUDA events) | {smi}")
-    del Ac, Ar, Ai
+    # K4 at both .noise shapes, every tier that takes N, f64 (the .noise
+    # path) and f32 at the amp's: the planes read once, the inverse and
+    # valid written once; the JSON line keeps f64's chosen tier at the
+    # ladder's shape
+    for dtype, labels in ((f64, ("amp", "ladder")),
+                          (torch.float32, ("amp",))):
+        name = gj.K4[dtype].name
+        for label in labels:
+            Ar, Ai = (p.to(dtype) for p in noise_planes[label])
+            nb, n = Ar.shape[0], Ar.shape[1]
+            Ac = torch.complex(Ar, Ai)
+            plain = cuda_ms(lambda: linsolve.gj_inverse_planes(Ar, Ai), 2)
+            lib = cuda_ms(lambda: torch.linalg.inv(Ac), 5)
+            bnd = bound(nb * inverse_flops(n, True),
+                        Ar.element_size() * nb * 4 * n * n + nb, dtype)
+            for tier in gj.TIERS:
+                if tier == "warp" and n > gj.WARP_MAX_N:
+                    continue
+                t_k4 = (cuda_ms(lambda: gj.gj_inverse_planes_cuda(
+                    Ar, Ai, tier=tier), 20), plain, lib, *bnd)
+                chosen = tier == gj.tier_for(n, dtype, inverse=True)
+                say("9 times", f"{name} {tier}{' (chosen)' if chosen else ''}"
+                    f" at {label} noise ({nb}, {n}): kernel {t_k4[0]:.4f} ms,"
+                    f" plain {plain:.3f} ms, library {lib:.4f} ms "
+                    f"(linalg.inv, {Ac.dtype}), bound {t_k4[3]:.4f} ms "
+                    f"({t_k4[4]}), {100 * t_k4[3] / t_k4[0]:.2f}% of it "
+                    f"(CUDA events) | {smi}")
+                if chosen and label == "ladder":
+                    shape[name] = f"ladder noise ({nb}, {n})"
+                    ms[name] = t_k4
+            del Ac, Ar, Ai
     # K7 at the phase-18 shape, pattern RHS; the library call solves the
     # same systems pre-assembled as complex planes (assembly excluded),
     # built a block of variants at a time into one tensor
@@ -1893,23 +1974,26 @@ def main() -> int:
             Ac[s0 * F:s0 * F + Ar.shape[0]] = torch.complex(Ar, Ai)
             bc[s0 * F:s0 * F + Ar.shape[0]] = torch.complex(br, bi)
             del Ar, Ai, br, bi
-        t_k7 = (cuda_ms(lambda: mc_ac_fused.mc_ac_fused_x_cuda(*inputs), 3),
-                cuda_ms(lambda: plain_x_chunked(*inputs, None), 1),
-                cuda_ms(lambda: torch.linalg.solve(Ac, bc), 2),
-                *bound(F * nb * (solve_flops(n, True)
-                                 + 2 * packed.terms.shape[0]),
-                       el * (values.numel() + F) + F * nb * (2 * n * el + 1),
-                       dtype))
+        plain = cuda_ms(lambda: plain_x_chunked(*inputs, None), 1)
+        lib = cuda_ms(lambda: torch.linalg.solve(Ac, bc), 2)
+        del Ac, bc
+        torch.cuda.empty_cache()
+        bnd = bound(F * nb * (solve_flops(n, True)
+                              + 2 * packed.terms.shape[0]),
+                    el * (values.numel() + F) + F * nb * (2 * n * el + 1),
+                    dtype)
         name = mc_ac_fused.K7[dtype].name
-        say("9 times", f"{name} at batch-ac-16k ({nb}, {F}, N={n}): kernel "
-            f"{t_k7[0]:.3f} ms, plain {t_k7[1]:.3f} ms, library "
-            f"{t_k7[2]:.3f} ms (linalg.solve on pre-assembled {cdt} planes, "
-            f"assembly excluded), bound {t_k7[3]:.4f} ms ({t_k7[4]}) (CUDA "
-            f"events) | {smi}")
+        t_k7 = (cuda_ms(lambda: mc_ac_fused.mc_ac_fused_x_cuda(*inputs), 3),
+                plain, lib, *bnd)
+        say("9 times", f"{name} at batch-ac-16k ({nb}, {F}, N={n}, group "
+            f"{mc_ac_fused.fused_group_for(n)}): kernel {t_k7[0]:.3f} ms, "
+            f"plain {plain:.3f} ms, library {lib:.3f} ms (linalg.solve on "
+            f"pre-assembled {cdt} planes, assembly excluded), bound "
+            f"{t_k7[3]:.4f} ms ({t_k7[4]}), {100 * t_k7[3] / t_k7[0]:.2f}% "
+            f"of it (CUDA events) | {smi}")
         if name in kernels:
             shape[name] = f"batch-ac-16k ({nb}, {F}, N={n})"
             ms[name] = t_k7
-        del Ac, bc
         torch.cuda.empty_cache()
     def ms_line(name, where, t, lib):
         say("9 times", f"{name} at {where}: kernel {t[0]:.3f} ms, plain "

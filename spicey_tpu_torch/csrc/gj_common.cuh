@@ -1,6 +1,7 @@
-// The one-hot-pivot Gauss-Jordan elimination shared by kernels K1-K5, K7,
-// K8 and K9 (and the block pivot search of K10a/K10b), templated on the
-// element type: P = 1 real plane, P = 2 complex (re, im) planes.
+// The one-hot-pivot Gauss-Jordan elimination shared by kernels K1-K5, K8
+// and K9 (and the block pivot search of K10a/K10b; K7 takes its pivot
+// ranking, better()), templated on the element type: P = 1 real plane,
+// P = 2 complex (re, im) planes.
 //
 // Semantics are those of the plain versions in
 // spicey_tpu_torch/ops/linsolve.py: the pivot of column k is the unused
@@ -14,19 +15,19 @@
 // Three layouts here, and a fourth in gj_panel.cuh:
 //   block_gj   one block per system, the (n, w) planes row-major in shared
 //              memory or a global workspace, thread-strided updates with a
-//              barrier per step (K3 and K4 at every N above THREAD_MAX_N;
-//              K1 and K2 in the N range of their block tier);
+//              barrier per step (K3 at every N above THREAD_MAX_N; K1, K2
+//              and K4 when their block tier is forced);
 //   warp_gj    one warp per system, n <= 32, row i in lane i, the planes in
 //              the warp's own slice of shared memory; the pivot search is a
 //              shuffle argmax and the only barrier is __syncwarp (the warp
-//              tier of K1 and K2);
+//              tier of K1, K2 and K4, on [A | b] or [A | I]);
 //   thread_gj  one thread per system, element q of plane c at
 //              a[c][q * stride] (the system index fastest, so a warp's
 //              accesses are consecutive words), no barriers (K2/K3 up to
 //              THREAD_MAX_N, K5, K8, K9);
 //   gj_panel.cuh: one block per system in panels of PW = 16 columns, the
 //              trailing columns updated by one product per panel (the panel
-//              tier of K1 and K2).
+//              tier of K1, K2 and K4).
 
 #pragma once
 

@@ -1,6 +1,6 @@
 // K1: batched complex Gauss-Jordan on (re, im) planes in three tiers (a warp,
 // a block or a panel-blocked block per system), and K4, the batched complex
-// inverse by the block tier's elimination.
+// inverse, in the same three tiers.
 //
 // Replaces the TPU kernel spicey_tpu/ops/pallas_gj.py:_gj_complex_kernel
 // (pallas_call in _solve_complex_f32_batchlast, loop body
@@ -23,9 +23,7 @@
 // row-permuted M and its pivot map (colidx); this kernel un-permutes
 // before it writes, as K3 does (csrc/gj_real.cu). The .noise analysis
 // applies one inverse per frequency to the forward and the adjoint
-// right-hand sides. Its planes are 32 N^2 bytes in f64, so they stay in
-// shared memory up to N = 84 (f64) / 119 (f32) and use the caller's
-// global workspace above.
+// right-hand sides.
 //
 // Three tiers of the solve, chosen by the wrapper (ops/gj.py:tier_for)
 // from N and the dtype, each one elimination with the plain version's
@@ -48,8 +46,33 @@
 //          step, and past N = 401 (f64) / 822 (f32) [panel | C] lives
 //          there too. Bound: the panel's barriers at mid N, the product at
 //          large N.
-// K4 keeps block_gj at every N: its planes stay in shared memory up to
-// N = 84 (f64) / 119 (f32) and use the caller's global workspace above.
+//
+// K4 runs the same three tiers on [A | I] (width 2N), chosen by
+// ops/gj.py:tier_for(n, dtype, inverse=True): warp for N <= 32, panel
+// from N = 33, block only when forced (the comparisons). Its first form was
+// block_gj at every N: at the ladder's noise shape (901 systems, N = 64,
+// f64) its planes took 131 KB of shared memory, so one block per SM and
+// 6.8 waves over 132 SMs, each of the 64 pivot steps rewriting the whole
+// 64 x 128 complex block between block barriers: 2.911 ms, 1.5x
+// torch.linalg.inv. The bounds: the inverse reads 2 N^2 and writes 2 N^2
+// values per system (0.035 ms at the ladder's shape at 3.35 TB/s) and
+// does ~8 N^3 real flops by a direct method;
+//   warp   (N <= 32) warp_gj on [A | I], w = 2N, in the warp's slice of
+//          shared memory at the odd stride 2N + 1; each lane writes its
+//          own row of I; lane k's pivot row perm[k] holds row k of the
+//          inverse in its right block, written back by coalesced stores.
+//          Four systems per block, no block barrier; bound by the latency
+//          of the N dependent steps (the amp's 901 x 11 shape takes ~20 us,
+//          less than the wrapper's host time).
+//   panel  (N >= 33) gj_panel.cuh with R = N right-hand sides, the
+//          identity written as the planes are staged: the pivot steps touch
+//          only [panel | C], and the trailing DMMA (f64) / register-tiled
+//          (f32) product spans the identity block too, so the 2N columns
+//          are read and written once per panel, not once per step; the
+//          planes (N (2N) per plane) sit where gj_panel.cuh's plan puts
+//          them (at N = 64 in f64: one workspace slot per resident block, 3
+//          blocks per SM). Bound: the panel's pivot steps (barriers), then
+//          the product.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -157,6 +180,48 @@ __global__ void gj_complex_inv_kernel(const T* __restrict__ A_re,
   if (tid == 0) valid_out[sys] = (uint8_t)(*s.ok_all);
 }
 
+// K4's warp tier: warp q of block b inverts system b * WARPS_PER_BLOCK + q
+// by warp_gj on [A | I] in its own slice of shared memory.
+template <typename T>
+__global__ void __launch_bounds__(32 * gj::WARPS_PER_BLOCK)
+    gj_complex_inv_warp_kernel(const T* __restrict__ A_re,
+                               const T* __restrict__ A_im,
+                               T* __restrict__ M_re, T* __restrict__ M_im,
+                               uint8_t* __restrict__ valid_out, int batch,
+                               int n, T eps2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long sys = (long long)blockIdx.x * gj::WARPS_PER_BLOCK + warp;
+  if (sys >= batch) return;  // the whole warp: no barrier follows
+  const int w = 2 * n, ld = w | 1, nn = n * n;
+  T* base = reinterpret_cast<T*>(smem_raw) + (size_t)warp * 2 * n * ld;
+  T* a[2] = {base, base + (size_t)n * ld};
+  const T* A[2] = {A_re + sys * nn, A_im + sys * nn};
+  for (int idx = lane; idx < nn; idx += 32) {
+    const int i = idx / n, j = idx - i * n;
+    for (int c = 0; c < 2; ++c) a[c][i * ld + j] = A[c][idx];
+  }
+  if (lane < n)
+    for (int j = 0; j < n; ++j) {
+      a[0][lane * ld + n + j] = j == lane ? T(1) : T(0);
+      a[1][lane * ld + n + j] = T(0);
+    }
+  __syncwarp();
+  int perm_k;
+  const bool ok = gj::warp_gj<T, 2>(a, n, w, ld, eps2, perm_k);
+  // row k of the inverse: the right block of pivot row perm[k] (lane k
+  // holds perm[k]); consecutive lanes store consecutive elements
+  T* M[2] = {M_re + sys * nn, M_im + sys * nn};
+  for (int i0 = 0; i0 < nn; i0 += 32) {
+    const int idx = i0 + lane, k = min(idx / n, n - 1);
+    const int pk = __shfl_sync(0xffffffffu, perm_k, k);
+    if (idx < nn)
+      for (int c = 0; c < 2; ++c)
+        M[c][idx] = a[c][pk * ld + n + idx - k * n];
+  }
+  if (lane == 0) valid_out[sys] = ok ? 1 : 0;
+}
+
 template <typename T>
 size_t smem_bytes(int n, bool planes_in_smem) {
   return gj::block_smem_bytes<T, 2>(n, n + 1, planes_in_smem);
@@ -167,10 +232,43 @@ size_t inv_smem_bytes(int n, bool planes_in_smem) {
   return gj::block_smem_bytes<T, 2>(n, 2 * n, planes_in_smem);
 }
 
+enum Tier { WARP = 0, BLOCK = 1, PANEL = 2 };
+
+// Shared-memory bytes of a K4 warp-tier block: per warp, two planes of n
+// rows at the odd stride 2n + 1.
+template <typename T>
+size_t inv_warp_smem_bytes(int n) {
+  return (size_t)gj::WARPS_PER_BLOCK * 2 * n * ((2 * n) | 1) * sizeof(T);
+}
+
 template <typename T>
 int launch_inv(const void* A_re, const void* A_im, void* M_re, void* M_im,
                void* valid, void* workspace, int batch, int n, double eps,
-               void* stream) {
+               int tier, void* stream) {
+  const T eps2 = (T)(eps * eps);
+  if (tier == WARP) {
+    if (n < 1 || n > gj::WARP_MAX_N || workspace != nullptr)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = inv_warp_smem_bytes<T>(n);
+    cudaError_t err = cudaFuncSetAttribute(
+        gj_complex_inv_warp_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (batch > 0) {
+      const int blocks = (int)(((long long)batch + gj::WARPS_PER_BLOCK - 1) /
+                               gj::WARPS_PER_BLOCK);
+      gj_complex_inv_warp_kernel<T>
+          <<<blocks, 32 * gj::WARPS_PER_BLOCK, smem, (cudaStream_t)stream>>>(
+              (const T*)A_re, (const T*)A_im, (T*)M_re, (T*)M_im,
+              (uint8_t*)valid, batch, n, eps2);
+    }
+    return (int)cudaGetLastError();
+  }
+  if (tier == PANEL)
+    return gj::panel::launch<T, 2>(A_re, A_im, nullptr, nullptr, M_re, M_im,
+                                   valid, workspace, batch, n, n, eps2,
+                                   stream);
+  if (tier != BLOCK) return (int)cudaErrorInvalidValue;
   int threads = n <= 8 ? 32 : (n <= 24 ? 128 : 256);
   size_t smem = inv_smem_bytes<T>(n, workspace == nullptr);
   if (smem > gj::SMEM_MAX) return (int)cudaErrorInvalidValue;
@@ -181,12 +279,10 @@ int launch_inv(const void* A_re, const void* A_im, void* M_re, void* M_im,
   if (batch > 0) {
     gj_complex_inv_kernel<T><<<batch, threads, smem, (cudaStream_t)stream>>>(
         (const T*)A_re, (const T*)A_im, (T*)M_re, (T*)M_im, (uint8_t*)valid,
-        (T*)workspace, n, (T)(eps * eps));
+        (T*)workspace, n, eps2);
   }
   return (int)cudaGetLastError();
 }
-
-enum Tier { WARP = 0, BLOCK = 1, PANEL = 2 };
 
 template <typename T>
 int launch(const void* A_re, const void* A_im, const void* b_re,
@@ -201,7 +297,8 @@ int launch(const void* A_re, const void* A_im, const void* b_re,
   }
   if (tier == PANEL)
     return gj::panel::launch<T, 2>(A_re, A_im, b_re, b_im, x_re, x_im,
-                                   valid, workspace, batch, n, eps2, stream);
+                                   valid, workspace, batch, n, 1, eps2,
+                                   stream);
   if (tier != BLOCK) return (int)cudaErrorInvalidValue;
   int threads = n <= 8 ? 32 : (n <= 24 ? 128 : 256);
   size_t smem = smem_bytes<T>(n, workspace == nullptr);
@@ -228,8 +325,8 @@ extern "C" {
 int gj_complex_workspace_systems(int n, int batch, int is_double, int tier) {
   if (tier == WARP) return 0;
   if (tier == PANEL)
-    return is_double ? gj::panel::workspace_systems<double, 2>(n, batch)
-                     : gj::panel::workspace_systems<float, 2>(n, batch);
+    return is_double ? gj::panel::workspace_systems<double, 2>(n, 1, batch)
+                     : gj::panel::workspace_systems<float, 2>(n, 1, batch);
   const size_t bytes =
       is_double ? smem_bytes<double>(n, true) : smem_bytes<float>(n, true);
   return bytes > gj::SMEM_MAX ? batch : 0;
@@ -251,24 +348,35 @@ int gj_complex_f64(const void* A_re, const void* A_im, const void* b_re,
                         batch, n, eps, tier, stream);
 }
 
-// K4: shared-memory bytes of a block whose planes stay on chip.
-size_t gj_complex_inv_smem_bytes(int n, int is_double) {
-  return is_double ? inv_smem_bytes<double>(n, true)
-                   : inv_smem_bytes<float>(n, true);
+// K4: systems of (2, N, 2N) elements the tier's global workspace must
+// hold for a batch of B, 0 when its planes stay in shared memory: B for the
+// block tier past shared memory, one per resident block for the panel
+// tier's plan at R = N, never for the warp tier.
+int gj_complex_inv_workspace_systems(int n, int batch, int is_double,
+                                     int tier) {
+  if (tier == WARP) return 0;
+  if (tier == PANEL)
+    return is_double ? gj::panel::workspace_systems<double, 2>(n, n, batch)
+                     : gj::panel::workspace_systems<float, 2>(n, n, batch);
+  const size_t bytes = is_double ? inv_smem_bytes<double>(n, true)
+                                 : inv_smem_bytes<float>(n, true);
+  return bytes > gj::SMEM_MAX ? batch : 0;
 }
 
 int gj_complex_inverse_f32(const void* A_re, const void* A_im, void* M_re,
                            void* M_im, void* valid, void* workspace,
-                           int batch, int n, double eps, void* stream) {
+                           int batch, int n, double eps, int tier,
+                           void* stream) {
   return launch_inv<float>(A_re, A_im, M_re, M_im, valid, workspace, batch,
-                           n, eps, stream);
+                           n, eps, tier, stream);
 }
 
 int gj_complex_inverse_f64(const void* A_re, const void* A_im, void* M_re,
                            void* M_im, void* valid, void* workspace,
-                           int batch, int n, double eps, void* stream) {
+                           int batch, int n, double eps, int tier,
+                           void* stream) {
   return launch_inv<double>(A_re, A_im, M_re, M_im, valid, workspace, batch,
-                            n, eps, stream);
+                            n, eps, tier, stream);
 }
 
 }  // extern "C"

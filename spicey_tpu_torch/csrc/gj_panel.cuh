@@ -1,12 +1,17 @@
-// The panel tier of K1 and K2: one-hot-pivot Gauss-Jordan for large N in
-// panels of PW = 16 columns, one block per system, the trailing
+// The panel tier of K1, K2 and K4: one-hot-pivot Gauss-Jordan for large N
+// in panels of PW = 16 columns, one block per system, the trailing
 // columns updated by one product per panel, in f64 on the tensor cores.
 //
 // It replaces, with block_gj and warp_gj, the TPU kernels
-// spicey_tpu/ops/pallas_gj.py:_gj_complex_kernel (pallas_call :651, K1) and
-// _gj_real_kernel (pallas_call :430, K2), which the JAX package runs at
-// every N. The semantics are those of the plain versions
-// (ops/linsolve.py:gj_solve_planes, gj_solve): the pivot of column k is
+// spicey_tpu/ops/pallas_gj.py:_gj_complex_kernel (pallas_call :651, K1),
+// _gj_real_kernel (pallas_call :430, K2) and _gj_inv_complex_kernel
+// (pallas_call :514, K4), which the JAX package runs at every N. A system
+// is [A | R right-hand sides], w = n + R columns: the solves take R = 1
+// (b), the inverse R = n (the identity, written as the planes are staged;
+// the answer is then the un-permuted right block of the pivot rows, the
+// true inverse). The semantics are those of the plain versions
+// (ops/linsolve.py:gj_solve_planes, gj_solve, gj_inverse_planes): the
+// pivot of column k is
 // the unused row with the largest |a| (|a|^2 complex), ties to the lowest
 // row, NaN highest (gj_common.cuh:better); accepted when >= thr (eps, or
 // eps^2 complex); a rejected pivot continues with a unit divisor and
@@ -34,7 +39,7 @@
 //     and delta_i = 0 for those pivot rows (their C row carries their own,
 //     scaled, share) and 1 for all others.
 //  3. The trailing update: for every column right of the panel, the
-//     right-hand side included, M[:, c0:] = delta * M[:, c0:] + C G. G is
+//     right-hand sides included, M[:, c0:] = delta * M[:, c0:] + C G. G is
 //     staged through shared memory in chunks of CW columns (the pivot rows
 //     are rewritten by the same product, so they are copied first); the
 //     rows of M go from where they live straight into the product's
@@ -51,7 +56,7 @@
 //     TF32: the f32 tiers hold the JAX tier's Precision.HIGHEST), each
 //     thread a 4 x 4 tile (2 x 4 complex), operands from shared memory.
 // The panel's own columns are not written back: no later step reads
-// them, and the answer is the right-hand side column of the pivot rows.
+// them, and the answer is the right-hand side columns of the pivot rows.
 //
 // Where the data lives (Place, chosen by plan() from N): the planes and
 // [panel | C] in shared memory; or the planes in a global workspace slot
@@ -129,24 +134,24 @@ __host__ __device__ inline size_t al4(size_t x) {
 // planes in its workspace slot; the planes and [panel | C] there.
 enum Place { ALL_SMEM = 0, PLANES_GLOBAL = 1, PANEL_GLOBAL = 2 };
 
-// Shared-memory bytes of one block: the planes (ALL_SMEM), then per plane
-// [panel | C] (not PANEL_GLOBAL) and G; the ints (two next-pivot slots,
-// perm, used, ok_all).
+// Shared-memory bytes of one block for (n, n + r) systems: the planes
+// (ALL_SMEM), then per plane [panel | C] (not PANEL_GLOBAL) and G; the
+// ints (two next-pivot slots, perm, used, ok_all).
 template <typename T, int P>
-__host__ __device__ inline size_t smem_bytes(int n, int place) {
+__host__ __device__ inline size_t smem_bytes(int n, int r, int place) {
   size_t t = 0;
-  if (place == ALL_SMEM) t += P * al4((size_t)n * (n + 1));
+  if (place == ALL_SMEM) t += P * al4((size_t)n * (n + r));
   if (place != PANEL_GLOBAL) t += P * al4((size_t)n * pc_ld());
   t += P * al4((size_t)PW * G_LD);
   return t * sizeof(T) + (4 + 2 * (size_t)n + 1) * sizeof(int);
 }
 
-// Workspace systems of (P, n, n + 1) elements a grid of ``grid`` blocks
+// Workspace systems of (P, n, n + r) elements a grid of ``grid`` blocks
 // needs at ``place``: a slot of the planes per block, then (PANEL_GLOBAL)
 // the blocks' [panel | C], n x pc_ld() per plane each, in as many more.
-inline int workspace_units(int n, int place, int grid) {
+inline int workspace_units(int n, int r, int place, int grid) {
   if (place == ALL_SMEM) return 0;
-  const long long nw = (long long)n * (n + 1);
+  const long long nw = (long long)n * (n + r);
   const long long pcs = (long long)grid * n * pc_ld();
   return grid + (place == PANEL_GLOBAL ? (int)((pcs + nw - 1) / nw) : 0);
 }
@@ -327,12 +332,14 @@ __device__ void search(T* const (&pc)[P], const int* used, int n, PcLayout L,
   warp_pick<T>(best_s, best_r, next_p);
 }
 
-// Solve (n, n) systems, one block at a time per system: A, b per plane
-// batch-first, x per plane, valid as bytes. The blocks are persistent:
-// block q solves systems q, q + gridDim.x, ... ``workspace``:
-// workspace_units(n, place, gridDim.x) systems of (P, n, n + 1) where the
-// plan's place puts data in global memory (one slot per resident block,
-// so the workspace stays small), else nullptr (ALL_SMEM). PG: the
+// Reduce (n, n + r) systems [A | B], one block at a time per system: A
+// (n, n) and B (n, r) per plane batch-first, or, with b0 == nullptr, B the
+// identity (r = n: the inverse); x (n, r) per plane, row k the right block
+// of pivot row perm[k]; valid as bytes. The blocks are persistent: block
+// q solves systems q, q + gridDim.x, ... ``workspace``:
+// workspace_units(n, r, place, gridDim.x) systems of (P, n, n + r) where
+// the plan's place puts data in global memory (one slot per resident
+// block, so the workspace stays small), else nullptr (ALL_SMEM). PG: the
 // PANEL_GLOBAL instance, [panel | C] in the workspace too (a template
 // flag, so the shared-memory instance keeps its constant strides).
 template <typename T, int P, bool PG>
@@ -341,11 +348,11 @@ __global__ void __launch_bounds__(THREADS, min_blocks<P>())
                  const T* __restrict__ b0, const T* __restrict__ b1,
                  T* __restrict__ x0, T* __restrict__ x1,
                  uint8_t* __restrict__ valid_out, T* __restrict__ workspace,
-                 int batch, int n, T thr) {
+                 int batch, int n, int r, T thr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int NCOL = PW / NWARPS;  // columns of a step per warp
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int w = n + 1, nw = n * w, ldp = pc_ld();
+  const int w = n + r, nw = n * w, ldp = pc_ld();
   const PcLayout L = PG ? PcLayout{1, n} : PcLayout{ldp, 1};
 
   T* base = reinterpret_cast<T*>(smem_raw);
@@ -378,11 +385,14 @@ __global__ void __launch_bounds__(THREADS, min_blocks<P>())
 
   for (long long sys = blockIdx.x; sys < batch; sys += gridDim.x) {
     const T* A[2] = {A0 + sys * n * n, P == 2 ? A1 + sys * n * n : nullptr};
-    const T* b[2] = {b0 + sys * n, P == 2 ? b1 + sys * n : nullptr};
+    const T* b[2] = {b0 == nullptr ? nullptr : b0 + sys * n * r,
+                     P == 2 && b1 != nullptr ? b1 + sys * n * r : nullptr};
     for (int idx = tid; idx < nw; idx += THREADS) {
       const int i = idx / w, j = idx - i * w;
       for (int c = 0; c < P; ++c)
-        m[c][idx] = j < n ? A[c][i * n + j] : b[c][i];
+        m[c][idx] = j < n          ? A[c][i * n + j]
+                    : b0 != nullptr ? b[c][i * r + j - n]
+                                    : T(c == 0 && j - n == i ? 1 : 0);
     }
     for (int i = tid; i < n; i += THREADS) used[i] = 0;
     if (tid == 0) *ok_all = 1;
@@ -494,11 +504,14 @@ __global__ void __launch_bounds__(THREADS, min_blocks<P>())
         __syncthreads();
       }
     }
-    // pivot row perm[k] carries x[k] in its right-hand side
+    // pivot row perm[k] carries x[k] (row k of the answer) in its
+    // right-hand side columns
     T* x[2] = {x0, x1};
-    for (int k = tid; k < n; k += THREADS)
+    for (int idx = tid; idx < n * r; idx += THREADS) {
+      const int k = idx / r, j = idx - k * r;
       for (int c = 0; c < P; ++c)
-        x[c][sys * n + k] = m[c][(size_t)perm[k] * w + n];
+        x[c][sys * n * r + idx] = m[c][(size_t)perm[k] * w + n + j];
+    }
     if (tid == 0) valid_out[sys] = (uint8_t)(*ok_all);
     __syncthreads();  // before the next system overwrites the planes
   }
@@ -529,7 +542,7 @@ inline const void* kernel_of(int place) {
 }
 
 template <typename T, int P>
-inline Plan plan(int n) {
+inline Plan plan(int n, int r) {
   Plan best;
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -542,7 +555,7 @@ inline Plan plan(int n) {
     if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)SMEM_MAX) != cudaSuccess)
       return Plan{};
-    const size_t bytes = smem_bytes<T, P>(n, place);
+    const size_t bytes = smem_bytes<T, P>(n, r, place);
     int blocks = 0;
     if (bytes > SMEM_MAX ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS,
@@ -556,33 +569,38 @@ inline Plan plan(int n) {
   return best;
 }
 
-// Systems of (P, n, n + 1) the global workspace must hold for a batch
+// Systems of (P, n, n + r) the global workspace must hold for a batch
 // (workspace_units of the plan's place and grid), 0 where the plan keeps
 // everything in shared memory.
 template <typename T, int P>
-inline int workspace_systems(int n, int batch) {
-  const Plan pl = plan<T, P>(n);
-  return pl.blocks_per_sm == 0 ? 0
-                               : workspace_units(n, pl.place, pl.grid(batch));
+inline int workspace_systems(int n, int r, int batch) {
+  const Plan pl = plan<T, P>(n, r);
+  return pl.blocks_per_sm == 0
+             ? 0
+             : workspace_units(n, r, pl.place, pl.grid(batch));
 }
 
-// Launch on ``stream``; ``workspace`` holds workspace_systems(n, batch)
-// systems of (P, n, n + 1) when that is nonzero.
+// Launch on ``stream``: r right-hand sides b0/b1 (n, r) per system, or the
+// identity (b0 == nullptr, r = n); ``workspace`` holds
+// workspace_systems(n, r, batch) systems of (P, n, n + r) when that is
+// nonzero.
 template <typename T, int P>
 int launch(const void* A0, const void* A1, const void* b0, const void* b1,
            void* x0, void* x1, void* valid, void* workspace, int batch,
-           int n, T thr, void* stream) {
-  const Plan pl = plan<T, P>(n);
-  if (n < 1 || pl.blocks_per_sm == 0) return (int)cudaErrorInvalidValue;
+           int n, int r, T thr, void* stream) {
+  if (n < 1 || r < 1 || (b0 == nullptr && r != n))
+    return (int)cudaErrorInvalidValue;
+  const Plan pl = plan<T, P>(n, r);
+  if (pl.blocks_per_sm == 0) return (int)cudaErrorInvalidValue;
   if ((pl.place == ALL_SMEM) != (workspace == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<T, P>(n, pl.place);
+  const size_t smem = smem_bytes<T, P>(n, r, pl.place);
   if (batch > 0) {
     auto* kernel = pl.place == PANEL_GLOBAL ? solve_kernel<T, P, true>
                                             : solve_kernel<T, P, false>;
     kernel<<<pl.grid(batch), THREADS, smem, (cudaStream_t)stream>>>(
         (const T*)A0, (const T*)A1, (const T*)b0, (const T*)b1, (T*)x0,
-        (T*)x1, (uint8_t*)valid, (T*)workspace, batch, n, thr);
+        (T*)x1, (uint8_t*)valid, (T*)workspace, batch, n, r, thr);
   }
   return (int)cudaGetLastError();
 }

@@ -223,7 +223,7 @@ int launch_solve(const void* A, const void* b, void* x, void* valid,
                                     stream);
     case PANEL:
       return gj::panel::launch<T, 1>(A, nullptr, b, nullptr, x, nullptr,
-                                     valid, workspace, batch, n, (T)eps,
+                                     valid, workspace, batch, n, 1, (T)eps,
                                      stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -257,8 +257,8 @@ int gj_real_workspace_systems(int n, int batch, int inv, int is_double,
   } else if (tier == THREAD || tier == WARP) {
     return 0;
   } else if (tier == PANEL) {
-    return is_double ? gj::panel::workspace_systems<double, 1>(n, batch)
-                     : gj::panel::workspace_systems<float, 1>(n, batch);
+    return is_double ? gj::panel::workspace_systems<double, 1>(n, 1, batch)
+                     : gj::panel::workspace_systems<float, 1>(n, 1, batch);
   }
   const size_t bytes = is_double ? block_smem<double>(n, inv, true)
                                  : block_smem<float>(n, inv, true);

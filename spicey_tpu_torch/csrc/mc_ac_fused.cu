@@ -1,4 +1,4 @@
-// K5 and K7: fused Monte-Carlo AC assemble-and-solve, one thread per system.
+// K5 and K7: fused Monte-Carlo AC assemble-and-solve.
 //
 // K5 replaces the TPU kernel spicey_tpu/ops/pallas_mc_ac.py:_fused_kernel
 // (pallas_call in mc_ac_fused_f32) and, by role, its f64-fidelity twin
@@ -8,34 +8,93 @@
 // spicey_tpu_torch/ops/mc_ac_fused.py:mc_ac_fused_plain and
 // mc_ac_fused_x_plain.
 //
-// For variant b and frequency f, the thread builds the augmented (N, N+1)
-// complex planes from the stamp pattern (flat tables, read at run time so
-// one build serves every deck) and the values column values[:, b], runs
-// the complex one-hot-pivot Gauss-Jordan (gj_common.cuh:thread_gj: largest
-// |a|^2 among unused rows, ties to the lowest row; invalid when |pivot|^2
-// < eps^2). K5 writes only |x[node]| and valid to mag[f, b], valid[f, b].
-// K7 writes the whole solution to xr[f, i, b], xi[f, i, b] (the TPU
-// kernel's (F, N, B) layout: consecutive threads store consecutive b, so
-// every store of a warp is coalesced) and valid[f, b]; with external RHS
-// planes rr, ri (F, N, B) they replace the pattern's RHS column, and the
-// tables are then packed without it (ops/mc_ac_fused.py:pack_pattern), so
-// the zeroing never touches column N.
+// For variant b and frequency f, each kernel builds the augmented (N, N+1)
+// complex system from the stamp pattern (flat tables, read at run time so
+// one build serves every deck) and the values column values[:, b], and
+// runs the complex one-hot-pivot Gauss-Jordan: largest |a|^2 among unused
+// rows, ties to the lowest row, NaN highest (gj_common.cuh:better);
+// invalid when |pivot|^2 < eps^2, and elimination goes on through a
+// rejected pivot with a unit divisor. Only the order of sums may differ
+// from the plain versions.
 //
-// What bounds them on the H100: the inputs are the (n_rows, B) values and
-// K5's outputs two (F, B) planes, a few bytes per system, while the
-// elimination is ~8 N^3/3 flops per system from on-chip memory, so K5 is
-// bound by shared-memory bandwidth and latency, not device memory; K7
-// adds 2N values per system written (4N read and written with external
-// RHS), still below its flops at N = 16. The planes of a thread's system
-// live in shared memory with the system index fastest, [(plane * N*(N+1)
-// + i*(N+1) + j) * TPB + t], the layout the TPU kernel gets from its
-// lanes: every access of a warp is 32 consecutive words, free of bank
-// conflicts. (In registers, an N = 16 system would spill past 255
-// registers a thread.) TPB is the largest of 256..32 systems a block
-// whose planes fit in 112 KB, so two blocks share an SM where the planes
-// allow it (at N = 16 in f64 one 32-thread block of 136 KB fills an SM).
-// Blocks run over (variant tiles, frequencies); reads of values and
-// writes of the outputs are coalesced along the variant axis.
+// K5: one thread per system. It writes only |x[node]| and valid to
+// mag[f, b], valid[f, b]. The thread's planes live in shared memory with
+// the system index fastest, [(plane * N*(N+1) + i*(N+1) + j) * TPB + t],
+// so every access of a warp is 32 consecutive words, free of bank
+// conflicts; gj_common.cuh:thread_gj eliminates them. TPB is the largest
+// of 256..32 systems a block whose planes fit in 112 KB. Its inputs are the
+// (n_rows, B) values and its outputs two (F, B) planes, a few bytes per
+// system, so it is bound by shared-memory latency, not device memory.
+//
+// K7: the whole solution, xr[f, i, b], xi[f, i, b] (the TPU kernel's
+// (F, N, B) layout) and valid[f, b]; with external RHS planes rr, ri
+// (F, N, B) they replace the pattern's RHS column, and the tables are then
+// packed without it (ops/mc_ac_fused.py:pack_pattern). Its first form was
+// K5's thread per system with the planes in shared memory: at N = 16 in
+// f64 a system's planes are 4,352 bytes, so a block of 32 threads took
+// 139 KB and an SM held one warp, whose threads each ran 16 dependent
+// steps through shared memory with nothing to hide the latency: 232.5 ms
+// at batch-ac-16k (16,384 variants x 201 frequencies), 3.8x
+// torch.linalg.solve on the same systems assembled beforehand.
+//
+// What bounds K7 on the H100 at N = 16 in f64: the elimination is ~16 x 16
+// x 17 complex multiply-adds per system, ~1.15e11 flops at batch-ac-16k:
+// ~3.4 ms at the CUDA cores' f64 rate (the kernel cannot use the tensor
+// cores' 0.645 ms operations bound: each step is a rank-1 update of one
+// small system). The (F, N, B) output is 843 MB written, ~0.25 ms at
+// 3.35 TB/s. So the aim is the CUDA cores' rate, which needs many warps in
+// flight and no round trip through shared memory inside a step.
+//
+// The design: a group of G lanes (G = the smallest of 4, 8, 16 that is >=
+// N, chosen by the wrapper, ops/mc_ac_fused.py:fused_group_for) solves one
+// (f, b) system; lane i of the group owns row i of [A | b] in registers,
+// 2 (G + 1) values (column N's right-hand side in slot G), and lanes i >= N
+// hold no row, as in gj_common.cuh:warp_gj. The loops over the N <= G
+// pivot steps and over the columns are unrolled, so no register is
+// indexed at run time and nothing spills: the register report
+// (``cuobjdump --dump-resource-usage`` on the built library, printed by
+// chip_smoke.py phase 1, which fails on any local memory in a K7
+// instance) gives the G = 16 pattern-RHS instances 128 registers a thread
+// in f64 and 69 in f32, no stack, no local memory: 16 resident warps per
+// SM in f64, more in f32. Each lane
+// assembles its own row from a row-ordered copy of the entry table
+// (row_ent / row_ptr: the same entries with the same terms in the same
+// order as K5's table, so every element is the same sum, bitwise equal to
+// it), walking the row's entries and putting each in its slot by a select
+// per slot; a row starts at zero, so no zeroing table is read. (The first
+// form tested every slot against the next entry, with the term loop
+// unrolled into each of the 2 (G + 1) slots: thousands of instructions
+// beside the unrolled elimination, 2.4x slower at batch-ac-16k;
+// tools/profile_torch_k7.py builds it as a variant.)
+// Step k: an argmax over the group by __shfl_xor_sync within the G lanes
+// (better(), as warp_gj ranks 32 lanes); the pivot row reaches the group
+// through a per-group slot in shared memory: the pivot lane writes its
+// raw row, __syncwarp, lane j divides column j once (lane 0 the
+// right-hand side), __syncwarp, every lane reads the scaled row as a
+// broadcast. (Shuffles of the pivot lane's registers, every lane dividing
+// every column, measured slower in f64 and f32: PERF.md, and a variant of
+// that tool.) The division is row / pv in thread_gj's form
+// (prr pvr + pri pvi) / |pv|^2.
+// Every other lane subtracts its factor times that row from its own
+// registers; only columns right of k are touched, since no later step
+// and no answer reads the others. Where N < G the zero columns N..G-1 are
+// updated too (they stay zero, and nothing reads them): testing each
+// column against N cost a compare and a branch per column, 12% of the
+// kernel's time at N = 16 in f64. No step has a block barrier. At the end
+// lane k takes x[k] from lane perm[k] by a shuffle, the block stages its
+// systems' solutions for consecutive b at one f in shared memory, and
+// consecutive threads store consecutive b (external RHS planes come in
+// the same way). Blocks run over (variant tiles, frequencies); the block
+// size is the one of 256 and 128 threads with more resident warps per SM
+// by the occupancy API.
+//
+// What still bounds it: the instruction rate. A warp (two N = 16 systems)
+// executes ~5,500 instructions (tools/profile_torch_k7.py counts them),
+// most of them the ~136 column updates per system (a broadcast read, six
+// f64 multiply-adds and four selects each) and ~100 per step for the
+// argmax, the pivot row and the division: ~9e9 warp instructions at
+// batch-ac-16k, ~10 ms at one instruction per clock on each of the 528
+// schedulers, against the measured ~12 ms in f64 (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,43 +172,186 @@ __global__ void mc_ac_fused_kernel(
   valid[(size_t)f * B + b] = ok ? 1 : 0;
 }
 
-// K7: the whole solution; EXT_RHS takes column N from rr, ri.
-template <typename T, bool EXT_RHS>
-__global__ void mc_ac_fused_x_kernel(
-    const T* __restrict__ freqs, const T* __restrict__ values, int B,
-    const int* __restrict__ ent, int n_ent, const int* __restrict__ terms,
-    const int* __restrict__ zeros, int n_zero, int n, T eps, T eps2,
-    const T* __restrict__ rr, const T* __restrict__ ri, T* __restrict__ xr,
-    T* __restrict__ xi, uint8_t* __restrict__ valid) {
-  extern __shared__ unsigned char smem_raw[];
-  const int tpb = blockDim.x;
-  const int t = threadIdx.x;
-  const int b = blockIdx.x * tpb + t;
-  const int f = blockIdx.y;
-  if (b >= B) return;  // no barrier below: each thread owns its system
-  T* P = reinterpret_cast<T*>(smem_raw) + t;
-  const int w1 = n + 1;
-  const int nw = n * w1;
-  assemble<T>(P, tpb, values, B, b, T(6.283185307179586) * freqs[f], ent,
-              n_ent, terms, zeros, n_zero, eps);
-  const size_t base = (size_t)f * n * B + b;  // (f, 0, b) of (F, N, B)
-  if constexpr (EXT_RHS) {
-    for (int i = 0; i < n; ++i) {
-      P[(size_t)(i * w1 + n) * tpb] = rr[base + (size_t)i * B];
-      P[(size_t)(nw + i * w1 + n) * tpb] = ri[base + (size_t)i * B];
+// ---- K7: a group of G lanes per system, one row per lane in registers ----
+
+// Row i of plane c (0 real, 1 imaginary) of system (f, b) into a[0..G]:
+// column j < n at slot j, column n (the right-hand side) at slot G, every
+// other slot zero. row_ent (n_ent, 3) = [column, first term, end term],
+// sorted by (plane, row, column); row_ptr[c * (n + 1) + i] is the first
+// entry of row i of plane c. Each entry is the sum of its terms in table
+// order, as assemble() forms it, and lands in its slot by a select per
+// slot, so no register is indexed at run time.
+template <typename T, int G>
+__device__ __forceinline__ void assemble_row(
+    T (&a)[G + 1], int c, int i, int n, const T* __restrict__ values,
+    int B, int b, T w, const int* __restrict__ row_ent,
+    const int* __restrict__ row_ptr, const int* __restrict__ terms, T eps) {
+#pragma unroll
+  for (int j = 0; j <= G; ++j) a[j] = T(0);
+  const int e1 = row_ptr[c * (n + 1) + i + 1];
+  for (int e = row_ptr[c * (n + 1) + i]; e < e1; ++e) {
+    const int col = row_ent[3 * e], t0 = row_ent[3 * e + 1],
+              t1 = row_ent[3 * e + 2];
+    T acc = T(0);
+    for (int q = t0; q < t1; ++q) {
+      const int kind = terms[3 * q], row = terms[3 * q + 1];
+      const T v = __ldg(values + (size_t)row * B + b);
+      const T tv = term_value<T>(kind, T(terms[3 * q + 2]), v, w, eps);
+      acc = q == t0 ? tv : acc + tv;
+    }
+    const int slot = col == n ? G : col;
+#pragma unroll
+    for (int j = 0; j <= G; ++j)
+      if (slot == j) a[j] = acc;
+  }
+}
+
+// The group's pivot row: the lane with the largest score, ties to the
+// lowest row, NaN highest (gj::better); a butterfly of shuffles within
+// the G lanes, so every lane of the group ends with the same row.
+template <typename T, int G>
+__device__ __forceinline__ int group_pivot(T best_s, int best_r) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    const T os = __shfl_xor_sync(0xffffffffu, best_s, off, G);
+    const int orow = __shfl_xor_sync(0xffffffffu, best_r, off, G);
+    if (gj::better(os, orow, best_s, best_r)) {
+      best_s = os;
+      best_r = orow;
     }
   }
+  return best_r;
+}
 
-  T* const planes[2] = {P, P + (size_t)nw * tpb};  // real, imaginary
-  uint64_t perm;
-  const bool ok = gj::thread_gj<T, 2>(planes, tpb, n, w1, eps2, perm);
-  // pivot row perm[i] carries x[i] in its RHS entry
-  for (int i = 0; i < n; ++i) {
-    const size_t q = (size_t)(gj::perm_at(perm, i) * w1 + n) * tpb;
-    xr[base + (size_t)i * B] = planes[0][q];
-    xi[base + (size_t)i * B] = planes[1][q];
+template <typename T> struct Pair;
+template <> struct Pair<float> { using type = float2; };
+template <> struct Pair<double> { using type = double2; };
+
+// Shared-memory bytes of a K7 block of ``tpb`` threads: the staged
+// solutions (and external RHS planes), 2 x G rows of tpb / G + 1 values
+// each; the per-group pivot-row slots; the validity bytes.
+template <typename T, int G, bool EXT_RHS>
+size_t x_smem_bytes(int tpb) {
+  const size_t spb = tpb / G, ld = spb + 1;
+  return ((EXT_RHS ? 2 : 1) * 2 * G * ld + spb * (G + 1) * 2) * sizeof(T) +
+         spb;
+}
+
+constexpr int K7_MAX_THREADS = 256;
+
+template <typename T, int G, bool EXT_RHS>
+__global__ void __launch_bounds__(K7_MAX_THREADS) mc_ac_fused_x_kernel(
+    const T* __restrict__ freqs, const T* __restrict__ values, int B,
+    const int* __restrict__ row_ent, const int* __restrict__ row_ptr,
+    const int* __restrict__ terms, int n, T eps, T eps2,
+    const T* __restrict__ rr, const T* __restrict__ ri, T* __restrict__ xr,
+    T* __restrict__ xi, uint8_t* __restrict__ valid) {
+  using P2 = typename Pair<T>::type;
+  constexpr unsigned FULL = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int spb = blockDim.x / G, ld = spb + 1;  // systems of the block
+  const int t = threadIdx.x, i = t % G, g = t / G;
+  const int b0 = blockIdx.x * spb, b = b0 + g, f = blockIdx.y;
+  const bool live = b < B, has_row = i < n;
+  // [2][G][ld] solutions, then (EXT_RHS) the right-hand sides, then
+  // [spb][G + 1] pivot-row slots, then spb validity bytes
+  T* xs = reinterpret_cast<T*>(smem_raw);
+  T* rs = xs + 2 * G * ld;
+  P2* const slots = reinterpret_cast<P2*>(rs + (EXT_RHS ? 2 * G * ld : 0));
+  P2* slot = slots + (size_t)g * (G + 1);
+  uint8_t* vs = reinterpret_cast<uint8_t*>(slots + (size_t)spb * (G + 1));
+
+  if constexpr (EXT_RHS) {  // rr, ri (F, N, B): consecutive threads, b
+    for (int idx = t; idx < n * spb; idx += blockDim.x) {
+      const int k = idx / spb, s = idx - k * spb;
+      if (b0 + s < B) {
+        const size_t q = ((size_t)f * n + k) * B + b0 + s;
+        rs[k * ld + s] = rr[q];
+        rs[(G + k) * ld + s] = ri[q];
+      }
+    }
+    __syncthreads();
   }
-  valid[(size_t)f * B + b] = ok ? 1 : 0;
+
+  T ar[G + 1], ai[G + 1];
+  if (live && has_row) {
+    const T w = T(6.283185307179586) * freqs[f];
+    assemble_row<T, G>(ar, 0, i, n, values, B, b, w, row_ent, row_ptr,
+                       terms, eps);
+    assemble_row<T, G>(ai, 1, i, n, values, B, b, w, row_ent, row_ptr,
+                       terms, eps);
+    if constexpr (EXT_RHS) {
+      ar[G] = rs[i * ld + g];
+      ai[G] = rs[(G + i) * ld + g];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j <= G; ++j) ar[j] = ai[j] = T(0);
+  }
+
+  bool used = false, ok_all = true;
+  int perm_k = 0;  // lane k: the pivot row of column k
+  // the column of the pivot row this lane divides: lane 0 the right-hand
+  // side, which no step reaches as its pivot column
+  const int own = i == 0 ? G : i;
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    if (k >= n) break;  // n is the same for every lane of the launch
+    const T er = ar[k], ei = ai[k];
+    const int p = group_pivot<T, G>(
+        !has_row ? T(-2) : used ? T(-1) : er * er + ei * ei, i);
+    const bool piv = i == p;
+    if (piv) used = true;
+    if (i == k) perm_k = p;
+    if (piv) {  // the raw pivot row into the group's slot
+#pragma unroll
+      for (int j = k; j <= G; ++j)
+        slot[j] = P2{ar[j], ai[j]};
+    }
+    __syncwarp();
+    const P2 pv = slot[k];
+    const T pvr = pv.x, pvi = pv.y;
+    const T d = pvr * pvr + pvi * pvi;
+    const bool ok = d >= eps2;
+    ok_all = ok_all && ok;
+    const T inv_d = T(1) / (ok ? d : T(1));
+    // each column of the pivot row divided by the pivot once, by its lane
+    if (own > k) {
+      const P2 q = slot[own];
+      slot[own] = P2{(q.x * pvr + q.y * pvi) * inv_d,
+                     (q.y * pvr - q.x * pvi) * inv_d};
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = k + 1; j <= G; ++j) {
+      // row - factor * (pivot row / pv); the pivot row becomes the latter
+      const P2 q = slot[j];
+      const T nr = ar[j] - (er * q.x - ei * q.y);
+      const T ni = ai[j] - (er * q.y + ei * q.x);
+      ar[j] = piv ? q.x : nr;
+      ai[j] = piv ? q.y : ni;
+    }
+    __syncwarp();  // the slot is read before the next step writes it
+  }
+
+  // pivot row perm[k] (lane perm[k]) carries x[k] in slot G
+  const T x_r = __shfl_sync(FULL, ar[G], perm_k, G);
+  const T x_i = __shfl_sync(FULL, ai[G], perm_k, G);
+  if (has_row) {
+    xs[i * ld + g] = x_r;
+    xs[(G + i) * ld + g] = x_i;
+  }
+  if (i == 0) vs[g] = ok_all ? 1 : 0;
+  __syncthreads();
+  for (int idx = t; idx < n * spb; idx += blockDim.x) {
+    const int k = idx / spb, s = idx - k * spb;
+    if (b0 + s < B) {
+      const size_t q = ((size_t)f * n + k) * B + b0 + s;
+      xr[q] = xs[k * ld + s];
+      xi[q] = xs[(G + k) * ld + s];
+    }
+  }
+  if (t < spb && b0 + t < B) valid[(size_t)f * B + b0 + t] = vs[t];
 }
 
 // Threads per block for systems of n unknowns: the largest of 256..32
@@ -187,43 +389,61 @@ int launch(const void* freqs, const void* values, int F, int B,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool EXT_RHS>
+// Launch K7 with group width G: the block size (256 or 128 threads)
+// with more resident warps per SM, ties to 256.
+template <typename T, int G, bool EXT_RHS>
 int launch_x(const void* freqs, const void* values, int F, int B,
-             const void* ent, int n_ent, const void* terms,
-             const void* zeros, int n_zero, int n, double eps,
-             const void* rr, const void* ri, void* xr, void* xi,
-             void* valid, void* stream) {
-  size_t smem = 0;
-  const int tpb = threads_per_block<T>(n, &smem);
-  if (tpb == 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mc_ac_fused_x_kernel<T, EXT_RHS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+             const void* row_ent, const void* row_ptr, const void* terms,
+             int n, double eps, const void* rr, const void* ri, void* xr,
+             void* xi, void* valid, void* stream) {
+  if (n < 1 || n > G) return (int)cudaErrorInvalidValue;
+  auto* kernel = mc_ac_fused_x_kernel<T, G, EXT_RHS>;
+  int tpb = 0, best = -1;
+  for (int cand : {K7_MAX_THREADS, K7_MAX_THREADS / 2}) {
+    int blocks = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, cand, x_smem_bytes<T, G, EXT_RHS>(cand));
+    if (err != cudaSuccess) return (int)err;
+    if (blocks * cand > best) {
+      best = blocks * cand;
+      tpb = cand;
+    }
+  }
+  if (best <= 0) return (int)cudaErrorInvalidConfiguration;
   if (B > 0 && F > 0) {
-    dim3 grid((B + tpb - 1) / tpb, F);
-    mc_ac_fused_x_kernel<T, EXT_RHS>
-        <<<grid, tpb, smem, (cudaStream_t)stream>>>(
-            (const T*)freqs, (const T*)values, B, (const int*)ent, n_ent,
-            (const int*)terms, (const int*)zeros, n_zero, n, (T)eps,
-            (T)(eps * eps), (const T*)rr, (const T*)ri, (T*)xr, (T*)xi,
-            (uint8_t*)valid);
+    const int spb = tpb / G;
+    dim3 grid((B + spb - 1) / spb, F);
+    kernel<<<grid, tpb, x_smem_bytes<T, G, EXT_RHS>(tpb),
+             (cudaStream_t)stream>>>(
+        (const T*)freqs, (const T*)values, B, (const int*)row_ent,
+        (const int*)row_ptr, (const int*)terms, n, (T)eps, (T)(eps * eps),
+        (const T*)rr, (const T*)ri, (T*)xr, (T*)xi, (uint8_t*)valid);
   }
   return (int)cudaGetLastError();
 }
 
 // rr == nullptr: the pattern's RHS; otherwise the external RHS planes.
+// ``group``: 4, 8 or 16 lanes per system.
 template <typename T>
 int launch_x_mode(const void* freqs, const void* values, int F, int B,
-                  const void* ent, int n_ent, const void* terms,
-                  const void* zeros, int n_zero, int n, double eps,
+                  const void* row_ent, const void* row_ptr,
+                  const void* terms, int n, int group, double eps,
                   const void* rr, const void* ri, void* xr, void* xi,
                   void* valid, void* stream) {
-  if (rr == nullptr)
-    return launch_x<T, false>(freqs, values, F, B, ent, n_ent, terms, zeros,
-                              n_zero, n, eps, rr, ri, xr, xi, valid, stream);
-  return launch_x<T, true>(freqs, values, F, B, ent, n_ent, terms, zeros,
-                           n_zero, n, eps, rr, ri, xr, xi, valid, stream);
+#define K7_LAUNCH(G)                                                        \
+  (rr == nullptr                                                            \
+       ? launch_x<T, G, false>(freqs, values, F, B, row_ent, row_ptr,      \
+                               terms, n, eps, rr, ri, xr, xi, valid,       \
+                               stream)                                     \
+       : launch_x<T, G, true>(freqs, values, F, B, row_ent, row_ptr, terms, \
+                              n, eps, rr, ri, xr, xi, valid, stream))
+  switch (group) {
+    case 4: return K7_LAUNCH(4);
+    case 8: return K7_LAUNCH(8);
+    case 16: return K7_LAUNCH(16);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef K7_LAUNCH
 }
 
 }  // namespace
@@ -249,22 +469,21 @@ int mc_ac_fused_f64(const void* freqs, const void* values, int F, int B,
 }
 
 int mc_ac_fused_x_f32(const void* freqs, const void* values, int F, int B,
-                      const void* ent, int n_ent, const void* terms,
-                      const void* zeros, int n_zero, int n, double eps,
+                      const void* row_ent, const void* row_ptr,
+                      const void* terms, int n, int group, double eps,
                       const void* rr, const void* ri, void* xr, void* xi,
                       void* valid, void* stream) {
-  return launch_x_mode<float>(freqs, values, F, B, ent, n_ent, terms, zeros,
-                              n_zero, n, eps, rr, ri, xr, xi, valid, stream);
+  return launch_x_mode<float>(freqs, values, F, B, row_ent, row_ptr, terms,
+                              n, group, eps, rr, ri, xr, xi, valid, stream);
 }
 
 int mc_ac_fused_x_f64(const void* freqs, const void* values, int F, int B,
-                      const void* ent, int n_ent, const void* terms,
-                      const void* zeros, int n_zero, int n, double eps,
+                      const void* row_ent, const void* row_ptr,
+                      const void* terms, int n, int group, double eps,
                       const void* rr, const void* ri, void* xr, void* xi,
                       void* valid, void* stream) {
-  return launch_x_mode<double>(freqs, values, F, B, ent, n_ent, terms,
-                               zeros, n_zero, n, eps, rr, ri, xr, xi, valid,
-                               stream);
+  return launch_x_mode<double>(freqs, values, F, B, row_ent, row_ptr, terms,
+                               n, group, eps, rr, ri, xr, xi, valid, stream);
 }
 
 }  // extern "C"

@@ -10,23 +10,25 @@ tier itself. K4 writes the true inverse, not the TPU kernel's
 row-permuted one. Their plain PyTorch versions are
 ``ops/linsolve.gj_solve_planes`` and ``ops/linsolve.gj_inverse_planes``.
 
-K1 runs in three tiers, chosen by ``tier_for`` from N and the dtype
+K1 and K4 run in three tiers, chosen by ``tier_for`` from N and the dtype
 (``csrc/gj_complex.cu`` says what bounds each): "warp" (N <= 32, one warp
-per system, ``gj_common.cuh:warp_gj``), "block" (one block per system,
-``block_gj``) and "panel" (``csrc/gj_panel.cuh``: pivot steps on a panel
-of PW = 16 columns, then one product per panel, on the tensor cores in
-f64). K4 keeps ``block_gj`` at every N. ``K1_TIERS`` counts each tier's
-launches beside ``K1``'s total.
+per system, ``gj_common.cuh:warp_gj``, on [A | b] or [A | I]), "block"
+(one block per system, ``block_gj``, chosen at no N: only forced, for
+the comparisons) and "panel" (N >= 33, ``csrc/gj_panel.cuh``: pivot steps
+on a panel of PW = 16 columns, then one product per panel over the
+trailing columns, the right-hand side or the identity block included, on
+the tensor cores in f64). ``K1_TIERS`` and ``K4_TIERS`` count each tier's
+launches beside ``K1``'s and ``K4``'s totals.
 
 N has no upper limit: where a system's planes overflow the 227 KB of
 shared memory a block may hold, the kernel eliminates in a global
 workspace. The block tier's solve does so from N = 119 in f64 and 169 in
-f32 (B N (N + 1) elements per plane), the inverse above N = 84 in f64 and
+f32 (B N (N + 1) elements per plane), its inverse above N = 84 in f64 and
 119 in f32 (2 B N^2). The panel tier keeps one slot per resident block,
-holding the planes where its plan says (complex f64 from N = 100, f32
-from 151) and, past N = 401 in f64 and 822 in f32, its n x 33 [panel | C]
-as well. So a flat deck past N = 128 solves dense, as the JAX package
-solves a deck that has no subcircuit structure there.
+holding the planes where its plan says and, past N = 401 in f64 and 822
+in f32 (the solve), its n x 33 [panel | C] as well. So a flat deck past
+N = 128 solves dense, as the JAX package solves a deck that has no
+subcircuit structure there.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import ctypes
 import torch
 
 from ..constants import EPS
-from ._build import SMEM_MAX, Kernel, check, load, ptr, stream_ptr, workspace
+from ._build import Kernel, check, load, ptr, stream_ptr, workspace
 
 # one launch counter per instantiation
 K1 = {dt: Kernel(name=f"gj_complex_{tag}",
@@ -66,33 +68,39 @@ WARP_MAX_N = 32                     # gj_common.cuh:WARP_MAX_N
 # block tier keeps no N of the solve.
 K1_WARP_MAX = 32
 K1_PANEL_MIN = 33
-# launches of each tier, per instantiation (K1 counts their sum)
+# K4 (the inverse, [A | I]) takes the same crossovers: the warp tier up to
+# N = 32, the panel tier from N = 33 (``chip_smoke.py`` phase 9 times every
+# tier at the .noise shapes, PERF.md)
+K4_WARP_MAX = 32
+K4_PANEL_MIN = 33
+# launches of each tier, per instantiation (K1, K4 count their sums)
 K1_TIERS = {dt: dict.fromkeys(TIERS, 0)
+            for dt in (torch.float32, torch.float64)}
+K4_TIERS = {dt: dict.fromkeys(TIERS, 0)
             for dt in (torch.float32, torch.float64)}
 
 
 def tier_for(n: int, dtype: torch.dtype, inverse: bool = False) -> str:
-    """The tier K1 runs an (n, n) system of ``dtype`` planes in (the same
-    for both dtypes on the card measured); K4 (the inverse) is always
-    "block"."""
-    if inverse:
-        return "block"
-    if n <= K1_WARP_MAX:
+    """The tier K1 (or, ``inverse``, K4) runs an (n, n) system of ``dtype``
+    planes in (the same for both dtypes on the card measured)."""
+    wmax, pmin = (K4_WARP_MAX, K4_PANEL_MIN) if inverse \
+        else (K1_WARP_MAX, K1_PANEL_MIN)
+    if n <= wmax:
         return "warp"
-    return "panel" if n >= K1_PANEL_MIN else "block"
+    return "panel" if n >= pmin else "block"
 
 
 _LAUNCH_ARGS = [ctypes.c_void_p] * 8 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int,
     ctypes.c_void_p]
 _INV_ARGS = [ctypes.c_void_p] * 6 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int,
+    ctypes.c_void_p]
 _SIGNATURES = {
     "gj_complex_workspace_systems": ([ctypes.c_int] * 4, ctypes.c_int),
     "gj_complex_f32": (_LAUNCH_ARGS, ctypes.c_int),
     "gj_complex_f64": (_LAUNCH_ARGS, ctypes.c_int),
-    "gj_complex_inv_smem_bytes": ([ctypes.c_int, ctypes.c_int],
-                                  ctypes.c_size_t),
+    "gj_complex_inv_workspace_systems": ([ctypes.c_int] * 4, ctypes.c_int),
     "gj_complex_inverse_f32": (_INV_ARGS, ctypes.c_int),
     "gj_complex_inverse_f64": (_INV_ARGS, ctypes.c_int),
 }
@@ -158,12 +166,14 @@ def gj_solve_planes_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
 
 
 def gj_inverse_planes_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
-                           eps: float = EPS
+                           eps: float = EPS, tier: str | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Launch K4 on batch-first planes A_* (B, N, N), CUDA, contiguous, one
     float dtype (float32 or float64). Returns (M_re, M_im, valid) shaped
-    (B, N, N), (B, N, N), (B,): the true inverse of every valid system."""
+    (B, N, N), (B, N, N), (B,): the true inverse of every valid system.
+    ``tier`` forces one of ``TIERS`` (for the comparisons); None takes
+    ``tier_for(n, dtype, inverse=True)``'s."""
     if A_re.ndim != 3 or A_re.shape[1] != A_re.shape[2]:
         raise ValueError(f"A_re must be (B, N, N), got {tuple(A_re.shape)}")
     nb, n = A_re.shape[0], A_re.shape[1]
@@ -176,24 +186,32 @@ def gj_inverse_planes_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
     if A_re.dtype not in (torch.float32, torch.float64) \
             or A_im.dtype != A_re.dtype:
         raise TypeError("K4 takes float32 or float64 planes of one dtype")
+    tier = tier_for(n, A_re.dtype, inverse=True) if tier is None else tier
+    if tier not in TIERS or (tier == "warp" and n > WARP_MAX_N):
+        raise ValueError(f"K4 has no tier {tier!r} at N={n}")
     if not (A_re.is_cuda and A_im.is_cuda) or A_im.device != A_re.device:
         raise ValueError("K4 takes CUDA tensors on one device")
     if not (A_re.is_contiguous() and A_im.is_contiguous()):
         raise ValueError("K4 takes contiguous tensors")
+    code_tier = TIERS.index(tier)
     lib = load_library()
     dbl = A_re.dtype == torch.float64
     m_re = torch.empty_like(A_re)
     m_im = torch.empty_like(A_re)
     valid = torch.empty((nb,), dtype=torch.bool, device=A_re.device)
     ws = None
-    if lib.gj_complex_inv_smem_bytes(n, int(dbl)) > SMEM_MAX:
-        # [A | I] overflows shared memory (f64 above N = 84, f32 above
-        # ~119): eliminate in place in a global workspace instead
-        ws = workspace((nb, 2, n, 2 * n), A_re, "K4")
+    n_ws = lib.gj_complex_inv_workspace_systems(n, nb, int(dbl), code_tier)
+    if n_ws:
+        # [A | I] in global memory: the block tier's where it overflows
+        # shared memory (f64 above N = 84, f32 above ~119), one system
+        # each; the panel tier's where its plan keeps the planes there,
+        # one slot per resident block
+        ws = workspace((n_ws, 2, n, 2 * n), A_re, "K4")
     fn = lib.gj_complex_inverse_f64 if dbl else lib.gj_complex_inverse_f32
     code = fn(ptr(A_re), ptr(A_im), ptr(m_re), ptr(m_im), ptr(valid),
               ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,
-              float(eps), stream_ptr(A_re.device))
-    check(code, "gj_complex inverse launch")
+              float(eps), code_tier, stream_ptr(A_re.device))
+    check(code, f"gj_complex inverse {tier} launch")
     K4[A_re.dtype].launches += 1
+    K4_TIERS[A_re.dtype][tier] += 1
     return m_re, m_im, valid

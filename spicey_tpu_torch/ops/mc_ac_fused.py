@@ -7,11 +7,15 @@ refinement loop). Per (variant, frequency) system it builds the augmented
 (N, N+1) complex planes on chip from the static stamp pattern and the
 (n_rows, B) element values, runs the complex one-hot-pivot Gauss-Jordan,
 and writes only |V(node)| and ``valid``: the planes never exist in device
-memory. K7 replaces ``_fused_x_kernel``: the same assembly and
-elimination, writing the whole solution (F, N, B) and ``valid`` (F, B);
-with an external RHS (rr, ri) (F, N, B) the pattern's RHS column is
-replaced, from tables packed without it (``pack_pattern(ext_rhs=True)``).
-``simulate_ac_batch(method="pallas")`` runs it in f64.
+memory. K7 replaces ``_fused_x_kernel``: the same systems and pivots,
+writing the whole solution (F, N, B) and ``valid`` (F, B); with an
+external RHS (rr, ri) (F, N, B) the pattern's RHS column is replaced,
+from tables packed without it (``pack_pattern(ext_rhs=True)``).
+``simulate_ac_batch(method="pallas")`` runs it in f64. K5 is one thread
+per system; K7 is a group of ``fused_group_for(n)`` lanes per system, one
+row per lane in registers, assembled from the pattern's row-ordered table
+(``PackedPattern.row_ent``/``row_ptr``), the pivot row shared through
+shared memory; ``csrc/mc_ac_fused.cu`` says what bounds each.
 
 The stamp pattern is the same static-index information the scatter
 assembly uses, precomputed on the host as per-entry term lists; each term
@@ -52,6 +56,9 @@ FUSED_MAX_N = 16
 
 KINDS = {"one": 0, "inv": 1, "lin": 2, "w": 3, "winv": 4}
 
+# K7's group widths: lanes per system, each a power of two that divides a
+# warp; N must not exceed the group's
+K7_GROUPS = (4, 8, 16)
 # one launch counter per instantiation
 K5 = {dt: Kernel(name=f"mc_ac_fused_{tag}",
                  source="spicey_tpu_torch/csrc/mc_ac_fused.cu",
@@ -171,8 +178,12 @@ class PackedPattern:
     system: ``plane * n*(n+1) + i*(n+1) + j`` (plane 0 real, 1 imag).
     ``ent`` (n_ent, 3) = [position, first term, end term]; ``terms``
     (n_terms, 3) = [kind, value row, sign]; ``zeros`` (n_zero,) = the
-    positions no entry writes, which the kernel zeroes. ``ext_rhs``: the
-    tables leave the RHS column out (no entries there, none of its
+    positions no entry writes, which K5 zeroes. ``row_ent`` (n_ent, 3) =
+    [column, first term, end term], the same entries sorted by (plane, row,
+    column), and ``row_ptr`` (2, n + 1): entries ``row_ptr[c, i]`` up to
+    ``row_ptr[c, i + 1]`` are row i of plane c. K7 assembles each row from
+    them, so each element is the same sum in the same order. ``ext_rhs``:
+    the tables leave the RHS column out (no entries there, none of its
     positions zeroed), for K7 with external RHS planes."""
 
     n: int
@@ -180,7 +191,17 @@ class PackedPattern:
     ent: torch.Tensor
     terms: torch.Tensor
     zeros: torch.Tensor
+    row_ent: torch.Tensor
+    row_ptr: torch.Tensor
     ext_rhs: bool = False
+
+    def to(self, device: torch.device | str) -> "PackedPattern":
+        """The same tables on ``device``."""
+        return PackedPattern(
+            n=self.n, n_rows=self.n_rows, ent=self.ent.to(device),
+            terms=self.terms.to(device), zeros=self.zeros.to(device),
+            row_ent=self.row_ent.to(device), row_ptr=self.row_ptr.to(device),
+            ext_rhs=self.ext_rhs)
 
 
 def pack_entries(planes: tuple, n: int, width: int,
@@ -225,8 +246,38 @@ def pack_pattern(pattern: tuple, n: int, device: torch.device | str,
                                      device)
     if ext_rhs:
         zeros = zeros[zeros % (n + 1) != n].contiguous()
+    row_ent, row_ptr = row_table(ent.cpu(), n)
     return PackedPattern(n=n, n_rows=int(n_rows), ent=ent, terms=terms,
-                         zeros=zeros, ext_rhs=ext_rhs)
+                         zeros=zeros, row_ent=row_ent.to(device),
+                         row_ptr=row_ptr.to(device), ext_rhs=ext_rhs)
+
+
+def row_table(ent: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's row-ordered copy of an entry table ``ent`` [position, first
+    term, end term] over (2, n, n + 1) planes: ``row_ent`` [column, first
+    term, end term] sorted by position, i.e. by (plane, row, column), each
+    entry keeping its terms; ``row_ptr`` (2, n + 1) int32, the first entry
+    of each row of each plane and, last, the end of the plane's entries."""
+    e = ent.numpy().reshape(-1, 3)
+    e = e[np.argsort(e[:, 0], kind="stable")]
+    w = n + 1
+    plane, row = e[:, 0] // (n * w), (e[:, 0] % (n * w)) // w
+    row_ent = np.stack([e[:, 0] % w, e[:, 1], e[:, 2]], axis=1)
+    # entries before row i of plane c: those of lower (plane, row)
+    key = plane * n + row
+    starts = np.searchsorted(key, np.arange(2 * n + 1))
+    row_ptr = np.stack([starts[c * n:c * n + n + 1] for c in range(2)])
+    return (torch.as_tensor(row_ent.astype(np.int32)),
+            torch.as_tensor(row_ptr.astype(np.int32)))
+
+
+def fused_group_for(n: int) -> int:
+    """Lanes of a K7 group for systems of n unknowns: the smallest of
+    ``K7_GROUPS`` that holds n rows."""
+    for g in K7_GROUPS:
+        if 1 <= n <= g:
+            return g
+    raise ValueError(f"K7 takes 1 <= N <= {K7_GROUPS[-1]}, got N={n}")
 
 
 def combine_values(r_vals: torch.Tensor, c_vals: torch.Tensor,
@@ -341,7 +392,9 @@ _TABLE_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
     ctypes.c_int, ctypes.c_int]
 _LAUNCH_ARGS = _TABLE_ARGS + [ctypes.c_int, ctypes.c_double] \
     + [ctypes.c_void_p] * 3
-_LAUNCH_X_ARGS = _TABLE_ARGS + [ctypes.c_double] + [ctypes.c_void_p] * 6
+_LAUNCH_X_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+    ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_double] + [
+    ctypes.c_void_p] * 6
 _SIGNATURES = {
     "mc_ac_fused_f32": (_LAUNCH_ARGS, ctypes.c_int),
     "mc_ac_fused_f64": (_LAUNCH_ARGS, ctypes.c_int),
@@ -369,7 +422,8 @@ def _check_launch(freqs: torch.Tensor, values: torch.Tensor,
     if values.dtype not in (torch.float32, torch.float64) \
             or freqs.dtype != values.dtype:
         raise TypeError(f"{what} takes float32 or float64 freqs and values")
-    tables = (packed.ent, packed.terms, packed.zeros)
+    tables = (packed.ent, packed.terms, packed.zeros, packed.row_ent,
+              packed.row_ptr)
     if any(t.dtype != torch.int32 for t in tables):
         raise TypeError(f"{what} takes int32 pattern tables")
     ts = (freqs, values) + tables + extra
@@ -432,10 +486,10 @@ def mc_ac_fused_x_cuda(freqs: torch.Tensor, values: torch.Tensor,
     fn = lib.mc_ac_fused_x_f64 if values.dtype == torch.float64 \
         else lib.mc_ac_fused_x_f32
     rr, ri = (None, None) if rhs is None else (ptr(rhs[0]), ptr(rhs[1]))
-    code = fn(ptr(freqs), ptr(values), F, B, ptr(packed.ent),
-              packed.ent.shape[0], ptr(packed.terms), ptr(packed.zeros),
-              packed.zeros.shape[0], n, float(eps), rr, ri, ptr(xr), ptr(xi),
-              ptr(valid), stream_ptr(values.device))
+    code = fn(ptr(freqs), ptr(values), F, B, ptr(packed.row_ent),
+              ptr(packed.row_ptr), ptr(packed.terms), n, fused_group_for(n),
+              float(eps), rr, ri, ptr(xr), ptr(xi), ptr(valid),
+              stream_ptr(values.device))
     check(code, "mc_ac_fused_x launch")
     K7[values.dtype].launches += 1
     return xr, xi, valid

@@ -476,10 +476,7 @@ def test_k7_matches_plain(cuda, n, dtype, ext_rhs):
     rhs = (tuple(torch.as_tensor(rng.standard_normal((F, n, B)), dtype=dtype)
                  for _ in range(2)) if ext_rhs else None)
     want = mc_ac_fused.mc_ac_fused_x(freqs, values, packed, rhs)
-    on = mc_ac_fused.PackedPattern(
-        n=n, n_rows=packed.n_rows, ent=packed.ent.to(cuda),
-        terms=packed.terms.to(cuda), zeros=packed.zeros.to(cuda),
-        ext_rhs=ext_rhs)
+    on = packed.to(cuda)
     before = mc_ac_fused.K7[dtype].launches
     xr, xi, valid = mc_ac_fused.mc_ac_fused_x(
         freqs.to(cuda), values.to(cuda), on,
@@ -492,6 +489,53 @@ def test_k7_matches_plain(cuda, n, dtype, ext_rhs):
         got, w = got.cpu().permute(0, 2, 1)[ok], w.permute(0, 2, 1)[ok]
         torch.testing.assert_close(got, w, rtol=TOL[dtype],
                                    atol=TOL[dtype] * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext_rhs", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 8, 9, 15, 16])
+def test_k7_every_group_width_matches_plain(cuda, n, dtype, ext_rhs):
+    """K7 at every group width (N = 1-4 on 4 lanes, 5-8 on 8, 9-16 on 16)
+    on dense random systems with an all-zero (0), a zero-row (1) and a
+    NaN (2) variant: ``valid``
+    identical; f64 within 1e-12 of the largest value; f32 no worse than
+    twice the plain f32 version's error against an f64 solve, plus 1e-5
+    of the largest value."""
+    B, F = 70, 3
+    vals = dense_values(n, B, 5)
+    vals[2 + 2 * (n - 1), 2] = np.nan  # entry (0, n - 1), variant 2
+    packed = mc_ac_fused.pack_pattern(dense_pattern(n), n, "cpu",
+                                      ext_rhs=ext_rhs)
+    values = torch.as_tensor(vals, dtype=dtype)
+    freqs = torch.as_tensor(FREQS, dtype=dtype)
+    rng = np.random.default_rng(6)
+    rhs = (tuple(torch.as_tensor(rng.standard_normal((F, n, B)), dtype=dtype)
+                 for _ in range(2)) if ext_rhs else None)
+    pr, pi, pv = mc_ac_fused.mc_ac_fused_x_plain(freqs, values, packed, rhs)
+    assert not pv[:, :3].any() and pv[:, 3:].all()
+    tr, ti, _ = mc_ac_fused.mc_ac_fused_x_plain(
+        freqs.double(), values.double(), packed,
+        None if rhs is None else tuple(r.double() for r in rhs))
+
+    def sel(x):  # (F, N, B) -> (valid systems, N)
+        return x.permute(0, 2, 1)[pv].double()
+
+    scale = max(float(sel(t).abs().max()) for t in (tr, ti))
+    e_plain = max(float((sel(p) - sel(t)).abs().max())
+                  for p, t in ((pr, tr), (pi, ti)))
+    before = mc_ac_fused.K7[dtype].launches
+    xr, xi, valid = mc_ac_fused.mc_ac_fused_x(
+        freqs.to(cuda), values.to(cuda), packed.to(cuda),
+        None if rhs is None else tuple(r.to(cuda) for r in rhs))
+    assert mc_ac_fused.K7[dtype].launches == before + 1
+    assert torch.equal(valid.cpu(), pv)
+    e = max(float((sel(g.cpu()) - sel(t)).abs().max())
+            for g, t in ((xr, tr), (xi, ti)))
+    limit = TOL[dtype] * scale
+    if dtype == torch.float32:
+        limit += 2 * e_plain
+    assert e <= limit, f"K7 N={n}: {e:.3e} > {limit:.3e}"
 
 
 def test_k7_wrapper_refuses_bad_input():

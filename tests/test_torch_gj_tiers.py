@@ -1,15 +1,15 @@
 """The tiers of K1 and K2 (warp, block, panel; K2's thread tier too).
 
 On any host: the tier choice, a pure function of N, the dtype and real or
-complex, at its boundaries, monotone in N, with the inverses (K3, K4)
-never routed off their elimination; and the wrappers refuse a tier that
-cannot take N before they touch the device.
+complex, at its boundaries, monotone in N, with K3 kept on its route and
+K4 (the complex inverse) on K1's warp and panel tiers; and the wrappers
+refuse a tier that cannot take N before they touch the device.
 
 On the card (marked ``cuda``, skipped elsewhere; run with
 ``python -m pytest tests/test_torch_gj_tiers.py -m cuda --noconftest``):
-every tier, forced, against the plain version on random systems with an
-all-zero lane, a NaN lane and a zero-column lane, as ``chip_smoke.py``
-phase 2 holds them: ``valid`` identical on every lane; f64 within
+every tier of K1, K2 and K4, forced, against the plain version on random
+systems with an all-zero lane, a NaN lane and a zero-column lane, as
+``chip_smoke.py`` phase 2 holds them: ``valid`` identical on every lane; f64 within
 1e-12 x max|x|; in f32, the tier's error against an f64 solve of the same
 planes at most twice the plain f32 version's, plus 1e-5 x max|x| (nvcc
 contracts multiply-adds into FMAs and the panel tier sums in another
@@ -98,8 +98,10 @@ def test_warp_tier_only_where_a_warp_holds_the_rows(dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [1, 3, 16, 17, 32, 33, 64, 128, 129, 256])
 def test_inverses_keep_their_route(n, dtype):
-    # K4: block_gj at every N; K3: the thread route up to 16, then block_gj
-    assert gj.tier_for(n, dtype, inverse=True) == "block"
+    # K4: K1's tiers, warp up to N = 32 and panel from 33; K3: the thread
+    # route up to 16, then block_gj
+    assert gj.tier_for(n, dtype, inverse=True) == (
+        "warp" if n <= gj.K4_WARP_MAX else "panel")
     assert gj_real.tier_for(n, dtype, inverse=True) == (
         "thread" if n <= gj_real.THREAD_MAX_N else "block")
 
@@ -198,6 +200,38 @@ def test_k2_tier_matches_plain(cuda, tier, n, dtype):
     assert not pv[:3].any() and pv[3:].all()
     tx, _ = linsolve.gj_solve(A.double(), b.double())
     _hold((x.cpu(),), (px,), (tx,), pv, dtype, f"K2 {tier} N={n}")
+
+
+# N = 410: past complex f64's [panel | C] edge (PANEL_SMEM_EDGE), where the
+# panel tier keeps [panel | C] in its workspace
+K4_CASES = [(t, n) for t in gj.TIERS
+            for n in (1, 3, 11, 16, 31, 32, 33, 64, 128, 129, 256, 410)
+            if not (t == "warp" and n > gj.WARP_MAX_N)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tier,n", K4_CASES)
+def test_k4_tier_matches_plain(cuda, tier, n, dtype):
+    """Every tier of K4, forced, against the plain inverse on the card (at
+    N = 410 the plain version takes minutes on a host's cores)."""
+    B = 8 if n > 128 else 24
+    Ar, Ai, _, _ = _lanes(max(n, 3), B, 300 + n)
+    if n < 3:  # the three lanes need N >= 3; N = 1, 2: zero and NaN only
+        Ar, Ai = Ar[:, :n, :n].copy(), Ai[:, :n, :n].copy()
+        Ar[1, 0, n - 1] = np.nan
+        Ar[2] = Ai[2] = 0.0
+    dev = [torch.as_tensor(a, dtype=dtype, device=cuda) for a in (Ar, Ai)]
+    before = gj.K4_TIERS[dtype][tier]
+    mr, mi, valid = gj.gj_inverse_planes_cuda(*dev, tier=tier)
+    assert gj.K4_TIERS[dtype][tier] == before + 1
+    pr, pi, pv = linsolve.gj_inverse_planes(*dev)
+    assert torch.equal(valid, pv)
+    assert not pv[:3].any() and pv[3:].all()
+    tr, ti, _ = linsolve.gj_inverse_planes(*[p.double() for p in dev])
+    pv = pv.cpu()
+    _hold((mr.cpu(), mi.cpu()), (pr.cpu(), pi.cpu()), (tr.cpu(), ti.cpu()),
+          pv, dtype, f"K4 {tier} N={n}")
 
 
 @pytest.mark.cuda

@@ -96,6 +96,9 @@ def main() -> int:
     valid = torch.empty((nb,), dtype=torch.bool, device=dev)
     args_c = (ptr(Ar), ptr(Ai), ptr(m_re), ptr(m_im), ptr(valid),
               ctypes.c_void_p(0), nb, n, float(EPS), stream_ptr(dev))
+    if hasattr(gj, "K4_TIERS"):  # K4 in tiers: name the one it chooses
+        tier = gj.tier_for(n, Ar.dtype, inverse=True)
+        args_c = args_c[:-1] + (gj.TIERS.index(tier), args_c[-1])
 
     def launch():
         code = lib.gj_complex_inverse_f64(*args_c)

@@ -69,10 +69,10 @@ LAUNCHER = r"""
 template <typename T, int P>
 int run_t(const void* const* ptrs, int batch, int n, double thr,
           int* plan_out) {
-  const gj::panel::Plan pl = gj::panel::plan<T, P>(n);
+  const gj::panel::Plan pl = gj::panel::plan<T, P>(n, 1);
   plan_out[0] = pl.blocks_per_sm;
   plan_out[1] = pl.place;
-  plan_out[2] = gj::panel::workspace_units(n, pl.place, pl.grid(batch));
+  plan_out[2] = gj::panel::workspace_units(n, 1, pl.place, pl.grid(batch));
   if (pl.blocks_per_sm == 0) return -1;
   if (ptrs[7] == nullptr) return 0;  // the plan only
   unsigned long long zero[8] = {0};
@@ -81,10 +81,10 @@ int run_t(const void* const* ptrs, int batch, int n, double thr,
                      ? gj::panel::solve_kernel<T, P, true>
                      : gj::panel::solve_kernel<T, P, false>;
   kernel<<<pl.grid(batch), gj::panel::THREADS,
-           gj::panel::smem_bytes<T, P>(n, pl.place)>>>(
+           gj::panel::smem_bytes<T, P>(n, 1, pl.place)>>>(
       (const T*)ptrs[0], (const T*)ptrs[1], (const T*)ptrs[2],
       (const T*)ptrs[3], (T*)ptrs[4], (T*)ptrs[5], (uint8_t*)ptrs[6],
-      pl.place == gj::panel::ALL_SMEM ? nullptr : (T*)ptrs[7], batch, n,
+      pl.place == gj::panel::ALL_SMEM ? nullptr : (T*)ptrs[7], batch, n, 1,
       (T)thr);
   return (int)cudaGetLastError();
 }

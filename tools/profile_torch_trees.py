@@ -1,0 +1,136 @@
+"""K1, K2 and K5 at ``chip_smoke.py`` phase 9's shapes, in one tree.
+
+Run on a CUDA card from the repo root: ``python3 tools/profile_torch_trees.py
+[--root DIR] [--reps 20]``. Imports nothing of JAX.
+
+``--root`` names the checkout whose ``spicey_tpu_torch`` is imported and
+built (default: this one), so that two trees can be timed on one card in
+one call, alternating (parent, change, change, parent): the way to show a
+change left these kernels' times where they were, since two calls may
+land on different cards. The inputs are made from a seed with numpy, at
+the shapes phase 9 times them on the main path:
+
+  K1  complex planes (2048 x 51 systems, N = 64, the ladder-64 cell), f32
+      and f64, random and diagonally dominant (the chosen tier's time does
+      not depend on the values);
+  K2  real systems (100,000, N = 6, the boost converter's Newton systems),
+      f32 and f64, the same way;
+  K5  the RC yield deck of phase 3 (1M variants x 201 frequencies, N = 3),
+      R and C at U(1, 1.2) x nominal, f32 and f64.
+
+Each line: the kernel's instantiation, its shape and the mean device
+milliseconds over ``--reps`` calls after a warm one (CUDA events); then
+the card's nvidia-smi name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+RC_NET = ("AC bench\nv1 1 0 dc 0 ac 1\nr1 1 2 30\nc1 2 0 100u\n"
+          ".ac dec 100 1 100\n.end\n")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_trees: no CUDA device", file=sys.stderr)
+        return 1
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import spicey_tpu_torch as st
+    from spicey_tpu_torch.analysis import ac as tac
+    from spicey_tpu_torch.analysis import batch as tbatch
+    from spicey_tpu_torch.ops import gj, gj_real, mc_ac_fused
+    if not os.path.abspath(st.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"imported {st.__file__}, not from {root}")
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def dominant(nb, n, planes):
+        return [torch.as_tensor(
+            rng.standard_normal((nb, n, n)) + (n * np.eye(n) if c == 0
+                                               else 0.0))
+            for c in range(planes)]
+
+    def emit(name, shape, ms):
+        print(json.dumps({"root": root, "kernel": name, "shape": shape,
+                          "ms": ms}), flush=True)
+
+    Ar, Ai = dominant(2048 * 51, 64, 2)
+    br, bi = (torch.as_tensor(rng.standard_normal((2048 * 51, 64)))
+              for _ in range(2))
+    A6 = dominant(100_000, 6, 1)[0]
+    b6 = torch.as_tensor(rng.standard_normal((100_000, 6)))
+    ckt = st.parse_netlist(RC_NET)
+    t = st.build_tensors(ckt)
+    B = 1_000_000
+    over = {"r1": 30.0 * (1 + 0.2 * rng.random(B)),
+            "c1": 100e-6 * (1 + 0.2 * rng.random(B))}
+    freqs64 = tac.build_frequency_array(ckt.ac.mode, ckt.ac.N, ckt.ac.f1,
+                                        ckt.ac.f2)
+    node = [nm.upper() for nm in t.node_names].index("2")
+    for dtype in (torch.float64, torch.float32):
+        planes = [p.to(dtype=dtype, device=dev) for p in (Ar, Ai, br, bi)]
+        emit(gj.K1[dtype].name, [2048 * 51, 64], cuda_ms(
+            lambda: gj.gj_solve_planes_cuda(*planes), args.reps))
+        del planes
+        A, b = (p.to(dtype=dtype, device=dev) for p in (A6, b6))
+        emit(gj_real.K2[dtype].name, [100_000, 6], cuda_ms(
+            lambda: gj_real.gj_solve_cuda(A, b), args.reps))
+
+        def vals(base, names):
+            return torch.as_tensor(tbatch._batch_values(base, names, over, B),
+                                   dtype=dtype, device=dev)
+
+        ph = np.deg2rad(t.v_ac_phase_deg)
+        values = mc_ac_fused.combine_values(
+            vals(t.r_vals, t.r_names), vals(t.c_vals, t.c_names),
+            vals(t.l_vals, t.l_names),
+            torch.as_tensor(t.v_ac_mag * np.cos(ph), dtype=dtype,
+                            device=dev).expand(B, -1),
+            torch.as_tensor(t.v_ac_mag * np.sin(ph), dtype=dtype,
+                            device=dev).expand(B, -1), dtype=dtype)
+        packed = mc_ac_fused.pack_pattern(mc_ac_fused.build_stamp_pattern(
+            t.nvar, t.r_idx, t.c_idx, t.l_idx, t.v_idx), t.nvar, dev)
+        freqs = torch.as_tensor(freqs64, dtype=dtype, device=dev)
+        emit(mc_ac_fused.K5[dtype].name, [B, len(freqs64)], cuda_ms(
+            lambda: mc_ac_fused.mc_ac_fused_cuda(freqs, values, packed,
+                                                 node), max(args.reps // 4,
+                                                            1)))
+        del values
+        torch.cuda.empty_cache()
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
