@@ -10,14 +10,18 @@ line each:
      (csrc/mc_tran_fused.cu), K9 (csrc/mc_tran_nr.cu) and K10a + K10b
      (csrc/mxu_gj.cu) with nvcc, one process per source, all started
      together; print the build seconds and the card's name/power limit,
-     and the register report of every K7 instance (``cuobjdump
-     --dump-resource-usage``: registers, stack, local memory), failing if
-     one uses local memory (a spill of its register rows);
+     and the register report of every K7 instance and every instance of
+     K5's register and group forms (``cuobjdump --dump-resource-usage``:
+     registers, stack, local memory), failing if one uses local memory (a
+     spill of its register rows or systems);
   2. every kernel instantiation against its plain PyTorch version on the
      card, on the same inputs: K1 at N in {3, 8, 64, 128} with singular
      lanes and at the main path's shapes (the basics01 planes, the N = 64
-     ladder's 2048 x 51 systems), K5 on the extended deck and at the 1M x
-     201 yield, K2 and K3 at N in {3, 8, 64, 128} with an all-zero and a
+     ladder's 2048 x 51 systems), K5 in every form that takes N (register,
+     group) at every N from 1 to 16 on dense random systems with an
+     all-zero, a zero-row and a NaN variant, on the extended deck and at
+     the 1M x 201 yield, there also with a NaN and a singular variant, K2
+     and K3 at N in {3, 8, 64, 128} with an all-zero and a
      zero-row system and at the main path's shapes (the boost converter's
      100k x 6 Newton systems, the RC transient's 1M x 3 matrices), K8 on
      an extended linear deck and at the 1M x 201 RC transient; ``valid``
@@ -47,9 +51,12 @@ line each:
      K10b (the panel tier) at N in {40, 48, 64, 67, 100, 128}, each batch
      with an all-zero, a zero-row and an MNA zero-diagonal system, and at
      the solver sweep's N = 64 and 128 ladder planes (complex for K10b,
-     their real part for K10a): ``valid`` identical, f64 at 1e-12, f32 by
-     k1_vs_plain's rule (the panel form's 1/pv - 1 step cancels, so two
-     f32 summation orders differ beyond 1e-5); K1-K4 at N in {129, 256}
+     their real part for K10a), and a complex f64 N = 128 batch of the
+     resident slots + 7 (K10's shared-memory bytes equal ops/mxu.py's copy
+     at N = 40-128, its workspace slots are the same at any batch):
+     ``valid`` identical, f64 at 1e-12, f32 by k1_vs_plain's rule (the
+     panel form's 1/pv - 1 step cancels, so two f32 summation orders
+     differ beyond 1e-5); K1-K4 at N in {129, 256}
      in f64 and f32 (their global-workspace route) at 1e-12 / 1e-5; every
      tier of K1 (warp, block, panel) and K2 (thread, warp, block, panel),
      forced, in f64 and f32, at N in {3, 8, 16, 17, 31, 32, 33, 64, 128,
@@ -139,7 +146,8 @@ line each:
      operations over the H100's peak for the type (67 TFLOP/s in f32
      outside the tensor cores, 67 TFLOP/s in f64 on them; NVIDIA's H100
      SXM data sheet), the operations those of the cheapest direct method
-     (``solve_flops``, ``inverse_flops``); K9 against its plain
+     (``solve_flops``, ``inverse_flops``); every form of K5 at the
+     yield-1M shape; K9 against its plain
      version at each 100k shape of phases 10-12 (the boost on both grids,
      the ring, BJT_NET; the same tolerances as in phase 2), with the
      Newton passes per lane there and K9's time at each, its plain
@@ -151,10 +159,11 @@ line each:
      at N = 512 (64 of them) and 1024 (16), each beside the plain
      version, ``torch.linalg.solve`` on the same planes and the bound, with
      the share of the bound reached (the JSON line keeps K10 at N = 64).
-     Every phase prints the launches of each tier of K1, K2 and K4 beside
-     the kernels' (phase 16 fails unless the amp's .ac ran K1's warp
-     tier); the JSON line adds them to K1's, K2's and K4's entries as
-     ``tiers``.
+     Every phase prints the launches of each tier of K1, K2 and K4 and of
+     each form of K5 beside the kernels' (phase 4 fails unless the yield
+     ran K5's register form, phase 16 unless the amp's .ac ran K1's warp
+     tier); the JSON line adds them to K1's, K2's, K4's and K5's entries
+     as ``tiers``.
 
 Then a JSON line of the kernels, the nvidia-smi line, and the result line.
 """
@@ -349,6 +358,9 @@ def main() -> int:
     tier_counts.update({gj_real.K2[dt].name: gj_real.K2_TIERS[dt]
                         for dt in gj_real.K2})
     tier_counts.update({gj.K4[dt].name: gj.K4_TIERS[dt] for dt in gj.K4})
+    # K5's forms, counted as its tiers
+    tier_counts.update({mc_ac_fused.K5[dt].name: mc_ac_fused.K5_FORMS[dt]
+                        for dt in mc_ac_fused.K5})
     tier_launches = {name: dict.fromkeys(c, 0)
                      for name, c in tier_counts.items()}
 
@@ -400,23 +412,34 @@ def main() -> int:
         [str(Path(_build._nvcc()).parent / "cuobjdump"),
          "--dump-resource-usage", str(_build._target("mc_ac_fused")[1])],
         capture_output=True, text=True, check=True).stdout.splitlines()
-    k7_usage = {}
+    k7_usage, k5_usage = {}, {}
     for line, usage in zip(dump, dump[1:]):
+        res = dict(re.findall(r"(REG|STACK|LOCAL):(\d+)", usage))
         inst = re.search(r"mc_ac_fused_x_kernelI([df])Li(\d+)ELb(\d)", line)
         if inst:
             dt, g, ext = inst.groups()
-            res = dict(re.findall(r"(REG|STACK|LOCAL):(\d+)", usage))
-            k7_usage[(f"f{'64' if dt == 'd' else '32'} group {g} "
+            k7_usage[(f"K7 f{'64' if dt == 'd' else '32'} group {g} "
                       f"{'external' if ext == '1' else 'pattern'} RHS")] = res
-    if len(k7_usage) != 2 * 2 * len(mc_ac_fused.K7_GROUPS):
-        raise AssertionError(f"K7 register report: {len(k7_usage)} "
-                             "instances found")
-    for inst, res in sorted(k7_usage.items()):
-        say("1 registers", f"K7 {inst}: {res['REG']} registers, stack "
+        # K5's register form (N) and group form (G)
+        inst = re.search(r"mc_ac_fused_(reg|group)_kernelI([df])Li(\d+)E",
+                         line)
+        if inst:
+            form, dt, w = inst.groups()
+            k5_usage[(f"K5 f{'64' if dt == 'd' else '32'} "
+                      f"{'register N' if form == 'reg' else 'group G'}="
+                      f"{w}")] = res
+    if len(k7_usage) != 2 * 2 * len(mc_ac_fused.K7_GROUPS) or len(
+            k5_usage) != 2 * (mc_ac_fused.REG_MAX_N
+                              + len(mc_ac_fused.K7_GROUPS)):
+        raise AssertionError(f"K5/K7 register report: {len(k5_usage)} / "
+                             f"{len(k7_usage)} instances found")
+    usage = {**k7_usage, **k5_usage}
+    for inst, res in sorted(usage.items()):
+        say("1 registers", f"{inst}: {res['REG']} registers, stack "
             f"{res['STACK']} B, local {res['LOCAL']} B")
-    spilled = [i for i, r in k7_usage.items() if int(r["LOCAL"])]
+    spilled = [i for i, r in usage.items() if int(r["LOCAL"])]
     if spilled:
-        raise AssertionError(f"K7 instances with local memory: {spilled}")
+        raise AssertionError(f"K5/K7 instances with local memory: {spilled}")
 
     # ---- 2. kernels against plain versions ------------------------------
     rng = np.random.default_rng(SEED)
@@ -584,16 +607,51 @@ def main() -> int:
         return (torch.cat([m for m, _ in parts]),
                 torch.cat([v for _, v in parts]))
 
+    def k5_forms(n):
+        """K5's forms that take N: the register form up to its largest
+        instance, the group form at every N."""
+        return [f for f in mc_ac_fused.FORMS
+                if not (f == "register" and n > mc_ac_fused.REG_MAX_N)]
+
     def k5_vs_plain(inputs, dtype, what, main_shape):
-        mag, v = mc_ac_fused.mc_ac_fused_cuda(*inputs)
+        """Every form of K5 that takes N against the plain version:
+        ``valid`` identical, |x[node]| at rtol. Returns (max abs err over
+        the forms, n_valid, systems)."""
         pmag, pv = plain_chunked(*inputs)
-        if not torch.equal(v, pv):
-            raise AssertionError(f"K5 {what}: valid flags differ")
-        e = check_close(mag[pv], pmag[pv], TOL[dtype], f"K5 {what}")
+        e = 0.0
+        for form in k5_forms(inputs[2].n):
+            mag, v = mc_ac_fused.mc_ac_fused_cuda(*inputs, form=form)
+            if not torch.equal(v, pv):
+                raise AssertionError(f"K5 {form} {what}: valid flags differ")
+            e = max(e, check_close(mag[pv], pmag[pv], TOL[dtype],
+                                   f"K5 {form} {what}"))
+            del mag, v
         if main_shape:
             name = mc_ac_fused.K5[dtype].name
             err[name] = max(err[name], e)
         return e, int(pv.sum()), pv.numel()
+
+    # dense random systems (tests/fused_systems.py) at every N of the fused
+    # tier, each form that takes N, an all-zero, a zero-row and a NaN
+    # variant each, |x| of the middle node
+    for dtype in (torch.float64, torch.float32):
+        for n in range(1, mc_ac_fused.FUSED_MAX_N + 1):
+            B = 512
+            vals = dense_values(n, B, SEED + n)
+            vals[2 + 2 * (n - 1), 2] = np.nan  # entry (0, n - 1), variant 2
+            inputs = (torch.as_tensor(FREQS, dtype=dtype, device=dev),
+                      torch.as_tensor(vals, dtype=dtype, device=dev),
+                      mc_ac_fused.pack_pattern(dense_pattern(n), n, dev),
+                      n // 2)
+            e, nv, nt = k5_vs_plain(inputs, dtype, f"{TAG[dtype]} N={n}",
+                                    False)
+            if nv != nt - 3 * 3:
+                raise AssertionError(f"K5 N={n}: {nv}/{nt} valid")
+            say("2 compare", f"K5 {TAG[dtype]} N={n} forms "
+                f"{'/'.join(k5_forms(n))} (chosen "
+                f"{mc_ac_fused.k5_form_for(n, dtype)[0]}) (3, {B}) valid "
+                f"{nv}/{nt}, the zero, zero-row and NaN variants flagged; "
+                f"max_abs_err {e:.3e}")
 
     r_big = 30.0 * (1 + 0.2 * rng.random(BIG))
     c_big = 100e-6 * (1 + 0.2 * rng.random(BIG))
@@ -605,15 +663,32 @@ def main() -> int:
         inputs = fused_inputs(EXT_NET, "d", ext_over, 4096, dtype)
         e, nv, nt = k5_vs_plain(inputs, dtype, f"{TAG[dtype]} ext", False)
         say("2 compare", f"K5 {TAG[dtype]} extended deck N={inputs[2].n} "
-            f"(4096, {inputs[0].shape[0]}) valid {nv}/{nt} "
+            f"(4096, {inputs[0].shape[0]}) forms "
+            f"{'/'.join(k5_forms(inputs[2].n))} valid {nv}/{nt} "
             f"max_abs_err {e:.3e}")
         big_inputs[dtype] = fused_inputs(RC_NET, "2", big_over, BIG, dtype)
         e, nv, nt = k5_vs_plain(big_inputs[dtype], dtype,
                                 f"{TAG[dtype]} 1M", True)
         if nv != nt:
             raise AssertionError(f"K5 1M: {nv}/{nt} valid")
-        say("2 compare", f"K5 {TAG[dtype]} RC (1M, 201) valid {nv}/{nt} "
-            f"max_abs_err {e:.3e}")
+        say("2 compare", f"K5 {TAG[dtype]} RC (1M, 201) forms "
+            f"{'/'.join(k5_forms(3))} valid {nv}/{nt} max_abs_err {e:.3e}")
+        # the same 1M variants with a NaN resistor (variant 0) and node 2
+        # left floating (variant 1: R = inf, C = 0), singular at every
+        # frequency
+        freqs, values, packed, node = big_inputs[dtype]
+        bad = values.clone()
+        bad[0, 0] = float("nan")
+        bad[0, 1] = float("inf")
+        bad[1, 1] = 0.0
+        e, nv, nt = k5_vs_plain((freqs, bad, packed, node), dtype,
+                                f"{TAG[dtype]} 1M NaN/singular", False)
+        if nv != nt - 2 * freqs.shape[0]:
+            raise AssertionError(f"K5 1M NaN/singular: {nv}/{nt} valid")
+        say("2 compare", f"K5 {TAG[dtype]} RC (1M, 201) with a NaN and a "
+            f"singular variant: valid {nv}/{nt} (both flagged at every "
+            f"frequency) max_abs_err {e:.3e}")
+        del bad
 
     def plain_x_chunked(freqs, values, packed, rhs, chunk=2048):
         """K7's plain version over blocks of ``chunk`` variants (at the
@@ -1050,6 +1125,45 @@ def main() -> int:
                     f"{TAG[dtype]} N={n} B={nt} (zero, zero-row, MNA) valid "
                     f"{nv}/{nt} max_abs_err {e:.3e}")
 
+    # K10's plan: the kernel's shared-memory bytes at each place equal the
+    # copy the CPU tests check (ops/mxu.py:smem_bytes); its workspace is one
+    # slot per resident block, the same for any batch past the slots; and a
+    # complex f64 N = 128 batch that is not a multiple of the slots (the
+    # persistent blocks' last round partial) against the plain version
+    mlib = mxu.load_library()
+    for n in range(mxu.MXU_MIN_N, mxu.MXU_MAX_N + 1):
+        for planes in (1, 2):
+            for dtype in (torch.float64, torch.float32):
+                item = torch.empty((), dtype=dtype).element_size()
+                for place in (mxu.ALL_SMEM, mxu.PLANES_GLOBAL):
+                    want = mlib.mxu_gj_smem_bytes(
+                        n, mxu.blocked_plan(n)[0], planes, int(item == 8),
+                        place)
+                    if mxu.smem_bytes(n, planes, item, place) != want:
+                        raise AssertionError(
+                            f"K10 smem_bytes N={n} planes={planes} {dtype} "
+                            f"place {place}: {want} on the card")
+    slots = {nb: mlib.mxu_gj_workspace_systems(128, nb, 2, 1, 32)
+             for nb in (52_224, 104_448, 1_000_000)}
+    if len(set(slots.values())) != 1 or not slots[52_224]:
+        raise AssertionError(f"K10 workspace slots by batch: {slots}")
+    n_slots = slots[52_224]
+    say("2 compare", f"K10b f64 N=128: workspace {n_slots} slots "
+        f"({n_slots * 2 * 128 * 129 * 8 / 1e6:.1f} MB) at every batch "
+        f"from 52,224 (the one-block-per-system kernel's: "
+        f"{52_224 * 2 * 128 * 129 * 8 / 1e9:.1f} GB); shared-memory bytes "
+        "equal ops/mxu.py:smem_bytes at N = 40-128")
+    arrays = k10_systems(128, n_slots + 7, True)
+    ts = [torch.as_tensor(a, dtype=torch.float64, device=dev)
+          for a in arrays]
+    e, nv, nt, _ = k10_vs_plain(ts, torch.float64,
+                                f"f64 N=128 B={n_slots + 7}", False)
+    if nv != nt - 2:
+        raise AssertionError(f"K10b N=128 B={nt}: {nv}/{nt} valid")
+    say("2 compare", f"K10b f64 N=128 B={nt} ({n_slots} slots + 7) valid "
+        f"{nv}/{nt} max_abs_err {e:.3e}")
+    del ts, arrays
+
     def sweep_planes(n, dtype):
         """The solver sweep's planes at N (tools/profile_torch_solver.py):
         rc_ladder_netlist(N - 2), 2048 variants (1024 at N = 128) x 51
@@ -1309,7 +1423,9 @@ def main() -> int:
     np.testing.assert_allclose(s.max, hs_max, rtol=2e-4)
     say("4 yield", f"mc_ac_sampled 1M x 201 f32 n_valid {s.n_valid} within "
         f"2e-4 of analytic; {sampled_s:.3f} s wall")
-    counted("4 yield", list(mc_ac_fused.K5.values()))
+    # the yield's N = 3 runs K5's register form in both precisions
+    counted("4 yield", list(mc_ac_fused.K5.values()),
+            tiers=[(k, "register") for k in mc_ac_fused.K5.values()])
 
     lad = {}
     ladder_s = {}
@@ -1903,12 +2019,23 @@ def main() -> int:
         el = values.element_size()
         name = mc_ac_fused.K5[dtype].name
         shape[name] = f"RC ({nb}, {F})"
-        ms[name] = (cuda_ms(lambda: mc_ac_fused.mc_ac_fused_cuda(*inputs), 5),
-                    cuda_ms(lambda: plain_chunked(*inputs), 1), None,
-                    *bound(F * nb * (solve_flops(n, True)
-                                     + 2 * packed.terms.shape[0]),
-                           el * (values.numel() + F) + F * nb * (el + 1),
-                           dtype))
+        plain = cuda_ms(lambda: plain_chunked(*inputs), 1)
+        bnd = bound(F * nb * (solve_flops(n, True)
+                              + 2 * packed.terms.shape[0]),
+                    el * (values.numel() + F) + F * nb * (el + 1), dtype)
+        # every form that takes N = 3; the JSON line keeps the chosen one
+        chosen = mc_ac_fused.k5_form_for(n, dtype)[0]
+        for form in k5_forms(n):
+            t_k5 = (cuda_ms(lambda: mc_ac_fused.mc_ac_fused_cuda(
+                *inputs, form=form), 5), plain, None, *bnd)
+            say("9 times", f"{name} {form}"
+                f"{' (chosen)' if form == chosen else ''} at yield-1M "
+                f"({nb}, {F}, N={n}): kernel {t_k5[0]:.3f} ms, plain "
+                f"{plain:.3f} ms, library none, bound {t_k5[3]:.4f} ms "
+                f"({t_k5[4]}), {100 * t_k5[3] / t_k5[0]:.2f}% of it (CUDA "
+                f"events) | {smi}")
+            if form == chosen:
+                ms[name] = t_k5
     for dtype, (A, b) in boost_sys.items():
         nb, n, el = A.shape[0], A.shape[1], A.element_size()
         name = gj_real.K2[dtype].name

@@ -1,7 +1,7 @@
-// The one-hot-pivot Gauss-Jordan elimination shared by kernels K1-K5, K8
-// and K9 (and the block pivot search of K10a/K10b; K7 takes its pivot
-// ranking, better()), templated on the element type: P = 1 real plane,
-// P = 2 complex (re, im) planes.
+// The one-hot-pivot Gauss-Jordan elimination shared by kernels K1-K4, K8
+// and K9 (K5, K7 and the panel tier of gj_panel.cuh, K10a/K10b's too,
+// take its pivot ranking, better()), templated on the element type: P = 1
+// real plane, P = 2 complex (re, im) planes.
 //
 // Semantics are those of the plain versions in
 // spicey_tpu_torch/ops/linsolve.py: the pivot of column k is the unused
@@ -24,10 +24,10 @@
 //   thread_gj  one thread per system, element q of plane c at
 //              a[c][q * stride] (the system index fastest, so a warp's
 //              accesses are consecutive words), no barriers (K2/K3 up to
-//              THREAD_MAX_N, K5, K8, K9);
-//   gj_panel.cuh: one block per system in panels of PW = 16 columns, the
-//              trailing columns updated by one product per panel (the panel
-//              tier of K1, K2 and K4).
+//              THREAD_MAX_N, K8, K9);
+//   gj_panel.cuh: one block per system in panels of 16 (or 32) columns,
+//              the trailing columns updated by one product per panel (the
+//              panel tier of K1, K2 and K4; K10a/K10b with their own step).
 
 #pragma once
 
@@ -65,7 +65,7 @@ __device__ __forceinline__ T score(T* const (&a)[P], size_t q) {
 // 32): each thread's best over its rows (ascending, so a strict > keeps
 // the lowest row on ties), then a warp reduction whose lane 0 leaves the
 // warp's best in red_s/red_r[warp]. After a barrier one thread takes
-// block_best. Shared by block_gj and the panel elimination (mxu_gj.cu).
+// block_best (block_gj's).
 template <typename T, int P>
 __device__ __forceinline__ void warp_best(T* const (&a)[P], int n, int w,
                                           int k, const int* used, T* red_s,

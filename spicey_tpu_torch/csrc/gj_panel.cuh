@@ -1,6 +1,8 @@
 // The panel tier of K1, K2 and K4: one-hot-pivot Gauss-Jordan for large N
 // in panels of PW = 16 columns, one block per system, the trailing
 // columns updated by one product per panel, in f64 on the tensor cores.
+// K10a/K10b (mxu_gj.cu) run the same kernel with their own pivot step
+// (a step policy, below): what follows describes K1/K2/K4's, DivideStep.
 //
 // It replaces, with block_gj and warp_gj, the TPU kernels
 // spicey_tpu/ops/pallas_gj.py:_gj_complex_kernel (pallas_call :651, K1),
@@ -98,9 +100,9 @@ namespace panel {
 
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
-// The panel width. 16 measured faster than 32 at every N and dtype tried
-// (N = 64, 128, complex and real, f32 and f64; the steps are most of the
-// time and a wider panel makes each step touch more columns).
+// The panel width of K1/K2/K4. 16 measured faster than 32 at every N and
+// dtype tried (N = 64, 128, complex and real, f32 and f64; the steps are
+// most of the time and a wider panel makes each step touch more columns).
 constexpr int PW = 16;
 // Resident blocks the register budget is cut for: real 4 (64 registers),
 // complex 3 (85): measured faster than the uncapped kernels, whose 104 to
@@ -110,9 +112,86 @@ constexpr int min_blocks() { return P == 1 ? 4 : 3; }
 constexpr int CW = 64;        // trailing columns per staged chunk of G
 constexpr int G_LD = CW + 4;  // = 4 (mod 16): conflict-free B fragments
 
+// ---- the pivot step, a policy of solve_kernel ----------------------------
+// A step policy S gives the panel width S::W; the S::COLS columns of
+// [panel | C]: panel column l at S::panel_col(l), column s staged from
+// panel column S::panel_of(s), C's column c at S::c_col(c); whether the
+// trailing update drops the panel's pivot rows (S::DELTA: row i of M
+// becomes delta_i M[i, :] + C[i, :] G, else M[i, :] + C[i, :] G); and the
+// step's arithmetic: scalar() of the pivot, entry() of the pivot row in a
+// column a warp updates, factor() of a row from its entry of the pivot
+// column, update() of one entry. DivideStep is K1/K2/K4's;
+// mxu_gj.cu:ElementaryStep is K10's.
+
+// K1/K2/K4: the pivot row divided by the pivot (row / pv, never row +
+// (1/pv - 1) row, which cancels in f32), every other row minus its factor
+// times that row; C's column l enters the pivot row as 1, so C holds each
+// row's combination of the panel's original pivot rows, and delta_i = 0
+// for those rows.
+struct DivideStep {
+  static constexpr int W = PW;
+  static constexpr int COLS = 2 * W;
+  static constexpr bool DELTA = true;
+  __host__ __device__ static constexpr int panel_col(int l) { return l; }
+  __host__ __device__ static constexpr int c_col(int c) { return W + c; }
+  // the panel column staged at column s (none where it is >= pw)
+  __host__ __device__ static constexpr int panel_of(int s) { return s; }
+  // the divisor (real) or 1 / |pv|^2 (complex); a rejected pivot divides
+  // by 1
+  template <typename T, int P>
+  __device__ __forceinline__ static T scalar(const T (&pv)[P], T thr,
+                                             bool& ok) {
+    if constexpr (P == 1) {
+      ok = fabs(pv[0]) >= thr;
+      return ok ? pv[0] : T(1);
+    } else {
+      const T dd = pv[0] * pv[0] + pv[1] * pv[1];
+      ok = dd >= thr;
+      return T(1) / (ok ? dd : T(1));
+    }
+  }
+  // the pivot row's entry at q divided by the pivot (its own C column 1)
+  template <typename T, int P>
+  __device__ __forceinline__ static void entry(T* const (&pc)[P], int q,
+                                               bool own, const T (&pv)[P],
+                                               T s, T (&pr)[P]) {
+    if constexpr (P == 1) {
+      pr[0] = (own ? T(1) : pc[0][q]) / s;
+    } else {
+      const T prr = own ? T(1) : pc[0][q];
+      const T pri = own ? T(0) : pc[1][q];
+      pr[0] = (prr * pv[0] + pri * pv[1]) * s;
+      pr[1] = (pri * pv[0] - prr * pv[1]) * s;
+    }
+  }
+  // the row's factor: its entry of the pivot column
+  template <typename T, int P>
+  __device__ __forceinline__ static void factor(const T (&f)[P], bool,
+                                                const T (&)[P], T,
+                                                T (&u)[P]) {
+    for (int c = 0; c < P; ++c) u[c] = f[c];
+  }
+  // row - factor * (pivot row / pv); the pivot row becomes the latter
+  template <typename T, int P>
+  __device__ __forceinline__ static void update(T* const (&pc)[P], int q,
+                                                const T (&f)[P],
+                                                const T (&pr)[P], bool,
+                                                bool is_p, T (&v)[P]) {
+    if (is_p) {
+      for (int c = 0; c < P; ++c) v[c] = pr[c];
+    } else if constexpr (P == 1) {
+      v[0] = pc[0][q] - f[0] * pr[0];
+    } else {
+      v[0] = pc[0][q] - (f[0] * pr[0] - f[1] * pr[1]);
+      v[1] = pc[1][q] - (f[0] * pr[1] + f[1] * pr[0]);
+    }
+  }
+};
+
 // [panel | C] row stride, odd: a warp reading one column of 32 rows (the
 // pivot steps' access) hits distinct banks
-__host__ __device__ constexpr int pc_ld() { return 2 * PW + 1; }
+template <class S = DivideStep>
+__host__ __device__ constexpr int pc_ld() { return S::COLS | 1; }
 
 // Element (i, l) of [panel | C] at i * rs + l * cs: row-major with the odd
 // stride pc_ld() in shared memory (a warp's 32 rows of one column fall in
@@ -137,22 +216,23 @@ enum Place { ALL_SMEM = 0, PLANES_GLOBAL = 1, PANEL_GLOBAL = 2 };
 // Shared-memory bytes of one block for (n, n + r) systems: the planes
 // (ALL_SMEM), then per plane [panel | C] (not PANEL_GLOBAL) and G; the
 // ints (two next-pivot slots, perm, used, ok_all).
-template <typename T, int P>
+template <typename T, int P, class S = DivideStep>
 __host__ __device__ inline size_t smem_bytes(int n, int r, int place) {
   size_t t = 0;
   if (place == ALL_SMEM) t += P * al4((size_t)n * (n + r));
-  if (place != PANEL_GLOBAL) t += P * al4((size_t)n * pc_ld());
-  t += P * al4((size_t)PW * G_LD);
+  if (place != PANEL_GLOBAL) t += P * al4((size_t)n * pc_ld<S>());
+  t += P * al4((size_t)S::W * G_LD);
   return t * sizeof(T) + (4 + 2 * (size_t)n + 1) * sizeof(int);
 }
 
 // Workspace systems of (P, n, n + r) elements a grid of ``grid`` blocks
 // needs at ``place``: a slot of the planes per block, then (PANEL_GLOBAL)
 // the blocks' [panel | C], n x pc_ld() per plane each, in as many more.
+template <class S = DivideStep>
 inline int workspace_units(int n, int r, int place, int grid) {
   if (place == ALL_SMEM) return 0;
   const long long nw = (long long)n * (n + r);
-  const long long pcs = (long long)grid * n * pc_ld();
+  const long long pcs = (long long)grid * n * pc_ld<S>();
   return grid + (place == PANEL_GLOBAL ? (int)((pcs + nw - 1) / nw) : 0);
 }
 
@@ -167,16 +247,18 @@ __device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
 }
 
 // Row i's delta: 0 for a pivot row of the panel [k0, k0 + pw) (used[i]
-// holds the pivoted column + 1), 1 for every other row.
+// holds the pivoted column + 1) under a DELTA step, 1 for every other row.
+template <class S>
 __device__ __forceinline__ bool keeps_row(const int* used, int i, int k0,
                                           int pw) {
+  if constexpr (!S::DELTA) return true;
   const int u = used[i] - 1;
   return !(u >= k0 && u < k0 + pw);
 }
 
 // M[:, jb:jb+cw] = delta * M + C G in f64 on DMMA: warp tasks of 8 rows x
 // NT 8-column tiles, A fragments from C, B fragments from the staged G.
-template <int P>
+template <int P, class S>
 __device__ void trail_update(double* const (&m)[P], double* const (&pc)[P],
                              double* const (&g)[P], const int* used, int n,
                              int w, PcLayout L, int k0, int pw, int jb,
@@ -190,7 +272,7 @@ __device__ void trail_update(double* const (&m)[P], double* const (&pc)[P],
     const int rt = task / nct, ct = task - rt * nct;
     const int i = rt * 8 + gr;
     const bool row_ok = i < n;
-    const bool keep = row_ok && keeps_row(used, i, k0, pw);
+    const bool keep = row_ok && keeps_row<S>(used, i, k0, pw);
     double acc[P][NT][2];
     for (int t = 0; t < NT; ++t)
       for (int e = 0; e < 2; ++e) {
@@ -202,7 +284,7 @@ __device__ void trail_update(double* const (&m)[P], double* const (&pc)[P],
     for (int ks = 0; ks < pw; ks += 4) {
       double a[P];
       for (int c = 0; c < P; ++c)
-        a[c] = row_ok ? pc[c][L.at(i, PW + ks + tg)] : 0.0;
+        a[c] = row_ok ? pc[c][L.at(i, S::c_col(ks + tg))] : 0.0;
       for (int t = 0; t < NT; ++t) {
         const int q = (ks + tg) * G_LD + ct * 8 * NT + t * 8 + gr;
         if constexpr (P == 1) {
@@ -230,7 +312,7 @@ __device__ void trail_update(double* const (&m)[P], double* const (&pc)[P],
 // The same product in true f32 on the CUDA cores: each thread a 4 x 4
 // tile (2 x 4 complex), C's rows broadcast within the warp, G's four
 // columns one 16-byte load.
-template <int P>
+template <int P, class S>
 __device__ void trail_update(float* const (&m)[P], float* const (&pc)[P],
                              float* const (&g)[P], const int* used, int n,
                              int w, PcLayout L, int k0, int pw, int jb,
@@ -245,7 +327,7 @@ __device__ void trail_update(float* const (&m)[P], float* const (&pc)[P],
     float acc[P][TR][4];
     for (int r = 0; r < TR; ++r) {
       const int i = i0 + r;
-      const bool keep = i < n && keeps_row(used, i, k0, pw);
+      const bool keep = i < n && keeps_row<S>(used, i, k0, pw);
       for (int e = 0; e < 4; ++e)
         for (int c = 0; c < P; ++c)
           acc[c][r][e] = keep && j0 + e < cw
@@ -256,7 +338,7 @@ __device__ void trail_update(float* const (&m)[P], float* const (&pc)[P],
       float cv[P][TR];
       for (int r = 0; r < TR; ++r)
         for (int c = 0; c < P; ++c)
-          cv[c][r] = i0 + r < n ? pc[c][L.at(i0 + r, PW + l)] : 0.f;
+          cv[c][r] = i0 + r < n ? pc[c][L.at(i0 + r, S::c_col(l))] : 0.f;
       float4 gv[P];
       for (int c = 0; c < P; ++c)
         gv[c] = *reinterpret_cast<const float4*>(g[c] + l * G_LD + j0);
@@ -312,17 +394,18 @@ __device__ __forceinline__ T score_of(const T (&v)[P]) {
   }
 }
 
-// The pivot of panel column l by one warp: the unused row with the
-// largest |a| (|a|^2 complex), ties to the lowest row, NaN highest
-// (gj_common.cuh:better, the ranking of warp_best/block_best).
+// The pivot of the column at [panel | C] column ``col`` by one warp: the
+// unused row with the largest |a| (|a|^2 complex), ties to the lowest
+// row, NaN highest (gj_common.cuh:better, the ranking of
+// warp_best/block_best).
 template <typename T, int P>
 __device__ void search(T* const (&pc)[P], const int* used, int n, PcLayout L,
-                       int l, int* next_p) {
+                       int col, int* next_p) {
   T best_s = T(-2);
   int best_r = n;
   for (int i = threadIdx.x & 31; i < n; i += 32) {
     T v[P];
-    for (int c = 0; c < P; ++c) v[c] = pc[c][L.at(i, l)];
+    for (int c = 0; c < P; ++c) v[c] = pc[c][L.at(i, col)];
     const T sc = used[i] ? T(-1) : score_of<T, P>(v);
     if (better(sc, i, best_s, best_r)) {
       best_s = sc;
@@ -341,8 +424,9 @@ __device__ void search(T* const (&pc)[P], const int* used, int n, PcLayout L,
 // the plan's place puts data in global memory (one slot per resident
 // block, so the workspace stays small), else nullptr (ALL_SMEM). PG: the
 // PANEL_GLOBAL instance, [panel | C] in the workspace too (a template
-// flag, so the shared-memory instance keeps its constant strides).
-template <typename T, int P, bool PG>
+// flag, so the shared-memory instance keeps its constant strides). S: the
+// pivot step (DivideStep: K1/K2/K4; mxu_gj.cu:ElementaryStep: K10).
+template <typename T, int P, bool PG, class S = DivideStep>
 __global__ void __launch_bounds__(THREADS, min_blocks<P>())
     solve_kernel(const T* __restrict__ A0, const T* __restrict__ A1,
                  const T* __restrict__ b0, const T* __restrict__ b1,
@@ -350,9 +434,9 @@ __global__ void __launch_bounds__(THREADS, min_blocks<P>())
                  uint8_t* __restrict__ valid_out, T* __restrict__ workspace,
                  int batch, int n, int r, T thr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int NCOL = PW / NWARPS;  // columns of a step per warp
+  constexpr int NCOL = S::W / NWARPS;  // columns of a step per warp
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int w = n + r, nw = n * w, ldp = pc_ld();
+  const int w = n + r, nw = n * w, ldp = pc_ld<S>();
   const PcLayout L = PG ? PcLayout{1, n} : PcLayout{ldp, 1};
 
   T* base = reinterpret_cast<T*>(smem_raw);
@@ -374,7 +458,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<P>())
       base += al4((size_t)n * ldp);
     }
     g[c] = base;
-    base += al4((size_t)PW * G_LD);
+    base += al4((size_t)S::W * G_LD);
   }
   // the next pivot's row, two slots: step l reads slot l % 2 while warp 0
   // already writes slot (l + 1) % 2
@@ -398,13 +482,15 @@ __global__ void __launch_bounds__(THREADS, min_blocks<P>())
     if (tid == 0) *ok_all = 1;
     __syncthreads();
 
-    for (int k0 = 0; k0 < n; k0 += PW) {
-      const int pw = min(PW, n - k0);
+    for (int k0 = 0; k0 < n; k0 += S::W) {
+      const int pw = min(S::W, n - k0);
       // ---- 1. stage [panel | C = 0] --------------------------------------
-      for (int idx = tid; idx < n * 2 * PW; idx += THREADS) {
-        const int i = idx / (2 * PW), l = idx - i * 2 * PW;
+      for (int idx = tid; idx < n * S::COLS; idx += THREADS) {
+        const int i = idx / S::COLS, s = idx - i * S::COLS;
+        const int l = S::panel_of(s);  // < 0 or >= pw: a zero column
         for (int c = 0; c < P; ++c)
-          pc[c][L.at(i, l)] = l < pw ? m[c][(size_t)i * w + k0 + l] : T(0);
+          pc[c][L.at(i, s)] = (unsigned)l < (unsigned)pw
+                                  ? m[c][(size_t)i * w + k0 + l] : T(0);
       }
       __syncthreads();
       // ---- 2. the panel's pivot steps, one block barrier each -----------
@@ -414,67 +500,47 @@ __global__ void __launch_bounds__(THREADS, min_blocks<P>())
       // and its rewrite happen in one warp, ordered by __syncwarp; warp 0
       // owns jj = 0, the next pivot column, and searches it as soon as it
       // has updated it.
-      if (warp == 0) search<T, P>(pc, used, n, L, 0, next_p);
+      if (warp == 0) search<T, P>(pc, used, n, L, S::panel_col(0), next_p);
       __syncthreads();
       for (int l = 0; l < pw; ++l) {
         const int kk = k0 + l, np = pw - l - 1, slot = l & 1;
         const int p = next_p[slot];
+        const int kc = S::panel_col(l);
         T pv[P];
-        for (int c = 0; c < P; ++c) pv[c] = pc[c][L.at(p, l)];
+        for (int c = 0; c < P; ++c) pv[c] = pc[c][L.at(p, kc)];
         if (tid == 0) {
           used[p] = kk + 1;
           perm[kk] = p;
         }
-        // this warp's columns of the pivot row, divided by the pivot (the
-        // row's own share C[p, l] enters as 1)
+        // this warp's columns of the pivot row, as the step reads them
+        bool ok;
+        const T s = S::template scalar<T, P>(pv, thr, ok);
+        if (tid == 0 && !ok) *ok_all = 0;
         T pr[NCOL][P];
         int cols[NCOL];
-        bool ok;
-        T d = T(1), inv_d = T(1);
-        if constexpr (P == 1) {
-          ok = fabs(pv[0]) >= thr;
-          d = ok ? pv[0] : T(1);
-        } else {
-          const T dd = pv[0] * pv[0] + pv[1] * pv[1];
-          ok = dd >= thr;
-          inv_d = T(1) / (ok ? dd : T(1));
-        }
-        if (tid == 0 && !ok) *ok_all = 0;
+        bool own[NCOL];
         for (int m = 0; m < NCOL; ++m) {
           const int jj = warp + NWARPS * m;
-          cols[m] = jj < np ? l + 1 + jj : PW + jj - np;
+          cols[m] = jj < np ? S::panel_col(l + 1 + jj) : S::c_col(jj - np);
+          own[m] = jj - np == l;
           if (jj >= pw) continue;
-          const bool own = cols[m] == PW + l;
-          const int q = L.at(p, cols[m]);
-          if constexpr (P == 1) {
-            pr[m][0] = (own ? T(1) : pc[0][q]) / d;
-          } else {
-            const T prr = own ? T(1) : pc[0][q];
-            const T pri = own ? T(0) : pc[1][q];
-            pr[m][0] = (prr * pv[0] + pri * pv[1]) * inv_d;
-            pr[m][1] = (pri * pv[0] - prr * pv[1]) * inv_d;
-          }
+          S::template entry<T, P>(pc, L.at(p, cols[m]), own[m], pv, s,
+                                  pr[m]);
         }
         __syncwarp();  // the warp's reads of row p are done
         // warp 0 ranks column l + 1 as it updates it
         T best_s = T(-2);
         int best_r = n;
         for (int i = lane; i < n; i += 32) {
-          T f[P];
-          for (int c = 0; c < P; ++c) f[c] = pc[c][L.at(i, l)];
+          T f[P], u[P];
+          for (int c = 0; c < P; ++c) f[c] = pc[c][L.at(i, kc)];
+          S::template factor<T, P>(f, i == p, pv, s, u);
           for (int m = 0; m < NCOL; ++m) {
             const int jj = warp + NWARPS * m;
             if (jj >= pw) break;
             const int q = L.at(i, cols[m]);
             T v[P];
-            if (i == p) {
-              for (int c = 0; c < P; ++c) v[c] = pr[m][c];
-            } else if constexpr (P == 1) {
-              v[0] = pc[0][q] - f[0] * pr[m][0];
-            } else {
-              v[0] = pc[0][q] - (f[0] * pr[m][0] - f[1] * pr[m][1]);
-              v[1] = pc[1][q] - (f[0] * pr[m][1] + f[1] * pr[m][0]);
-            }
+            S::template update<T, P>(pc, q, u, pr[m], own[m], i == p, v);
             for (int c = 0; c < P; ++c) pc[c][q] = v[c];
             if (jj == 0 && np > 0) {  // warp 0, lane's row of column l + 1
               const T sc = used[i] || i == p ? T(-1) : score_of<T, P>(v);
@@ -489,10 +555,17 @@ __global__ void __launch_bounds__(THREADS, min_blocks<P>())
           warp_pick<T>(best_s, best_r, next_p + (slot ^ 1));
         __syncthreads();
       }
+      // the f64 product reads C in groups of 4 columns, so C's columns
+      // pw..W-1 must be zero: where C's column pw is the column that held
+      // panel column pw - 1 (ElementaryStep), it is cleared (the G
+      // staging's barrier orders this before the product)
+      if (pw < S::W && S::c_col(pw) == S::panel_col(pw - 1))
+        for (int i = tid; i < n; i += THREADS)
+          for (int c = 0; c < P; ++c) pc[c][L.at(i, S::c_col(pw))] = T(0);
       // ---- 3. the trailing update, a chunk of CW columns at a time -------
       for (int jb = k0 + pw; jb < w; jb += CW) {
         const int cw = min(CW, w - jb);
-        for (int idx = tid; idx < PW * CW; idx += THREADS) {
+        for (int idx = tid; idx < S::W * CW; idx += THREADS) {
           const int l = idx / CW, j = idx - l * CW;
           for (int c = 0; c < P; ++c)
             g[c][l * G_LD + j] =
@@ -500,7 +573,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<P>())
                                  : T(0);
         }
         __syncthreads();
-        trail_update<P>(m, pc, g, used, n, w, L, k0, pw, jb, cw);
+        trail_update<P, S>(m, pc, g, used, n, w, L, k0, pw, jb, cw);
         __syncthreads();
       }
     }
@@ -534,14 +607,14 @@ struct Plan {
 // SM (the occupancy API, so registers count too); on a tie, the planes in
 // shared memory (no workspace traffic). PANEL_GLOBAL only where neither
 // fits. blocks_per_sm == 0 when nothing fits.
-template <typename T, int P>
+template <typename T, int P, class S>
 inline const void* kernel_of(int place) {
   return place == PANEL_GLOBAL
-             ? reinterpret_cast<const void*>(&solve_kernel<T, P, true>)
-             : reinterpret_cast<const void*>(&solve_kernel<T, P, false>);
+             ? reinterpret_cast<const void*>(&solve_kernel<T, P, true, S>)
+             : reinterpret_cast<const void*>(&solve_kernel<T, P, false, S>);
 }
 
-template <typename T, int P>
+template <typename T, int P, class S = DivideStep>
 inline Plan plan(int n, int r) {
   Plan best;
   int dev = 0;
@@ -551,11 +624,11 @@ inline Plan plan(int n, int r) {
     return best;
   for (int place : {ALL_SMEM, PLANES_GLOBAL, PANEL_GLOBAL}) {
     if (place == PANEL_GLOBAL && best.blocks_per_sm > 0) break;
-    const void* fn = kernel_of<T, P>(place);
+    const void* fn = kernel_of<T, P, S>(place);
     if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)SMEM_MAX) != cudaSuccess)
       return Plan{};
-    const size_t bytes = smem_bytes<T, P>(n, r, place);
+    const size_t bytes = smem_bytes<T, P, S>(n, r, place);
     int blocks = 0;
     if (bytes > SMEM_MAX ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS,
@@ -572,32 +645,32 @@ inline Plan plan(int n, int r) {
 // Systems of (P, n, n + r) the global workspace must hold for a batch
 // (workspace_units of the plan's place and grid), 0 where the plan keeps
 // everything in shared memory.
-template <typename T, int P>
+template <typename T, int P, class S = DivideStep>
 inline int workspace_systems(int n, int r, int batch) {
-  const Plan pl = plan<T, P>(n, r);
+  const Plan pl = plan<T, P, S>(n, r);
   return pl.blocks_per_sm == 0
              ? 0
-             : workspace_units(n, r, pl.place, pl.grid(batch));
+             : workspace_units<S>(n, r, pl.place, pl.grid(batch));
 }
 
 // Launch on ``stream``: r right-hand sides b0/b1 (n, r) per system, or the
 // identity (b0 == nullptr, r = n); ``workspace`` holds
 // workspace_systems(n, r, batch) systems of (P, n, n + r) when that is
 // nonzero.
-template <typename T, int P>
+template <typename T, int P, class S = DivideStep>
 int launch(const void* A0, const void* A1, const void* b0, const void* b1,
            void* x0, void* x1, void* valid, void* workspace, int batch,
            int n, int r, T thr, void* stream) {
   if (n < 1 || r < 1 || (b0 == nullptr && r != n))
     return (int)cudaErrorInvalidValue;
-  const Plan pl = plan<T, P>(n, r);
+  const Plan pl = plan<T, P, S>(n, r);
   if (pl.blocks_per_sm == 0) return (int)cudaErrorInvalidValue;
   if ((pl.place == ALL_SMEM) != (workspace == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<T, P>(n, r, pl.place);
+  const size_t smem = smem_bytes<T, P, S>(n, r, pl.place);
   if (batch > 0) {
-    auto* kernel = pl.place == PANEL_GLOBAL ? solve_kernel<T, P, true>
-                                            : solve_kernel<T, P, false>;
+    auto* kernel = pl.place == PANEL_GLOBAL ? solve_kernel<T, P, true, S>
+                                            : solve_kernel<T, P, false, S>;
     kernel<<<pl.grid(batch), THREADS, smem, (cudaStream_t)stream>>>(
         (const T*)A0, (const T*)A1, (const T*)b0, (const T*)b1, (T*)x0,
         (T*)x1, (uint8_t*)valid, (T*)workspace, batch, n, r, thr);

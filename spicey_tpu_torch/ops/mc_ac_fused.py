@@ -11,11 +11,16 @@ memory. K7 replaces ``_fused_x_kernel``: the same systems and pivots,
 writing the whole solution (F, N, B) and ``valid`` (F, B); with an
 external RHS (rr, ri) (F, N, B) the pattern's RHS column is replaced,
 from tables packed without it (``pack_pattern(ext_rhs=True)``).
-``simulate_ac_batch(method="pallas")`` runs it in f64. K5 is one thread
-per system; K7 is a group of ``fused_group_for(n)`` lanes per system, one
-row per lane in registers, assembled from the pattern's row-ordered table
+``simulate_ac_batch(method="pallas")`` runs it in f64. K7 is a group of
+``fused_group_for(n)`` lanes per system, one row per lane in registers,
+assembled from the pattern's row-ordered table
 (``PackedPattern.row_ent``/``row_ptr``), the pivot row shared through
-shared memory; ``csrc/mc_ac_fused.cu`` says what bounds each.
+shared memory. K5 runs in one of two forms, chosen by ``k5_form_for``
+from N and the dtype: "register" (one thread per system, its system in
+registers with N a template constant, up to ``K5_REG_MAX_N``) and
+"group" (K7's body, writing |x[node]| and ``valid`` only); ``K5_FORMS``
+counts each form's launches. ``csrc/mc_ac_fused.cu`` says what bounds
+each.
 
 The stamp pattern is the same static-index information the scatter
 assembly uses, precomputed on the host as per-entry term lists; each term
@@ -59,11 +64,28 @@ KINDS = {"one": 0, "inv": 1, "lin": 2, "w": 3, "winv": 4}
 # K7's group widths: lanes per system, each a power of two that divides a
 # warp; N must not exceed the group's
 K7_GROUPS = (4, 8, 16)
+# K5's forms (the C side's form codes, in order): one thread per system
+# with its system in registers, for N <= K5_REG_MAX_N; K7's group of lanes
+# per system beyond
+FORMS = ("register", "group")
+# the largest N of a register instance (mc_ac_fused.cu:REG_MAX_N)
+REG_MAX_N = 6
+# K5's crossover: the register form up to this N, the group form above.
+# Measured by tools/profile_torch_k5.py (every form at N = 1-8 on dense
+# random systems, 2^20 variants x 3 frequencies) on an NVIDIA H100 80GB
+# HBM3 at 700.00 W: the register form won at every N it has an instance
+# for, in both dtypes (N = 6: 4.89 against 5.32 ms in f64, 2.32 against
+# 3.21 in f32), its time doubling from N = 5 to 6 where the group form's
+# grows by a seventh per N, so the group form takes N = 7 on.
+K5_REG_MAX_N = {torch.float32: 6, torch.float64: 6}
 # one launch counter per instantiation
 K5 = {dt: Kernel(name=f"mc_ac_fused_{tag}",
                  source="spicey_tpu_torch/csrc/mc_ac_fused.cu",
                  replaces="spicey_tpu/ops/pallas_mc_ac.py:982")
       for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64"))}
+# launches of each form, per instantiation (K5 counts their sum)
+K5_FORMS = {dt: dict.fromkeys(FORMS, 0)
+            for dt in (torch.float32, torch.float64)}
 K7 = {dt: Kernel(name=f"mc_ac_fused_x_{tag}",
                  source="spicey_tpu_torch/csrc/mc_ac_fused.cu",
                  replaces="spicey_tpu/ops/pallas_mc_ac.py:384")
@@ -182,7 +204,10 @@ class PackedPattern:
     [column, first term, end term], the same entries sorted by (plane, row,
     column), and ``row_ptr`` (2, n + 1): entries ``row_ptr[c, i]`` up to
     ``row_ptr[c, i + 1]`` are row i of plane c. K7 assembles each row from
-    them, so each element is the same sum in the same order. ``ext_rhs``:
+    them, so each element is the same sum in the same order. ``flat``
+    (n_terms, 4) = [position, kind | 8 (first term of its entry) | 16
+    (last), value row, sign], every term in ``ent``'s order: K5's register
+    form walks it once per system. ``ext_rhs``:
     the tables leave the RHS column out (no entries there, none of its
     positions zeroed), for K7 with external RHS planes."""
 
@@ -193,6 +218,7 @@ class PackedPattern:
     zeros: torch.Tensor
     row_ent: torch.Tensor
     row_ptr: torch.Tensor
+    flat: torch.Tensor
     ext_rhs: bool = False
 
     def to(self, device: torch.device | str) -> "PackedPattern":
@@ -201,7 +227,7 @@ class PackedPattern:
             n=self.n, n_rows=self.n_rows, ent=self.ent.to(device),
             terms=self.terms.to(device), zeros=self.zeros.to(device),
             row_ent=self.row_ent.to(device), row_ptr=self.row_ptr.to(device),
-            ext_rhs=self.ext_rhs)
+            flat=self.flat.to(device), ext_rhs=self.ext_rhs)
 
 
 def pack_entries(planes: tuple, n: int, width: int,
@@ -247,9 +273,26 @@ def pack_pattern(pattern: tuple, n: int, device: torch.device | str,
     if ext_rhs:
         zeros = zeros[zeros % (n + 1) != n].contiguous()
     row_ent, row_ptr = row_table(ent.cpu(), n)
+    flat = flat_table(ent.cpu(), terms.cpu())
     return PackedPattern(n=n, n_rows=int(n_rows), ent=ent, terms=terms,
                          zeros=zeros, row_ent=row_ent.to(device),
-                         row_ptr=row_ptr.to(device), ext_rhs=ext_rhs)
+                         row_ptr=row_ptr.to(device), flat=flat.to(device),
+                         ext_rhs=ext_rhs)
+
+
+def flat_table(ent: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
+    """K5's flat copy of an entry table ``ent`` [position, first term, end
+    term] and its ``terms`` [kind, value row, sign]: one row per term in
+    table order, [position, kind | 8 (the entry's first term) | 16 (its
+    last), value row, sign] (n_terms, 4) int32, so that a walk of it forms
+    each entry as the same sum in the same order."""
+    rows = []
+    for pos, t0, t1 in ent.tolist():
+        for q in range(t0, t1):
+            kind, row, sign = terms[q].tolist()
+            rows.append((pos, kind | (8 if q == t0 else 0)
+                         | (16 if q == t1 - 1 else 0), row, sign))
+    return torch.as_tensor(np.asarray(rows, np.int32).reshape(-1, 4))
 
 
 def row_table(ent: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -278,6 +321,16 @@ def fused_group_for(n: int) -> int:
         if 1 <= n <= g:
             return g
     raise ValueError(f"K7 takes 1 <= N <= {K7_GROUPS[-1]}, got N={n}")
+
+
+def k5_form_for(n: int, dtype: torch.dtype) -> tuple[str, int]:
+    """K5's form for systems of n unknowns in ``dtype``: ("register", n)
+    up to ``K5_REG_MAX_N``, else ("group", the lanes per system)."""
+    if not 1 <= n <= FUSED_MAX_N:
+        raise ValueError(f"K5 takes 1 <= N <= {FUSED_MAX_N}, got N={n}")
+    if n <= K5_REG_MAX_N[dtype]:
+        return "register", n
+    return "group", fused_group_for(n)
 
 
 def combine_values(r_vals: torch.Tensor, c_vals: torch.Tensor,
@@ -387,11 +440,11 @@ def mc_ac_fused_x_plain(freqs: torch.Tensor, values: torch.Tensor,
             x_im.permute(0, 2, 1).contiguous(), valid)
 
 
-_TABLE_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+_LAUNCH_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int]
-_LAUNCH_ARGS = _TABLE_ARGS + [ctypes.c_int, ctypes.c_double] \
-    + [ctypes.c_void_p] * 3
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, ctypes.c_double, ctypes.c_int, ctypes.c_int] + [
+    ctypes.c_void_p] * 3
 _LAUNCH_X_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
     ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_double] + [
     ctypes.c_void_p] * 6
@@ -423,7 +476,7 @@ def _check_launch(freqs: torch.Tensor, values: torch.Tensor,
             or freqs.dtype != values.dtype:
         raise TypeError(f"{what} takes float32 or float64 freqs and values")
     tables = (packed.ent, packed.terms, packed.zeros, packed.row_ent,
-              packed.row_ptr)
+              packed.row_ptr, packed.flat)
     if any(t.dtype != torch.int32 for t in tables):
         raise TypeError(f"{what} takes int32 pattern tables")
     ts = (freqs, values) + tables + extra
@@ -438,28 +491,37 @@ def _check_launch(freqs: torch.Tensor, values: torch.Tensor,
 
 def mc_ac_fused_cuda(freqs: torch.Tensor, values: torch.Tensor,
                      packed: PackedPattern, node_idx: int,
-                     eps: float = EPS) -> tuple[torch.Tensor, torch.Tensor]:
+                     eps: float = EPS, form: str | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K5. freqs (F,), values (n_rows, B), both CUDA, contiguous and
     of one dtype (float32 or float64); the pattern's tables on the same
-    device. Returns (mag, valid) as (B, F) views of (F, B) outputs."""
+    device. Returns (mag, valid) as (B, F) views of (F, B) outputs.
+    ``form`` forces one of ``FORMS`` (for the comparisons and the
+    profiles); None takes ``k5_form_for``'s."""
     if packed.ext_rhs:
         raise ValueError("K5 takes tables with the pattern's RHS column")
     _check_launch(freqs, values, packed, "K5")
     n = packed.n
     if not 0 <= node_idx < n:
         raise ValueError(f"node index {node_idx} outside the system")
+    form = k5_form_for(n, values.dtype)[0] if form is None else form
+    if form not in FORMS or (form == "register" and n > REG_MAX_N):
+        raise ValueError(f"K5 has no form {form!r} at N={n}")
     lib = load_library()
     F, B = freqs.shape[0], values.shape[1]
     mag = torch.empty((F, B), dtype=values.dtype, device=values.device)
     valid = torch.empty((F, B), dtype=torch.bool, device=values.device)
     fn = lib.mc_ac_fused_f64 if values.dtype == torch.float64 \
         else lib.mc_ac_fused_f32
-    code = fn(ptr(freqs), ptr(values), F, B, ptr(packed.ent),
-              packed.ent.shape[0], ptr(packed.terms), ptr(packed.zeros),
-              packed.zeros.shape[0], n, node_idx, float(eps), ptr(mag),
-              ptr(valid), stream_ptr(values.device))
-    check(code, "mc_ac_fused launch")
+    code = fn(ptr(freqs), ptr(values), F, B, ptr(packed.flat),
+              packed.flat.shape[0], ptr(packed.terms), ptr(packed.zeros),
+              packed.zeros.shape[0], ptr(packed.row_ent),
+              ptr(packed.row_ptr), n, node_idx, float(eps),
+              FORMS.index(form), fused_group_for(n), ptr(mag), ptr(valid),
+              stream_ptr(values.device))
+    check(code, f"mc_ac_fused {form} launch")
     K5[values.dtype].launches += 1
+    K5_FORMS[values.dtype][form] += 1
     return mag.T, valid.T
 
 

@@ -12,9 +12,12 @@ matrix product updates every column right of the panel,
     M[:, trailing] += C @ M[pivot rows of the panel, trailing],
 
 which is where ~(1 - P/N) of the elimination's operations run. The
-kernel is ``csrc/mxu_gj.cu`` (f32 and f64); the plain versions here,
-``mxu_solve_real_plain`` and ``mxu_solve_complex_plain``, repeat its
-arithmetic in torch.
+kernel is ``csrc/mxu_gj.cu`` (f32 and f64): the panel tier's kernel of
+K1/K2 (``csrc/gj_panel.cuh``: persistent blocks, the planes where the
+most blocks are resident and a workspace of one slot per resident block,
+one barrier per pivot step, the product on the tensor cores in f64) run
+with K10's own step. The plain versions here, ``mxu_solve_real_plain``
+and ``mxu_solve_complex_plain``, repeat its arithmetic in torch.
 
 The contract is the Pallas kernels' (``pallas_mxu.py:134-212``): the
 pivot of column k is the unused row with the largest |a| (complex: |a|^2),
@@ -44,7 +47,7 @@ import functools
 import torch
 
 from ..constants import EPS
-from ._build import SMEM_MAX, Kernel, check, load, ptr, stream_ptr, workspace
+from ._build import Kernel, check, load, ptr, stream_ptr, workspace
 
 # below 40 the one-system-per-block elimination (K1/K2) has no trailing
 # work worth a product; the TPU tier's rows filled its 128 lanes
@@ -61,6 +64,12 @@ K10b = {dt: Kernel(name=f"mxu_gj_complex_{tag}", source=_SRC,
         for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64"))}
 
 _LANE = 128
+
+# gj_panel.cuh's places of the planes: all in shared memory, or the planes
+# in the block's workspace slot ([panel | C] and G stay on chip)
+ALL_SMEM, PLANES_GLOBAL = 0, 1
+# gj_panel.cuh:G_LD, the row stride of the staged pivot rows G
+_G_LD = 68
 
 
 def _roundup(x: int, m: int) -> int:
@@ -98,6 +107,33 @@ def blocked_plan(n: int) -> tuple[int, int, int, tuple[int, ...]]:
             best = (cost, p, np_, s, widths)
     _, p, np_, s, widths = best
     return p, np_, s, widths
+
+
+def smem_bytes(n: int, planes: int, itemsize: int, place: int) -> int:
+    """Shared-memory bytes of one K10 block for (n, n) systems at ``place``
+    (``ALL_SMEM`` or ``PLANES_GLOBAL``), a copy of
+    ``gj_panel.cuh:smem_bytes`` for K10's step (``mxu_gj.cu:
+    ElementaryStep``): per plane the planes (``ALL_SMEM``), [panel | C]
+    (n x (P + 1) with an odd row stride) and G (P x 68), each rounded to 4
+    elements; then the ints. ``mxu_gj_smem_bytes`` is the kernel's own."""
+    p_ = blocked_plan(n)[0]
+
+    def al4(x: int) -> int:
+        return -(-x // 4) * 4
+
+    ld = (p_ + 1) | 1
+    elems = al4(n * ld) + al4(p_ * _G_LD)
+    if place == ALL_SMEM:
+        elems += al4(n * (n + 1))
+    return planes * elems * itemsize + (4 + 2 * n + 1) * 4
+
+
+def workspace_systems(place: int, grid: int) -> int:
+    """Systems of (planes, n, n + 1) in K10's workspace for a grid of
+    ``grid`` persistent blocks (at most the resident slots, whatever the
+    batch): one slot per block where the planes live in global memory
+    (``gj_panel.cuh:workspace_units``)."""
+    return 0 if place == ALL_SMEM else grid
 
 
 # ---- plain versions --------------------------------------------------------
@@ -213,7 +249,8 @@ _REAL_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
 _CPLX_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
     ctypes.c_double, ctypes.c_void_p]
 _SIGNATURES = {
-    "mxu_gj_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_size_t),
+    "mxu_gj_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_longlong),
+    "mxu_gj_workspace_systems": ([ctypes.c_int] * 5, ctypes.c_int),
     "mxu_gj_real_f32": (_REAL_ARGS, ctypes.c_int),
     "mxu_gj_real_f64": (_REAL_ARGS, ctypes.c_int),
     "mxu_gj_complex_f32": (_CPLX_ARGS, ctypes.c_int),
@@ -262,9 +299,11 @@ def _launch(ts: tuple, eps: float, what: str) -> tuple[torch.Tensor, ...]:
           for _ in range(planes)]
     valid = torch.empty((nb,), dtype=torch.bool, device=A.device)
     ws = None
-    if lib.mxu_gj_smem_bytes(n, p_, planes, int(dbl)) > SMEM_MAX:
-        # complex f64 from N ~ 100: the planes go to a global workspace
-        ws = workspace((nb, planes, n, n + 1), A, what)
+    n_ws = lib.mxu_gj_workspace_systems(n, nb, planes, int(dbl), p_)
+    if n_ws:
+        # the plan keeps the planes in global memory: one slot per
+        # resident block, whatever the batch
+        ws = workspace((n_ws, planes, n, n + 1), A, what)
     kind = "real" if planes == 1 else "complex"
     fn = getattr(lib, f"mxu_gj_{kind}_{'f64' if dbl else 'f32'}")
     code = fn(*[ptr(t) for t in ts], *[ptr(x) for x in xs], ptr(valid),

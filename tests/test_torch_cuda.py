@@ -113,6 +113,57 @@ def test_k1_wrapper_refuses_bad_input():
                                   for t in empty])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", range(1, 17))
+def test_k5_every_form_matches_plain(cuda, n, dtype):
+    """Every form of K5 that takes N (register up to its last instance,
+    group at every N) against the plain version on dense random systems
+    with an all-zero, a zero-row and a NaN variant: ``valid`` identical,
+    |x[node]| at rtol; each launch counted under its form."""
+    vals = dense_values(n, 64, seed=n)
+    vals[2 + 2 * (n - 1), 2] = np.nan
+    freqs = torch.as_tensor(FREQS, dtype=dtype)
+    values = torch.as_tensor(vals, dtype=dtype)
+    packed = mc_ac_fused.pack_pattern(dense_pattern(n), n, "cpu")
+    node = n // 2
+    pmag, pv = mc_ac_fused.mc_ac_fused_plain(freqs, values, packed, node)
+    assert int(pv.sum()) == 3 * (64 - 3)
+    forms = [f for f in mc_ac_fused.FORMS
+             if not (f == "register" and n > mc_ac_fused.REG_MAX_N)]
+    for form in forms:
+        counts = dict(mc_ac_fused.K5_FORMS[dtype])
+        mag, v = mc_ac_fused.mc_ac_fused_cuda(
+            freqs.to(cuda), values.to(cuda), packed.to(cuda), node,
+            form=form)
+        assert mc_ac_fused.K5_FORMS[dtype][form] == counts[form] + 1
+        assert torch.equal(v.cpu(), pv)
+        torch.testing.assert_close(
+            mag.cpu()[pv], pmag[pv], rtol=TOL[dtype],
+            atol=TOL[dtype] * float(pmag[pv].abs().max()))
+    if n > mc_ac_fused.REG_MAX_N:
+        with pytest.raises(ValueError, match="no form 'register'"):
+            mc_ac_fused.mc_ac_fused_cuda(freqs.to(cuda), values.to(cuda),
+                                         packed.to(cuda), node,
+                                         form="register")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k5_yield_runs_the_chosen_form(cuda, dtype):
+    """The Monte-Carlo yield's N = 3 deck runs K5 in the form k5_form_for
+    chooses."""
+    rng = np.random.default_rng(4)
+    ov = {"r1": 30 * (1 + 0.2 * rng.random(100)),
+          "c1": 1e-4 * (1 + 0.2 * rng.random(100))}
+    form = mc_ac_fused.k5_form_for(3, dtype)[0]
+    before = mc_ac_fused.K5_FORMS[dtype][form]
+    st.mc_ac_stats(RC, ov, node="2", method="pallas",
+                   precision="f64" if dtype == torch.float64 else "f32",
+                   device=cuda)
+    assert mc_ac_fused.K5_FORMS[dtype][form] == before + 1
+
+
 def test_k5_wrapper_refuses_bad_input():
     ckt = st.parse_netlist(RC)
     t = st.build_tensors(ckt)
@@ -654,6 +705,37 @@ def test_k10_matches_plain(cuda, n, dtype):
     truth = mxu.mxu_solve_complex_plain(*planes)
     assert torch.equal(got[2].cpu(), plain[2]) and not plain[2][0]
     _k10_vs_f64(got[:2], plain[:2], truth[:2], plain[2], dtype)
+
+
+@pytest.mark.cuda
+def test_k10_plan_on_card(cuda):
+    """The kernel's shared-memory bytes equal ops/mxu.py:smem_bytes (the
+    copy the CPU tests check) at N = 40-128; its workspace is the resident
+    blocks' slots, the same for any batch past them; a complex f64 N = 128
+    batch that leaves the persistent blocks' last round partial equals the
+    plain version, and the launch is counted."""
+    from spicey_tpu_torch.ops import mxu
+
+    lib = mxu.load_library()
+    for n in range(mxu.MXU_MIN_N, mxu.MXU_MAX_N + 1):
+        for planes in (1, 2):
+            for item in (4, 8):
+                for place in (mxu.ALL_SMEM, mxu.PLANES_GLOBAL):
+                    assert mxu.smem_bytes(n, planes, item, place) == \
+                        lib.mxu_gj_smem_bytes(n, mxu.blocked_plan(n)[0],
+                                              planes, int(item == 8), place)
+    slots = {B: lib.mxu_gj_workspace_systems(128, B, 2, 1, 32)
+             for B in (52_224, 10**6)}
+    assert len(set(slots.values())) == 1 and 0 < slots[52_224] <= 132 * 8
+    B = slots[52_224] + 7
+    planes = _systems(128, B, torch.float64, seed=2)
+    k10b = mxu.K10b[torch.float64].launches
+    got = mxu.mxu_solve_complex(*[p.to(cuda) for p in planes])
+    assert mxu.K10b[torch.float64].launches == k10b + 1
+    want = mxu.mxu_solve_complex_plain(*planes)
+    assert torch.equal(got[2].cpu(), want[2])
+    assert not want[2][0] and want[2][1:].all()
+    _k10_vs_f64(got[:2], want[:2], want[:2], want[2], torch.float64)
 
 
 def test_k10_wrappers_refuse_bad_input():

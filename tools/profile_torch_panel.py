@@ -56,10 +56,10 @@ SHAPES = [(64, 2, torch.float64, 104448), (64, 1, torch.float64, 104448),
           (256, 2, torch.float64, 816), (512, 2, torch.float64, 264)]
 
 # (anchor in gj_panel.cuh, phase index charged with the cycles up to it)
-MARKS = [("    for (int k0 = 0; k0 < n; k0 += PW) {", 0),
+MARKS = [("    for (int k0 = 0; k0 < n; k0 += S::W) {", 0),
          ("      // ---- 1. stage [panel | C = 0]", 4),
-         ("      if (warp == 0) search<T, P>(pc, used, n, L, 0, next_p);",
-          1),
+         ("      if (warp == 0) search<T, P>(pc, used, n, L, S::panel_col(0), "
+          "next_p);", 1),
          ("      for (int l = 0; l < pw; ++l) {", 2),
          ("      // ---- 3. the trailing update", 3),
          ("    // pivot row perm[k] carries x[k]", 4)]
@@ -103,25 +103,36 @@ extern "C" int cycles(unsigned long long* out) {
 """
 
 
-def build() -> ctypes.CDLL:
-    """Write the stamped copy of gj_panel.cuh and its launcher; build them."""
-    src = (CSRC / "gj_panel.cuh").read_text()
-    src = src.replace("namespace gj {",
+def stamped(src: str, start: str, marks: list, what: str) -> str:
+    """``src`` with a per-phase cycle counter: ``g_phase_cycles`` declared
+    before its first ``namespace``, thread 0's clock read before the line
+    ``start``, and before each anchor of ``marks`` the cycles since the
+    last reading added to that anchor's phase."""
+    src = src.replace("namespace ",
                       "__device__ unsigned long long g_phase_cycles[8];\n"
-                      "namespace gj {", 1)
-    start = ("  for (long long sys = blockIdx.x; sys < batch; "
-             "sys += gridDim.x) {")
-    if start not in src:
-        raise RuntimeError(f"gj_panel.cuh has no line {start!r}")
+                      "namespace ", 1)
+    for anchor in [start] + [a for a, _ in marks]:
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"{what} has no single line {anchor!r}")
     src = src.replace(start, "  unsigned long long t_last = clock64();\n"
                       + start, 1)
-    for anchor, phase in MARKS:
-        if anchor not in src:
-            raise RuntimeError(f"gj_panel.cuh has no line {anchor!r}")
+    for anchor, phase in marks:
         stamp = ("if (threadIdx.x == 0) { const unsigned long long t = "
                  f"clock64(); atomicAdd(&g_phase_cycles[{phase}], "
                  "t - t_last); t_last = t; }\n")
         src = src.replace(anchor, stamp + anchor, 1)
+    return src
+
+
+# the persistent loop of gj_panel.cuh:solve_kernel, where the clock starts
+PANEL_START = ("  for (long long sys = blockIdx.x; sys < batch; "
+               "sys += gridDim.x) {")
+
+
+def build() -> ctypes.CDLL:
+    """Write the stamped copy of gj_panel.cuh and its launcher; build them."""
+    src = stamped((CSRC / "gj_panel.cuh").read_text(), PANEL_START, MARKS,
+                  "gj_panel.cuh")
     BUILD.mkdir(parents=True, exist_ok=True)
     (BUILD / "gj_panel_profiled.cuh").write_text(src)
     (BUILD / "launcher.cu").write_text(LAUNCHER)

@@ -1,4 +1,4 @@
-"""K1, K2 and K5 at ``chip_smoke.py`` phase 9's shapes, in one tree.
+"""K1, K2, K4, K5 and K7 at ``chip_smoke.py`` phase 9's shapes, in one tree.
 
 Run on a CUDA card from the repo root: ``python3 tools/profile_torch_trees.py
 [--root DIR] [--reps 20]``. Imports nothing of JAX.
@@ -15,8 +15,13 @@ the shapes phase 9 times them on the main path:
       not depend on the values);
   K2  real systems (100,000, N = 6, the boost converter's Newton systems),
       f32 and f64, the same way;
+  K4  complex planes (901 systems, N = 64, the ladder-64 noise cell), f64,
+      the same way;
   K5  the RC yield deck of phase 3 (1M variants x 201 frequencies, N = 3),
-      R and C at U(1, 1.2) x nominal, f32 and f64.
+      R and C at U(1, 1.2) x nominal, f32 and f64;
+  K7  the N = 16 RC ladder of phase 18 (16,384 variants x 201 frequencies,
+      every R and C at U(0.9, 1.1) x nominal, the pattern's RHS), f64 and
+      f32.
 
 Each line: the kernel's instantiation, its shape and the mean device
 milliseconds over ``--reps`` calls after a warm one (CUDA events); then
@@ -65,6 +70,7 @@ def main() -> int:
     import spicey_tpu_torch as st
     from spicey_tpu_torch.analysis import ac as tac
     from spicey_tpu_torch.analysis import batch as tbatch
+    from spicey_tpu_torch.decks import rc_ladder_netlist
     from spicey_tpu_torch.ops import gj, gj_real, mc_ac_fused
     if not os.path.abspath(st.__file__).startswith(root + os.sep):
         raise RuntimeError(f"imported {st.__file__}, not from {root}")
@@ -85,6 +91,12 @@ def main() -> int:
     Ar, Ai = dominant(2048 * 51, 64, 2)
     br, bi = (torch.as_tensor(rng.standard_normal((2048 * 51, 64)))
               for _ in range(2))
+    A64 = dominant(901, 64, 2)
+    for dtype in (torch.float64,):
+        planes = [p.to(dtype=dtype, device=dev) for p in A64]
+        emit(gj.K4[dtype].name, [901, 64], cuda_ms(
+            lambda: gj.gj_inverse_planes_cuda(*planes), args.reps))
+        del planes
     A6 = dominant(100_000, 6, 1)[0]
     b6 = torch.as_tensor(rng.standard_normal((100_000, 6)))
     ckt = st.parse_netlist(RC_NET)
@@ -123,6 +135,36 @@ def main() -> int:
             lambda: mc_ac_fused.mc_ac_fused_cuda(freqs, values, packed,
                                                  node), max(args.reps // 4,
                                                             1)))
+        del values
+        torch.cuda.empty_cache()
+    lad = st.parse_netlist(rc_ladder_netlist(14, 201))
+    lt = st.build_tensors(lad)
+    B16 = 16_384
+    over16 = {nm: v * rng.uniform(0.9, 1.1, B16) for nm, v in
+              zip(lt.r_names + lt.c_names,
+                  np.concatenate([lt.r_vals, lt.c_vals]))}
+    for dtype in (torch.float64, torch.float32):
+        def vals16(base, names):
+            return torch.as_tensor(tbatch._batch_values(base, names, over16,
+                                                        B16),
+                                   dtype=dtype, device=dev)
+
+        ph = np.deg2rad(lt.v_ac_phase_deg)
+        values = mc_ac_fused.combine_values(
+            vals16(lt.r_vals, lt.r_names), vals16(lt.c_vals, lt.c_names),
+            vals16(lt.l_vals, lt.l_names),
+            torch.as_tensor(lt.v_ac_mag * np.cos(ph), dtype=dtype,
+                            device=dev).expand(B16, -1),
+            torch.as_tensor(lt.v_ac_mag * np.sin(ph), dtype=dtype,
+                            device=dev).expand(B16, -1), dtype=dtype)
+        packed = mc_ac_fused.pack_pattern(mc_ac_fused.build_stamp_pattern(
+            lt.nvar, lt.r_idx, lt.c_idx, lt.l_idx, lt.v_idx), lt.nvar, dev)
+        freqs = torch.as_tensor(tac.build_frequency_array(
+            lad.ac.mode, lad.ac.N, lad.ac.f1, lad.ac.f2), dtype=dtype,
+            device=dev)
+        emit(mc_ac_fused.K7[dtype].name, [B16, freqs.shape[0], lt.nvar],
+             cuda_ms(lambda: mc_ac_fused.mc_ac_fused_x_cuda(
+                 freqs, values, packed), max(args.reps // 4, 1)))
         del values
         torch.cuda.empty_cache()
     print(subprocess.run(
