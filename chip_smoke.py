@@ -10,10 +10,11 @@ line each:
      (csrc/mc_tran_fused.cu), K9 (csrc/mc_tran_nr.cu) and K10a + K10b
      (csrc/mxu_gj.cu) with nvcc, one process per source, all started
      together; print the build seconds and the card's name/power limit,
-     and the register report of every K7 instance and every instance of
-     K5's register and group forms (``cuobjdump --dump-resource-usage``:
-     registers, stack, local memory), failing if one uses local memory (a
-     spill of its register rows or systems);
+     and the register report of every K7 instance, every instance of
+     K5's register and group forms and every register instance of K8 and
+     K9 (``cuobjdump --dump-resource-usage``: registers, stack, local
+     memory), failing if one uses local memory (a spill of its register
+     rows or systems);
   2. every kernel instantiation against its plain PyTorch version on the
      card, on the same inputs: K1 at N in {3, 8, 64, 128} with singular
      lanes and at the main path's shapes (the basics01 planes, the N = 64
@@ -23,13 +24,17 @@ line each:
      the 1M x 201 yield, there also with a NaN and a singular variant, K2
      and K3 at N in {3, 8, 64, 128} with an all-zero and a
      zero-row system and at the main path's shapes (the boost converter's
-     100k x 6 Newton systems, the RC transient's 1M x 3 matrices), K8 on
-     an extended linear deck and at the 1M x 201 RC transient; ``valid``
+     100k x 6 Newton systems, the RC transient's 1M x 3 matrices), K8 in
+     every form that takes N (register, shared) on an extended linear
+     deck, at the 1M x 201 RC transient and on RC batches of 4097 and
+     999,999 variants with a NaN and a singular variant; ``valid``
      identical, f64 rtol 1e-12, f32 rtol 1e-5 (nvcc contracts
      multiply-adds into FMAs, the torch ops do not). The f32 ladder is too
      ill-conditioned for 1e-5 between two f32 eliminations; there K1 must
      be as accurate as the plain version against an f64 solve of the same
-     planes (see ``k1_vs_plain``). K9 at B = 4096 on one deck per family
+     planes (see ``k1_vs_plain``). K9 in every form that takes N
+     (register, shared; each deck's N and device counts printed) at B =
+     4096 on one deck per family
      (the boost converter on its own grid and on DIODE_SWITCH's 10 us
      grid, the bench's MOSFET ring, an NPN and a PNP amplifier, a JFET
      stage, the TT and CJO diode decks, the BJT-charge deck): ``valid``
@@ -147,23 +152,27 @@ line each:
      outside the tensor cores, 67 TFLOP/s in f64 on them; NVIDIA's H100
      SXM data sheet), the operations those of the cheapest direct method
      (``solve_flops``, ``inverse_flops``); every form of K5 at the
-     yield-1M shape; K9 against its plain
-     version at each 100k shape of phases 10-12 (the boost on both grids,
-     the ring, BJT_NET; the same tolerances as in phase 2), with the
-     Newton passes per lane there and K9's time at each, its plain
-     version's time and bound at the boost-100k shape, its operations
-     counted from the lane passes its plain version runs on the same
-     inputs; every tier of K1 and K2 and K10a/K10b (from N = 40) in f32
+     yield-1M shape; K8 in every form at tran-1M; K9 in every form
+     against its plain version at each main-path shape of phases 10-12
+     (the boost on both grids, the ring at 100k and 4096, BJT_NET; the
+     same tolerances as in phase 2), with the Newton passes per lane
+     there and each form's time at each, its plain version's time at
+     boost-100k, and the bound, its operations counted from the lane
+     passes its plain version runs on the same inputs and the pattern's
+     device tables (``k9_ops``); each K8 and K9 time beside its launch
+     plan (threads a block, blocks, resident blocks per SM, waves); every
+     tier of K1 and K2 and K10a/K10b (from N = 40) in f32
      and f64 at the sweep's N = 16, 32, 64 and 128 shapes, and every tier
      of K1 and K2 f64 at phase 21's N = 256 planes and on random systems
      at N = 512 (64 of them) and 1024 (16), each beside the plain
      version, ``torch.linalg.solve`` on the same planes and the bound, with
      the share of the bound reached (the JSON line keeps K10 at N = 64).
      Every phase prints the launches of each tier of K1, K2 and K4 and of
-     each form of K5 beside the kernels' (phase 4 fails unless the yield
-     ran K5's register form, phase 16 unless the amp's .ac ran K1's warp
-     tier); the JSON line adds them to K1's, K2's, K4's and K5's entries
-     as ``tiers``.
+     each form of K5, K8 and K9 beside the kernels' (phase 4 fails unless
+     the yield ran K5's register form, phase 7 unless tran-1M ran K8's,
+     phases 10-12 unless K9 ran its register form, phase 16 unless the
+     amp's .ac ran K1's warp tier); the JSON line adds them to K1's,
+     K2's, K4's, K5's, K8's and K9's entries as ``tiers``.
 
 Then a JSON line of the kernels, the nvidia-smi line, and the result line.
 """
@@ -203,23 +212,6 @@ L1 d 0 10m
 .ac dec 10 10 1e5
 .end
 """
-EXT_TRAN = """* extended linear transient
-I1 0 a PULSE(0 1m 0 1u 1u 5u 10u)
-R1 a 0 1k
-G1 0 b a 0 2m
-R2 b 0 500
-E1 c 0 b 0 3
-R3 c d 100
-C1 d 0 1u
-V1 e 0 PULSE(0 5 0 1n 1n 5u 10u)
-R4 e d 200
-F1 0 b V1 0.5
-H1 f 0 V1 50
-R5 f d 300
-L1 d 0 10m
-.tran 0.1u 20u
-.end
-"""
 BOOST_B = 100_000
 RING_B = 4096
 GOLDENS = ("RC_PULSE", "TWO_PROBES", "SERIES_RLC", "SWITCH_VT_VH",
@@ -256,6 +248,49 @@ def inverse_flops(n: int, complex_: bool = False) -> float:
     """Real flops of one dense n x n inverse: n^3 multiply-adds, as an
     in-place Gauss-Jordan inverse does them."""
     return (4.0 if complex_ else 1.0) * 2.0 * n ** 3
+
+
+# K9's operations per device, counted from csrc/mc_tran_nr.cu (adds,
+# multiplies, divisions, exponentials and powers one each; compares,
+# selects and clamps none): per Newton pass each device's stamp and model
+# evaluation (a switch's blend and hysteresis test; a diode's Shockley
+# companion, + its junction charge; a level-1 MOSFET; an Ebers-Moll BJT, +
+# its two junction charges); per step each linear RHS term (a source, a C,
+# an L) and each device's state commit
+K9_PASS_OPS = {"s": 8, "d": 15, "dchg": 31, "m": 37, "q": 57, "qchg": 84}
+K9_STEP_OPS = {"src": 2, "c": 4, "l": 5, "d": 1, "dchg": 22, "m": 2, "q": 2,
+               "qchg": 62}
+
+
+def k9_ops(pattern, lane_passes: float, lane_steps: float) -> float:
+    """K9's operations for ``lane_passes`` Newton passes over
+    ``lane_steps`` (variant, step) pairs of ``pattern``: per pass the
+    elimination (``solve_flops``), column N and the commit of x (5 per
+    unknown) and the device stamps; per step the linear RHS and the state
+    commit (K9_PASS_OPS, K9_STEP_OPS)."""
+    n = pattern.n
+    ns, nd, nm, nq = (t.shape[0] for t in (pattern.slist, pattern.dlist,
+                                           pattern.mlist, pattern.qlist))
+    dchg, qchg = int(pattern.dchg.shape[0] > 0), int(pattern.qchg.shape[0]
+                                                      > 0)
+    p, q = K9_PASS_OPS, K9_STEP_OPS
+    per_pass = (solve_flops(n) + 5 * n + ns * p["s"]
+                + nd * (p["d"] + dchg * p["dchg"]) + nm * p["m"]
+                + nq * (p["q"] + qchg * p["qchg"]))
+    per_step = (q["src"] * pattern.bsrc.shape[0] + q["c"] * pattern.cst.shape[0]
+                + q["l"] * pattern.lst.shape[0]
+                + nd * (q["d"] + dchg * q["dchg"]) + nm * q["m"]
+                + nq * (q["q"] + qchg * q["qchg"]))
+    return lane_passes * per_pass + lane_steps * per_step
+
+
+def k8_step_ops(pattern) -> float:
+    """K8's operations per (variant, step): the product over the RHS rows
+    (2 per element), each source term (2), each C (its RHS term 3, its
+    state 1) and each L (2 and 3)."""
+    n_b = bin(pattern.b_rows).count("1")
+    return (2 * pattern.n * n_b + 2 * pattern.bsrc.shape[0]
+            + 4 * pattern.cst.shape[0] + 5 * pattern.lst.shape[0])
 
 
 def bound(flops: float, nbytes: float, dtype: torch.dtype
@@ -322,10 +357,11 @@ def main() -> int:
     from spicey_tpu_torch.analysis import tran as ttran
     from spicey_tpu_torch.decks import (AMP_DECK, BJT_AMP_DECK, BJT_NET,
                                         BOOST_FINE, BOOST_NET, CJ_NET,
-                                        JFET_NET, LADDER_NOISE, MOS_IV_DECK,
-                                        OPDCTF_DECK, PNP_NET, QC_NET,
-                                        RING_DECK, RING_NET, STEP_DECK,
-                                        TRAN_NET, TT_NET, rc_ladder_netlist)
+                                        EXT_TRAN, JFET_NET, LADDER_NOISE,
+                                        MOS_IV_DECK, OPDCTF_DECK, PNP_NET,
+                                        QC_NET, RING_DECK, RING_NET,
+                                        STEP_DECK, TRAN_NET, TT_NET,
+                                        rc_ladder_netlist)
     from spicey_tpu_torch.ir.circuit import (effective_time_step,
                                              sample_source_values)
     from spicey_tpu_torch.ops import (_build, gj, gj_real, linsolve,
@@ -358,9 +394,13 @@ def main() -> int:
     tier_counts.update({gj_real.K2[dt].name: gj_real.K2_TIERS[dt]
                         for dt in gj_real.K2})
     tier_counts.update({gj.K4[dt].name: gj.K4_TIERS[dt] for dt in gj.K4})
-    # K5's forms, counted as its tiers
+    # K5's, K8's and K9's forms, counted as their tiers
     tier_counts.update({mc_ac_fused.K5[dt].name: mc_ac_fused.K5_FORMS[dt]
                         for dt in mc_ac_fused.K5})
+    tier_counts[mc_tran_fused.K8[torch.float32].name] = \
+        mc_tran_fused.K8_FORMS
+    tier_counts[mc_tran_fused.K9[torch.float32].name] = \
+        mc_tran_fused.K9_FORMS
     tier_launches = {name: dict.fromkeys(c, 0)
                      for name, c in tier_counts.items()}
 
@@ -437,9 +477,32 @@ def main() -> int:
     for inst, res in sorted(usage.items()):
         say("1 registers", f"{inst}: {res['REG']} registers, stack "
             f"{res['STACK']} B, local {res['LOCAL']} B")
+    # K8's and K9's register forms: each variant's system in registers
+    for lib, pat, label in (
+            ("mc_tran_fused", r"mc_tran_fused_reg_kernelILi(\d+)E", "K8"),
+            ("mc_tran_nr", r"mc_tran_nr_kernelILi([1-9]\d*)E", "K9")):
+        dump = subprocess.run(
+            [str(Path(_build._nvcc()).parent / "cuobjdump"),
+             "--dump-resource-usage", str(_build._target(lib)[1])],
+            capture_output=True, text=True, check=True).stdout.splitlines()
+        found = {}
+        for line, res in zip(dump, dump[1:]):
+            inst = re.search(pat, line)
+            if inst:
+                found[f"{label} f32 register N={inst.group(1)}"] = dict(
+                    re.findall(r"(REG|STACK|LOCAL):(\d+)", res))
+        if len(found) != mc_tran_fused.REG_MAX_N:
+            raise AssertionError(f"{label} register report: {len(found)} "
+                                 "instances found")
+        usage.update(found)
+        for inst, res in sorted(found.items(),
+                                key=lambda kv: int(kv[0].split("=")[1])):
+            say("1 registers", f"{inst}: {res['REG']} registers, stack "
+                f"{res['STACK']} B, local {res['LOCAL']} B")
     spilled = [i for i, r in usage.items() if int(r["LOCAL"])]
     if spilled:
-        raise AssertionError(f"K5/K7 instances with local memory: {spilled}")
+        raise AssertionError(f"K5/K7/K8/K9 instances with local memory: "
+                             f"{spilled}")
 
     # ---- 2. kernels against plain versions ------------------------------
     rng = np.random.default_rng(SEED)
@@ -922,31 +985,66 @@ def main() -> int:
         node_idx = [n.upper() for n in t.node_names].index(node.upper())
         return vs, values, pattern, node_idx
 
+    def tran_forms(n):
+        """The forms of K8 and K9 that take N: the register form up to its
+        largest instance, the shared form at every N."""
+        return [f for f in mc_tran_fused.FORMS
+                if not (f == "register" and n > mc_tran_fused.REG_MAX_N)]
+
     def k8_vs_plain(inputs, what, main_shape):
-        out, v = mc_tran_fused.mc_tran_fused_cuda(*inputs)
+        """K8 in every form that takes N against its plain version:
+        ``valid`` identical, f32 at rtol 1e-5."""
         pout, pv = mc_tran_fused.mc_tran_fused_plain(*inputs)
-        if not torch.equal(v, pv):
-            raise AssertionError(f"K8 {what}: valid flags differ")
-        e = check_close(out[pv], pout[pv], TOL[torch.float32], f"K8 {what}")
+        chosen = mc_tran_fused.k8_form_for(inputs[2].n)
+        errs = {}
+        for form in tran_forms(inputs[2].n):
+            out, v = mc_tran_fused.mc_tran_fused_cuda(*inputs, form=form)
+            if not torch.equal(v, pv):
+                raise AssertionError(f"K8 {what} {form}: valid flags differ")
+            errs[form] = check_close(out[pv], pout[pv], TOL[torch.float32],
+                                     f"K8 {what} {form}")
+            del out, v
         if main_shape:
             name = mc_tran_fused.K8[torch.float32].name
-            err[name] = max(err[name], e)
-        return e, int(pv.sum()), pv.numel()
+            err[name] = max(err[name], errs[chosen])
+        return errs, int(pv.sum()), pv.numel()
+
+    def form_errs(errs, chosen):
+        return ", ".join(f"{f}{' (chosen)' if f == chosen else ''} "
+                         f"{e:.3e}" for f, e in errs.items())
 
     ext_tran_over = {"R1": 1e3 * (1 + 0.2 * rng.random(4096)),
                      "L1": 1e-2 * (1 + 0.2 * rng.random(4096)),
                      "C1": 1e-6 * (1 + 0.2 * rng.random(4096))}
     inputs = k8_inputs(EXT_TRAN, "d", ext_tran_over, 4096, "extended")
-    e, nv, nt = k8_vs_plain(inputs, "extended deck", False)
+    errs, nv, nt = k8_vs_plain(inputs, "extended deck", False)
     say("2 compare", f"K8 f32 extended deck N={inputs[2].n} (4096, "
-        f"{inputs[0].shape[0]} steps) valid {nv}/{nt} max_abs_err {e:.3e}")
+        f"{inputs[0].shape[0]} steps) valid {nv}/{nt} max_abs_err "
+        f"{form_errs(errs, mc_tran_fused.k8_form_for(inputs[2].n))}")
     tran_big_inputs = k8_inputs(TRAN_NET, "2",
                                 {"R1": r_tran, "C1": c_tran}, BIG)
-    e, nv, nt = k8_vs_plain(tran_big_inputs, "RC 1M", True)
+    errs, nv, nt = k8_vs_plain(tran_big_inputs, "RC 1M", True)
     if nv != nt:
         raise AssertionError(f"K8 RC 1M: {nv}/{nt} valid")
     say("2 compare", f"K8 f32 RC transient (1M, {tran_steps + 1} steps) "
-        f"valid {nv}/{nt} max_abs_err {e:.3e}")
+        f"valid {nv}/{nt} max_abs_err "
+        f"{form_errs(errs, mc_tran_fused.k8_form_for(3))}")
+    # K8 on batches that are no multiple of a block (4097 and the first
+    # 999,999 variants), lane 1's R1 NaN, lane 2's R1 infinite and C1 0
+    # (A's node row zero: singular)
+    for nb in (4097, BIG - 1):
+        vs_r, values_r, pattern_r, node_r = k8_inputs(
+            TRAN_NET, "2", {"R1": r_tran[:nb], "C1": c_tran[:nb]}, nb)
+        values_r[0, 1] = float("nan")
+        values_r[0, 2], values_r[1, 2] = float("inf"), 0.0
+        errs, nv, nt = k8_vs_plain((vs_r, values_r, pattern_r, node_r),
+                                   f"RC {nb}", False)
+        if nv != nt - 2:
+            raise AssertionError(f"K8 RC {nb}: {nv}/{nt} valid")
+        say("2 compare", f"K8 f32 RC transient ({nb}, NaN and singular "
+            f"lanes) valid {nv}/{nt} max_abs_err "
+            f"{form_errs(errs, mc_tran_fused.k8_form_for(3))}")
+        del vs_r, values_r
 
     def k9_inputs(net, node, over, B, dialect="spicey"):
         """K9's inputs as the main path forms them: the f32 value slab
@@ -975,32 +1073,42 @@ def main() -> int:
         return vs, values, pattern, node_idx, dict(
             vd_scale=float(t.vt) / st.VT_300K, nr=nr, max_nr=max_nr)
 
-    def k9_vs_plain(inputs, what, main_shape):
-        """K9 against its plain version: ``valid`` identical, each valid
-        lane within 1e-4 x max|V|; lanes beyond that (a rounding
-        difference that puts a switch or Newton exit on the other side of
-        its threshold) are counted, and then mean/min/max over the valid
-        lanes must agree at 2e-4. Returns (max abs err, lanes beyond,
-        the plain version's Newton passes per lane, n_valid, B)."""
+    def k9_vs_plain(inputs, what, main_shape, forms=None):
+        """K9 in every form that takes N (or ``forms``) against its plain
+        version: ``valid`` identical, each valid lane within 1e-4 x
+        max|V|; lanes beyond that (a rounding difference that puts a
+        switch or Newton exit on the other side of its threshold) are
+        counted, and then mean/min/max over the valid lanes must agree at
+        2e-4. Returns ({form: (max abs err, lanes beyond)}, the plain
+        version's Newton passes per lane, n_valid, B)."""
         vs, values, pattern, node_idx, kw = inputs
-        out, v = mc_tran_fused.mc_tran_fused_nr_cuda(vs, values, pattern,
-                                                     node_idx, **kw)
         pout, pv, passes = mc_tran_fused.mc_tran_fused_nr_plain(
             vs, values, pattern, node_idx, return_passes=True, **kw)
-        if not torch.equal(v, pv):
-            raise AssertionError(f"K9 {what}: valid flags differ")
         scale = float(pout[pv].abs().max())
-        lane_err = (out[pv] - pout[pv]).abs().amax(dim=1)
-        beyond = int((lane_err > 1e-4 * scale).sum())
-        if beyond:
-            for f in (torch.mean, torch.amin, torch.amax):
-                check_close(f(out[pv], dim=0), f(pout[pv], dim=0), 2e-4,
-                            f"K9 {what} {f.__name__}")
-        e = float(lane_err.max())
+        errs = {}
+        for form in forms or tran_forms(pattern.n):
+            out, v = mc_tran_fused.mc_tran_fused_nr_cuda(
+                vs, values, pattern, node_idx, form=form, **kw)
+            if not torch.equal(v, pv):
+                raise AssertionError(f"K9 {what} {form}: valid flags differ")
+            lane_err = (out[pv] - pout[pv]).abs().amax(dim=1)
+            beyond = int((lane_err > 1e-4 * scale).sum())
+            if beyond:
+                for f in (torch.mean, torch.amin, torch.amax):
+                    check_close(f(out[pv], dim=0), f(pout[pv], dim=0), 2e-4,
+                                f"K9 {what} {form} {f.__name__}")
+            errs[form] = (float(lane_err.max()), beyond)
+            del out, v
         if main_shape:
             name = mc_tran_fused.K9[torch.float32].name
-            err[name] = max(err[name], e)
-        return e, beyond, passes, int(pv.sum()), pv.numel()
+            err[name] = max(err[name],
+                            errs[mc_tran_fused.k9_form_for(pattern.n)][0])
+        return errs, passes, int(pv.sum()), pv.numel()
+
+    def k9_errs(errs, n):
+        chosen = mc_tran_fused.k9_form_for(n)
+        return ", ".join(f"{f}{' (chosen)' if f == chosen else ''} {e:.3e} "
+                         f"({b} beyond)" for f, (e, b) in errs.items())
 
     def pass_stats(passes):
         """Newton passes per lane: mean, max, and the mean over warps (32
@@ -1024,21 +1132,48 @@ def main() -> int:
         "JFET": (JFET_NET, "extended", "d1", "RD", 1e4),
         "PNP": (PNP_NET, "extended", "c1", "RC", 1e3),
     }
+    def bytes_match(pattern):
+        """Each form's shared-memory bytes per variant in the kernel's own
+        figure equal the copy the wrapper checks (and the CPU tests hold
+        to the layout)."""
+        n = pattern.n
+        for form in mc_tran_fused.FORMS:
+            code = mc_tran_fused.FORMS.index(form)
+            if pattern.nonlinear:
+                counts = mc_tran_fused.k9_counts(pattern)
+                got = mc_tran_fused.load_nr_library(
+                    ).mc_tran_nr_bytes_per_variant(code, n, *counts)
+                want = mc_tran_fused.k9_bytes_per_variant(form, n, *counts)
+            else:
+                n_c, n_l = pattern.cst.shape[0], pattern.lst.shape[0]
+                got = mc_tran_fused.load_library(
+                    ).mc_tran_fused_bytes_per_variant(code, n, n_c, n_l)
+                want = mc_tran_fused.k8_bytes_per_variant(form, n, n_c, n_l)
+            if got != want:
+                raise AssertionError(f"{form} bytes per variant: kernel "
+                                     f"{got}, wrapper {want}")
+
+    bytes_match(inputs[2])
+    bytes_match(tran_big_inputs[2])
     k9_passes = {}
     for deck, (net, dialect, node, elem, nominal) in k9_decks.items():
         over = {elem: nominal * (1 + 0.1 * rng.random(RING_B))}
         inputs = k9_inputs(net, node, over, RING_B, dialect)
-        e, beyond, passes, nv, nt = k9_vs_plain(inputs, deck, False)
+        bytes_match(inputs[2])
+        errs, passes, nv, nt = k9_vs_plain(inputs, deck, False)
         pm, px, wf = pass_stats(passes)
-        steps1 = inputs[0].shape[0]
+        steps1, pat = inputs[0].shape[0], inputs[2]
         k9_passes[deck] = (pm, px, wf, steps1)
         if nv != nt:
             raise AssertionError(f"K9 {deck}: {nv}/{nt} valid")
-        say("2 compare", f"K9 f32 {deck} N={inputs[2].n} ({nt}, {steps1} "
+        say("2 compare", f"K9 f32 {deck} N={pat.n} (S/D/M/Q "
+            f"{pat.slist.shape[0]}/{pat.dlist.shape[0]}/"
+            f"{pat.mlist.shape[0]}/{pat.qlist.shape[0]}, charge "
+            f"{pat.dchg.shape[0] + pat.qchg.shape[0]}; {nt}, {steps1} "
             f"steps, nr={inputs[4]['nr']}) valid {nv}/{nt} max_abs_err "
-            f"{e:.3e}, lanes beyond 1e-4 x max|V|: {beyond}; Newton "
-            f"passes per lane mean {pm:.1f} max {px} "
-            f"({pm / steps1:.3f} per step), warp max / mean {wf:.2f}")
+            f"{k9_errs(errs, pat.n)} of 1e-4 x max|V|; Newton passes per "
+            f"lane mean {pm:.1f} max {px} ({pm / steps1:.3f} per step), "
+            f"warp max / mean {wf:.2f}")
     torch.cuda.empty_cache()
 
     # K10a/K10b, the panel tier, against their plain versions. f64 at rtol
@@ -1544,7 +1679,8 @@ def main() -> int:
         f"within 2e-4 of the BE recurrence (max abs err {e:.3e}); "
         f"{sampled_tran_s:.3f} s wall")
     counted("7 tran-1M", [mc_tran_fused.K8[torch.float32],
-                          gj_real.K3[torch.float32], gj_real.K3[f64]])
+                          gj_real.K3[torch.float32], gj_real.K3[f64]],
+            ((mc_tran_fused.K8[torch.float32], "register"),))
     torch.cuda.empty_cache()
 
     # ---- 8. boost-100k: the switch+diode converter, 100k variants --------
@@ -1629,7 +1765,8 @@ def main() -> int:
         f"{BOOST_B} variants through K9: n_valid {r100.n_valid}, wall "
         f"{r100_s:.3f} s")
     counted("10 ring MC", [mc_tran_fused.K9[torch.float32],
-                           gj_real.K2[f64]])
+                           gj_real.K2[f64]],
+            ((mc_tran_fused.K9[torch.float32], "register"),))
 
     # ---- 11. switch-diode MC: the bench's switch_diode, both grids -------
     sw_over = {"RR1": 1e3 * (1 + 0.1 * rng.random(BOOST_B))}
@@ -1652,7 +1789,8 @@ def main() -> int:
             f"{d:.2e} of the f64 loop (limit {lim:.2e}, f64 loop "
             f"{s64_s:.3f} s)")
     counted("11 switch-diode MC", [mc_tran_fused.K9[torch.float32],
-                                   gj_real.K2[f64]])
+                                   gj_real.K2[f64]],
+            ((mc_tran_fused.K9[torch.float32], "register"),))
 
     # ---- 12. BJT MC: BJT_NET with Q1's Is swept (_batched_nl) ------------
     q_over = {"Q1": 1e-15 * (1 + 0.2 * rng.random(BOOST_B))}
@@ -1670,7 +1808,8 @@ def main() -> int:
         f"K9, n_valid {q32.n_valid}, wall {q_s:.3f} s; {RING_B}-variant "
         f"subset f32 mean within {d:.2e} of the f64 loop (limit {lim:.2e}, "
         f"f64 loop {q64_s:.3f} s)")
-    counted("12 BJT MC", [mc_tran_fused.K9[torch.float32], gj_real.K2[f64]])
+    counted("12 BJT MC", [mc_tran_fused.K9[torch.float32], gj_real.K2[f64]],
+            ((mc_tran_fused.K9[torch.float32], "register"),))
 
     # ---- 13. single nonlinear decks through simulate() on cuda -----------
     for label, net in (("ring_deck", RING_DECK), ("bjt_amp_deck",
@@ -2216,60 +2355,84 @@ def main() -> int:
         del planes
         torch.cuda.empty_cache()
     say("9 times", f"tiers and K10: {time.perf_counter() - t9:.1f} s")
+    def plan_line(plan):
+        return (f"{plan.tpb} threads x {plan.blocks} blocks, "
+                f"{plan.resident} resident per SM, {plan.waves:.3f} waves")
+
+    # K8 at tran-1M in every form, each with its launch plan; the bound
+    # counts the inverse, the assembly and each step's RHS terms, product
+    # and state update
     vs, values, pattern, _node = tran_big_inputs
     s1, nb, n = vs.shape[0], values.shape[1], pattern.n
-    n_b = bin(pattern.b_rows).count("1")
-    per_step = (2 * n * n_b + 2 * pattern.bsrc.shape[0]
-                + 3 * pattern.cst.shape[0] + 4 * pattern.lst.shape[0])
     name = mc_tran_fused.K8[torch.float32].name
     shape[name] = f"RC tran ({nb}, {s1} steps)"
-    ms[name] = (cuda_ms(lambda: mc_tran_fused.mc_tran_fused_cuda(
-                    *tran_big_inputs), 5),
-                cuda_ms(lambda: mc_tran_fused.mc_tran_fused_plain(
-                    *tran_big_inputs), 1), None,
-                *bound(nb * (inverse_flops(n) + s1 * per_step
-                             + 2 * pattern.terms.shape[0]),
-                       4 * (values.numel() + vs.numel() + s1 * nb) + nb,
-                       torch.float32))
-    # K9 against its plain version at each 100k shape the main path gave
-    # it in phases 10-12 (the same overrides), the Newton passes per lane
-    # the plain version ran there, and K9's time at each; at the
-    # boost-100k shape also the plain version's time and the bound, its
-    # operations counted from those lane passes
+    bnd = bound(nb * (k8_step_ops(pattern) * s1 + inverse_flops(n)
+                      + 2 * pattern.terms.shape[0]),
+                4 * (values.numel() + vs.numel() + s1 * nb) + nb,
+                torch.float32)
+    plain = cuda_ms(lambda: mc_tran_fused.mc_tran_fused_plain(
+        *tran_big_inputs), 1)
+    for form in tran_forms(n):
+        plan = mc_tran_fused.k8_launch_plan(values, pattern, form)
+        t = (cuda_ms(lambda: mc_tran_fused.mc_tran_fused_cuda(
+            *tran_big_inputs, form=form), 5), plain, None, *bnd)
+        chosen = form == mc_tran_fused.k8_form_for(n)
+        say("9 times", f"{name} {form}{' (chosen)' if chosen else ''} at "
+            f"tran-1M ({nb}, {s1} steps, N={n}; {plan_line(plan)}): kernel "
+            f"{t[0]:.4f} ms, plain {plain:.3f} ms, library none, bound "
+            f"{t[3]:.4f} ms ({t[4]}), {100 * t[3] / t[0]:.2f}% of it (CUDA "
+            f"events) | {smi}")
+        if chosen:
+            ms[name] = t
+    # K9 against its plain version at each main-path shape of phases 10-12
+    # (the same overrides; ring-4096 the first 4096 ring variants), the
+    # Newton passes per lane the plain version ran there, and every form's
+    # time with its launch plan beside the bound, whose operations are
+    # counted from those lane passes and the pattern's device tables
+    # (k9_ops); the JSON line keeps the chosen form at boost-100k
     name = mc_tran_fused.K9[torch.float32].name
-    k9_main = {"boost": (BOOST_NET, "N3", sw_over, "spicey"),
-               "boost 10us grid": (BOOST_FINE, "N3", sw_over, "spicey"),
-               "ring": (RING_NET, "n1", ring_over, "extended"),
-               "BJT_NET": (BJT_NET, "c1", q_over, "extended")}
+    k9_main = {"boost-100k": (BOOST_NET, "N3", sw_over, "spicey"),
+               "boost 10us grid 100k": (BOOST_FINE, "N3", sw_over,
+                                        "spicey"),
+               "ring-100k": (RING_NET, "n1", ring_over, "extended"),
+               "ring-4096": (RING_NET, "n1", r4k, "extended"),
+               "bjt-100k": (BJT_NET, "c1", q_over, "extended")}
     for label, (net, node, over, dialect) in k9_main.items():
-        k9_in = k9_inputs(net, node, over, BOOST_B, dialect)
+        nt = len(next(iter(over.values())))
+        k9_in = k9_inputs(net, node, over, nt, dialect)
         vs, values, pattern, node_idx, kw = k9_in
         t0 = time.perf_counter()
-        e, beyond, passes, nv, nt = k9_vs_plain(k9_in, f"{label} 100k",
-                                                True)
+        errs, passes, nv, nt = k9_vs_plain(k9_in, label, True)
         cmp_s = time.perf_counter() - t0
         if nv != nt:
-            raise AssertionError(f"K9 {label} 100k: {nv}/{nt} valid")
+            raise AssertionError(f"K9 {label}: {nv}/{nt} valid")
         pm, px, wf = pass_stats(passes)
         s1, n = vs.shape[0], pattern.n
-        t_ms = cuda_ms(lambda: mc_tran_fused.mc_tran_fused_nr_cuda(
-            vs, values, pattern, node_idx, **kw), 5)
+        bnd = bound(k9_ops(pattern, float(passes.sum()), nt * s1),
+                    4 * (values.numel() + vs.numel() + s1 * nt) + nt,
+                    torch.float32)
         say("9 K9 main shapes", f"{label} ({nt}, {s1} steps, "
-            f"nr={kw['nr']}): valid {nv}/{nt}, max_abs_err {e:.3e}, lanes "
-            f"beyond 1e-4 x max|V|: {beyond}; Newton passes per lane mean "
-            f"{pm:.1f} max {px}, warp max / mean {wf:.2f}; kernel "
-            f"{t_ms:.3f} ms (CUDA events); comparison {cmp_s:.1f} s wall "
-            f"| {smi}")
-        if label == "boost":
-            lane_passes = float(passes.sum())
-            shape[name] = (f"boost ({nt}, {s1} steps, {pm:.1f} passes per "
-                           "lane)")
-            ms[name] = (t_ms, cuda_ms(
-                lambda: mc_tran_fused.mc_tran_fused_nr_plain(
-                    vs, values, pattern, node_idx, **kw), 1), None,
-                *bound(lane_passes * solve_flops(n),
-                       4 * (values.numel() + vs.numel() + s1 * nt) + nt,
-                       torch.float32))
+            f"nr={kw['nr']}): valid {nv}/{nt}, max_abs_err "
+            f"{k9_errs(errs, n)} of 1e-4 x max|V|; Newton passes per lane "
+            f"mean {pm:.1f} max {px}, warp max / mean {wf:.2f}; bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}); comparison {cmp_s:.1f} s wall")
+        plain = None
+        if label == "boost-100k":
+            plain = cuda_ms(lambda: mc_tran_fused.mc_tran_fused_nr_plain(
+                vs, values, pattern, node_idx, **kw), 1)
+        for form in tran_forms(n):
+            plan = mc_tran_fused.k9_launch_plan(values, pattern, form)
+            t_ms = cuda_ms(lambda: mc_tran_fused.mc_tran_fused_nr_cuda(
+                vs, values, pattern, node_idx, form=form, **kw), 5)
+            chosen = form == mc_tran_fused.k9_form_for(n)
+            say("9 times", f"{name} {form}{' (chosen)' if chosen else ''} "
+                f"at {label} (N={n}; {plan_line(plan)}): kernel "
+                f"{t_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+                f"{100 * bnd[0] / t_ms:.2f}% of it (CUDA events) | {smi}")
+            if chosen and plain is not None:
+                shape[name] = (f"boost ({nt}, {s1} steps, {pm:.1f} passes "
+                               "per lane)")
+                ms[name] = (t_ms, plain, None, *bnd)
         del k9_in, vs, values, passes
         torch.cuda.empty_cache()
     for deck, (pm, px, wf, steps1) in k9_passes.items():

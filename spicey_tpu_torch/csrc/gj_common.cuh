@@ -9,10 +9,12 @@
 // row, NaN ranked highest; the pivot is accepted when score >= thr (thr =
 // eps real, eps^2 complex), and elimination continues through a rejected
 // pivot with a unit divisor, so control flow never depends on the data.
-// Every row, the pivot row included, is updated over all w columns, as
-// the plain versions update them.
+// block_gj and thread_gj update every row, the pivot row included, over
+// all w columns, as the plain versions update them; warp_gj and
+// reg_gj_real only the columns right of the pivot, the only ones read
+// later.
 //
-// Three layouts here, and a fourth in gj_panel.cuh:
+// Four layouts here, and a fifth in gj_panel.cuh:
 //   block_gj   one block per system, the (n, w) planes row-major in shared
 //              memory or a global workspace, thread-strided updates with a
 //              barrier per step (K3 at every N above THREAD_MAX_N; K1, K2
@@ -24,7 +26,10 @@
 //   thread_gj  one thread per system, element q of plane c at
 //              a[c][q * stride] (the system index fastest, so a warp's
 //              accesses are consecutive words), no barriers (K2/K3 up to
-//              THREAD_MAX_N, K8, K9);
+//              THREAD_MAX_N, the shared forms of K8 and K9);
+//   reg_gj_real one thread per real system in its registers, N a template
+//              constant (the register forms of K8 and K9; K5's complex
+//              reg_gj is its counterpart);
 //   gj_panel.cuh: one block per system in panels of 16 (or 32) columns,
 //              the trailing columns updated by one product per panel (the
 //              panel tier of K1, K2 and K4; K10a/K10b with their own step).
@@ -437,6 +442,135 @@ __device__ bool thread_gj(T* const (&a)[P], int stride, int n, int w, T thr,
       }
     }
   }
+  return ok_all;
+}
+
+// ---- one thread per system, in registers -----------------------------------
+
+// |v| as an ordered integer key: the bits of |v| with every NaN folded
+// onto one key above +inf. A larger key is a larger |v|, a strict > over
+// the rows in ascending order keeps the lower row on ties, and NaN ranks
+// highest: better()'s ranking in one integer compare.
+__device__ __forceinline__ int abs_key(float v) {
+  return min(__float_as_int(v) & 0x7fffffff, 0x7f800001);
+}
+__device__ __forceinline__ long long abs_key(double v) {
+  return min(__double_as_longlong(v) & 0x7fffffffffffffffLL,
+             0x7ff0000000000001LL);
+}
+
+// The single-precision quotient x / d of IEEE division (round to
+// nearest), its divisions sharing one double reciprocal of d: r = 1/d to
+// within 2^-52 relative (a single-precision estimate and two Newton steps
+// in double), q = (double)x * r within 2^-51 of x / d, rounded once to
+// float. With 24-bit significands x / d is never a midpoint between two
+// floats and lies at least 2^-49 relative from every such midpoint, so q
+// rounds to the float that x / d rounds to, for any x and any d with
+// 2^-120 <= |d| <= 2^120, unless the quotient is subnormal (the
+// argument needs 24 bits of it). There, and for d out of that range, the
+// division is the compiler's: bitwise the same quotient, without a call
+// to its slow path on every one.
+struct Divisor {
+  float d;
+  double r;
+  bool fast;
+};
+
+__device__ __forceinline__ Divisor divisor(float d) {
+  const float ad = fabsf(d);
+  const bool fast = ad >= 0x1p-120f && ad <= 0x1p120f;
+  const double dd = fast ? (double)d : 1.0;
+  double r = (double)__fdividef(1.0f, (float)dd);
+  r = fma(r, fma(-dd, r, 1.0), r);
+  r = fma(r, fma(-dd, r, 1.0), r);
+  return {d, r, fast};
+}
+
+__device__ __forceinline__ float divide(float x, const Divisor& v) {
+  if (v.fast) {
+    const double q = (double)x * v.r;
+    if (!(fabs(q) < 0x1p-126) || q == 0.0) return (float)q;
+  }
+  return x / v.d;
+}
+
+// Eliminate one (N, W) real system, W > N, in the calling thread's
+// registers: thread_gj's arithmetic with every index a constant (N and W
+// template constants, every loop unrolled, so nothing is indexed at run
+// time and nothing spills). The pivot of column k is the unused row with
+// the largest |a| (better()'s ranking by abs_key: ties to the lower row,
+// NaN highest), gathered by a select per row; it is valid when |pv| >=
+// thr, and a rejected pivot divides by 1 so that elimination goes on.
+// Each pivot-row entry right of k is divided by the pivot (IEEE's
+// quotient, in float by divide(): a division's result, never a product
+// with a rounded reciprocal), and every other row subtracts its factor
+// times that row, columns right of k only: no later step and no answer
+// reads the others.
+// Returns validity; x[k][c] = column N + c of the row that pivoted column
+// k, read out in pivot order by a select per row (the solution of
+// [A | b], or row k of the inverse of [A | I]).
+template <typename T, int N, int W>
+__device__ __forceinline__ bool reg_gj_real(T (&a)[N][W], T thr,
+                                            T (&x)[N][W - N]) {
+  static_assert(W > N, "reg_gj_real takes [A | right-hand sides]");
+  bool used[N];
+  int piv[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) used[i] = false;
+  bool ok_all = true;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    decltype(abs_key(T(0))) best = -2;
+    int p = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const auto key = used[i] ? -1 : abs_key(a[i][k]);
+      if (key > best) {
+        best = key;
+        p = i;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) used[i] = used[i] || i == p;
+    piv[k] = p;
+    // the pivot row, columns k..W-1, by selects
+    T q[W];
+#pragma unroll
+    for (int j = k; j < W; ++j) {
+      q[j] = a[0][j];
+#pragma unroll
+      for (int i = 1; i < N; ++i)
+        if (p == i) q[j] = a[i][j];
+    }
+    const T pv = q[k];
+    const bool ok = fabs(pv) >= thr;
+    ok_all = ok_all && ok;
+    const T d = ok ? pv : T(1);
+    if constexpr (sizeof(T) == 4) {
+      const Divisor dv = divisor(d);
+#pragma unroll
+      for (int j = k + 1; j < W; ++j) q[j] = divide(q[j], dv);
+    } else {
+#pragma unroll
+      for (int j = k + 1; j < W; ++j) q[j] = q[j] / d;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const T f = a[i][k];
+#pragma unroll
+      for (int j = k + 1; j < W; ++j)
+        a[i][j] = i == p ? q[j] : a[i][j] - f * q[j];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+#pragma unroll
+    for (int c = 0; c < W - N; ++c) {
+      x[k][c] = a[0][N + c];
+#pragma unroll
+      for (int i = 1; i < N; ++i)
+        if (piv[k] == i) x[k][c] = a[i][N + c];
+    }
   return ok_all;
 }
 

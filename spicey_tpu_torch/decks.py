@@ -1,7 +1,8 @@
 """The netlists of the port's workloads, each beside its source.
 
 ``chip_smoke.py``, ``tools/profile_torch_tran.py``,
-``tools/profile_torch_op.py`` and the port's tests read them from here,
+``tools/profile_torch_op.py``, ``tools/profile_torch_k9.py`` and the
+port's tests read them from here,
 so that what is profiled on the card is what is
 checked there and on the CPU. The decks are the JAX package's own bench
 and test decks (``bench.py``, ``tests/test_pallas_fused.py``,
@@ -17,6 +18,26 @@ from __future__ import annotations
 # pulse, 201 points
 TRAN_NET = ("TRAN bench\nV1 1 0 PULSE(0 5 0 1n 1n 5u 10u)\nR1 1 2 1k\n"
             "C1 2 0 1u\n.tran 0.1u 20u\n.end\n")
+
+# K8's extended linear deck (chip_smoke.py phase 2, the card tests): an I,
+# G, E, F and H source, a V source, R, C and L, N = 9
+EXT_TRAN = """an extended linear transient
+I1 0 a PULSE(0 1m 0 1u 1u 5u 10u)
+R1 a 0 1k
+G1 0 b a 0 2m
+R2 b 0 500
+E1 c 0 b 0 3
+R3 c d 100
+C1 d 0 1u
+V1 e 0 PULSE(0 5 0 1n 1n 5u 10u)
+R4 e d 200
+F1 0 b V1 0.5
+H1 f 0 V1 50
+R5 f d 300
+L1 d 0 10m
+.tran 0.1u 20u
+.end
+"""
 
 # bench.py:689-701, the switch_diode headline: the reference's boost
 # converter (switch + diode), 101 points on a 1 ms grid

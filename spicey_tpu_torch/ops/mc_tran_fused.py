@@ -26,11 +26,22 @@ is packed (``mc_ac_fused.pack_entries``), with A's entries placed in the
 the device lists as tables the kernel reads at run time.
 ``mc_tran_fused_plain`` and ``mc_tran_fused_nr_plain`` are the plain
 PyTorch versions, with the kernels' sum and stamp orders.
+
+Each kernel runs in one of two forms, chosen by N (``k8_form_for``,
+``k9_form_for``): "register" (the system's elimination in the thread's
+registers, N a template constant up to ``K8_REG_MAX_N`` / ``K9_REG_MAX_N``)
+and "shared" (the system in shared memory, indexed at run time, up to
+``FUSED_MAX_N``); ``K8_FORMS`` / ``K9_FORMS`` count each form's launches,
+and a ``form=`` argument forces one (tests, ``chip_smoke.py`` and the
+profiles only). Both kernels take their block size from ``launch_plan``,
+made from the variants, the card's SMs and the resident blocks per SM the
+kernel's library reports for each block size.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -45,12 +56,176 @@ from .mc_ac_fused import KINDS, int32_table, pack_entries
 # the fused tier's eligibility bound, as in the JAX package
 FUSED_MAX_N = 16
 
+# the forms of K8 and K9 (the C side's form codes, in order): the system's
+# elimination in the thread's registers, N a template constant; the system
+# in shared memory, N at run time
+FORMS = ("register", "shared")
+# the largest N of a register instance of either kernel
+# (mc_tran_fused.cu:REG_MAX_N, mc_tran_nr.cu:REG_MAX_N)
+REG_MAX_N = 8
+# The crossovers: the register form up to these N, the shared form above.
+# Measured by tools/profile_torch_k9.py (RC ladders of N = 3-10 under a
+# pulse, a diode at the end for K9, 65,536 variants x 201 steps) on an
+# NVIDIA H100 80GB HBM3 at 700.00 W: the register form won at every N it
+# has an instance for, in both kernels (N = 8: K9 5.53 against 13.81 ms,
+# K8 0.52 against 1.25 ms), so both take it to its last instance.
+K8_REG_MAX_N = 8
+K9_REG_MAX_N = 8
+# the block sizes a launch plan weighs
+BLOCK_SIZES = (256, 128, 64, 32)
+
 K8 = {torch.float32: Kernel(name="mc_tran_fused_f32",
                             source="spicey_tpu_torch/csrc/mc_tran_fused.cu",
                             replaces="spicey_tpu/ops/pallas_mc_tran.py:789")}
 K9 = {torch.float32: Kernel(name="mc_tran_nr_f32",
                             source="spicey_tpu_torch/csrc/mc_tran_nr.cu",
                             replaces="spicey_tpu/ops/pallas_mc_tran.py:345")}
+# launches of each form (K8 and K9 count their sums)
+K8_FORMS = dict.fromkeys(FORMS, 0)
+K9_FORMS = dict.fromkeys(FORMS, 0)
+
+
+def _form_for(n: int, reg_max_n: int, what: str) -> str:
+    if not 1 <= n <= FUSED_MAX_N:
+        raise ValueError(f"{what} takes 1 <= N <= {FUSED_MAX_N}, got N={n}")
+    return "register" if n <= reg_max_n else "shared"
+
+
+def k8_form_for(n: int) -> str:
+    """K8's form for systems of n unknowns: "register" up to
+    ``K8_REG_MAX_N``, else "shared"."""
+    return _form_for(n, K8_REG_MAX_N, "K8")
+
+
+def k9_form_for(n: int) -> str:
+    """K9's form for systems of n unknowns: "register" up to
+    ``K9_REG_MAX_N``, else "shared"."""
+    return _form_for(n, K9_REG_MAX_N, "K9")
+
+
+def k8_bytes_per_variant(form: str, n: int, n_c: int, n_l: int) -> int:
+    """Shared-memory bytes of one variant in K8's ``form``, the copy of
+    ``mc_tran_fused.cu:region_floats``: [A | I] (n x 2n); the shared
+    form's rhs and x (n each) and per C (per L) v_prev (i_prev); the
+    register form's rhs (n) and per C (per L) gc (gl), read once, and
+    v_prev (i_prev), its x in A's place."""
+    if form == "register":
+        return 4 * (2 * n * n + n + 2 * (n_c + n_l))
+    return 4 * (2 * n * n + 2 * n + n_c + n_l)
+
+
+def fits_32_variants(per_variant: int) -> bool:
+    """Whether 32 variants of ``per_variant`` shared-memory bytes (one
+    warp's slice) fit one block; the wrappers refuse a deck that does
+    not."""
+    return 32 * per_variant <= SMEM_MAX
+
+
+def warp_slots(tpb: int) -> int:
+    """Variant regions a block of ``tpb`` threads takes in K8 and K9: a
+    warp's 32 variants interleave in its slice of shared memory, so a
+    block holds whole warps' slices (mc_tran_*.cu:warp_slots)."""
+    return -(-tpb // 32) * 32
+
+
+def k9_bytes_per_variant(form: str, n: int, n_c: int, n_l: int, n_s: int,
+                         n_d: int, n_m: int, n_q: int, has_dchg: bool,
+                         has_qchg: bool) -> int:
+    """Shared-memory bytes of one variant in K9's ``form``, the copy of
+    ``mc_tran_nr.cu:region_floats``: the shared form's state-independent
+    part (n x n; the register form keeps it in registers), [A | b] (n x
+    (n + 1)), x, b_lin and the device terms (n each), then the carried
+    state: v_prev, i_prev, the diode, MOSFET (2) and BJT (2) seeds, the
+    junction charges and the switch states."""
+    floats = ((n * n if form == "shared" else 0) + n * (n + 1) + 3 * n
+              + n_c + n_l + n_d + 2 * n_m + 2 * n_q
+              + (n_d if has_dchg else 0) + (2 * n_q if has_qchg else 0) + n_s)
+    return 4 * floats
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """A one-thread-per-variant launch: ``tpb`` threads a block,
+    ``blocks`` blocks, ``resident`` of them at once on an SM (the
+    occupancy API's figure at ``tpb``), ``n_sm`` SMs; ``waves`` = blocks
+    over the card's resident slots."""
+
+    tpb: int
+    blocks: int
+    resident: int
+    n_sm: int
+
+    @property
+    def waves(self) -> float:
+        return self.blocks / (self.n_sm * self.resident)
+
+    @property
+    def last_wave_blocks(self) -> int:
+        """Blocks of the last wave (all of them in a launch of one)."""
+        slots = self.n_sm * self.resident
+        return self.blocks - (math.ceil(self.blocks / slots) - 1) * slots
+
+
+def launch_plan(B: int, n_sm: int, resident: dict[int, int]) -> LaunchPlan:
+    """The block size of a one-thread-per-variant launch of B variants on
+    ``n_sm`` SMs, from ``resident`` (block size -> resident blocks per SM,
+    the occupancy API's figures for ``BLOCK_SIZES``).
+
+    Of the sizes with the most resident threads per SM, the largest whose
+    last wave reaches every SM (or that needs one wave), else the
+    smallest: a launch of several waves whose last wave holds fewer blocks
+    than there are SMs leaves SMs idle while the others finish it. When B
+    variants cannot give every SM a block of that size, the block shrinks
+    to the largest size that can, down to B // n_sm threads (one warp,
+    partly used, holding the residency of the smallest size), so that
+    every SM gets one."""
+    fits = {t: r for t, r in resident.items() if r >= 1}
+    if not fits:
+        raise ValueError("no block size fits a block on an SM")
+    most = max(t * r for t, r in fits.items())
+    best = sorted(t for t, r in fits.items() if t * r == most)
+
+    def plan(tpb: int) -> LaunchPlan:
+        return LaunchPlan(tpb=tpb, blocks=max(1, -(-B // tpb)),
+                          resident=fits.get(tpb, fits[min(fits)]),
+                          n_sm=n_sm)
+
+    spread = [t for t in best
+              if plan(t).waves <= 1 or plan(t).last_wave_blocks >= n_sm]
+    tpb = max(spread) if spread else best[0]
+    if 0 < B < n_sm * tpb:
+        smaller = [t for t in fits if t <= B // n_sm]
+        tpb = max(smaller) if smaller else max(1, B // n_sm)
+    return plan(tpb)
+
+
+_N_SM: dict[int, int] = {}
+_RESIDENT: dict[tuple, dict[int, int]] = {}
+
+
+def _plan(fn, key: tuple, form: str, n: int, per_variant: int, B: int,
+          device: torch.device) -> LaunchPlan:
+    """The launch plan of a kernel whose library function ``fn`` reports
+    the resident blocks per SM of (form, n, tpb, smem bytes); the figures
+    are cached per (``key``, device)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _N_SM:
+        _N_SM[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    key = key + (form, n, per_variant, index)
+    if key not in _RESIDENT:
+        res = {}
+        for tpb in BLOCK_SIZES:
+            smem = warp_slots(tpb) * per_variant
+            if smem > SMEM_MAX:
+                continue
+            got = fn(FORMS.index(form), n, tpb, smem)
+            if got < 0:
+                check(-got, f"{key[0]} occupancy")
+            res[tpb] = got
+        _RESIDENT[key] = res
+    return launch_plan(B, _N_SM[index], _RESIDENT[key])
 
 
 def build_tran_pattern(n: int, r_idx: object, c_idx: object, l_idx: object,
@@ -613,10 +788,13 @@ _LAUNCH_ARGS = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                  ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                  ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                  ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_double] + [ctypes.c_void_p] * 3)
+                 ctypes.c_double, ctypes.c_int, ctypes.c_int]
+                + [ctypes.c_void_p] * 3)
+_RESIDENT_ARGS = ([ctypes.c_int] * 3 + [ctypes.c_size_t], ctypes.c_int)
 _SIGNATURES = {
-    "mc_tran_fused_bytes_per_variant": ([ctypes.c_int] * 3,
+    "mc_tran_fused_bytes_per_variant": ([ctypes.c_int] * 4,
                                         ctypes.c_size_t),
+    "mc_tran_fused_resident": _RESIDENT_ARGS,
     "mc_tran_fused_f32": (_LAUNCH_ARGS, ctypes.c_int),
 }
 
@@ -626,13 +804,34 @@ def load_library() -> ctypes.CDLL:
     return load("mc_tran_fused", _SIGNATURES)
 
 
+def _check_form(form: str | None, n: int, chosen: str, what: str) -> str:
+    form = chosen if form is None else form
+    if form not in FORMS or (form == "register" and n > REG_MAX_N):
+        raise ValueError(f"{what} has no form {form!r} at N={n}")
+    return form
+
+
+def k8_launch_plan(values: torch.Tensor, pattern: TranPattern,
+                   form: str | None = None) -> LaunchPlan:
+    """The launch plan of K8 on (n_rows, B) CUDA ``values`` in ``form``
+    (None: ``k8_form_for``'s)."""
+    n = pattern.n
+    form = _check_form(form, n, k8_form_for(n), "K8")
+    per = k8_bytes_per_variant(form, n, pattern.cst.shape[0],
+                               pattern.lst.shape[0])
+    return _plan(load_library().mc_tran_fused_resident, ("K8",), form, n,
+                 per, values.shape[1], values.device)
+
+
 def mc_tran_fused_cuda(vs_grid: torch.Tensor, values: torch.Tensor,
                        pattern: TranPattern, node_idx: int,
-                       eps: float = EPS) -> tuple[torch.Tensor, torch.Tensor]:
+                       eps: float = EPS, form: str | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K8. vs_grid (S+1, nSrc) and values (n_rows, B), both CUDA,
     contiguous float32; the pattern's tables on the same device. Returns
     (v_node, valid) as a (B, S+1) view of the (S+1, B) trajectory and
-    (B,)."""
+    (B,). ``form`` forces one of ``FORMS`` (for the comparisons and the
+    profiles); None takes ``k8_form_for``'s."""
     n = pattern.n
     if not 1 <= n <= FUSED_MAX_N:
         raise ValueError(f"K8 takes 1 <= N <= {FUSED_MAX_N}, got N={n}")
@@ -655,11 +854,13 @@ def mc_tran_fused_cuda(vs_grid: torch.Tensor, values: torch.Tensor,
     n_steps, B = vs_grid.shape[0], values.shape[1]
     if B >= 2**31:
         raise ValueError("K8 takes fewer than 2^31 variants")
-    lib = load_library()
+    form = _check_form(form, n, k8_form_for(n), "K8")
     n_c, n_l = pattern.cst.shape[0], pattern.lst.shape[0]
-    if 32 * lib.mc_tran_fused_bytes_per_variant(n, n_c, n_l) > SMEM_MAX:
+    if not fits_32_variants(k8_bytes_per_variant(form, n, n_c, n_l)):
         raise ValueError("K8: the deck's per-variant state does not fit "
                          "32 variants in one block's shared memory")
+    lib = load_library()
+    plan = k8_launch_plan(values, pattern, form)
     out = torch.empty((n_steps, B), dtype=torch.float32, device=values.device)
     valid = torch.empty((B,), dtype=torch.bool, device=values.device)
     code = lib.mc_tran_fused_f32(
@@ -667,15 +868,16 @@ def mc_tran_fused_cuda(vs_grid: torch.Tensor, values: torch.Tensor,
         ptr(pattern.ent), pattern.ent.shape[0], ptr(pattern.terms),
         ptr(pattern.zeros), pattern.zeros.shape[0], ptr(pattern.bsrc),
         pattern.bsrc.shape[0], ptr(pattern.cst), n_c, ptr(pattern.lst), n_l,
-        pattern.b_rows, n, node_idx, float(eps), ptr(out), ptr(valid),
-        stream_ptr(values.device))
-    check(code, "mc_tran_fused launch")
+        pattern.b_rows, n, node_idx, float(eps), FORMS.index(form),
+        plan.tpb, ptr(out), ptr(valid), stream_ptr(values.device))
+    check(code, f"mc_tran_fused {form} launch")
     K8[torch.float32].launches += 1
+    K8_FORMS[form] += 1
     return out.T, valid
 
 
 _NR_ARGS = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_int]
+             ctypes.c_int, ctypes.c_int]
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                ctypes.c_void_p, ctypes.c_int]
             + [ctypes.c_void_p, ctypes.c_int] * 7
@@ -683,10 +885,11 @@ _NR_ARGS = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_int]
             + [ctypes.c_double] * 7
-            + [ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_int] * 4
             + [ctypes.c_void_p] * 3)
 _NR_SIGNATURES = {
-    "mc_tran_nr_bytes_per_variant": ([ctypes.c_int] * 9, ctypes.c_size_t),
+    "mc_tran_nr_bytes_per_variant": ([ctypes.c_int] * 10, ctypes.c_size_t),
+    "mc_tran_nr_resident": _RESIDENT_ARGS,
     "mc_tran_nr_f32": (_NR_ARGS, ctypes.c_int),
 }
 
@@ -696,15 +899,37 @@ def load_nr_library() -> ctypes.CDLL:
     return load("mc_tran_nr", _NR_SIGNATURES)
 
 
+def k9_counts(pattern: TranPattern) -> tuple[int, ...]:
+    """(n_c, n_l, n_s, n_d, n_m, n_q, has_dchg, has_qchg) of a pattern,
+    the per-variant state K9 carries."""
+    return (pattern.cst.shape[0], pattern.lst.shape[0],
+            pattern.slist.shape[0], pattern.dlist.shape[0],
+            pattern.mlist.shape[0], pattern.qlist.shape[0],
+            int(pattern.dchg.shape[0] > 0), int(pattern.qchg.shape[0] > 0))
+
+
+def k9_launch_plan(values: torch.Tensor, pattern: TranPattern,
+                   form: str | None = None) -> LaunchPlan:
+    """The launch plan of K9 on (n_rows, B) CUDA ``values`` in ``form``
+    (None: ``k9_form_for``'s)."""
+    n = pattern.n
+    form = _check_form(form, n, k9_form_for(n), "K9")
+    per = k9_bytes_per_variant(form, n, *k9_counts(pattern))
+    return _plan(load_nr_library().mc_tran_nr_resident, ("K9",), form, n,
+                 per, values.shape[1], values.device)
+
+
 def mc_tran_fused_nr_cuda(vs_grid: torch.Tensor, values: torch.Tensor,
                           pattern: TranPattern, node_idx: int,
                           eps: float = EPS, vd_scale: float = 1.0,
-                          nr: str = "spicey", max_nr: int = 20
+                          nr: str = "spicey", max_nr: int = 20,
+                          form: str | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K9. vs_grid (S+1, nSrc) and values (n_rows, B), both CUDA,
     contiguous float32; the pattern's tables on the same device. Returns
     (v_node, valid) as a (B, S+1) view of the (S+1, B) trajectory and
-    (B,)."""
+    (B,). ``form`` forces one of ``FORMS`` (for the comparisons and the
+    profiles); None takes ``k9_form_for``'s."""
     n = pattern.n
     if not 1 <= n <= FUSED_MAX_N:
         raise ValueError(f"K9 takes 1 <= N <= {FUSED_MAX_N}, got N={n}")
@@ -733,33 +958,32 @@ def mc_tran_fused_nr_cuda(vs_grid: torch.Tensor, values: torch.Tensor,
     n_steps, B = vs_grid.shape[0], values.shape[1]
     if B >= 2**31:
         raise ValueError("K9 takes fewer than 2^31 variants")
-    counts = (pattern.cst.shape[0], pattern.lst.shape[0],
-              pattern.slist.shape[0], pattern.dlist.shape[0],
-              pattern.mlist.shape[0], pattern.qlist.shape[0])
-    has_d, has_q = int(pattern.dchg.shape[0] > 0), int(
-        pattern.qchg.shape[0] > 0)
-    lib = load_nr_library()
-    if 32 * lib.mc_tran_nr_bytes_per_variant(n, *counts, has_d,
-                                             has_q) > SMEM_MAX:
+    form = _check_form(form, n, k9_form_for(n), "K9")
+    counts = k9_counts(pattern)
+    if not fits_32_variants(k9_bytes_per_variant(form, n, *counts)):
         raise ValueError("K9: the deck's per-variant state does not fit "
                          "32 variants in one block's shared memory")
+    lib = load_nr_library()
+    plan = k9_launch_plan(values, pattern, form)
     k = nr_constants(vd_scale)
     out = torch.empty((n_steps, B), dtype=torch.float32, device=values.device)
     valid = torch.empty((B,), dtype=torch.bool, device=values.device)
-    n_c, n_l, n_s, n_d, n_m, n_q = counts
+    n_c, n_l, n_s, n_d, n_m, n_q, has_d, has_q = counts
     code = lib.mc_tran_nr_f32(
-        ptr(vs_grid), vs_grid.shape[1], n_steps, ptr(values), B,
-        ptr(pattern.ent), pattern.ent.shape[0], ptr(pattern.terms),
-        ptr(pattern.zeros), pattern.zeros.shape[0],
+        ptr(vs_grid), vs_grid.shape[1], n_steps, ptr(values),
+        pattern.n_rows, B, ptr(pattern.ent), pattern.ent.shape[0],
+        ptr(pattern.terms), ptr(pattern.zeros), pattern.zeros.shape[0],
         ptr(pattern.bsrc), pattern.bsrc.shape[0], ptr(pattern.cst), n_c,
         ptr(pattern.lst), n_l, ptr(pattern.slist), n_s, ptr(pattern.dlist),
         n_d, ptr(pattern.mlist), n_m, ptr(pattern.qlist), n_q,
         ptr(pattern.pol), ptr(pattern.dchg), has_d, ptr(pattern.qchg), has_q,
         pattern.row_invdt, n, node_idx, float(eps), k["vd_lo"], k["vd_hi"],
         k["vt_q"], k["q_lo"], k["q_hi"], k["tol"], int(nr == "converged"),
-        int(max_nr), ptr(out), ptr(valid), stream_ptr(values.device))
-    check(code, "mc_tran_nr launch")
+        int(max_nr), FORMS.index(form), plan.tpb, ptr(out), ptr(valid),
+        stream_ptr(values.device))
+    check(code, f"mc_tran_nr {form} launch")
     K9[torch.float32].launches += 1
+    K9_FORMS[form] += 1
     return out.T, valid
 
 

@@ -1,5 +1,5 @@
 """Kernels K1, K2, K3, K4, K5, K7, K8, K9, K10a and K10b against their
-plain versions (K1-K4 also past N = 128), the .noise residual guard's
+plain versions (K5, K8 and K9 in every form) (K1-K4 also past N = 128), the .noise residual guard's
 re-solves, the batched corner sweeps (``simulate_ac_batch``,
 ``simulate_tran_batch``, ``.step``) and a flat N = 129 ladder's .ac and
 .op against the CPU path, on the card.
@@ -376,6 +376,134 @@ def test_k9_wrapper_refuses_bad_input():
         mc_tran_fused.mc_tran_fused_nr_cuda(
             vs, torch.ones((big.n_rows, 3), dtype=torch.float32), big, 0,
             **kw)
+
+
+# K8 and K9 in every form (register, shared) against their plain versions:
+# K9 on one deck per family of chip_smoke.py phase 2, K8 on the RC and the
+# extended linear decks; 307 variants (no multiple of any block), lane 1
+# with its first value row NaN, lane 2 singular (K8: every R infinite and
+# every C zero, a floating node; K9: every value infinite, no finite
+# pivot). K8 at TOL's f32 1e-5; K9 with ``valid`` identical and each lane
+# within 1e-4 x max|V|, otherwise mean/min/max within 2e-4
+# (chip_smoke.py's rule: a rounding difference can put a switch or a
+# Newton exit on the other side of its threshold)
+K9_FORM_DECKS = {
+    "boost": (decks.BOOST_NET, "spicey", "N3", {"RR1": 1e3}),
+    "boost 10us grid": (decks.BOOST_FINE, "spicey", "N3", {"RR1": 1e3}),
+    "ring": (decks.RING_NET, "extended", "n1", {"c1": 1e-9}),
+    "BJT_NET": (decks.BJT_NET, "extended", "c1", {"RC": 1e3}),
+    "TT diode": (decks.TT_NET, "extended", "2", {"R1": 100.0}),
+    "CJO diode": (decks.CJ_NET, "extended", "2", {"R1": 1e3}),
+    "BJT charge": (decks.QC_NET, "extended", "c1", {"RC": 1e3}),
+    "JFET": (decks.JFET_NET, "extended", "d1", {"RD": 1e4}),
+    "PNP": (decks.PNP_NET, "extended", "c1", {"RC": 1e3}),
+}
+K8_FORM_DECKS = {
+    "rc": (RC_TRAN, "spicey", "2", {"R1": 1e3, "C1": 1e-6}),
+    "extended": (decks.EXT_TRAN, "extended", "d",
+                 {"R1": 1e3, "L1": 1e-2, "C1": 1e-6}),
+}
+FORM_B = 307
+
+
+def _form_inputs(net, dialect, node, nominal, B, device):
+    """The fused kernels' inputs as analysis/mc.py forms them, with the
+    NaN lane 1 and the singular lane 2."""
+    from spicey_tpu_torch.analysis import batch as tbatch
+    from spicey_tpu_torch.analysis import mc as tmc
+
+    rng = np.random.default_rng(11)
+    ov = {k: v * (1 + 0.1 * rng.random(B)) for k, v in nominal.items()}
+    ckt = st.parse_netlist(net, dialect=dialect)
+    t = st.build_tensors(ckt)
+    dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
+    f32 = torch.float32
+    vs = torch.as_tensor(sample_source_values(ckt, np.arange(steps + 1) * dt),
+                         dtype=f32, device=device)
+
+    def vals(base, names):
+        return torch.as_tensor(tbatch._batch_values(base, names, ov, B),
+                               dtype=f32, device=device)
+
+    values = tmc.tran_value_slab(
+        t, vals(t.r_vals, t.r_names), vals(t.c_vals, t.c_names),
+        vals(t.l_vals, t.l_names), tbatch._batched_ext(t, ov, B, device, f32),
+        tbatch._batched_nl(t, ov, B, device, f32), dt)
+    pattern = tmc._fused_tran_pattern(ckt, t, "pallas", "f32", "be", False,
+                                      device)
+    values[0, 1] = float("nan")
+    if pattern.nonlinear:
+        values[:, 2] = float("inf")
+    else:
+        n_r, n_c = len(t.r_names), len(t.c_names)
+        values[:n_r, 2] = float("inf")
+        values[n_r:n_r + n_c, 2] = 0.0
+    node_idx = [n.upper() for n in t.node_names].index(node.upper())
+    kw = {}
+    if pattern.nonlinear:
+        nr, max_nr = tmc._nr_mode(t)
+        kw = dict(vd_scale=float(t.vt) / st.VT_300K, nr=nr, max_nr=max_nr)
+    return vs, values, pattern, node_idx, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["register", "shared"])
+@pytest.mark.parametrize("deck", sorted(K9_FORM_DECKS))
+def test_k9_every_form_matches_plain(cuda, deck, form):
+    vs, values, pattern, node_idx, kw = _form_inputs(
+        *K9_FORM_DECKS[deck], FORM_B, cuda)
+    before = mc_tran_fused.K9_FORMS[form]
+    got, valid = mc_tran_fused.mc_tran_fused_nr_cuda(
+        vs, values, pattern, node_idx, form=form, **kw)
+    assert mc_tran_fused.K9_FORMS[form] == before + 1
+    want, pvalid = mc_tran_fused.mc_tran_fused_nr_plain(vs, values, pattern,
+                                                        node_idx, **kw)
+    assert torch.equal(valid, pvalid)
+    assert not pvalid[1:3].any() and bool(pvalid[3:].all())
+    scale = float(want[pvalid].abs().max())
+    lane_err = (got[pvalid] - want[pvalid]).abs().amax(dim=1)
+    if bool((lane_err > 1e-4 * scale).any()):
+        for f in (torch.mean, torch.amin, torch.amax):
+            w = f(want[pvalid], dim=0)
+            torch.testing.assert_close(f(got[pvalid], dim=0), w, rtol=2e-4,
+                                       atol=2e-4 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["register", "shared"])
+@pytest.mark.parametrize("deck", sorted(K8_FORM_DECKS))
+def test_k8_every_form_matches_plain(cuda, deck, form):
+    vs, values, pattern, node_idx, _kw = _form_inputs(
+        *K8_FORM_DECKS[deck], FORM_B, cuda)
+    if form == "register" and pattern.n > mc_tran_fused.REG_MAX_N:
+        with pytest.raises(ValueError, match="no form 'register'"):
+            mc_tran_fused.mc_tran_fused_cuda(vs, values, pattern, node_idx,
+                                             form=form)
+        return
+    before = mc_tran_fused.K8_FORMS[form]
+    got, valid = mc_tran_fused.mc_tran_fused_cuda(vs, values, pattern,
+                                                  node_idx, form=form)
+    assert mc_tran_fused.K8_FORMS[form] == before + 1
+    want, pvalid = mc_tran_fused.mc_tran_fused_plain(vs, values, pattern,
+                                                     node_idx)
+    assert torch.equal(valid, pvalid)
+    assert not pvalid[1:3].any() and bool(pvalid[3:].all())
+    w = want[pvalid]
+    torch.testing.assert_close(got[pvalid], w, rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32] * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_k8_k9_plans_report_the_card(cuda):
+    """The launch plans read the card's SM count and the kernels'
+    residency: every SM gets a block at 4096 variants."""
+    vs, values, pattern, node_idx, kw = _form_inputs(
+        *K9_FORM_DECKS["ring"], 4096, cuda)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for form in ("register", "shared"):
+        plan = mc_tran_fused.k9_launch_plan(values, pattern, form)
+        assert plan.n_sm == n_sm and plan.blocks >= n_sm
+        assert plan.resident >= 1
 
 
 # K4: the complex inverse, and the operating-point slice on the card

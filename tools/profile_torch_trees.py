@@ -1,4 +1,5 @@
-"""K1, K2, K4, K5 and K7 at ``chip_smoke.py`` phase 9's shapes, in one tree.
+"""K1, K2, K4, K5, K7, K8 and K9 at ``chip_smoke.py`` phase 9's shapes, in
+one tree.
 
 Run on a CUDA card from the repo root: ``python3 tools/profile_torch_trees.py
 [--root DIR] [--reps 20]``. Imports nothing of JAX.
@@ -21,7 +22,15 @@ the shapes phase 9 times them on the main path:
       R and C at U(1, 1.2) x nominal, f32 and f64;
   K7  the N = 16 RC ladder of phase 18 (16,384 variants x 201 frequencies,
       every R and C at U(0.9, 1.1) x nominal, the pattern's RHS), f64 and
-      f32.
+      f32;
+  K8  tran-1M (the RC pulse deck, 1M variants x 201 steps, R1 and C1 at
+      U(1, 1.2) x nominal);
+  K9  boost-100k and boost-10us-100k (the switch-diode boost on its 1 ms
+      and on DIODE_SWITCH's 10 us grid, RR1 at U(1, 1.1) x 1k), ring-100k
+      and ring-4096 (the MOSFET ring, c1 and c2 at U(1, 1.1) x 1 nF),
+      bjt-100k (BJT_NET, Q1's Is at U(1, 1.2) x 1e-15), each through the
+      wrapper in the form the tree chooses (``tools/profile_torch_k9.py``
+      makes the inputs).
 
 Each line: the kernel's instantiation, its shape and the mean device
 milliseconds over ``--reps`` calls after a warm one (CUDA events); then
@@ -165,6 +174,43 @@ def main() -> int:
         emit(mc_ac_fused.K7[dtype].name, [B16, freqs.shape[0], lt.nvar],
              cuda_ms(lambda: mc_ac_fused.mc_ac_fused_x_cuda(
                  freqs, values, packed), max(args.reps // 4, 1)))
+        del values
+        torch.cuda.empty_cache()
+    # K8 and K9: the fused transients' wrappers, the tree's chosen form
+    sys.path.insert(1, os.path.dirname(os.path.abspath(__file__)))
+    from profile_torch_k9 import fused_inputs
+    from spicey_tpu_torch.decks import (BJT_NET, BOOST_FINE, BOOST_NET,
+                                        RING_NET, TRAN_NET)
+    from spicey_tpu_torch.ops import mc_tran_fused as mtf
+    B = 100_000
+    boost = {"RR1": 1e3 * (1 + 0.1 * rng.random(B))}
+    ring = {"c1": 1e-9 * (1 + 0.1 * rng.random(B)),
+            "c2": 1e-9 * (1 + 0.1 * rng.random(B))}
+    fused = {
+        "tran-1M": (TRAN_NET, "2", {
+            "R1": 1e3 * (1 + 0.2 * rng.random(1_000_000)),
+            "C1": 1e-6 * (1 + 0.2 * rng.random(1_000_000))}, "spicey"),
+        "boost-100k": (BOOST_NET, "N3", boost, "spicey"),
+        "boost-10us-100k": (BOOST_FINE, "N3", boost, "spicey"),
+        "ring-100k": (RING_NET, "n1", ring, "extended"),
+        "ring-4096": (RING_NET, "n1", {k: v[:4096] for k, v in ring.items()},
+                      "extended"),
+        "bjt-100k": (BJT_NET, "c1",
+                     {"Q1": 1e-15 * (1 + 0.2 * rng.random(B))}, "extended"),
+    }
+    for label, (net, node, over, dialect) in fused.items():
+        nb = len(next(iter(over.values())))
+        vs, values, pattern, node_idx, kw = fused_inputs(
+            st, net, node, over, nb, dialect, dev)
+        if kw is None:
+            name = mtf.K8[torch.float32].name
+            ms = cuda_ms(lambda: mtf.mc_tran_fused_cuda(
+                vs, values, pattern, node_idx), max(args.reps // 4, 1))
+        else:
+            name = mtf.K9[torch.float32].name
+            ms = cuda_ms(lambda: mtf.mc_tran_fused_nr_cuda(
+                vs, values, pattern, node_idx, **kw), max(args.reps // 4, 1))
+        emit(name, [label, nb, vs.shape[0]], ms)
         del values
         torch.cuda.empty_cache()
     print(subprocess.run(
