@@ -11,10 +11,10 @@ line each:
      (csrc/mxu_gj.cu) with nvcc, one process per source, all started
      together; print the build seconds and the card's name/power limit,
      and the register report of every K7 instance, every instance of
-     K5's register and group forms and every register instance of K8 and
-     K9 (``cuobjdump --dump-resource-usage``: registers, stack, local
-     memory), failing if one uses local memory (a spill of its register
-     rows or systems);
+     K5's register and group forms, every register instance of K8 and
+     K9 and of K3 (``cuobjdump --dump-resource-usage``: registers, stack,
+     local memory), failing if one uses local memory (a spill of its
+     register rows or systems);
   2. every kernel instantiation against its plain PyTorch version on the
      card, on the same inputs: K1 at N in {3, 8, 64, 128} with singular
      lanes and at the main path's shapes (the basics01 planes, the N = 64
@@ -74,7 +74,9 @@ line each:
      complex f64 N = 512 and real f64 N = 1024; every tier of K4 (warp,
      block, panel), forced, in f64 and f32 at ``K4_TIER_NS`` (N = 410:
      past complex f64's [panel | C] edge) with the same three lanes and
-     rule;
+     rule; every tier of K3 (register, warp, block, panel),
+     forced, in f64 and f32 at ``K3_TIER_NS`` with an all-zero system, a
+     zero-row system and a NaN entry, by the same rule;
   3-8. the main path through the public entry points, each phase with
      every launch counter zeroed first and read after: the basics01
      golden on cuda (character-exact); the 1M-variant AC yield at f32
@@ -83,7 +85,9 @@ line each:
      at f32 and f64 (K1), means within 5e-3, and f64 kernel against the
      f64 plain path on a 64-variant subset at 1e-9; the transient goldens
      on cuda (K2 on the nonlinear decks, K3 on the linear ones) against
-     the NumPy oracle at tests/test_tran.py's tolerances; the 1M-variant
+     the NumPy oracle at tests/test_tran.py's tolerances, and a deck with
+     no unknowns (empty .op, .ac and .tran, as on the CPU path); the
+     1M-variant
      RC transient at f32 through K8 and through the batched loop (K3),
      at f64 (K3), and one on-device-sampled f32 run, against the exact
      backward-Euler recurrence at 2e-4 (f32) and 1e-9 (f64); the
@@ -131,7 +135,9 @@ line each:
      the CPU path at 1e-9), and ``rc_ladder_netlist(127)`` (N = 129):
      ``simulate()`` .ac, ``simulate_op`` at 1 V DC and a ``simulate()``
      .tran of the same ladder under a pulse (K3 once), each equal to the
-     CPU path at 1e-9;
+     CPU path at 1e-9; ``mc_tran_stats`` of the N = 64 ladder (2048
+     variants) and of flat-256 (16) under the same pulse (K3 once, its
+     panel tier required), 2 variants each equal to the CPU path at 1e-9;
   22. the solver sweep, K10's path: ``tools/profile_torch_solver.py``'s
      sweep at N = 32 (K1 and K2 must run their warp tier there), then at
      N = 64 and 128 (2 reps): K1/K2 in their chosen tier, K10a/K10b and
@@ -143,7 +149,14 @@ line each:
      kernel, its plain version and, where one PyTorch call computes the
      same function, that call (``torch.linalg.solve`` for K1/K2,
      ``torch.linalg.inv`` for K3 and, on complex128, K4), at the main
-     path's shapes (K4 f64 at both .noise shapes, K4 f32 at the amp's,
+     path's shapes (K3 in every tier that takes N at the four shapes where
+     a transient inverts its matrix once: the tran-1M loop's 1M x 3 in f32
+     and f64, a ladder-64 Monte-Carlo transient's 2048 x 64, phase 21's
+     N = 129 and flat-256's 16 x 256 as transients, ``k3_shapes``, each
+     tier first held to the plain inverse of the same matrices, valid
+     identical and within TOL, the chosen tier's error in the JSON line;
+     K4 f64 at both .noise shapes, K4 f32
+     at the amp's,
      each in every tier that takes N; K7 f64 and f32 at phase 18's, its
      library call ``torch.linalg.solve`` on the same systems
      pre-assembled as complex planes), beside the kernel's bound: the
@@ -167,12 +180,14 @@ line each:
      at N = 512 (64 of them) and 1024 (16), each beside the plain
      version, ``torch.linalg.solve`` on the same planes and the bound, with
      the share of the bound reached (the JSON line keeps K10 at N = 64).
-     Every phase prints the launches of each tier of K1, K2 and K4 and of
+     Every phase prints the launches of each tier of K1-K4 and of
      each form of K5, K8 and K9 beside the kernels' (phase 4 fails unless
-     the yield ran K5's register form, phase 7 unless tran-1M ran K8's,
-     phases 10-12 unless K9 ran its register form, phase 16 unless the
-     amp's .ac ran K1's warp tier); the JSON line adds them to K1's,
-     K2's, K4's, K5's, K8's and K9's entries as ``tiers``.
+     the yield ran K5's register form, phase 7 unless tran-1M ran K8's and
+     K3's, phases 6, 19 and 20 unless K3 ran its register form, phases
+     10-12 unless K9 ran its register form, phase 16 unless the amp's .ac
+     ran K1's warp tier, phase 21 unless the N = 129 transient ran K3's
+     panel tier); the JSON line adds them to K1's, K2's, K3's, K4's, K5's,
+     K8's and K9's entries as ``tiers``.
 
 Then a JSON line of the kernels, the nvidia-smi line, and the result line.
 """
@@ -230,6 +245,9 @@ PAST_PANEL_SMEM = [(c, dt, n) for (c, dt), e in PANEL_SMEM_EDGE.items()
 # K4's tiers in phase 2: each tier edge, the .noise shapes' N (11, 64),
 # past 128 and past complex f64's [panel | C] edge
 K4_TIER_NS = (1, 3, 11, 16, 31, 32, 33, 64, 128, 129, 256, 410)
+# K3's tiers in phase 2: each tier edge, the transients' N (3, 64, 129,
+# 256)
+K3_TIER_NS = (1, 3, 8, 9, 16, 17, 32, 33, 64, 129, 256)
 # the H100 SXM's peaks (NVIDIA data sheet): HBM3 bytes/s; FLOP/s for the
 # type: f32 outside the tensor cores (their TF32 rounds the operands), f64
 # on them (full f64; 34 TFLOP/s outside them)
@@ -300,6 +318,74 @@ def bound(flops: float, nbytes: float, dtype: torch.dtype
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / HBM_BPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tran_ladder(sections: int) -> str:
+    """``decks.rc_ladder_netlist(sections)`` under a pulse, as a transient
+    (phase 21's N = 129 deck and phase 9's K3 shapes (b)-(d))."""
+    from spicey_tpu_torch.decks import rc_ladder_netlist
+    return rc_ladder_netlist(sections).replace(
+        "v1 in 0 dc 0 ac 1", "v1 in 0 PULSE(0 5 0 1n 1n 50u 100u)").replace(
+        ".ac lin 51 1 10k", ".tran 1u 50u")
+
+
+def factor_matrix(net: str, over: dict | None, dtype: torch.dtype,
+                  dev) -> torch.Tensor:
+    """The (B, N, N) matrix a linear transient of ``net`` inverts once
+    (backward Euler), B the length of the override arrays (1 without)."""
+    import spicey_tpu_torch as st
+    from spicey_tpu_torch.analysis import tran as ttran
+    from spicey_tpu_torch.analysis.batch import _batch_values
+    from spicey_tpu_torch.ir.circuit import effective_time_step
+    ckt = st.parse_netlist(net)
+    t = st.build_tensors(ckt)
+    dt, _ = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
+    over = over or {}
+    nb = len(next(iter(over.values()))) if over else 1
+
+    def vals(base, names):
+        return torch.as_tensor(_batch_values(base, names, over, nb),
+                               dtype=dtype, device=dev)
+
+    arr = ttran.tran_arrays(t, dev, dtype, r_vals=vals(t.r_vals, t.r_names),
+                            c_vals=vals(t.c_vals, t.c_names),
+                            l_vals=vals(t.l_vals, t.l_names))
+    return ttran.linear_system_matrix(t.nvar, (nb,), dtype, arr,
+                                      arr["c_vals"] / dt, dt).contiguous()
+
+
+def k3_shapes(seed: int, dev, which: str = "abcd"
+              ) -> list[tuple[str, torch.dtype, torch.Tensor]]:
+    """(label, dtype, matrices) of K3's main-path shapes named in
+    ``which``, each drawn from its own generator seeded by ``seed``: (a)
+    the tran-1M loop's RC matrices (``decks.TRAN_NET``, R1 and C1 at U(1,
+    1.2) x nominal), 1M x 3, f32 and f64; (b) ``tran_ladder(62)``, the
+    interconnect Monte-Carlo transient, r1 at 101 x U(1, 1.2), 2048 x 64;
+    (c) ``tran_ladder(127)``, one deck through ``simulate()``, 1 x 129; (d)
+    ``tran_ladder(254)``, flat-256's deck as a transient, 16 x 256; (b)-(d)
+    in f64."""
+    from spicey_tpu_torch.decks import TRAN_NET
+    out = []
+    if "a" in which:
+        rng = np.random.default_rng(seed)
+        big = 1_000_000
+        rc_over = {"R1": 1e3 * (1 + 0.2 * rng.random(big)),
+                   "C1": 1e-6 * (1 + 0.2 * rng.random(big))}
+        out += [(f"a RC tran ({big}, 3)", dt,
+                 factor_matrix(TRAN_NET, rc_over, dt, dev))
+                for dt in (torch.float32, torch.float64)]
+    f64 = torch.float64
+    for k, (label, sections, nb) in enumerate((
+            ("b ladder-64 MC tran", 62, 2048), ("c N=129 tran", 127, 1),
+            ("d flat-256 tran", 254, 16)), start=1):
+        if label[0] not in which:
+            continue
+        rng = np.random.default_rng(seed + k)
+        over = None if nb == 1 else {
+            "r1": 101.0 * (1 + 0.2 * rng.random(nb))}
+        A = factor_matrix(tran_ladder(sections), over, f64, dev)
+        out.append((f"{label} ({nb}, {A.shape[1]})", f64, A))
+    return out
 
 
 _T0 = time.perf_counter()
@@ -394,6 +480,8 @@ def main() -> int:
     tier_counts.update({gj_real.K2[dt].name: gj_real.K2_TIERS[dt]
                         for dt in gj_real.K2})
     tier_counts.update({gj.K4[dt].name: gj.K4_TIERS[dt] for dt in gj.K4})
+    tier_counts.update({gj_real.K3[dt].name: gj_real.K3_TIERS[dt]
+                        for dt in gj_real.K3})
     # K5's, K8's and K9's forms, counted as their tiers
     tier_counts.update({mc_ac_fused.K5[dt].name: mc_ac_fused.K5_FORMS[dt]
                         for dt in mc_ac_fused.K5})
@@ -499,9 +587,31 @@ def main() -> int:
                                 key=lambda kv: int(kv[0].split("=")[1])):
             say("1 registers", f"{inst}: {res['REG']} registers, stack "
                 f"{res['STACK']} B, local {res['LOCAL']} B")
+    # K3's register form: each system's [A | I] in registers; the wrapper
+    # chooses every instance (N <= K3_REG_INSTANCES), so local memory in
+    # one is a spill on the main path
+    dump = subprocess.run(
+        [str(Path(_build._nvcc()).parent / "cuobjdump"),
+         "--dump-resource-usage", str(_build._target("gj_real")[1])],
+        capture_output=True, text=True, check=True).stdout.splitlines()
+    k3_usage = {}
+    for line, res in zip(dump, dump[1:]):
+        inst = re.search(r"gj_real_inv_reg_kernelI([df])Li(\d+)E", line)
+        if inst:
+            dtype = torch.float64 if inst.group(1) == "d" else torch.float32
+            k3_usage[(dtype, int(inst.group(2)))] = dict(
+                re.findall(r"(REG|STACK|LOCAL):(\d+)", res))
+    if len(k3_usage) != 2 * gj_real.K3_REG_INSTANCES:
+        raise AssertionError(f"K3 register report: {len(k3_usage)} "
+                             "instances found")
+    for (dtype, n), res in sorted(k3_usage.items(),
+                                  key=lambda kv: (TAG[kv[0][0]], kv[0][1])):
+        say("1 registers", f"K3 {TAG[dtype]} register N={n}: {res['REG']} "
+            f"registers, stack {res['STACK']} B, local {res['LOCAL']} B")
+        usage[f"K3 {TAG[dtype]} register N={n}"] = res
     spilled = [i for i, r in usage.items() if int(r["LOCAL"])]
     if spilled:
-        raise AssertionError(f"K5/K7/K8/K9 instances with local memory: "
+        raise AssertionError(f"K3/K5/K7/K8/K9 instances with local memory: "
                              f"{spilled}")
 
     # ---- 2. kernels against plain versions ------------------------------
@@ -1505,6 +1615,39 @@ def main() -> int:
             f"0-2 flagged; error / max|x|: {', '.join(errs)}")
         del planes, plain, truth
         torch.cuda.empty_cache()
+    # every tier of K3 (the real inverse), forced, at K3_TIER_NS with an
+    # all-zero system, a zero-row system and a NaN entry (their own
+    # generator): valid identical; f64 within 1e-12 x max|inverse|, f32
+    # by tier_err's rule
+    rng3 = np.random.default_rng(SEED + 3)
+    for dtype in (torch.float64, torch.float32):
+        for n in K3_TIER_NS:
+            B = 8 if n > 128 else 64
+            A = rng3.standard_normal((B, n, n)) + n * np.eye(n)
+            A[0] = 0.0                 # all-zero system
+            A[1, n // 2] = 0.0         # zero row
+            A[2, n // 2, n - 1] = np.nan
+            At = torch.as_tensor(A, dtype=dtype, device=dev)
+            pinv, pv = linsolve.gj_inverse(At)
+            if pv[:3].any() or not pv[3:].all():
+                raise AssertionError(f"K3 tiers N={n}: plain flags "
+                                     f"{pv[:4].tolist()}")
+            truth = pinv if dtype == torch.float64 else \
+                linsolve.gj_inverse(At.double())[0]
+            errs = []
+            for tier in gj_real.inverse_tiers(n):
+                inv, v = gj_real.gj_inverse_cuda(At, tier=tier)
+                what = f"K3 {tier} {TAG[dtype]} N={n}"
+                if not torch.equal(v, pv):
+                    raise AssertionError(f"{what}: valid differs")
+                e = tier_err((inv,), (pinv,), (truth,), pv, dtype, what)
+                errs.append(f"{tier} {e:.1e}")
+                del inv
+            say("2 tiers", f"K3 {TAG[dtype]} N={n} B={B}: valid identical, "
+                f"systems 0-2 (zero, zero row, NaN) flagged; error / "
+                f"max|inverse|: {', '.join(errs)}")
+            del At, pinv, truth
+    torch.cuda.empty_cache()
     say("2 tiers", f"{time.perf_counter() - t2:.1f} s")
 
     # ---- 3-8. the main path, counted per phase ---------------------------
@@ -1616,7 +1759,22 @@ def main() -> int:
     say("6 tran golden", f"{len(GOLDENS)} decks on cuda match the oracle "
         f"(1e-9/1e-12, boost 1e-7/1e-9); {gold_s:.2f} s wall, oracle "
         "included")
-    counted("6 tran golden", [gj_real.K2[f64], gj_real.K3[f64]])
+    # a deck with no unknowns: the JAX package's empty results (nothing is
+    # solved, no kernel launches), equal to the CPU path's
+    empty_deck = "t\n.op\n.ac oct 10 1 100\n.tran 1u 1m\n"
+    got = st.simulate(empty_deck, dialect="extended", device=dev)
+    want = st.simulate(empty_deck, dialect="extended", device="cpu")
+    if got.op.node_voltages or got.op.element_currents \
+            or got.ac.node_voltages or got.tran.node_voltages \
+            or len(got.ac.freqs) != 68 or len(got.tran.times) != 1002:
+        raise AssertionError("empty deck: results not empty")
+    np.testing.assert_array_equal(got.ac.freqs, want.ac.freqs)
+    np.testing.assert_array_equal(got.tran.times, want.tran.times)
+    say("6 tran golden", "a deck with no unknowns on cuda: empty .op, .ac "
+        "(68 frequencies) and .tran (1002 times), as on the CPU path")
+    # the linear decks' factor-once inverses run K3's register form
+    counted("6 tran golden", [gj_real.K2[f64], gj_real.K3[f64]],
+            tiers=[(gj_real.K3[f64], "register")])
 
     # ---- 7. tran-1M: the RC transient, 1M variants x 201 steps -----------
     vs_rc = torch.as_tensor(sample_source_values(
@@ -1680,7 +1838,9 @@ def main() -> int:
         f"{sampled_tran_s:.3f} s wall")
     counted("7 tran-1M", [mc_tran_fused.K8[torch.float32],
                           gj_real.K3[torch.float32], gj_real.K3[f64]],
-            ((mc_tran_fused.K8[torch.float32], "register"),))
+            ((mc_tran_fused.K8[torch.float32], "register"),
+             (gj_real.K3[torch.float32], "register"),
+             (gj_real.K3[f64], "register")))
     torch.cuda.empty_cache()
 
     # ---- 8. boost-100k: the switch+diode converter, 100k variants --------
@@ -2001,7 +2161,8 @@ def main() -> int:
             f"steps, valid {int(bt.valid.sum())}; 64 equal the CPU path at "
             f"1e-9; wall {bt_s:.3f} s, xs {bt.xs.nbytes / 1e6:.0f} MB")
         del bt
-    counted("19 batch-tran", [gj_real.K3[f64], gj_real.K2[f64]])
+    counted("19 batch-tran", [gj_real.K3[f64], gj_real.K2[f64]],
+            tiers=[(gj_real.K3[f64], "register")])
 
     # ---- 20. .step through simulate(): 1,001 corners of an RLC low-pass ---
     stp, stp_s = timed(lambda: st.simulate(STEP_DECK, dialect="extended",
@@ -2025,7 +2186,8 @@ def main() -> int:
         f" points) on cuda equal the CPU path at 1e-9, .op the divider's "
         f"closed form; {stp_s:.3f} s wall")
     counted("20 step", [mc_ac_fused.K7[f64], gj_real.K3[f64],
-                        gj_real.K2[f64], gj.K1[f64]])
+                        gj_real.K2[f64], gj.K1[f64]],
+            tiers=[(gj_real.K3[f64], "register")])
     torch.cuda.empty_cache()
 
     # ---- 21. flat decks past N = 128 through the public entry points ------
@@ -2065,9 +2227,7 @@ def main() -> int:
     same_op(op129, st.simulate_op(st.parse_netlist(dc129), device="cpu"),
             "op-129")
     same(op129.node_voltages["n127"], 1.0, "op-129 far tap")
-    tr129 = lad129.replace(
-        "v1 in 0 dc 0 ac 1", "v1 in 0 PULSE(0 5 0 1n 1n 50u 100u)").replace(
-        ".ac lin 51 1 10k", ".tran 1u 50u")
+    tr129 = tran_ladder(127)
     got, tr129_s = timed(lambda: st.simulate(tr129, device=dev).tran)
     want = st.simulate(tr129, device="cpu").tran
     np.testing.assert_array_equal(got.times, want.times)
@@ -2081,8 +2241,37 @@ def main() -> int:
         f"{op129_s:.3f} s), simulate() .tran ({len(got.times)} points, "
         f"factor-once; {tr129_s:.3f} s)")
     counted("21 N=129 decks", [gj.K1[f64], gj_real.K2[f64], gj_real.K3[f64]],
-            tiers=[(gj.K1[f64], "panel"), (gj_real.K2[f64], "panel")])
+            tiers=[(gj.K1[f64], "panel"), (gj_real.K2[f64], "panel"),
+                   (gj_real.K3[f64], "panel")])
     del s256, k_sub, got
+    torch.cuda.empty_cache()
+    # the Monte-Carlo transients of phase 9's K3 shapes (b) and (d): the
+    # ladder-64 and flat-256 decks under a pulse through mc_tran_stats
+    # (the loop, K3 once in its panel tier), 2 variants each equal to the
+    # CPU path at 1e-9
+    rng21 = np.random.default_rng(SEED + 21)  # later draws stay as they were
+    for label, sections, nb, node in (("ladder-64", 62, 2048, "n62"),
+                                      ("flat-256", 254, 16, "n254")):
+        net = tran_ladder(sections)
+        over = {"r1": 101.0 * (1 + 0.2 * rng21.random(nb))}
+        ts, ts_s = timed(lambda: st.mc_tran_stats(net, over, node=node,
+                                                  device=dev))
+        if ts.n_valid != nb:
+            raise AssertionError(f"{label} MC tran: n_valid {ts.n_valid}")
+        sub = {"r1": over["r1"][:2]}
+        k_sub = st.mc_tran_stats(net, sub, node=node, device=dev)
+        p_sub = st.mc_tran_stats(net, sub, node=node, device="cpu")
+        for f in ("mean", "std", "min", "max"):
+            want = getattr(p_sub, f)
+            same(getattr(k_sub, f), want, f"{label} MC tran {f}",
+                 atol=1e-12 * float(np.abs(want).max()))
+        say("21 MC tran", f"mc_tran_stats of {label} under a pulse, "
+            f"{nb} variants x {len(ts.grid)} steps (K3 f64 "
+            f"{gj_real.tier_for(sections + 2, f64, inverse=True)} tier): "
+            f"n_valid {ts.n_valid}, wall {ts_s:.3f} s; 2 variants equal the "
+            f"CPU path at 1e-9")
+    counted("21 MC tran", [gj_real.K3[f64]],
+            tiers=[(gj_real.K3[f64], "panel")])
     torch.cuda.empty_cache()
 
     # ---- 22. the solver sweep at N = 32, 64 and 128 (K10's path) ---------
@@ -2175,6 +2364,12 @@ def main() -> int:
                 f"events) | {smi}")
             if form == chosen:
                 ms[name] = t_k5
+    def ms_line(name, where, t, lib):
+        say("9 times", f"{name} at {where}: kernel {t[0]:.3f} ms, plain "
+            f"{t[1]:.3f} ms, library {t[2]:.3f} ms ({lib}), bound "
+            f"{t[3]:.4f} ms ({t[4]}), {100 * t[3] / t[0]:.2f}% of it (CUDA "
+            f"events) | {smi}")
+
     for dtype, (A, b) in boost_sys.items():
         nb, n, el = A.shape[0], A.shape[1], A.element_size()
         name = gj_real.K2[dtype].name
@@ -2184,15 +2379,56 @@ def main() -> int:
                     cuda_ms(lambda: torch.linalg.solve(A, b), 5),
                     *bound(nb * solve_flops(n),
                            el * nb * (n * n + 2 * n) + nb, dtype))
-    for dtype, A in rc_mat.items():
+    # K3 in every tier that takes N at the four shapes where the main path
+    # inverts a transient's matrix once (k3_shapes): (a) the tran-1M
+    # loop's RC matrices (phase 2's, f32 and f64), (b) a ladder-64
+    # Monte-Carlo transient, (c) phase 21's N = 129 transient, (d)
+    # flat-256's deck as a transient; each tier held to the plain version
+    # on the same matrices (valid identical, check_close at TOL; the
+    # chosen tier's error goes into the JSON line) and timed beside it,
+    # torch.linalg.inv and the bound; the JSON line keeps the chosen
+    # tier's times at (a)
+    k3_mats = [(f"(a) RC tran ({A.shape[0]}, {A.shape[1]})", A)
+               for A in rc_mat.values()]
+    k3_mats += [(label[:1].join("()") + label[1:], A)
+                for label, _dt, A in k3_shapes(SEED, dev, "bcd")]
+    for where, A in k3_mats:
         nb, n, el = A.shape[0], A.shape[1], A.element_size()
+        dtype = A.dtype
         name = gj_real.K3[dtype].name
-        shape[name] = f"RC tran ({nb}, {n})"
-        ms[name] = (cuda_ms(lambda: gj_real.gj_inverse_cuda(A), 20),
-                    cuda_ms(lambda: linsolve.gj_inverse(A), 5),
-                    cuda_ms(lambda: torch.linalg.inv(A), 5),
-                    *bound(nb * inverse_flops(n), el * nb * 2 * n * n + nb,
-                           dtype))
+        bnd = bound(nb * inverse_flops(n), el * nb * 2 * n * n + nb, dtype)
+        pinv, pv = linsolve.gj_inverse(A)
+        if not bool(pv.all()):
+            raise AssertionError(f"K3 {where}: plain inverse flags "
+                                 f"{int((~pv).sum())} systems")
+        plain = cuda_ms(lambda: linsolve.gj_inverse(A), 2)
+        lib = cuda_ms(lambda: torch.linalg.inv(A), 5)
+        chosen = gj_real.tier_for(n, dtype, inverse=True)
+        for tier in gj_real.inverse_tiers(n):
+            inv, v = gj_real.gj_inverse_cuda(A, tier=tier)
+            what = f"K3 {tier} {where} {TAG[dtype]}"
+            if not torch.equal(v, pv):
+                raise AssertionError(f"{what}: valid differs")
+            e = check_close(inv, pinv, TOL[dtype], what)
+            if tier == chosen:
+                err[name] = max(err[name], e)
+            say("9 compare", f"{what}: valid identical, max_abs_err "
+                f"{e:.3e} (max|inverse| {float(pinv.abs().max()):.3e})")
+            del inv, v
+            first = cuda_ms(lambda: gj_real.gj_inverse_cuda(A, tier=tier), 1)
+            reps = max(2, min(100, int(100 / max(first, 1e-3))))
+            t = (cuda_ms(lambda: gj_real.gj_inverse_cuda(A, tier=tier), reps),
+                 plain, lib, *bnd)
+            ms_line(f"{gj_real.K3[dtype].name} {tier}"
+                    f"{' (chosen)' if tier == chosen else ''}",
+                    f"{where} {TAG[dtype]}", t,
+                    f"linalg.inv, {TAG[dtype]}")
+            if tier == chosen and where.startswith("(a)"):
+                shape[name] = f"{where} ({chosen})"
+                ms[name] = t
+        del pinv, pv
+    del k3_mats
+    torch.cuda.empty_cache()
     # K4 at both .noise shapes, every tier that takes N, f64 (the .noise
     # path) and f32 at the amp's: the planes read once, the inverse and
     # valid written once; the JSON line keeps f64's chosen tier at the
@@ -2261,12 +2497,6 @@ def main() -> int:
             shape[name] = f"batch-ac-16k ({nb}, {F}, N={n})"
             ms[name] = t_k7
         torch.cuda.empty_cache()
-    def ms_line(name, where, t, lib):
-        say("9 times", f"{name} at {where}: kernel {t[0]:.3f} ms, plain "
-            f"{t[1]:.3f} ms, library {t[2]:.3f} ms ({lib}), bound "
-            f"{t[3]:.4f} ms ({t[4]}), {100 * t[3] / t[0]:.2f}% of it (CUDA "
-            f"events) | {smi}")
-
     def tiers_of(module, n):
         return [t for t in module.TIERS
                 if not (t == "warp" and n > module.WARP_MAX_N)

@@ -180,6 +180,9 @@ def _rel_residual(A_re: torch.Tensor, A_im: torch.Tensor,
     """Per-system relative residual ||b - A x|| / (||A|| ||x|| + ||b||)
     of the complex system (A^T with ``transpose``), inf-norms over
     max(|re|, |im|) as the JAX pallas tier forms them."""
+    if x_re.shape[-1] == 0:  # no unknowns: nothing left over
+        return torch.zeros(x_re.shape[:-1], dtype=x_re.dtype,
+                           device=x_re.device)
     mv = _mtv if transpose else _mv
     r_re = b_re - (mv(A_re, x_re) - mv(A_im, x_im))
     r_im = b_im - (mv(A_re, x_im) + mv(A_im, x_re))

@@ -10,26 +10,27 @@
 // eps real, eps^2 complex), and elimination continues through a rejected
 // pivot with a unit divisor, so control flow never depends on the data.
 // block_gj and thread_gj update every row, the pivot row included, over
-// all w columns, as the plain versions update them; warp_gj and
-// reg_gj_real only the columns right of the pivot, the only ones read
-// later.
+// all w columns, as the plain versions update them; warp_gj,
+// reg_gj_real and reg_gj_inv_real only the columns right of the pivot,
+// the only ones read later.
 //
 // Four layouts here, and a fifth in gj_panel.cuh:
 //   block_gj   one block per system, the (n, w) planes row-major in shared
 //              memory or a global workspace, thread-strided updates with a
-//              barrier per step (K3 at every N above THREAD_MAX_N; K1, K2
-//              and K4 when their block tier is forced);
+//              barrier per step (K1-K4 when their block tier is forced);
 //   warp_gj    one warp per system, n <= 32, row i in lane i, the planes in
 //              the warp's own slice of shared memory; the pivot search is a
 //              shuffle argmax and the only barrier is __syncwarp (the warp
-//              tier of K1, K2 and K4, on [A | b] or [A | I]);
+//              tier of K1-K4, on [A | b] or [A | I]: warp_solve_kernel,
+//              warp_inverse_kernel);
 //   thread_gj  one thread per system, element q of plane c at
 //              a[c][q * stride] (the system index fastest, so a warp's
 //              accesses are consecutive words), no barriers (K2/K3 up to
 //              THREAD_MAX_N, the shared forms of K8 and K9);
 //   reg_gj_real one thread per real system in its registers, N a template
 //              constant (the register forms of K8 and K9; K5's complex
-//              reg_gj is its counterpart);
+//              reg_gj is its counterpart), and reg_gj_inv_real, the
+//              inverse in place (K3's register form);
 //   gj_panel.cuh: one block per system in panels of 16 (or 32) columns,
 //              the trailing columns updated by one product per panel (the
 //              panel tier of K1, K2 and K4; K10a/K10b with their own step).
@@ -346,6 +347,77 @@ __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
   if (lane == 0) valid_out[sys] = ok ? 1 : 0;
 }
 
+// Shared-memory bytes of a warp-tier inverse block: per warp, P planes of
+// n rows of [A | I] at the odd stride 2n + 1.
+template <typename T, int P>
+__host__ __device__ inline size_t warp_inverse_smem_bytes(int n) {
+  return (size_t)WARPS_PER_BLOCK * P * n * ((2 * n) | 1) * sizeof(T);
+}
+
+// The warp tier's inverse (K3 real, P = 1; K4 complex, P = 2): warp q of
+// block b inverts system b * WARPS_PER_BLOCK + q of A (B, n, n) per plane
+// by warp_gj on [A | I] in its own slice of shared memory, and writes the
+// true inverse M (B, n, n) per plane: row k is the right block of pivot
+// row perm[k] (lane k holds perm[k]), consecutive lanes storing
+// consecutive elements. No block barrier anywhere.
+template <typename T, int P>
+__global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
+    warp_inverse_kernel(const T* __restrict__ A0, const T* __restrict__ A1,
+                        T* __restrict__ M0, T* __restrict__ M1,
+                        uint8_t* __restrict__ valid_out, int batch, int n,
+                        T thr) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long sys = (long long)blockIdx.x * WARPS_PER_BLOCK + warp;
+  if (sys >= batch) return;  // the whole warp: no barrier follows
+  const int w = 2 * n, ld = w | 1, nn = n * n;
+  T* base = reinterpret_cast<T*>(smem_raw) + (size_t)warp * P * n * ld;
+  T* a[P];
+  for (int c = 0; c < P; ++c) a[c] = base + (size_t)c * n * ld;
+  const T* A[2] = {A0 + sys * nn, P == 2 ? A1 + sys * nn : nullptr};
+  for (int idx = lane; idx < nn; idx += 32) {
+    const int i = idx / n, j = idx - i * n;
+    for (int c = 0; c < P; ++c) a[c][i * ld + j] = A[c][idx];
+  }
+  if (lane < n)
+    for (int j = 0; j < n; ++j)
+      for (int c = 0; c < P; ++c)
+        a[c][lane * ld + n + j] = c == 0 && j == lane ? T(1) : T(0);
+  __syncwarp();
+  int perm_k;
+  const bool ok = warp_gj<T, P>(a, n, w, ld, thr, perm_k);
+  T* M[2] = {M0 + sys * nn, P == 2 ? M1 + sys * nn : nullptr};
+  for (int i0 = 0; i0 < nn; i0 += 32) {
+    const int idx = i0 + lane, k = min(idx / n, n - 1);
+    const int pk = __shfl_sync(0xffffffffu, perm_k, k);
+    if (idx < nn)
+      for (int c = 0; c < P; ++c)
+        M[c][idx] = a[c][pk * ld + n + idx - k * n];
+  }
+  if (lane == 0) valid_out[sys] = ok ? 1 : 0;
+}
+
+// Launch the warp tier's inverse on ``stream``.
+template <typename T, int P>
+int warp_inverse_launch(const void* A0, const void* A1, void* M0, void* M1,
+                        void* valid, int batch, int n, T thr, void* stream) {
+  if (n < 1 || n > WARP_MAX_N) return (int)cudaErrorInvalidValue;
+  const size_t smem = warp_inverse_smem_bytes<T, P>(n);
+  cudaError_t err = cudaFuncSetAttribute(
+      warp_inverse_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (batch > 0) {
+    const int blocks = (int)(((long long)batch + WARPS_PER_BLOCK - 1) /
+                             WARPS_PER_BLOCK);
+    warp_inverse_kernel<T, P><<<blocks, 32 * WARPS_PER_BLOCK, smem,
+                                (cudaStream_t)stream>>>(
+        (const T*)A0, (const T*)A1, (T*)M0, (T*)M1, (uint8_t*)valid, batch,
+        n, thr);
+  }
+  return (int)cudaGetLastError();
+}
+
 // Launch the warp tier on ``stream``.
 template <typename T, int P>
 int warp_launch(const void* A0, const void* A1, const void* b0,
@@ -508,7 +580,8 @@ __device__ __forceinline__ float divide(float x, const Divisor& v) {
 // reads the others.
 // Returns validity; x[k][c] = column N + c of the row that pivoted column
 // k, read out in pivot order by a select per row (the solution of
-// [A | b], or row k of the inverse of [A | I]).
+// [A | b], or row k of the inverse of [A | I]; reg_gj_inv_real below
+// inverts in half the registers).
 template <typename T, int N, int W>
 __device__ __forceinline__ bool reg_gj_real(T (&a)[N][W], T thr,
                                             T (&x)[N][W - N]) {
@@ -571,6 +644,83 @@ __device__ __forceinline__ bool reg_gj_real(T (&a)[N][W], T thr,
       for (int i = 1; i < N; ++i)
         if (piv[k] == i) x[k][c] = a[i][N + c];
     }
+  return ok_all;
+}
+
+// Invert one (N, N) real system in the calling thread's registers, in
+// place (K3's register form): the reduction of [A | I] that reg_gj_real
+// runs at W = 2N, in N^2 registers instead of 2N^2 (f64 at N = 8: 64
+// doubles, not 128). Before step k the identity column N + p of the
+// step's pivot row p is still e_p (no earlier pivot row has an entry
+// there), and after it column k of A is e_p, so step k keeps the new
+// column N + p in column k: the pivot row's entry 1 / pv, every other
+// row's 0 - f / pv, the values [A | I]'s column takes. Every column is
+// live (columns < k hold the right block's columns of the earlier
+// pivots, columns > k what is left of A), so a step updates all N of them:
+// the columns right of the pivot that reg_gj_real updates, less the ones
+// that are still zero. The same pivots (better()'s ranking by abs_key),
+// flags and quotients (divide() in float) as reg_gj_real. On return
+// a[i][m] is entry (step[i], piv[m]) of the true inverse: row step[i] of
+// the inverse is the right block of row i, the row that pivoted column
+// step[i], and column m holds the identity column of row piv[m].
+template <typename T, int N>
+__device__ __forceinline__ bool reg_gj_inv_real(T (&a)[N][N], T thr,
+                                                int (&piv)[N],
+                                                int (&step)[N]) {
+  bool used[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) used[i] = false;
+  bool ok_all = true;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    decltype(abs_key(T(0))) best = -2;
+    int p = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const auto key = used[i] ? -1 : abs_key(a[i][k]);
+      if (key > best) {
+        best = key;
+        p = i;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      used[i] = used[i] || i == p;
+      if (i == p) step[i] = k;
+    }
+    piv[k] = p;
+    // the pivot row by selects; its column k becomes the identity's 1
+    T q[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      q[j] = a[0][j];
+#pragma unroll
+      for (int i = 1; i < N; ++i)
+        if (p == i) q[j] = a[i][j];
+    }
+    const T pv = q[k];
+    const bool ok = fabs(pv) >= thr;
+    ok_all = ok_all && ok;
+    const T d = ok ? pv : T(1);
+    q[k] = T(1);
+    if constexpr (sizeof(T) == 4) {
+      const Divisor dv = divisor(d);
+#pragma unroll
+      for (int j = 0; j < N; ++j) q[j] = divide(q[j], dv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) q[j] = q[j] / d;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const T f = a[i][k];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const T e = j == k ? T(0) : a[i][j];
+        a[i][j] = i == p ? q[j] : e - f * q[j];
+      }
+    }
+  }
   return ok_all;
 }
 

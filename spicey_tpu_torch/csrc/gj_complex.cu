@@ -57,7 +57,8 @@
 // torch.linalg.inv. The bounds: the inverse reads 2 N^2 and writes 2 N^2
 // values per system (0.035 ms at the ladder's shape at 3.35 TB/s) and
 // does ~8 N^3 real flops by a direct method;
-//   warp   (N <= 32) warp_gj on [A | I], w = 2N, in the warp's slice of
+//   warp   (N <= 32) gj_common.cuh:warp_inverse_kernel (K3's warp tier
+//          too): warp_gj on [A | I], w = 2N, in the warp's slice of
 //          shared memory at the odd stride 2N + 1; each lane writes its
 //          own row of I; lane k's pivot row perm[k] holds row k of the
 //          inverse in its right block, written back by coalesced stores.
@@ -180,48 +181,6 @@ __global__ void gj_complex_inv_kernel(const T* __restrict__ A_re,
   if (tid == 0) valid_out[sys] = (uint8_t)(*s.ok_all);
 }
 
-// K4's warp tier: warp q of block b inverts system b * WARPS_PER_BLOCK + q
-// by warp_gj on [A | I] in its own slice of shared memory.
-template <typename T>
-__global__ void __launch_bounds__(32 * gj::WARPS_PER_BLOCK)
-    gj_complex_inv_warp_kernel(const T* __restrict__ A_re,
-                               const T* __restrict__ A_im,
-                               T* __restrict__ M_re, T* __restrict__ M_im,
-                               uint8_t* __restrict__ valid_out, int batch,
-                               int n, T eps2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long sys = (long long)blockIdx.x * gj::WARPS_PER_BLOCK + warp;
-  if (sys >= batch) return;  // the whole warp: no barrier follows
-  const int w = 2 * n, ld = w | 1, nn = n * n;
-  T* base = reinterpret_cast<T*>(smem_raw) + (size_t)warp * 2 * n * ld;
-  T* a[2] = {base, base + (size_t)n * ld};
-  const T* A[2] = {A_re + sys * nn, A_im + sys * nn};
-  for (int idx = lane; idx < nn; idx += 32) {
-    const int i = idx / n, j = idx - i * n;
-    for (int c = 0; c < 2; ++c) a[c][i * ld + j] = A[c][idx];
-  }
-  if (lane < n)
-    for (int j = 0; j < n; ++j) {
-      a[0][lane * ld + n + j] = j == lane ? T(1) : T(0);
-      a[1][lane * ld + n + j] = T(0);
-    }
-  __syncwarp();
-  int perm_k;
-  const bool ok = gj::warp_gj<T, 2>(a, n, w, ld, eps2, perm_k);
-  // row k of the inverse: the right block of pivot row perm[k] (lane k
-  // holds perm[k]); consecutive lanes store consecutive elements
-  T* M[2] = {M_re + sys * nn, M_im + sys * nn};
-  for (int i0 = 0; i0 < nn; i0 += 32) {
-    const int idx = i0 + lane, k = min(idx / n, n - 1);
-    const int pk = __shfl_sync(0xffffffffu, perm_k, k);
-    if (idx < nn)
-      for (int c = 0; c < 2; ++c)
-        M[c][idx] = a[c][pk * ld + n + idx - k * n];
-  }
-  if (lane == 0) valid_out[sys] = ok ? 1 : 0;
-}
-
 template <typename T>
 size_t smem_bytes(int n, bool planes_in_smem) {
   return gj::block_smem_bytes<T, 2>(n, n + 1, planes_in_smem);
@@ -234,35 +193,15 @@ size_t inv_smem_bytes(int n, bool planes_in_smem) {
 
 enum Tier { WARP = 0, BLOCK = 1, PANEL = 2 };
 
-// Shared-memory bytes of a K4 warp-tier block: per warp, two planes of n
-// rows at the odd stride 2n + 1.
-template <typename T>
-size_t inv_warp_smem_bytes(int n) {
-  return (size_t)gj::WARPS_PER_BLOCK * 2 * n * ((2 * n) | 1) * sizeof(T);
-}
-
 template <typename T>
 int launch_inv(const void* A_re, const void* A_im, void* M_re, void* M_im,
                void* valid, void* workspace, int batch, int n, double eps,
                int tier, void* stream) {
   const T eps2 = (T)(eps * eps);
   if (tier == WARP) {
-    if (n < 1 || n > gj::WARP_MAX_N || workspace != nullptr)
-      return (int)cudaErrorInvalidValue;
-    const size_t smem = inv_warp_smem_bytes<T>(n);
-    cudaError_t err = cudaFuncSetAttribute(
-        gj_complex_inv_warp_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (batch > 0) {
-      const int blocks = (int)(((long long)batch + gj::WARPS_PER_BLOCK - 1) /
-                               gj::WARPS_PER_BLOCK);
-      gj_complex_inv_warp_kernel<T>
-          <<<blocks, 32 * gj::WARPS_PER_BLOCK, smem, (cudaStream_t)stream>>>(
-              (const T*)A_re, (const T*)A_im, (T*)M_re, (T*)M_im,
-              (uint8_t*)valid, batch, n, eps2);
-    }
-    return (int)cudaGetLastError();
+    if (workspace != nullptr) return (int)cudaErrorInvalidValue;
+    return gj::warp_inverse_launch<T, 2>(A_re, A_im, M_re, M_im, valid,
+                                         batch, n, eps2, stream);
   }
   if (tier == PANEL)
     return gj::panel::launch<T, 2>(A_re, A_im, nullptr, nullptr, M_re, M_im,

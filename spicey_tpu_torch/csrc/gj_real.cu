@@ -26,8 +26,8 @@
 //     (conflict-free warp accesses, no barriers in the elimination), as
 //     kernel K5 does. The block's systems are contiguous in A, so they are
 //     loaded with coalesced reads and scattered into that layout. This is
-//     the shape of the Newton passes (B = 1..1e5, N = 3..7) and of the
-//     factor-once inverse (B up to 1e6, N = 3).
+//     the shape of the Newton passes (B = 1..1e5, N = 3..7); the
+//     factor-once inverse (B up to 1e6, N = 3) takes K3's register form.
 //   - warp (N <= 32): one WARP per system (gj_common.cuh:warp_gj), four
 //     systems per block, no block barrier: a shuffle argmax for the pivot
 //     and __syncwarp between the steps.
@@ -39,8 +39,18 @@
 //     PW = 16 columns) and one DMMA (f64) or register-tiled f32 product
 //     per panel for the trailing columns; past N = 822 (f64) / 1629 (f32)
 //     [panel | C] lives in the workspace beside the planes.
-// The inverse (K3) keeps the thread route up to N = 16 and block_gj
-// above.
+// The inverse (K3) runs in four tiers, chosen by the same function
+// (tier_for(n, dtype, inverse=True)), each the plain gj_inverse's pivots,
+// flags and true inverse: register (N <= 8, [A | I] in registers without
+// spilling: gj_real_inv_reg_kernel below), warp (to N = 32,
+// gj_common.cuh:warp_inverse_kernel, K4's warp tier on one plane), panel
+// (from N = 33, gj_panel.cuh at R = N, as K4 runs it) and block (block_gj,
+// only when forced, for the comparisons). Its main path is the factor-once inverse of every linear
+// transient: 1M x N = 3 for the tran-1M loop, 2048 x 64 for a ladder's
+// Monte-Carlo transient, one N = 129 matrix for a flat deck's simulate().
+// There it reads N^2 and writes N^2 values per system, against 2 N^3
+// flops: the bytes bound it up to N = 160 in f64 (80 in f32) at the
+// H100's 3.35 TB/s and 67 TFLOP/s, the operations beyond.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,7 +67,7 @@ __host__ __device__ inline int width(int n, bool inv) {
   return inv ? 2 * n : n + 1;
 }
 
-template <typename T, bool INV>
+template <typename T>
 __global__ void gj_real_thread_kernel(const T* __restrict__ A,
                                       const T* __restrict__ b,
                                       T* __restrict__ out,
@@ -67,7 +77,7 @@ __global__ void gj_real_thread_kernel(const T* __restrict__ A,
   const int tpb = blockDim.x, t = threadIdx.x;
   const long long first = (long long)blockIdx.x * tpb;
   const int nsys = (int)min((long long)tpb, (long long)B - first);
-  const int w = width(n, INV);
+  const int w = width(n, false);
   const int nn = n * n;
   T* S = reinterpret_cast<T*>(smem_raw);  // element q of system s: S[q*tpb+s]
 
@@ -78,18 +88,10 @@ __global__ void gj_real_thread_kernel(const T* __restrict__ A,
     const int i = q / n, j = q - i * n;
     S[(size_t)(i * w + j) * tpb + s] = A0[idx];
   }
-  if (INV) {
-    for (int idx = t; idx < nsys * nn; idx += tpb) {
-      const int s = idx / nn, q = idx - s * nn;
-      const int i = q / n, j = q - i * n;
-      S[(size_t)(i * w + n + j) * tpb + s] = i == j ? T(1) : T(0);
-    }
-  } else {
-    const T* b0 = b + first * n;
-    for (int idx = t; idx < nsys * n; idx += tpb) {
-      const int s = idx / n, i = idx - s * n;
-      S[(size_t)(i * w + n) * tpb + s] = b0[idx];
-    }
+  const T* b0 = b + first * n;
+  for (int idx = t; idx < nsys * n; idx += tpb) {
+    const int s = idx / n, i = idx - s * n;
+    S[(size_t)(i * w + n) * tpb + s] = b0[idx];
   }
   __syncthreads();
   if (t >= nsys) return;  // no barrier below
@@ -98,17 +100,67 @@ __global__ void gj_real_thread_kernel(const T* __restrict__ A,
   uint64_t perm;
   const bool ok = gj::thread_gj<T, 1>(a, tpb, n, w, eps, perm);
   const long long sys = first + t;
-  // pivot row perm[k] carries row k of the answer in its right block
-  for (int k = 0; k < n; ++k) {
-    const T* row = a[0] + (size_t)(gj::perm_at(perm, k) * w + n) * tpb;
-    if (INV) {
-      for (int j = 0; j < n; ++j)
-        out[sys * nn + k * n + j] = row[(size_t)j * tpb];
-    } else {
-      out[sys * n + k] = row[0];
-    }
-  }
+  // pivot row perm[k] carries x[k] in its last column
+  for (int k = 0; k < n; ++k)
+    out[sys * n + k] = a[0][(size_t)(gj::perm_at(perm, k) * w + n) * tpb];
   valid[sys] = ok ? 1 : 0;
+}
+
+// K3's register form: one thread per system, [A | I] reduced in place in
+// its registers (gj_common.cuh:reg_gj_inv_real), N a template constant.
+// Warp q of the block owns 32 consecutive systems and a tile of shared
+// memory (system s at s * LD, LD = N^2 | 1 odd, so the lanes' rows fall in
+// distinct banks): the warp copies its systems' contiguous N^2 elements
+// into the tile with coalesced reads, each lane takes its system from the
+// tile into registers, eliminates, and writes its inverse back into its
+// own slot, entry (step[i], piv[m]) from a[i][m] (the un-permuting costs
+// a shared-memory address, not a select); the warp then stores the tile
+// with coalesced writes. No block barrier: __syncwarp orders the tile.
+constexpr int REG_MAX_N = 8;    // instances N = 1..REG_MAX_N
+constexpr int REG_WARPS = 4;    // warps (of 32 systems each) per block
+
+template <int N>
+__host__ __device__ constexpr int reg_ld() { return (N * N) | 1; }
+
+template <typename T, int N>
+__global__ void __launch_bounds__(32 * REG_WARPS)
+    gj_real_inv_reg_kernel(const T* __restrict__ A, T* __restrict__ out,
+                           uint8_t* __restrict__ valid, long long batch,
+                           T eps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int NN = N * N, LD = reg_ld<N>();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long first = ((long long)blockIdx.x * REG_WARPS + warp) * 32;
+  if (first >= batch) return;  // the whole warp: no barrier follows
+  const int count = (int)min(32LL, batch - first);
+  T* tile = reinterpret_cast<T*>(smem_raw) + (size_t)warp * 32 * LD;
+  const T* src = A + first * NN;
+  for (int idx = lane; idx < count * NN; idx += 32) {
+    const int s = idx / NN;
+    tile[s * LD + idx - s * NN] = src[idx];
+  }
+  __syncwarp();
+  if (lane < count) {
+    T* own = tile + lane * LD;
+    T a[N][N];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) a[i][j] = own[i * N + j];
+    int piv[N], step[N];
+    const bool ok = gj::reg_gj_inv_real<T, N>(a, eps, piv, step);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int m = 0; m < N; ++m) own[step[i] * N + piv[m]] = a[i][m];
+    valid[first + lane] = ok ? 1 : 0;
+  }
+  __syncwarp();
+  T* dst = out + first * NN;
+  for (int idx = lane; idx < count * NN; idx += 32) {
+    const int s = idx / NN;
+    dst[idx] = tile[s * LD + idx - s * NN];
+  }
 }
 
 template <typename T, bool INV>
@@ -160,27 +212,62 @@ size_t block_smem(int n, bool inv, bool planes_in_smem) {
   return gj::block_smem_bytes<T, 1>(n, width(n, inv), planes_in_smem);
 }
 
-template <typename T, bool INV>
+template <typename T>
 int launch_thread(const void* A, const void* b, void* out, void* valid,
                   int batch, int n, double eps, void* stream) {
   if (n < 1 || n > gj::THREAD_MAX_N) return (int)cudaErrorInvalidValue;
-  const size_t per_sys = (size_t)n * width(n, INV) * sizeof(T);
+  const size_t per_sys = (size_t)n * width(n, false) * sizeof(T);
   int tpb = 256;
   while (tpb > 32 && tpb * per_sys > SMEM_TARGET) tpb >>= 1;
   const size_t smem = tpb * per_sys;
   if (smem > gj::SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      gj_real_thread_kernel<T, INV>,
+      gj_real_thread_kernel<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (batch > 0) {
     const int blocks = (int)(((long long)batch + tpb - 1) / tpb);
-    gj_real_thread_kernel<T, INV><<<blocks, tpb, smem,
-                                    (cudaStream_t)stream>>>(
+    gj_real_thread_kernel<T><<<blocks, tpb, smem, (cudaStream_t)stream>>>(
         (const T*)A, (const T*)b, (T*)out, (uint8_t*)valid, batch, n,
         (T)eps);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T, int N>
+int launch_reg_n(const void* A, void* out, void* valid, int batch, T eps,
+                 void* stream) {
+  const size_t smem = (size_t)REG_WARPS * 32 * reg_ld<N>() * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      gj_real_inv_reg_kernel<T, N>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (batch > 0) {
+    const int per_block = 32 * REG_WARPS;
+    const int blocks = (int)(((long long)batch + per_block - 1) / per_block);
+    gj_real_inv_reg_kernel<T, N><<<blocks, per_block, smem,
+                                   (cudaStream_t)stream>>>(
+        (const T*)A, (T*)out, (uint8_t*)valid, (long long)batch, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_reg(const void* A, void* out, void* valid, int batch, int n,
+               double eps, void* stream) {
+  static_assert(REG_MAX_N == 8, "one case below per instance");
+  const T e = (T)eps;
+  switch (n) {
+    case 1: return launch_reg_n<T, 1>(A, out, valid, batch, e, stream);
+    case 2: return launch_reg_n<T, 2>(A, out, valid, batch, e, stream);
+    case 3: return launch_reg_n<T, 3>(A, out, valid, batch, e, stream);
+    case 4: return launch_reg_n<T, 4>(A, out, valid, batch, e, stream);
+    case 5: return launch_reg_n<T, 5>(A, out, valid, batch, e, stream);
+    case 6: return launch_reg_n<T, 6>(A, out, valid, batch, e, stream);
+    case 7: return launch_reg_n<T, 7>(A, out, valid, batch, e, stream);
+    case 8: return launch_reg_n<T, 8>(A, out, valid, batch, e, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, bool INV>
@@ -204,7 +291,9 @@ int launch_block(const void* A, const void* b, void* out, void* valid,
   return (int)cudaGetLastError();
 }
 
-enum Tier { WARP = 0, BLOCK = 1, PANEL = 2, THREAD = 3 };
+// the wrappers' tier codes (ops/gj_real.py:CODES); THREAD is K2's only,
+// REGISTER K3's only
+enum Tier { WARP = 0, BLOCK = 1, PANEL = 2, THREAD = 3, REGISTER = 4 };
 
 template <typename T>
 int launch_solve(const void* A, const void* b, void* x, void* valid,
@@ -213,7 +302,7 @@ int launch_solve(const void* A, const void* b, void* x, void* valid,
   switch (tier) {
     case THREAD:
       if (workspace != nullptr) return (int)cudaErrorInvalidValue;
-      return launch_thread<T, false>(A, b, x, valid, batch, n, eps, stream);
+      return launch_thread<T>(A, b, x, valid, batch, n, eps, stream);
     case WARP:
       if (workspace != nullptr) return (int)cudaErrorInvalidValue;
       return gj::warp_launch<T, 1>(A, nullptr, b, nullptr, x, nullptr, valid,
@@ -230,35 +319,48 @@ int launch_solve(const void* A, const void* b, void* x, void* valid,
   }
 }
 
-// K3: the thread route up to THREAD_MAX_N, block_gj above.
+// K3 in the tier the wrapper names (ops/gj_real.py:tier_for(inverse=True)):
+// the panel tier at R = N right-hand sides, the identity written as the
+// planes are staged, as K4 runs it.
 template <typename T>
 int launch_inverse(const void* A, void* out, void* valid, void* workspace,
-                   int batch, int n, double eps, void* stream) {
-  if (n <= gj::THREAD_MAX_N)
-    return launch_thread<T, true>(A, nullptr, out, valid, batch, n, eps,
-                                  stream);
-  return launch_block<T, true>(A, nullptr, out, valid, workspace, batch, n,
-                               eps, stream);
+                   int batch, int n, double eps, int tier, void* stream) {
+  switch (tier) {
+    case REGISTER:
+      if (workspace != nullptr) return (int)cudaErrorInvalidValue;
+      return launch_reg<T>(A, out, valid, batch, n, eps, stream);
+    case WARP:
+      if (workspace != nullptr) return (int)cudaErrorInvalidValue;
+      return gj::warp_inverse_launch<T, 1>(A, nullptr, out, nullptr, valid,
+                                           batch, n, (T)eps, stream);
+    case BLOCK:
+      return launch_block<T, true>(A, nullptr, out, valid, workspace, batch,
+                                   n, eps, stream);
+    case PANEL:
+      return gj::panel::launch<T, 1>(A, nullptr, nullptr, nullptr, out,
+                                     nullptr, valid, workspace, batch, n, n,
+                                     (T)eps, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Systems of (N, width) elements the route's global workspace must hold
-// for a batch of B, 0 when its planes stay in shared memory: the solve's
-// ``tier`` (ignored for the inverse, whose route follows N); B for the
-// block route past shared memory, one per resident block for the panel
-// tier's plan (gj_panel.cuh).
+// Systems of (N, width) elements the tier's global workspace must hold
+// for a batch of B, 0 when its planes stay in shared memory (or
+// registers): B for the block tier past shared memory, one per resident
+// block for the panel tier's plan (gj_panel.cuh; R = 1 for the solve, N
+// for the inverse), never for the register, thread and warp tiers.
 int gj_real_workspace_systems(int n, int batch, int inv, int is_double,
                               int tier) {
-  if (inv) {
-    if (n <= gj::THREAD_MAX_N) return 0;
-  } else if (tier == THREAD || tier == WARP) {
-    return 0;
-  } else if (tier == PANEL) {
-    return is_double ? gj::panel::workspace_systems<double, 1>(n, 1, batch)
-                     : gj::panel::workspace_systems<float, 1>(n, 1, batch);
+  if (tier == THREAD || tier == WARP || tier == REGISTER) return 0;
+  if (tier == PANEL) {
+    const int r = inv ? n : 1;
+    return is_double ? gj::panel::workspace_systems<double, 1>(n, r, batch)
+                     : gj::panel::workspace_systems<float, 1>(n, r, batch);
   }
   const size_t bytes = is_double ? block_smem<double>(n, inv, true)
                                  : block_smem<float>(n, inv, true);
@@ -281,16 +383,16 @@ int gj_real_solve_f64(const void* A, const void* b, void* x, void* valid,
 
 int gj_real_inverse_f32(const void* A, void* inv, void* valid,
                         void* workspace, int batch, int n, double eps,
-                        void* stream) {
-  return launch_inverse<float>(A, inv, valid, workspace, batch, n, eps,
+                        int tier, void* stream) {
+  return launch_inverse<float>(A, inv, valid, workspace, batch, n, eps, tier,
                                stream);
 }
 
 int gj_real_inverse_f64(const void* A, void* inv, void* valid,
                         void* workspace, int batch, int n, double eps,
-                        void* stream) {
+                        int tier, void* stream) {
   return launch_inverse<double>(A, inv, valid, workspace, batch, n, eps,
-                                stream);
+                                tier, stream);
 }
 
 }  // extern "C"

@@ -21,9 +21,13 @@ The solve runs in four tiers, chosen by ``tier_for`` from N and the dtype
 thread per system, ``gj_common.cuh:thread_gj``), "warp" (N <= 32, one warp
 per system, ``warp_gj``), "block" (one block per system, ``block_gj``) and
 "panel" (``csrc/gj_panel.cuh``: a panel of PW = 16 columns, then one
-product per panel, on the tensor cores in f64). The inverse keeps its
-route: one thread per system up to N = 16 and ``block_gj`` above.
-``K2_TIERS`` counts each tier's launches beside ``K2``'s total.
+product per panel, on the tensor cores in f64). The inverse runs in four,
+chosen by ``tier_for(n, dtype, inverse=True)``: "register" (N <= 8: one
+thread per system, [A | I] reduced in place in its registers,
+``gj_common.cuh:reg_gj_inv_real``), warp (``warp_inverse_kernel``, K4's
+on one plane) and panel (R = N right-hand sides, the identity); block
+only when forced. ``K2_TIERS`` and ``K3_TIERS`` count each tier's
+launches beside ``K2``'s and ``K3``'s totals.
 """
 
 from __future__ import annotations
@@ -46,8 +50,12 @@ K3 = {dt: Kernel(name=f"gj_inv_real_{tag}",
                  replaces="spicey_tpu/ops/pallas_gj.py:468")
       for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64"))}
 
-TIERS = ("warp", "block", "panel", "thread")  # the C side's tier codes
+# the C side's tier codes (csrc/gj_real.cu:Tier)
+CODES = {"warp": 0, "block": 1, "panel": 2, "thread": 3, "register": 4}
+TIERS = ("warp", "block", "panel", "thread")   # K2's
+INV_TIERS = ("register", "warp", "block", "panel")  # K3's
 THREAD_MAX_N = 16                              # gj_common.cuh:THREAD_MAX_N
+K3_REG_INSTANCES = 8                           # gj_real.cu:REG_MAX_N
 # The crossovers: the thread tier up to K2_THREAD_MAX (per dtype), the
 # warp tier from there up to K2_WARP_MAX, the panel tier from
 # K2_PANEL_MIN, the block tier between (empty where they meet). Measured by
@@ -75,13 +83,37 @@ K2_PANEL_MIN = 33
 # launches of each tier, per instantiation (K2 counts their sum)
 K2_TIERS = {dt: dict.fromkeys(TIERS, 0)
             for dt in (torch.float32, torch.float64)}
+# K3's crossovers: the register form up to its last instance,
+# K3_REG_INSTANCES, in both dtypes, the warp tier from there up to
+# K3_WARP_MAX, the panel tier from K3_PANEL_MIN; the block tier at no N.
+# Measured by ``tools/profile_torch_k3.py --sweep`` (every tier forced on
+# random systems) on an NVIDIA H100 80GB HBM3 at 700.00 W, against the
+# thread tier (thread_gj on [A | I]) that K3 then still had. Register
+# against thread, N = 2-8, at the tran-1M loop's batch (``--batch
+# 1000000``): the register form won at every N in both dtypes (N = 2
+# 0.047 / 0.047 ms against 0.049 / 0.062 ms, f32 / f64; N = 8 0.306 /
+# 0.567 against 1.904 / 3.043 ms; at 65,536 systems N = 2-4 tie within
+# 0.005 ms, launch-bound), and no instance spills (f64 N = 8: 255
+# registers, no local memory). Thread against warp, N = 9-16: the warp
+# tier won at every N (1M systems: N = 9 2.73 / 3.51 ms against 3.05 /
+# 5.63 ms; N = 16 6.08 / 7.57 against 23.1 / 80.5 ms). So the thread
+# tier won at no N and K3 no longer has it. Warp against panel (16,384
+# systems): the warp tier won at N = 32 (0.43 / 0.79 ms against 1.09 /
+# 1.23 ms); from N = 33 only the panel tier takes the system (1.55 / 1.82
+# ms, block 2.78 / 3.47 ms).
+K3_WARP_MAX = 32
+K3_PANEL_MIN = 33
+K3_TIERS = {dt: dict.fromkeys(INV_TIERS, 0)
+            for dt in (torch.float32, torch.float64)}
 
 
 def tier_for(n: int, dtype: torch.dtype, inverse: bool = False) -> str:
-    """The tier K2 runs an (n, n) system of ``dtype`` in; for K3 (the
-    inverse) the route it keeps, "thread" up to N = 16, else "block"."""
+    """The tier K2 (or, ``inverse``, K3) runs an (n, n) system of
+    ``dtype`` in."""
     if inverse:
-        return "thread" if n <= THREAD_MAX_N else "block"
+        if n <= K3_REG_INSTANCES:
+            return "register"
+        return "warp" if n <= K3_WARP_MAX else "panel"
     if n <= K2_THREAD_MAX[dtype]:
         return "thread"
     if n <= K2_WARP_MAX:
@@ -89,11 +121,25 @@ def tier_for(n: int, dtype: torch.dtype, inverse: bool = False) -> str:
     return "panel" if n >= K2_PANEL_MIN else "block"
 
 
+def _takes(tier: str, n: int) -> bool:
+    """Whether ``tier`` can take an (n, n) system at all (register: N with
+    an instance; thread: 4-bit pivot rows; warp: a row per lane)."""
+    return not ((tier == "register" and n > K3_REG_INSTANCES)
+                or (tier == "thread" and n > THREAD_MAX_N)
+                or (tier == "warp" and n > WARP_MAX_N))
+
+
+def inverse_tiers(n: int) -> list[str]:
+    """The tiers of K3 that can take an (n, n) system."""
+    return [t for t in INV_TIERS if _takes(t, n)]
+
+
 _SOLVE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                        ctypes.c_double, ctypes.c_int,
                                        ctypes.c_void_p]
 _INV_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_double, ctypes.c_void_p]
+                                     ctypes.c_double, ctypes.c_int,
+                                     ctypes.c_void_p]
 _SIGNATURES = {
     "gj_real_workspace_systems": ([ctypes.c_int] * 5, ctypes.c_int),
     "gj_real_solve_f32": (_SOLVE_ARGS, ctypes.c_int),
@@ -134,13 +180,13 @@ def _check_tensors(ts: tuple, what: str) -> None:
 
 def _workspace(lib: ctypes.CDLL, A: torch.Tensor, n: int,
                inv: bool, tier: str = "block") -> torch.Tensor | None:
-    """The global workspace of a route whose planes live in global memory
-    (the block route past shared memory, f64 [A | I] past N = 119, one
+    """The global workspace of a tier whose planes live in global memory
+    (the block tier past shared memory, f64 [A | I] past N = 119, one
     system each; the panel tier where its plan says so, one slot per
     resident block), else None."""
     dbl = A.dtype == torch.float64
     n_ws = lib.gj_real_workspace_systems(n, A.shape[0], int(inv), int(dbl),
-                                         TIERS.index(tier))
+                                         CODES[tier])
     if not n_ws:
         return None
     w = 2 * n if inv else n + 1
@@ -158,8 +204,7 @@ def gj_solve_cuda(A: torch.Tensor, b: torch.Tensor, eps: float = EPS,
         raise ValueError(f"K2: b must be (B, N) = {(nb, n)}, got "
                          f"{tuple(b.shape)}")
     tier = tier_for(n, A.dtype) if tier is None else tier
-    if tier not in TIERS or (tier == "warp" and n > WARP_MAX_N) \
-            or (tier == "thread" and n > THREAD_MAX_N):
+    if tier not in TIERS or not _takes(tier, n):
         raise ValueError(f"K2 has no tier {tier!r} at N={n}")
     _check_tensors((A, b), "K2")
     lib = load_library()
@@ -170,28 +215,35 @@ def gj_solve_cuda(A: torch.Tensor, b: torch.Tensor, eps: float = EPS,
         else lib.gj_real_solve_f32
     code = fn(ptr(A), ptr(b), ptr(x), ptr(valid),
               ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,
-              float(eps), TIERS.index(tier), stream_ptr(A.device))
+              float(eps), CODES[tier], stream_ptr(A.device))
     check(code, f"gj_real {tier} solve launch")
     K2[A.dtype].launches += 1
     K2_TIERS[A.dtype][tier] += 1
     return x, valid
 
 
-def gj_inverse_cuda(A: torch.Tensor, eps: float = EPS
+def gj_inverse_cuda(A: torch.Tensor, eps: float = EPS,
+                    tier: str | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K3: A (B, N, N), CUDA, contiguous, float32 or float64.
-    Returns (the true inverse (B, N, N), valid (B,))."""
+    Returns (the true inverse (B, N, N), valid (B,)). ``tier`` forces one
+    of ``INV_TIERS`` (for the comparisons and the sweep); None takes
+    ``tier_for(n, dtype, inverse=True)``'s."""
     nb, n = _check_systems(A, "K3")
+    tier = tier_for(n, A.dtype, inverse=True) if tier is None else tier
+    if tier not in INV_TIERS or not _takes(tier, n):
+        raise ValueError(f"K3 has no tier {tier!r} at N={n}")
     _check_tensors((A,), "K3")
     lib = load_library()
     inv = torch.empty((nb, n, n), dtype=A.dtype, device=A.device)
     valid = torch.empty((nb,), dtype=torch.bool, device=A.device)
-    ws = _workspace(lib, A, n, inv=True)
+    ws = _workspace(lib, A, n, inv=True, tier=tier)
     fn = lib.gj_real_inverse_f64 if A.dtype == torch.float64 \
         else lib.gj_real_inverse_f32
     code = fn(ptr(A), ptr(inv), ptr(valid),
               ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,
-              float(eps), stream_ptr(A.device))
-    check(code, "gj_real inverse launch")
+              float(eps), CODES[tier], stream_ptr(A.device))
+    check(code, f"gj_real {tier} inverse launch")
     K3[A.dtype].launches += 1
+    K3_TIERS[A.dtype][tier] += 1
     return inv, valid

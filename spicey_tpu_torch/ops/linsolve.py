@@ -27,7 +27,11 @@ unused row with the largest |a|, ties to the lowest row, invalid when
 ``solve_planes``, ``inverse_planes``, ``solve`` and ``inverse`` dispatch
 by the tensor's device: a CUDA tensor always launches the kernel (the
 instantiation follows the dtype), a CPU tensor runs the plain version.
-There is no other branch. The JAX package's
+The one other branch is a system with no unknowns (N = 0: a deck whose
+only node is ground), which every analysis of such a deck reaches: there
+is nothing to eliminate, so each system is valid and its answer empty, as
+in the JAX package, whose solves take empty arrays; the kernels, which
+refuse N = 0, are not called. The JAX package's
 f32-kernel-plus-f64-refinement wrapper (``pallas_gj.py:562-640``) has no
 counterpart: the card solves f64 natively.
 """
@@ -129,6 +133,11 @@ def gj_inverse_planes(A_re: torch.Tensor, A_im: torch.Tensor,
             valid.reshape(lead))
 
 
+def _no_unknowns(A: torch.Tensor) -> torch.Tensor:
+    """The ``valid`` flags of a batch of (N = 0) systems: all true."""
+    return torch.ones(A.shape[:-2], dtype=torch.bool, device=A.device)
+
+
 def solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
                  b_re: torch.Tensor, b_im: torch.Tensor,
                  method: str = "gj", eps: float = EPS
@@ -141,6 +150,8 @@ def solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
     K1 on a CUDA tensor, in the tensor's precision; the plain version on
     the CPU."""
     _check_method(method)
+    if A_re.shape[-1] == 0:
+        return b_re.clone(), b_im.clone(), _no_unknowns(A_re)
     if A_re.is_cuda:
         from .gj import gj_solve_planes_cuda
 
@@ -162,6 +173,8 @@ def inverse_planes(A_re: torch.Tensor, A_im: torch.Tensor,
     """The true complex inverse of a batch on (re, im) planes: K4 on a
     CUDA tensor, in the tensor's precision; the plain
     ``gj_inverse_planes`` on the CPU. A_*: (..., N, N)."""
+    if A_re.shape[-1] == 0:
+        return A_re.clone(), A_im.clone(), _no_unknowns(A_re)
     if A_re.is_cuda:
         from .gj import gj_inverse_planes_cuda
 
@@ -251,6 +264,8 @@ def solve(A: torch.Tensor, b: torch.Tensor, method: str = "gj",
     elimination here: K2 on a CUDA tensor, in the tensor's precision; the
     plain ``gj_solve`` on the CPU."""
     _check_method(method)
+    if A.shape[-1] == 0:
+        return b.clone(), _no_unknowns(A)
     if A.is_cuda:
         from .gj_real import gj_solve_cuda
 
@@ -266,6 +281,8 @@ def inverse(A: torch.Tensor, eps: float = EPS
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The true inverse of a batch: K3 on a CUDA tensor, the plain
     ``gj_inverse`` on the CPU. A: (..., N, N)."""
+    if A.shape[-1] == 0:
+        return A.clone(), _no_unknowns(A)
     if A.is_cuda:
         from .gj_real import gj_inverse_cuda
 

@@ -1,8 +1,9 @@
 """The tiers of K1 and K2 (warp, block, panel; K2's thread tier too).
 
 On any host: the tier choice, a pure function of N, the dtype and real or
-complex, at its boundaries, monotone in N, with K3 kept on its route and
-K4 (the complex inverse) on K1's warp and panel tiers; and the wrappers
+complex, at its boundaries, monotone in N, with K3 (the real inverse,
+``tests/test_torch_k3_tiers.py``) and K4 (the complex inverse) on their
+routes; and the wrappers
 refuse a tier that cannot take N before they touch the device.
 
 On the card (marked ``cuda``, skipped elsewhere; run with
@@ -98,12 +99,13 @@ def test_warp_tier_only_where_a_warp_holds_the_rows(dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [1, 3, 16, 17, 32, 33, 64, 128, 129, 256])
 def test_inverses_keep_their_route(n, dtype):
-    # K4: K1's tiers, warp up to N = 32 and panel from 33; K3: the thread
-    # route up to 16, then block_gj
+    # K4: K1's tiers, warp up to N = 32 and panel from 33; K3: its register
+    # form up to N = 8, then warp up to N = 32 and panel from 33, never block
     assert gj.tier_for(n, dtype, inverse=True) == (
         "warp" if n <= gj.K4_WARP_MAX else "panel")
-    assert gj_real.tier_for(n, dtype, inverse=True) == (
-        "thread" if n <= gj_real.THREAD_MAX_N else "block")
+    want = ("register" if n <= gj_real.K3_REG_INSTANCES
+            else "warp" if n <= gj_real.K3_WARP_MAX else "panel")
+    assert gj_real.tier_for(n, dtype, inverse=True) == want
 
 
 def test_tier_counters_cover_every_tier():
