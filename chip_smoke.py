@@ -143,7 +143,35 @@ line each:
      N = 64 and 128 (2 reps): K1/K2 in their chosen tier, K10a/K10b and
      ``torch.linalg.solve`` in systems/s on the ladder planes, K10 within
      1e-9 of K1/K2 in f64;
-  9. every instantiation launched during 3-8 and 10-22 (printed after
+  23. K, T and B elements through the public entry points on cuda
+     (``spicey_tpu_torch/decks.py``'s copies of the JAX package's test
+     decks), each workload counted on its own (the counters zeroed just
+     before its main-path calls and read just after, before any
+     comparison run) with its wall (the median of three warm calls, each
+     ending in synchronize()): (a) the transformer's ``simulate()`` .ac
+     (K1 and K3's register form for M^-1; equal to the CPU path and to
+     its closed form at 1e-9) and .tran (equal to the CPU path),
+     ``mc_ac_stats`` over 100k (rload, l1, l2) at U(0.9, 1.1) x nominal
+     (K1 and K3; every variant valid, the statistics equal to the CPU
+     path's on the same 100k) and ``simulate_tran_batch`` over 16,384
+     coupling coefficients k1 at U(0.3, 0.95), all valid, 64 variants
+     equal to the CPU path; each transient launches K3's register form at
+     least twice a call (M^-1 and the factor-once matrix) and K2 never;
+     (b) the matched line's ``simulate_tran_batch`` over 16,384 (rl, Z0,
+     Td) at U(25, 150), U(45, 55), U(4n, 6n), all valid, late v(b) =
+     rl / (rs + rl) at 1e-6, 64 equal to the CPU path (K3 at least once a
+     call, K2 never), and its .ac delay phase -w Td through
+     ``simulate()`` (K1); (c) the uA741 inverting amplifier's ``.step``
+     of rfb over 1,001 values (K2 every Newton pass; all valid, the gain
+     -rfb/rin x 50 mV at 5e-3, 64 lanes equal to the CPU path) and its
+     .op, acop .ac, .noise and .tran through ``simulate()``, each equal to
+     the CPU path (K1, K2, K4; two named series at their recorded atol);
+     (d) ``mc_tran_stats`` of the tanh amplifier over 100k loads (K2
+     every pass, K3 never: a B deck never factors once; n_valid == B,
+     the statistics equal to the CPU path's on the same 100k), and with
+     ``method="pallas"`` at f32, which must launch neither K8 nor K9 and
+     give the ``method="gj"`` f32 statistics at 2e-5;
+  9. every instantiation launched during 3-8 and 10-23 (printed after
      them; the f32 instances of K4 and K7 are on no main path and are
      checked in phase 2 and timed here only); CUDA-event times of each
      kernel, its plain version and, where one PyTorch call computes the
@@ -2321,6 +2349,247 @@ def main() -> int:
                     + list(gj_real.K2.values()))
         torch.cuda.empty_cache()
     say("22 sweep", f"{time.perf_counter() - t22:.1f} s")
+
+    # ---- 23. K, T and B elements (ROADMAP §1 item 2) ----------------------
+    # each workload through the public entry points, its launches counted
+    # on their own: the counters are zeroed just before its main-path
+    # calls and read just after, before any comparison run; a wall is the
+    # median of three warm calls, each ending in synchronize() (host clock)
+    from spicey_tpu_torch import decks
+
+    t23 = time.perf_counter()
+    rng23 = np.random.default_rng(SEED + 23)  # later draws stay as they were
+    K2f, K3f = gj_real.K2[f64], gj_real.K3[f64]
+
+    def workload(phase, fn, expect, tiers=(), reps=3, absent=(),
+                 per_call=()):
+        """Run ``fn`` once warm and ``reps`` times timed on its own
+        counters; fail unless every kernel of ``expect`` (and tier of
+        ``tiers``) launched, none of ``absent`` did, and each (kernel, n)
+        of ``per_call`` launched at least n times a call. Returns the last
+        timed call's result and the median wall."""
+        zero_counts()
+        timed(fn)  # warm
+        runs = [timed(fn) for _ in range(reps)]
+        calls = reps + 1
+        bad = [k.name for k in absent if k.launches]
+        bad += [f"{k.name} {k.launches} < {n} x {calls}"
+                for k, n in per_call if k.launches < n * calls]
+        if bad:
+            raise AssertionError(f"{phase}: launches {bad}")
+        counted(phase, expect, tiers)
+        return runs[-1][0], float(np.median([s for _, s in runs]))
+
+    def same_tran(got, want, what, known=None):
+        """Node voltages and element currents at rtol 1e-9, atol 1e-12 of
+        the field's largest value; ``known`` (series name -> atol) names
+        the series held to their own recorded atol instead."""
+        np.testing.assert_array_equal(got.times, want.times)
+        for series, ref in ((got.node_voltages, want.node_voltages),
+                            (got.element_currents, want.element_currents)):
+            if list(series) != list(ref):
+                raise AssertionError(f"{what}: result keys differ")
+            scale = max(float(np.abs(v).max()) for v in ref.values())
+            for name, v in ref.items():
+                atol = (known or {}).get(name, 1e-12 * scale)
+                same(series[name], v, f"{what} {name}", atol=atol)
+
+    def same_stats(got, want, what, rtol=1e-9, atol_of_max=1e-12):
+        """Mean, std, min and max at ``rtol``, with an atol of
+        ``atol_of_max`` of the largest |value| any variant took (the
+        statistics' own scale: the std of lanes that are all equal is the
+        rounding of the values, not a quantity of its own)."""
+        if got.n_valid != want.n_valid:
+            raise AssertionError(f"{what}: n_valid {got.n_valid} against "
+                                 f"{want.n_valid}")
+        atol = atol_of_max * float(max(np.abs(want.min).max(),
+                                       np.abs(want.max).max()))
+        for f in ("mean", "std", "min", "max"):
+            same(getattr(got, f), getattr(want, f), f"{what} {f}",
+                 rtol=rtol, atol=atol)
+
+    # (a) transformer-100k: the transformer's .ac against the CPU path and
+    # its closed form, the .tran against the CPU path; mc_ac_stats over
+    # 100k (rload, l1, l2) variants (K1, M^-1 per variant by K3) against
+    # the CPU path on the same 100k, and simulate_tran_batch over 16,384
+    # coupling coefficients (K3 twice a call: M^-1 and the factor-once
+    # matrix, and no K2: every step multiplies by that inverse)
+    X = "extended"
+    xac, xac_s = workload(
+        "23a transformer .ac", lambda: st.simulate(
+            decks.TRANSFORMER_AC, dialect=X, device=dev).ac,
+        [gj.K1[f64], K3f], tiers=[(K3f, "register")])
+    want = st.simulate(decks.TRANSFORMER_AC, dialect=X, device="cpu").ac
+    for series, ref in ((xac.node_voltages, want.node_voltages),
+                        (xac.element_currents, want.element_currents)):
+        for name, v in ref.items():
+            same(series[name], v, f"transformer ac {name}")
+    ref = decks.analytic_transformer(xac.freqs)
+    same(xac.node_voltages["p"], ref[:, 0], "transformer ac v(p) analytic")
+    same(xac.node_voltages["s"], ref[:, 1], "transformer ac v(s) analytic")
+    xtr, xtr_s = workload(
+        "23a transformer .tran", lambda: st.simulate(
+            decks.TRANSFORMER_TRAN, dialect=X, device=dev).tran,
+        [K3f], tiers=[(K3f, "register")], absent=[K2f],
+        per_call=[(K3f, 2)])
+    same_tran(xtr, st.simulate(decks.TRANSFORMER_TRAN, dialect=X,
+                               device="cpu").tran, "transformer tran")
+    XB = 100_000
+    x_over = {k: v * rng23.uniform(0.9, 1.1, XB)
+              for k, v in (("rload", 100.0), ("l1", 1.0), ("l2", 4.0))}
+    xmc, xmc_s = workload(
+        "23a transformer mc_ac_stats 100k", lambda: st.mc_ac_stats(
+            decks.TRANSFORMER_AC, x_over, node="s", dialect=X, device=dev),
+        [gj.K1[f64], K3f], tiers=[(K3f, "register")])
+    if xmc.n_valid != XB:
+        raise AssertionError(f"transformer-100k: n_valid {xmc.n_valid}")
+    same_stats(xmc, st.mc_ac_stats(decks.TRANSFORMER_AC, x_over, node="s",
+                                   dialect=X, device="cpu"),
+               "transformer-100k against the CPU path")
+    KB = 16_384
+    k_over = {"k1": rng23.uniform(0.3, 0.95, KB)}
+    xbt, xbt_s = workload(
+        "23a transformer k1 sweep 16k", lambda: st.simulate_tran_batch(
+            decks.TRANSFORMER_TRAN, k_over, dialect=X, device=dev),
+        [K3f], tiers=[(K3f, "register")], absent=[K2f],
+        per_call=[(K3f, 2)])
+    if not xbt.valid.all():
+        raise AssertionError(f"transformer k-sweep: {int(xbt.valid.sum())} "
+                             "valid")
+    cpu = st.simulate_tran_batch(decks.TRANSFORMER_TRAN,
+                                 {"k1": k_over["k1"][:64]}, dialect=X,
+                                 device="cpu")
+    same(xbt.xs[:64], cpu.xs, "transformer k-sweep 64 lanes",
+         atol=1e-12 * float(np.abs(cpu.xs).max()))
+    say("23 K, T, B", f"(a) transformer: simulate() .ac ({len(xac.freqs)} "
+        f"points) = CPU path and analytic at 1e-9, wall {xac_s:.3f} s; "
+        f".tran ({len(xtr.times)} steps) = CPU path, wall {xtr_s:.3f} s; "
+        f"mc_ac_stats {XB} variants x {len(xmc.grid)}: n_valid "
+        f"{xmc.n_valid}, stats = CPU path on the same {XB}, wall "
+        f"{xmc_s:.3f} s; simulate_tran_batch k1 U(0.3, 0.95) {KB} x "
+        f"{len(xbt.times)} steps: all valid, 64 = CPU path, wall "
+        f"{xbt_s:.3f} s | {smi}")
+    del xbt, cpu
+
+    # (b) tline-16k: simulate_tran_batch of the matched line over 16,384
+    # (rl, Z0, Td) variants (the swept-delay history; K3 factors once, no
+    # K2), late v(b) the divider; the .ac delay phase through simulate()
+    # (K1)
+    tl_over = {"rl": rng23.uniform(25.0, 150.0, KB),
+               "t1.z0": rng23.uniform(45.0, 55.0, KB),
+               "t1.td": rng23.uniform(4e-9, 6e-9, KB)}
+    tlb, tlb_s = workload(
+        "23b tline 16k", lambda: st.simulate_tran_batch(
+            decks.TLINE_TRAN, tl_over, dialect=X, device=dev),
+        [K3f], tiers=[(K3f, "register")], absent=[K2f],
+        per_call=[(K3f, 1)])
+    if not tlb.valid.all():
+        raise AssertionError(f"tline-16k: {int(tlb.valid.sum())} valid")
+    same(tlb.node_voltage("b")[:, -1],
+         tl_over["rl"] / (50.0 + tl_over["rl"]), "tline-16k late v(b)",
+         rtol=1e-6, atol=0.0)
+    cpu = st.simulate_tran_batch(decks.TLINE_TRAN,
+                                 {k: v[:64] for k, v in tl_over.items()},
+                                 dialect=X, device="cpu")
+    same(tlb.xs[:64], cpu.xs, "tline-16k 64 lanes",
+         atol=1e-12 * float(np.abs(cpu.xs).max()))
+    tac, tac_s = workload(
+        "23b tline .ac", lambda: st.simulate(decks.TLINE_AC, dialect=X,
+                                             device=dev).ac, [gj.K1[f64]])
+    want = st.simulate(decks.TLINE_AC, dialect=X, device="cpu").ac
+    for series, ref in ((tac.node_voltages, want.node_voltages),
+                        (tac.element_currents, want.element_currents)):
+        for name, v in ref.items():
+            same(series[name], v, f"tline ac {name}")
+    h = tac.node_voltages["b"] / tac.node_voltages["a"]
+    same(np.abs(h), 1.0, "tline ac |v(b)/v(a)|")
+    same(np.angle(h), np.angle(np.exp(-2j * np.pi * tac.freqs * 5e-9)),
+         "tline ac phase", rtol=0.0, atol=1e-9)
+    say("23 K, T, B", f"(b) tline: simulate_tran_batch {KB} x "
+        f"{len(tlb.times)} steps, rl/Z0/Td swept: all valid, late v(b) = "
+        f"rl/(rs+rl) at 1e-6, 64 = CPU path, wall {tlb_s:.3f} s; .ac delay "
+        f"phase -w Td at 1e-9 = CPU path, wall {tac_s:.3f} s | {smi}")
+    del tlb, cpu
+
+    # (c) ua741-step-1001: the uA741 inverting amplifier's rfb stepped
+    # over 1,001 values (op_batch, K2 every Newton pass), and the
+    # amplifier's .op, acop .ac (K1), .noise (K4) and .tran (K2) through
+    # simulate(), each equal to the CPU path at 1e-9 (two series at their
+    # own recorded atol, tools/profile_torch_parity.py: the 1 ohm series
+    # resistances of the clamp diodes dc and dlp carry -1.4e-11 and
+    # -3.9e-11 A between nodes at ~15 and ~40 V, and the card's and the
+    # CPU's differ by up to 2.55e-13 and 2.7e-14 A, their voltages'
+    # rounding over 1 ohm)
+    ua, ua_s = workload(
+        "23c ua741 .step", lambda: st.simulate(
+            decks.UA741_STEP, dialect=X, device=dev).step, [K2f])
+    if len(ua.values) != 1001 or not ua.op.valid.all():
+        raise AssertionError(f"ua741 step: {len(ua.values)} lanes, "
+                             f"{int(ua.op.valid.sum())} valid")
+    same(ua.op.node_voltage("out"), -ua.values / 1e3 * 0.05,
+         "ua741 step gain -rfb/rin x 50 mV", rtol=5e-3, atol=0.0)
+    ua_ckt = st.parse_netlist(decks.UA741_STEP, dialect=X)
+    cpu = st.op_batch(ua_ckt, {"rfb": ua.values[:64]}, device="cpu")
+    same(ua.op.x[:64], cpu.x, "ua741 step 64 lanes",
+         atol=1e-12 * float(np.abs(cpu.x).max()))
+    amp, amp_s = workload(
+        "23c ua741 amp", lambda: st.simulate(decks.UA741_AMP, dialect=X,
+                                             device=dev),
+        [gj.K1[f64], K2f, gj.K4[f64]], reps=1)
+    want = st.simulate(decks.UA741_AMP, dialect=X, device="cpu")
+    same_op(amp.op, want.op, "ua741 .op")
+    for series, ref in ((amp.ac.node_voltages, want.ac.node_voltages),
+                        (amp.ac.element_currents, want.ac.element_currents)):
+        scale = max(float(np.abs(v).max()) for v in ref.values())
+        for name, v in ref.items():
+            same(series[name], v, f"ua741 acop {name}", atol=1e-12 * scale)
+    same_noise(amp.noise, want.noise, "ua741 .noise")
+    same_tran(amp.tran, want.tran, "ua741 .tran",
+              known={"dc.xamp#rs": 5e-13, "dlp.xamp#rs": 5e-14})
+    say("23 K, T, B", f"(c) ua741: .step rfb 5k-20k by 15, "
+        f"{len(ua.values)} op lanes, all valid, gain -rfb/rin x 50 mV at "
+        f"5e-3, Newton passes per lane max {int(ua.op.passes.max())}, 64 "
+        f"= CPU path, wall {ua_s:.3f} s; .op, acop .ac "
+        f"({len(amp.ac.freqs)} points), .noise ({len(amp.noise.freqs)} "
+        f"points, {amp.noise.guard_resolves} re-solved) and .tran "
+        f"({len(amp.tran.times)} steps) through simulate() = CPU path, "
+        f"wall {amp_s:.3f} s | {smi}")
+
+    # (d) bsrc-tanh-100k: mc_tran_stats of the tanh amplifier over 100k
+    # loads (the loop, K2 every pass; no K3: a B deck never factors once)
+    # against the CPU path on the same 100k (v(out) = 2 tanh(5 v(in)) does
+    # not depend on rl, so the lanes are equal and their std is rounding);
+    # method="pallas" at f32 takes the same loop (K8 and K9 never launch)
+    BB = 100_000
+    b_over = {"rl": 1e3 * rng23.uniform(0.9, 1.1, BB)}
+    bmc, bmc_s = workload(
+        "23d bsrc-tanh 100k", lambda: st.mc_tran_stats(
+            decks.BSRC_TANH, b_over, node="out", dialect=X, device=dev),
+        [K2f], absent=[K3f])
+    if bmc.n_valid != BB:
+        raise AssertionError(f"bsrc-tanh-100k: n_valid {bmc.n_valid}")
+    same_stats(bmc, st.mc_tran_stats(decks.BSRC_TANH, b_over, node="out",
+                                     dialect=X, device="cpu"),
+               "bsrc-tanh-100k against the CPU path")
+    f32_kw = dict(node="out", dialect=X, precision="f32", device=dev)
+    b_gj, _ = workload(
+        "23d bsrc-tanh gj f32", lambda: st.mc_tran_stats(
+            decks.BSRC_TANH, b_over, method="gj", **f32_kw),
+        [gj_real.K2[torch.float32]], reps=1)
+    fused = [mc_tran_fused.K8[torch.float32], mc_tran_fused.K9[torch.float32]]
+    b_pl, bpl_s = workload(
+        "23d bsrc-tanh pallas f32", lambda: st.mc_tran_stats(
+            decks.BSRC_TANH, b_over, method="pallas", **f32_kw),
+        [gj_real.K2[torch.float32]], reps=1, absent=fused)
+    same_stats(b_pl, b_gj, "bsrc-tanh pallas f32 against gj f32", rtol=2e-5,
+               atol_of_max=2e-5)
+    say("23 K, T, B", f"(d) bsrc-tanh: mc_tran_stats {BB} x "
+        f"{len(bmc.grid)} steps f64: n_valid {bmc.n_valid}, stats = CPU "
+        f"path on the same {BB}, wall {bmc_s:.3f} s; method='pallas' f32: "
+        f"K8/K9 never launched, stats = gj f32 at 2e-5, {bpl_s:.3f} s "
+        f"| {smi}")
+    say("23 K, T, B", f"{time.perf_counter() - t23:.1f} s")
+    torch.cuda.empty_cache()
 
     # ---- 9. launches and times --------------------------------------------
     missing = [name for name, n in launches.items() if n == 0]

@@ -24,6 +24,16 @@ small-signal conductances as extra VCCS rows, and its junction
 capacitances as extra C rows (``small_signal_rows``,
 ``diode_smallsignal_caps``, shared with .tf and .noise).
 
+The extended K and T elements are the JAX package's: K-coupled inductors
+stamp the coupled branch admittance Y(w) = (j w M)^{-1} = -j M^{-1} / w
+into the imaginary plane (M^{-1} inverted once per variant by
+``tran._mutual_inv``, kernel K3 on the card; a singular M flags the
+variant invalid), with the reference's open-at-DC rule per inductor; a T
+line stamps its exact lossless phasor model, the near-end Z0 rows plus
+the far-end coupling -e^{-j w Td} split across the planes. A V-kind B
+source stamps as a 0 V short; with ``linearize="op"`` every B source adds
+its gradients at the operating point (``_bsource_small_signal``).
+
 Past N = 128 ``method="gj"`` solves dense on every deck (K1 in a global
 workspace where a system overflows shared memory), as the JAX package does
 on a deck with no subcircuit structure; on a subcircuit board the JAX
@@ -31,10 +41,9 @@ package plans a Schur partition there and retries dense, and the port's
 answer is that dense one. The structured route and the automatic Schur
 dispatch wait for the Schur tier (item 6).
 
-Not ported yet, each raising ``NotImplementedError``: the Schur tier
-(``method="schur"``, item 6), K coupling, T lines and, for
-``linearize="op"``, B sources (item 2). The JAX package's host interp tier
-for tiny decks has no counterpart: the device path is the path.
+Not ported yet, raising ``NotImplementedError``: the Schur tier
+(``method="schur"``, item 6). The JAX package's host interp tier for tiny
+decks has no counterpart: the device path is the path.
 """
 
 from __future__ import annotations
@@ -45,21 +54,25 @@ import numpy as np
 import torch
 
 from ..constants import DIODE_VD_MAX, DIODE_VD_MIN, EPS, GMIN, VT_300K
-from ..ir.circuit import (CircuitTensors, build_tensors, bv_branch_rows,
-                          ext_arrays)
-from ..ops.linsolve import solve_planes
+from ..ir.circuit import (CircuitTensors, bsrc_static, build_tensors,
+                          bv_branch_rows, ext_arrays, lk_arrays, tl_arrays)
+from ..ops.linsolve import check_ported, solve_planes
 from ..ops.stamps import (
     stamp_admittance,
     stamp_current,
     stamp_extended,
+    stamp_mutual,
+    stamp_tline_coupling,
+    stamp_tline_ports,
     stamp_voltage_source,
 )
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
 from ..utils.logspace import linear_grid, logspace, octspace
 from ..models.devices import bjt_ebers_moll, diode_charge_cap, mos_level1
+from ..parsing.bexpr import bexpr_partials
 from .results import ACResult
-from .tran import _host
+from .tran import _host, _mutual_inv
 
 
 def build_frequency_array(mode: str, N: int, f1: float, f2: float) -> np.ndarray:
@@ -88,13 +101,18 @@ def _assemble_grid(freqs: torch.Tensor, r_idx: torch.Tensor,
                    v_re: torch.Tensor, v_im: torch.Tensor, nvar: int,
                    ext: dict | None = None,
                    i_re: torch.Tensor | None = None,
-                   i_im: torch.Tensor | None = None
+                   i_im: torch.Tensor | None = None,
+                   minv: torch.Tensor | None = None,
+                   tl: dict | None = None
                    ) -> tuple[torch.Tensor, ...]:
     """Batched MNA assembly over variants and frequencies.
 
     Value arrays lead with a variants axis B: r/c/l_vals (B, nE), v_re/v_im
     (B, nV), ext value arrays (B, nX); i_re/i_im (nI,) are shared. Index
-    arrays are int64 tensors on the values' device. Returns the planes
+    arrays are int64 tensors on the values' device. ``minv``: M^{-1} of
+    K-coupled inductors per variant, (B, nL, nL) (``tran._mutual_inv``,
+    frequency-independent, so inverted once by the caller); ``tl``: the T
+    lines, Z0/Td (B, nT). Returns the planes
     (A_re, A_im, b_re, b_im) shaped (B, F, N, N) and (B, F, N), batch-first
     as K1 takes them. This one function plays the roles of the JAX
     package's ``_assemble_one``/``_assemble_grid`` (a batch dimension in
@@ -113,7 +131,17 @@ def _assemble_grid(freqs: torch.Tensor, r_idx: torch.Tensor,
     w = (2.0 * math.pi) * freqs.to(dtype)
     stamp_admittance(A_re, r_idx, (1.0 / r_vals)[:, None, :])
     stamp_admittance(A_im, c_idx, w[None, :, None] * c_vals[:, None, :])
-    stamp_admittance(A_im, l_idx, _inductor_susceptance(w, l_vals))
+    if minv is None:
+        stamp_admittance(A_im, l_idx, _inductor_susceptance(w, l_vals))
+    else:
+        # the coupled branch admittance -j M^{-1} / w, each inductor open
+        # where |w L| < EPS (at k = 0 exactly the scalar stamp)
+        keep = ((w[None, :, None] * l_vals[:, None, :]).abs()
+                >= EPS).to(dtype)                          # (B, F, nL)
+        w_safe = torch.where(w.abs() < EPS, torch.ones_like(w), w)
+        S = ((-minv[:, None] / w_safe[None, :, None, None])
+             * keep[..., :, None] * keep[..., None, :])
+        stamp_mutual(A_im, l_idx, S)
     stamp_voltage_source(A_re, b_re, v_idx, v_re[:, None, :])
     b_im.index_add_(-1, v_idx[:, 2],
                     v_im[:, None, :].expand(B, F, v_idx.shape[0]))
@@ -124,6 +152,14 @@ def _assemble_grid(freqs: torch.Tensor, r_idx: torch.Tensor,
         # controlled sources: real, frequency-independent stamps
         stamp_extended(A_re, {k: (v if k.endswith("idx") else v[:, None, :])
                               for k, v in ext.items()})
+    if tl is not None:
+        # T lines, the exact lossless phasor model: near-end Z0 rows plus
+        # the far-end coupling -e^{-j w Td} split across the planes
+        z0 = tl["z0"][:, None, :]
+        theta = w[None, :, None] * tl["td"][:, None, :]   # (B, F, nT)
+        stamp_tline_ports(A_re, tl["t_idx"], z0)
+        stamp_tline_coupling(A_re, tl["t_idx"], z0, -torch.cos(theta))
+        stamp_tline_coupling(A_im, tl["t_idx"], z0, torch.sin(theta))
     return (A_re[..., :nvar, :nvar], A_im[..., :nvar, :nvar],
             b_re[..., :nvar], b_im[..., :nvar])
 
@@ -135,15 +171,24 @@ def _ac_sweep_core(freqs: torch.Tensor, r_idx: torch.Tensor,
                    v_re: torch.Tensor, v_im: torch.Tensor, nvar: int,
                    method: str = "gj", ext: dict | None = None,
                    i_re: torch.Tensor | None = None,
-                   i_im: torch.Tensor | None = None
+                   i_im: torch.Tensor | None = None,
+                   lk: dict | None = None, tl: dict | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Assemble + one batched solve over the whole grid. Values as in
-    ``_assemble_grid``; returns (x_re, x_im, valid) shaped (B, F, N),
-    (B, F, N), (B, F)."""
+    ``_assemble_grid``, the couplings ``lk`` (k (nK,) or (B, nK)) and the
+    lines ``tl`` (Z0/Td (B, nT)) when the deck has them; returns (x_re,
+    x_im, valid) shaped (B, F, N), (B, F, N), (B, F), a variant whose
+    inductance matrix is singular invalid at every frequency."""
+    minv = minv_ok = None
+    if lk is not None:
+        minv, minv_ok = _mutual_inv(l_vals, lk)
     A_re, A_im, b_re, b_im = _assemble_grid(
         freqs, r_idx, r_vals, c_idx, c_vals, l_idx, l_vals, v_idx,
-        v_re, v_im, nvar, ext=ext, i_re=i_re, i_im=i_im)
-    return solve_planes(A_re, A_im, b_re, b_im, method=method)
+        v_re, v_im, nvar, ext=ext, i_re=i_re, i_im=i_im, minv=minv, tl=tl)
+    x_re, x_im, valid = solve_planes(A_re, A_im, b_re, b_im, method=method)
+    if minv_ok is not None:
+        valid = valid & minv_ok.reshape(-1, 1)
+    return x_re, x_im, valid
 
 
 def _element_currents(tensors: CircuitTensors, freqs, x) -> dict[str, np.ndarray]:
@@ -169,10 +214,22 @@ def _element_currents(tensors: CircuitTensors, freqs, x) -> dict[str, np.ndarray
             out[name] = i_c[:, k]
     if tensors.n_l:
         vd_l = vdrop(tensors.l_idx)
-        wl = w[:, None] * tensors.l_vals[None, :]
-        y_l = np.where(np.abs(wl) < EPS, 0.0,
-                       -1.0 / np.where(np.abs(wl) < EPS, 1.0, wl))
-        i_l = (1j * y_l) * vd_l
+        if tensors.n_k:
+            # coupled branch phasors: I = -j M^{-1} Vd / w, with the
+            # per-inductor open-at-DC mask of the assembly
+            minv_h = _mutual_inv(
+                torch.as_tensor(np.asarray(tensors.l_vals, np.float64)),
+                lk_arrays(tensors, "cpu"))[0].numpy()
+            keep = (np.abs(w[:, None] * tensors.l_vals[None, :])
+                    >= EPS).astype(np.float64)
+            w_safe = np.where(np.abs(w) < EPS, 1.0, w)
+            i_l = (-1j / w_safe[:, None]) * keep * (
+                (vd_l * keep) @ minv_h.T)
+        else:
+            wl = w[:, None] * tensors.l_vals[None, :]
+            y_l = np.where(np.abs(wl) < EPS, 0.0,
+                           -1.0 / np.where(np.abs(wl) < EPS, 1.0, wl))
+            i_l = (1j * y_l) * vd_l
         for k, name in enumerate(tensors.l_names):
             out[name] = i_l[:, k]
     for k, name in enumerate(tensors.v_names):
@@ -194,6 +251,10 @@ def _element_currents(tensors: CircuitTensors, freqs, x) -> dict[str, np.ndarray
         i_ph = tensors.i_ac_mag * np.exp(1j * iph)
         for k, name in enumerate(tensors.i_names):
             out[name] = np.full(x.shape[0], i_ph[k], dtype=np.complex128)
+    # T lines: the port-current phasors are branch unknowns (Branin)
+    for k, name in enumerate(tensors.t_names):
+        out[name] = x[:, tensors.t_idx[k, 4]]
+        out[f"{name}#p2"] = x[:, tensors.t_idx[k, 5]]
     return out
 
 
@@ -303,6 +364,56 @@ def small_signal_rows(tensors: CircuitTensors, op
             np.concatenate(vals, axis=0))
 
 
+def _bsource_small_signal(ckt: ParsedCircuit, tensors: CircuitTensors, op
+                          ) -> tuple[np.ndarray, np.ndarray]:
+    """Small-signal rows of the behavioral sources at the operating point,
+    shaped as VCCS rows so they ride the ext["g_*"] stamping, on the host.
+
+    I-kind: each reference partial dI/d(vref) is one 4-point
+    transconductance row across the source's nodes. V-kind: the source
+    owns a branch row (stamped as a 0 V short by the AC path, v1 - v2 =
+    0); its gradient couplings -dF/d(vref) target that row, as a VCCS
+    whose current rows are [branch, dump]: the dump half is sliced off,
+    leaving A[br, ref+-] -= g. Branch-current references read 0 here (the
+    operating point's branch currents are not in this padded vector), as
+    in the JAX package."""
+    dump = tensors.nvar
+    rows: list[list[int]] = []
+    vals: list[float] = []
+    for kind, i1, i2, br, refs, gs in bsource_gradients(ckt, tensors, op,
+                                                        dump):
+        for (a, b), g in zip(refs, gs):
+            if kind == "i":
+                rows.append([i1, i2, a, b])
+                vals.append(g)
+            else:
+                rows.append([br, dump, a, b])
+                vals.append(-g)
+    if not rows:
+        return np.zeros((0, 4), np.int32), np.zeros((0,))
+    return np.asarray(rows, np.int32), np.asarray(vals, np.float64)
+
+
+def bsource_gradients(ckt: ParsedCircuit, tensors: CircuitTensors, op,
+                      dump: int) -> list[tuple]:
+    """Each B source linearized at the operating point ``op``, in a system
+    whose ground slot is ``dump`` (AC: tensors.nvar, .tf: the op system's):
+    (kind, i1, i2, branch, refs, partials) with ``refs`` the reference
+    pairs of ``ir.circuit.bsrc_static`` and ``partials`` one float per
+    reference, ``bexpr_partials`` on float64 CPU tensors at the op's node
+    voltages (a branch reference reads 0)."""
+    x_pad = np.zeros(dump + 1)
+    for i, name in enumerate(tensors.node_names):
+        x_pad[i] = op.node_voltages[name]
+    out = []
+    for kind, fn, i1, i2, br, refs in bsrc_static(ckt, dump):
+        v = torch.as_tensor([x_pad[a] - x_pad[b] for a, b in refs],
+                            dtype=torch.float64)
+        gs = [float(g) for g in bexpr_partials(fn, v, 0.0)[1]]
+        out.append((kind, i1, i2, br, refs, gs))
+    return out
+
+
 def diode_smallsignal_caps(tensors: CircuitTensors, op
                            ) -> tuple[np.ndarray, np.ndarray]:
     """Junction capacitances C(v) at the operating point — diode TT/CJO
@@ -351,15 +462,17 @@ def diode_smallsignal_caps(tensors: CircuitTensors, op
             np.concatenate(caps))
 
 
-def op_linearized_extras(tensors: CircuitTensors, op
+def op_linearized_extras(ckt: ParsedCircuit, tensors: CircuitTensors, op
                          ) -> tuple[np.ndarray, ...]:
-    """The small-signal VCCS rows and the C rows with the junction
-    capacitances added, at the operating point ``op``: (ss_idx, ss_g,
-    c_idx, c_vals), host arrays. Shared by AC ``linearize="op"`` and
-    .noise. B sources, whose gradients the JAX package adds here
-    (``_bsource_small_signal``), are refused before (``op.check_ported_op``,
-    ROADMAP §1 item 2)."""
+    """The small-signal VCCS rows (the devices' and the B sources') and
+    the C rows with the junction capacitances added, at the operating
+    point ``op``: (ss_idx, ss_g, c_idx, c_vals), host arrays. Shared by AC
+    ``linearize="op"`` and .noise."""
     ss_idx, ss_g = small_signal_rows(tensors, op)
+    if ckt.B:
+        bs_idx, bs_g = _bsource_small_signal(ckt, tensors, op)
+        ss_idx = np.concatenate([ss_idx, bs_idx], axis=0)
+        ss_g = np.concatenate([ss_g, bs_g], axis=0)
     c_idx_eff, c_vals_eff = tensors.c_idx, tensors.c_vals
     cj_idx, cj_vals = diode_smallsignal_caps(tensors, op)
     if cj_idx.shape[0]:
@@ -368,24 +481,16 @@ def op_linearized_extras(tensors: CircuitTensors, op
     return ss_idx, ss_g, c_idx_eff, c_vals_eff
 
 
-def check_ported(tensors: CircuitTensors, method: str) -> None:
-    """Raise ``NotImplementedError`` for what the AC slice does not carry
-    yet, naming the ROADMAP item that brings it."""
-    if method == "schur":
-        raise NotImplementedError(
-            "the Schur tier is not ported yet (ROADMAP §1 item 6)")
-    if tensors.n_k:
-        raise NotImplementedError(
-            "K (mutual inductance) elements are not ported yet "
-            "(ROADMAP §1 item 2)")
-    if tensors.n_t:
-        raise NotImplementedError(
-            "T (transmission line) elements are not ported yet "
-            "(ROADMAP §1 item 2)")
-
-
 def index_tensor(a: np.ndarray, device: torch.device | str) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+
+def batched_tl(tl: dict | None) -> dict | None:
+    """The netlist's T lines (``ir.circuit.tl_arrays``) with a variants
+    axis of 1 on Z0/Td, as ``_assemble_grid`` takes them."""
+    if tl is None:
+        return None
+    return {"t_idx": tl["t_idx"], "z0": tl["z0"][None], "td": tl["td"][None]}
 
 
 def simulate_ac(
@@ -411,7 +516,7 @@ def simulate_ac(
         tensors = build_tensors(ckt)
     if linearize not in (None, "op"):
         raise ValueError("linearize must be None or 'op'")
-    check_ported(tensors, method)
+    check_ported(method)
     freqs = build_frequency_array(ckt.ac.mode, ckt.ac.N, ckt.ac.f1, ckt.ac.f2)
     v_idx_ac, v_re, v_im = ac_vsource_arrays(ckt, tensors)
     iph = tensors.i_ac_phase_deg * math.pi / 180.0
@@ -425,12 +530,11 @@ def simulate_ac(
     ext = ext_arrays(tensors, device, f64)
     c_idx_eff, c_vals_eff = tensors.c_idx, tensors.c_vals
     if linearize == "op":
-        from .op import check_ported_op, simulate_op
+        from .op import simulate_op
 
-        check_ported_op(ckt, tensors, method, "AC linearize='op'")
         op = simulate_op(ckt, tensors=tensors, method=method, device=device)
-        ss_idx, ss_g, c_idx_eff, c_vals_eff = op_linearized_extras(tensors,
-                                                                   op)
+        ss_idx, ss_g, c_idx_eff, c_vals_eff = op_linearized_extras(
+            ckt, tensors, op)
         ext["g_idx"] = torch.cat([ext["g_idx"],
                                   index_tensor(ss_idx, device)])
         ext["g_gm"] = torch.cat([ext["g_gm"], vals(ss_g)[0]])
@@ -446,6 +550,8 @@ def simulate_ac(
              for k, v in ext.items()},
         i_re=vals(tensors.i_ac_mag * np.cos(iph))[0],
         i_im=vals(tensors.i_ac_mag * np.sin(iph))[0],
+        lk=lk_arrays(tensors, device, f64),
+        tl=batched_tl(tl_arrays(tensors, device, f64)),
     )
     # one device->host transfer of the packed result
     packed = torch.cat([x_re[0], x_im[0], valid[0][:, None].to(f64)],

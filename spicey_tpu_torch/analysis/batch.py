@@ -11,21 +11,25 @@ API:
 
 Element names match case-insensitively. Voltage- and current-source
 overrides set the DC value (the whole time grid of a source without a
-waveform); overriding a waveform-driven source raises.
+waveform); overriding a waveform-driven source raises. A K element's name
+sweeps its coupling coefficient, and a T line's two parameters take
+suffixed keys: ``"t1.z0"`` sweeps its characteristic impedance, ``"t1.td"``
+its delay (the transient's history then covers the longest swept delay).
 
 Routes on a CUDA tensor, each solve a kernel launch (their plain versions
 on a CPU tensor), all in float64:
-  - AC, ``method="pallas"``, N <= 16: the fused full-solution kernel K7
-    (ops/mc_ac_fused.py), which builds and solves every (variant,
-    frequency) system on chip, so the (B*F, N, N+1) planes never exist
-    in device memory; every other AC deck assembles the planes in torch
-    and solves them with K1 (``analysis/ac._ac_sweep_core``);
+  - AC, ``method="pallas"``, N <= 16, no K coupling or T line: the fused
+    full-solution kernel K7 (ops/mc_ac_fused.py), which builds and solves
+    every (variant, frequency) system on chip, so the (B*F, N, N+1)
+    planes never exist in device memory; every other AC deck assembles
+    the planes in torch and solves them with K1
+    (``analysis/ac._ac_sweep_core``; a K deck's M^{-1} per variant by
+    K3);
   - the transient: the batched time loop of analysis/tran.py with a
-    (B,) lead, K2 every Newton pass, or K3 once for a linear deck.
+    (B,) lead, K2 every Newton pass, or K3 once for a linear deck (K and
+    T decks included; a B deck iterates Newton to convergence).
 V-kind B sources stamp as 0 V shorts in AC, as the JAX package's batch AC
-does. Not ported yet, each raising ``NotImplementedError`` with its
-ROADMAP item: K coupling, T lines, and B sources in the transient (§1
-item 2). ``time_parallel`` keeps the JAX package's switch, but "auto"
+does. ``time_parallel`` keeps the JAX package's switch, but "auto"
 and "never" both run the sequential loop until the time-parallel core is
 ported (item 3). The JAX package's ``device_put`` sharding hook (item 9)
 and ``interpret`` have no counterpart. Entry points run on the card
@@ -45,15 +49,15 @@ import torch
 
 from ..ir.circuit import (CircuitTensors, build_tensors, bv_branch_rows,
                           effective_time_step, ext_arrays, nl_arrays,
-                          sample_source_values)
+                          sample_source_values, tl_arrays)
+from ..ops.linsolve import check_ported
 from ..ops.mc_ac_fused import (FUSED_MAX_N, PackedPattern,
                                build_stamp_pattern, combine_values,
                                mc_ac_fused_x, pack_pattern)
 from ..parsing.netlist import ParsedCircuit, parse_netlist
 from ..utils.device import resolve_device
-from .ac import (_ac_sweep_core, build_frequency_array, check_ported,
-                 index_tensor)
-from .tran import _tran_core, check_ported_tran, tran_arrays, vt_scale_of
+from .ac import _ac_sweep_core, build_frequency_array, index_tensor
+from .tran import _tran_core, tran_arrays, vt_scale_of
 
 
 @dataclass
@@ -136,6 +140,42 @@ def _batched_nl(tensors: CircuitTensors, overrides, B: int,
     return nl
 
 
+def _batched_lk(tensors: CircuitTensors, overrides, B: int,
+                device: torch.device | str, dtype: torch.dtype
+                ) -> dict | None:
+    """The couplings with their coefficients tiled to (B, nK) + overrides
+    applied (a K element's name sweeps its coefficient), or None when the
+    deck has none."""
+    if tensors.n_k == 0:
+        return None
+    return {"k_pairs": torch.as_tensor(np.asarray(tensors.k_pairs, np.int64),
+                                       device=device),
+            "k_vals": torch.as_tensor(
+                _batch_values(tensors.k_vals, tensors.k_names, overrides, B),
+                dtype=dtype, device=device)}
+
+
+def _batched_tl(tensors: CircuitTensors, overrides, B: int,
+                device: torch.device | str, dtype: torch.dtype
+                ) -> dict | None:
+    """The T lines with Z0 and Td tiled to (B, nT) + overrides applied
+    (keys ``"<name>.z0"`` and ``"<name>.td"``), or None when the deck has
+    none."""
+    if tensors.n_t == 0:
+        return None
+    tl = tl_arrays(tensors, device, dtype)
+    for key, base in (("z0", tensors.t_z0), ("td", tensors.t_td)):
+        tl[key] = torch.as_tensor(_batch_values(
+            base, tuple(f"{n}.{key}" for n in tensors.t_names), overrides,
+            B), dtype=dtype, device=device)
+    return tl
+
+
+def _tl_names(tensors: CircuitTensors) -> tuple[str, ...]:
+    """The override keys of the T lines' parameters (suffixed)."""
+    return tuple(f"{n}.{p}" for n in tensors.t_names for p in ("z0", "td"))
+
+
 def _batch_size(overrides: dict[str, np.ndarray]) -> int:
     sizes = {np.asarray(v).shape[0] for v in overrides.values()}
     if len(sizes) != 1:
@@ -174,9 +214,12 @@ def _pad_v_phasors(ckt, v_re: torch.Tensor, v_im: torch.Tensor):
 def _fused_pattern(ckt: ParsedCircuit, tensors, method: str,
                    device: torch.device | str) -> PackedPattern | None:
     """Packed stamp pattern for the fused assemble+solve tier (K5, K7), or
-    None when ineligible: non-pallas methods, or N past FUSED_MAX_N (K and
-    T elements never reach here). Both precisions qualify."""
-    if method != "pallas" or not 0 < tensors.nvar <= FUSED_MAX_N:
+    None when ineligible (the JAX package's conditions, mc.py:617):
+    non-pallas methods, K coupling or T lines (the kernels know no
+    coupled inductance and no line), or N past FUSED_MAX_N. Both
+    precisions qualify."""
+    if (method != "pallas" or tensors.n_k or tensors.n_t
+            or not 0 < tensors.nvar <= FUSED_MAX_N):
         return None
     ext_idx = {"i_idx": tensors.i_idx, "g_idx": tensors.g_idx,
                "e_idx": tensors.e_idx, "f_idx": tensors.f_idx,
@@ -206,9 +249,10 @@ def simulate_ac_batch(
         raise ValueError("netlist has no .ac analysis")
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported(tensors, method)
+    check_ported(method)
     B = _batch_size(overrides)
     _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
+               tensors.k_names, _tl_names(tensors),
                tensors.v_names, tensors.i_names, tensors.g_names,
                tensors.e_names, tensors.f_names, tensors.h_names], overrides)
     r_vals = _batch_values(tensors.r_vals, tensors.r_names, overrides, B)
@@ -246,7 +290,9 @@ def simulate_ac_batch(
             index_tensor(tensors.c_idx, device), dev(c_vals),
             index_tensor(tensors.l_idx, device), dev(l_vals),
             index_tensor(_v_idx_ac(ckt, tensors), device), v_re, v_im,
-            tensors.nvar, method=method, ext=ext, i_re=i_re, i_im=i_im)
+            tensors.nvar, method=method, ext=ext, i_re=i_re, i_im=i_im,
+            lk=_batched_lk(tensors, overrides, B, device, f64),
+            tl=_batched_tl(tensors, overrides, B, device, f64))
         x = torch.complex(x_re, x_im)
     # one contiguous device->host copy of the complex128 solution
     return BatchACResult(freqs=freqs, node_names=tensors.node_names,
@@ -275,11 +321,12 @@ def simulate_tran_batch(
         raise ValueError("netlist has no .tran analysis")
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported_tran(ckt, tensors, method)
+    check_ported(method)
     if time_parallel not in ("auto", "never"):
         raise ValueError("time_parallel must be 'auto' or 'never'")
     B = _batch_size(overrides)
     _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
+               tensors.k_names, _tl_names(tensors),
                tensors.v_names, tensors.i_names, tensors.g_names,
                tensors.e_names, tensors.f_names, tensors.h_names,
                tensors.m_names, tensors.q_names], overrides)
@@ -289,9 +336,10 @@ def simulate_tran_batch(
         return torch.as_tensor(_batch_values(base, names, overrides, B),
                                dtype=f64, device=device)
 
-    # MOSFET/BJT Newton needs convergence iterations (see
-    # tran.simulate_tran; B sources, which also ask for it, are refused)
-    nr = "converged" if (tensors.n_m or tensors.n_q) else "spicey"
+    # MOSFET/BJT/behavioral Newton needs convergence iterations (see
+    # tran.simulate_tran)
+    nr = ("converged" if (tensors.n_m or tensors.n_q or ckt.B)
+          else "spicey")
     dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
     times = np.arange(steps + 1, dtype=np.float64) * dt
     vs = torch.as_tensor(sample_source_values(ckt, times), dtype=f64,
@@ -319,7 +367,10 @@ def simulate_tran_batch(
                       c_vals=vals(tensors.c_vals, tensors.c_names),
                       l_vals=vals(tensors.l_vals, tensors.l_names),
                       ext=_batched_ext(tensors, overrides, B, device, f64),
-                      nl=_batched_nl(tensors, overrides, B, device, f64))
+                      nl=_batched_nl(tensors, overrides, B, device, f64),
+                      lk=_batched_lk(tensors, overrides, B, device, f64),
+                      tl=_batched_tl(tensors, overrides, B, device, f64),
+                      ckt=ckt, dt=dt)
     xs, sw_states, valid, _carry = _tran_core(
         vs, dt, arr, tensors.nvar, method=method, nr=nr, lead=(B,),
         vt_scale=vt_scale_of(tensors, device, f64))

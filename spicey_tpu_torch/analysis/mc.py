@@ -14,10 +14,12 @@ APIs:
 AC routes on a CUDA tensor (every solve is a kernel launch):
   - ``method="pallas"``, N <= 16, no K/T: the fused assemble-and-solve
     kernel K5 (ops/mc_ac_fused.py), instantiated in the precision asked;
-  - everything else: batched torch assembly, then kernel K1 (ops/gj.py).
+  - everything else: batched torch assembly, then kernel K1 (ops/gj.py),
+    a K deck's M^{-1} per variant by K3.
 Transient routes, as the JAX package routes them:
   - ``method="pallas"``, ``precision="f32"``, BE, N <= 16, no
-    per-variant source values: the fused whole-transient kernels
+    per-variant source values, no K, T or B element: the fused
+    whole-transient kernels
     (ops/mc_tran_fused.py), K8 for a linear deck, K9 for a deck with
     switches, diodes, MOSFETs/JFETs or BJTs (junction charge included),
     with the reference's switch-stability exit for S/D decks and Newton
@@ -51,17 +53,18 @@ import torch
 
 from ..constants import EPS, MAX_NR_ITERS, VT_300K
 from ..ir.circuit import (build_tensors, effective_time_step, ext_arrays,
-                          nl_arrays, sample_source_values)
+                          lk_arrays, nl_arrays, sample_source_values,
+                          tl_arrays)
 from ..ops import mc_tran_fused as mtf
+from ..ops.linsolve import check_ported
 from ..ops.mc_ac_fused import PackedPattern, combine_values, mc_ac_fused
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
-from .ac import (_ac_sweep_core, build_frequency_array, check_ported,
-                 index_tensor)
+from .ac import _ac_sweep_core, build_frequency_array, index_tensor
 from .batch import (_batch_size, _batch_values, _batched_ext, _batched_nl,
-                    _consumed, _fused_pattern, _pad_v_phasors, _resolve,
-                    _v_idx_ac)
-from .tran import _tran_core, check_ported_tran, tran_arrays, vt_scale_of
+                    _batched_tl, _consumed, _fused_pattern, _pad_v_phasors,
+                    _resolve, _tl_names, _v_idx_ac)
+from .tran import _tran_core, tran_arrays, vt_scale_of
 
 _DTYPES = {"f64": torch.float64, "f32": torch.float32}
 
@@ -184,17 +187,24 @@ def _mc_ac_stats_core(freqs: torch.Tensor, idx: dict,
                       i_im: torch.Tensor, nvar: int, node_idx: int,
                       method: str, qs: tuple, chunk: int | None = None,
                       q_method: str = "exact",
-                      pattern: PackedPattern | None = None) -> torch.Tensor:
+                      pattern: PackedPattern | None = None,
+                      lk: dict | None = None, tl: dict | None = None
+                      ) -> torch.Tensor:
     """Solve every (variant, frequency) system, reduce over the variants.
 
     Values lead with the variants axis B; ``idx`` holds the r/c/l/v index
-    tensors. ``chunk`` solves the batch in blocks of that many variants,
-    bounding the solve buffers; only the (B, F) response accumulates.
-    Returns the packed statistics (see ``_pack_stats``)."""
+    tensors; ``lk`` the couplings (unbatched k) and ``tl`` the T lines
+    (Z0/Td (B, nT)) when the deck has them. ``chunk`` solves the batch in
+    blocks of that many variants, bounding the solve buffers; only the
+    (B, F) response accumulates. Returns the packed statistics (see
+    ``_pack_stats``)."""
 
     def solve_block(sl: slice) -> tuple[torch.Tensor, torch.Tensor]:
         ext_b = {k: (v if k.endswith("idx") else v[sl])
                  for k, v in ext.items()}
+        tl_b = (None if tl is None else
+                {"t_idx": tl["t_idx"], "z0": tl["z0"][sl],
+                 "td": tl["td"][sl]})
         if pattern is not None:
             vals = combine_values(r_vals[sl], c_vals[sl], l_vals[sl],
                                   v_re[sl], v_im[sl], ext=ext_b, i_re=i_re,
@@ -203,7 +213,7 @@ def _mc_ac_stats_core(freqs: torch.Tensor, idx: dict,
         x_re, x_im, valid = _ac_sweep_core(
             freqs, idx["r"], r_vals[sl], idx["c"], c_vals[sl], idx["l"],
             l_vals[sl], idx["v"], v_re[sl], v_im[sl], nvar, method=method,
-            ext=ext_b, i_re=i_re, i_im=i_im)
+            ext=ext_b, i_re=i_re, i_im=i_im, lk=lk, tl=tl_b)
         xr, xi = x_re[..., node_idx], x_im[..., node_idx]
         return torch.sqrt(xr * xr + xi * xi), valid
 
@@ -232,9 +242,10 @@ def _run(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
          c_vals: torch.Tensor, l_vals: torch.Tensor, ext: dict,
          node: str, quantiles, method: str, fdt: torch.dtype,
          chunk: int | None, quantile_method: str,
-         device: torch.device | str) -> MCStats:
+         device: torch.device | str, tl: dict | None = None) -> MCStats:
     """Shared tail of mc_ac_stats and mc_ac_sampled: drive phasors,
-    index tensors, the route, the core, one transfer to the host."""
+    index tensors, the route, the core, one transfer to the host. ``tl``:
+    the T lines, Z0/Td tiled to the variants."""
     B = r_vals.shape[0]
     freqs = build_frequency_array(ckt.ac.mode, ckt.ac.N, ckt.ac.f1, ckt.ac.f2)
     ph = tensors.v_ac_phase_deg * math.pi / 180.0
@@ -259,7 +270,8 @@ def _run(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
         i_re, i_im, tensors.nvar, node_idx, method,
         tuple(float(q) for q in quantiles), chunk=chunk,
         q_method=quantile_method,
-        pattern=_fused_pattern(ckt, tensors, method, device))
+        pattern=_fused_pattern(ckt, tensors, method, device),
+        lk=lk_arrays(tensors, device, fdt), tl=tl)
     res = _unpack_stats(packed.cpu().numpy(), tuple(quantiles), freqs)
     res.n_total = B
     return res
@@ -295,10 +307,11 @@ def mc_ac_stats(
         raise ValueError("netlist has no .ac analysis")
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported(tensors, method)
+    check_ported(method)
     fdt = _check_args(precision, quantile_method)
     B = _batch_size(overrides)
     _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
+               _tl_names(tensors),
                tensors.v_names, tensors.i_names, tensors.g_names,
                tensors.e_names, tensors.f_names, tensors.h_names], overrides)
     r_vals = _batch_values(tensors.r_vals, tensors.r_names, overrides, B)
@@ -312,7 +325,8 @@ def mc_ac_stats(
 
     return _run(ckt, tensors, dev(r_vals), dev(c_vals), dev(l_vals),
                 _batched_ext(tensors, overrides, B, device, fdt), node,
-                quantiles, method, fdt, chunk, quantile_method, device)
+                quantiles, method, fdt, chunk, quantile_method, device,
+                tl=_batched_tl(tensors, overrides, B, device, fdt))
 
 
 def _sample_targets(tensors, spreads: dict[str, float]) -> list[tuple]:
@@ -382,7 +396,7 @@ def mc_ac_sampled(
         raise ValueError("netlist has no .ac analysis")
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported(tensors, method)
+    check_ported(method)
     fdt = _check_args(precision, quantile_method)
     targets = _sample_targets(tensors, spreads)
     gen = torch.Generator(device=device)
@@ -392,7 +406,8 @@ def mc_ac_sampled(
     vals = _spread_values(tensors, targets, z, dist)
     return _run(ckt, tensors, vals["r"], vals["c"], vals["l"],
                 _batched_ext(tensors, {}, B, device, fdt), node, quantiles,
-                method, fdt, chunk, quantile_method, device)
+                method, fdt, chunk, quantile_method, device,
+                tl=_batched_tl(tensors, {}, B, device, fdt))
 
 
 def _fused_tran_pattern(ckt: ParsedCircuit, tensors, method: str,
@@ -400,13 +415,15 @@ def _fused_tran_pattern(ckt: ParsedCircuit, tensors, method: str,
                         device: torch.device) -> mtf.TranPattern | None:
     """Packed pattern for the fused whole-transient tier, or None when the
     JAX package's eligibility (mc.py:484-522) fails: the pallas method at
-    f32, BE, no per-variant source values, 0 < N <= 16 (K/T/B decks
-    raise before this). A linear pattern runs K8, one with switches,
-    diodes, MOSFETs or BJTs (and their junction charge) K9. The TPU's
-    SMEM source-grid budget has no counterpart: the kernels read the grid
-    from device memory."""
+    f32, BE, no per-variant source values, no K coupling, T line or B
+    source (the kernels know no coupled inductance, no line history and
+    no expression), 0 < N <= 16. A linear pattern runs K8, one with
+    switches, diodes, MOSFETs or BJTs (and their junction charge) K9.
+    The TPU's SMEM source-grid budget has no counterpart: the kernels
+    read the grid from device memory."""
     if (method != "pallas" or precision != "f32" or vs_batched
             or integration != "be"
+            or tensors.n_k or tensors.n_t or ckt.B
             or not 0 < tensors.nvar <= mtf.FUSED_MAX_N):
         return None
     ext_idx = {"i_idx": tensors.i_idx, "g_idx": tensors.g_idx,
@@ -464,11 +481,13 @@ def tran_value_slab(tensors, r_vals: torch.Tensor, c_vals: torch.Tensor,
     return torch.cat(cols, dim=1).T.to(torch.float32).contiguous()
 
 
-def _nr_mode(tensors) -> tuple[str, int]:
+def _nr_mode(tensors, ckt: ParsedCircuit | None = None
+             ) -> tuple[str, int]:
     """The Newton exit and pass limit the JAX package gives a deck:
-    MOSFETs/BJTs iterate to convergence (50 passes), the reference's set
-    exits on switch stability (20 passes, simulateTRAN.ts:151)."""
-    if tensors.n_m or tensors.n_q:
+    MOSFETs/BJTs and B sources (those of ``ckt``) iterate to convergence
+    (50 passes), the reference's set exits on switch stability (20
+    passes, simulateTRAN.ts:151)."""
+    if tensors.n_m or tensors.n_q or (ckt is not None and ckt.B):
         return "converged", 50
     return "spicey", MAX_NR_ITERS
 
@@ -492,7 +511,8 @@ def _slice_arrays(tree: object, sl: slice, B: int) -> object:
     tensor that leads with the B variants cut to ``sl``; index tensors and
     unbatched values pass whole."""
     if isinstance(tree, dict):
-        return {k: (v if k.endswith("idx") else _slice_arrays(v, sl, B))
+        return {k: (v if k.endswith(("idx", "pairs"))
+                    else _slice_arrays(v, sl, B))
                 for k, v in tree.items()}
     if isinstance(tree, torch.Tensor) and tree.ndim >= 2 \
             and tree.shape[0] == B:
@@ -532,12 +552,12 @@ def _mc_tran_stats_core(vs_grid: torch.Tensor, dt: float, arr: dict,
                        valid.sum())
 
 
-def _check_tran_args(ckt: ParsedCircuit, tensors, method: str,
+def _check_tran_args(ckt: ParsedCircuit, method: str,
                      precision: str, quantile_method: str,
                      time_parallel: str, integration: str) -> torch.dtype:
     if ckt.tran is None:
         raise ValueError("netlist has no .tran analysis")
-    check_ported_tran(ckt, tensors, method)
+    check_ported(method)
     if time_parallel not in ("auto", "never"):
         raise ValueError("time_parallel must be 'auto' or 'never'")
     if integration not in ("be", "trap", "gear2"):
@@ -550,9 +570,11 @@ def _run_tran(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
               nl: dict, vs_grid: np.ndarray, times: np.ndarray, dt: float,
               v_over: dict, node: str, quantiles, method: str,
               precision: str, integration: str, chunk: int | None,
-              quantile_method: str, device: torch.device) -> MCStats:
+              quantile_method: str, device: torch.device,
+              tl: dict | None = None) -> MCStats:
     """Shared tail of mc_tran_stats and mc_tran_sampled: per-variant
-    source values, the route, the core, one transfer to the host."""
+    source values, the route, the core, one transfer to the host.
+    ``tl``: the T lines (Z0/Td batched or not), None without."""
     fdt = _DTYPES[precision]
     B = r_vals.shape[0]
     node_idx = [n.upper() for n in tensors.node_names].index(node.upper())
@@ -569,7 +591,7 @@ def _run_tran(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
                     f"cannot override waveform-driven source {key!r}")
             vs[:, :, i] = torch.as_tensor(np.asarray(vals, np.float64),
                                           dtype=fdt, device=device)
-    nr, max_nr = _nr_mode(tensors)
+    nr, max_nr = _nr_mode(tensors, ckt)
     pattern = _fused_tran_pattern(ckt, tensors, method, precision,
                                   integration, bool(v_over), device)
     if pattern is not None:
@@ -585,7 +607,8 @@ def _run_tran(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
 
         arr = tran_arrays(tensors, device, fdt, r_vals=r_vals.to(fdt),
                           c_vals=c_vals.to(fdt), l_vals=l_vals.to(fdt),
-                          ext=cast(ext), nl=cast(nl))
+                          ext=cast(ext), nl=cast(nl), tl=tl, ckt=ckt,
+                          dt=dt)
         packed = _mc_tran_stats_core(
             vs, dt, arr, tensors.nvar, node_idx, method, qs,
             integration=integration, chunk=chunk, q_method=quantile_method,
@@ -629,10 +652,11 @@ def mc_tran_stats(
     ckt = _resolve(circuit, dialect=dialect)
     if tensors is None:
         tensors = build_tensors(ckt)
-    fdt = _check_tran_args(ckt, tensors, method, precision, quantile_method,
+    fdt = _check_tran_args(ckt, method, precision, quantile_method,
                            time_parallel, integration)
     B = _batch_size(overrides)
     _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
+               _tl_names(tensors),
                tensors.v_names, tensors.i_names, tensors.g_names,
                tensors.e_names, tensors.f_names, tensors.h_names,
                tensors.m_names, tensors.q_names], overrides)
@@ -653,7 +677,8 @@ def mc_tran_stats(
         sample_source_values(ckt, times), times, dt,
         {k: v for k, v in overrides.items() if k.lower() in v_lower},
         node, quantiles, method, precision, integration, chunk,
-        quantile_method, device)
+        quantile_method, device,
+        tl=_batched_tl(tensors, overrides, B, device, fdt))
 
 
 def mc_tran_sampled(
@@ -684,7 +709,7 @@ def mc_tran_sampled(
     ckt = _resolve(circuit, dialect=dialect)
     if tensors is None:
         tensors = build_tensors(ckt)
-    fdt = _check_tran_args(ckt, tensors, method, precision, quantile_method,
+    fdt = _check_tran_args(ckt, method, precision, quantile_method,
                            time_parallel, integration)
     targets = _sample_targets(tensors, spreads)
     gen = torch.Generator(device=device)
@@ -699,4 +724,5 @@ def mc_tran_sampled(
                      nl_arrays(tensors, device, fdt),
                      sample_source_values(ckt, times), times, dt, {}, node,
                      quantiles, method, precision, integration, chunk,
-                     quantile_method, device)
+                     quantile_method, device,
+                     tl=tl_arrays(tensors, device, fdt))

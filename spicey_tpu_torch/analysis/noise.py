@@ -37,8 +37,12 @@ package plans a Schur partition there and retries dense, and the port's
 answer is that dense one. The structured route and the automatic Schur
 dispatch wait for the Schur tier (item 6).
 
-Not ported yet, each raising ``NotImplementedError``: K coupling, T lines
-and B sources (§1 item 2), the Schur tier (item 6).
+B sources are noiseless (ngspice semantics) but their gradients at the
+operating point shape the transfer (``ac._bsource_small_signal``); K
+couplings and T lines enter the systems as in AC (analysis/ac.py), and a
+singular coupled-inductance matrix raises before any solve, as the JAX
+package checks it (``_mutual_ok_np``). Not ported yet, raising
+``NotImplementedError``: the Schur tier (item 6).
 """
 
 from __future__ import annotations
@@ -50,16 +54,17 @@ import torch
 
 from ..constants import EPS, K_BOLTZMANN, Q_ELECTRON, T_NOISE
 from ..ir.circuit import (CircuitTensors, build_tensors, bv_branch_rows,
-                          ext_arrays)
+                          ext_arrays, lk_arrays, tl_arrays)
 from ..models.devices import bjt_ebers_moll, mos_level1
-from ..ops.linsolve import _check_method, inverse_planes, solve_planes
+from ..ops.linsolve import (_check_method, check_ported, inverse_planes,
+                            solve_planes)
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
-from .ac import (_assemble_grid, _op_voltage_pad, build_frequency_array,
-                 find_input_source, format_out_spec, index_tensor,
-                 op_linearized_extras)
-from .op import check_ported_op, simulate_op
-from .tran import _host, _mv
+from .ac import (_assemble_grid, _op_voltage_pad, batched_tl,
+                 build_frequency_array, find_input_source, format_out_spec,
+                 index_tensor, op_linearized_extras)
+from .op import simulate_op
+from .tran import _host, _mutual_inv, _mv
 
 RESIDUAL_RTOL = 1e-12  # the JAX pallas tier's guard (pallas_gj.py:696-699)
 
@@ -254,7 +259,8 @@ def noise_system(ckt: ParsedCircuit, tensors: CircuitTensors, op,
     # small-signal VCCS rows, and the junction capacitances at the op
     # point that shape the transfer (the noise system is op-linearized by
     # definition)
-    ss_idx, ss_g, c_idx_eff, c_vals_eff = op_linearized_extras(tensors, op)
+    ss_idx, ss_g, c_idx_eff, c_vals_eff = op_linearized_extras(ckt, tensors,
+                                                               op)
 
     # unit excitation at the input source only (all other sources zeroed)
     v_unit = np.zeros(tensors.n_v)
@@ -283,6 +289,9 @@ def noise_system(ckt: ParsedCircuit, tensors: CircuitTensors, op,
     ext = ext_arrays(tensors, device, f64)
     ext["g_idx"] = torch.cat([ext["g_idx"], index_tensor(ss_idx, device)])
     ext["g_gm"] = torch.cat([ext["g_gm"], vals(ss_g)[0]])
+    lk = lk_arrays(tensors, device, f64)
+    minv = (None if lk is None
+            else _mutual_inv(vals(tensors.l_vals), lk)[0])
     planes = _assemble_grid(
         torch.as_tensor(freqs, dtype=f64, device=device),
         index_tensor(tensors.r_idx, device), vals(tensors.r_vals),
@@ -292,9 +301,30 @@ def noise_system(ckt: ParsedCircuit, tensors: CircuitTensors, op,
         vals(np.zeros(v_unit.shape[0])), nvar,
         ext={k: (v if k.endswith("idx") else v[None])
              for k, v in ext.items()},
-        i_re=vals(i_unit)[0], i_im=vals(np.zeros(tensors.n_i))[0])
+        i_re=vals(i_unit)[0], i_im=vals(np.zeros(tensors.n_i))[0],
+        minv=minv, tl=batched_tl(tl_arrays(tensors, device, f64)))
     return (freqs, tuple(p[0] for p in planes), vals(e_pad[:nvar]), out_p,
             out_n)
+
+
+def _mutual_ok_np(tensors: CircuitTensors) -> bool:
+    """The JAX package's host singularity test of the coupled-inductance
+    matrix (``interp._mutual_inv_np``): M = diag(L) + offdiag(k_ab
+    sqrt(L_a L_b)) factored by partial-pivot LU; False when a pivot falls
+    below EPS (|k| = 1 makes M singular)."""
+    lu = np.diag(tensors.l_vals.astype(np.float64))
+    a, b = tensors.k_pairs[:, 0], tensors.k_pairs[:, 1]
+    m = tensors.k_vals * np.sqrt(tensors.l_vals[a] * tensors.l_vals[b])
+    lu[a, b] += m
+    lu[b, a] += m
+    for k in range(tensors.n_l):
+        piv = int(np.argmax(np.abs(lu[k:, k]))) + k
+        if not abs(lu[piv, k]) >= EPS:
+            return False
+        lu[[k, piv]] = lu[[piv, k]]
+        f = lu[k + 1:, k] / lu[k, k]
+        lu[k + 1:, k + 1:] -= f[:, None] * lu[k, k + 1:]
+    return True
 
 
 def simulate_noise(
@@ -313,8 +343,10 @@ def simulate_noise(
         return None
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported_op(ckt, tensors, method, ".noise")
+    check_ported(method)
     _check_method(method)
+    if tensors.n_k and not _mutual_ok_np(tensors):
+        raise ValueError("Singular coupled-inductance matrix in .noise")
     spec = ckt.noise
     nvar = tensors.nvar
     if op is None:

@@ -12,7 +12,12 @@ analysis; its ``.op`` lines land in ``skipped``):
     transient engine's absolute clamp, MOSFETs by Newton on the level-1
     companion, run to convergence: |dx| <= tol * (1 + |x|) and no switch
     toggled;
-  - switches by the transient engine's hysteresis update, starting OFF.
+  - switches by the transient engine's hysteresis update, starting OFF;
+  - T lines at DC: the theta -> 0 Branin steady state, a differential
+    short (the port rows plus the far-end coupling at c = -1);
+  - B sources at t = 0, linearized every pass as in the transient
+    (tran._stamp_bsources); K couplings change nothing at DC, where the
+    inductors are shorts.
 
 The JAX ``while_loop`` is a Python loop of at most ``max_iters`` passes
 with a per-lane ``done`` mask, shaped like the transient's Newton loop: one
@@ -30,10 +35,10 @@ does on a deck with no subcircuit structure. On a subcircuit board the JAX
 package plans a Schur partition there and retries dense where the block
 pivots fail; the port's answer is its dense one.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-K coupling, T lines and B sources (§1 item 2); the Schur tier
-(``method="schur"``, and with it the structured route and the automatic
-Schur dispatch on subcircuit boards past N = 128, item 6). The JAX
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item: the
+Schur tier (``method="schur"``, and with it the structured route and the
+automatic Schur dispatch on subcircuit boards past N = 128, item 6). The
+JAX
 package's host interp tier and its measured
 ``newton_tol_floor`` probe are TPU machinery (item 10): the tolerance floor
 keeps its dtype term, 16 ulps.
@@ -48,14 +53,17 @@ import numpy as np
 import torch
 
 from ..constants import EPS, GMIN, VT_300K
-from ..ir.circuit import CircuitTensors, build_tensors, ext_arrays, nl_arrays
+from ..ir.circuit import (CircuitTensors, bsrc_refs, bsrc_static,
+                          build_tensors, ext_arrays, nl_arrays, tl_arrays)
 from ..models.devices import bjt_ebers_moll, mos_level1
-from ..ops.linsolve import solve
+from ..ops.linsolve import check_ported, solve
 from ..ops.stamps import (pad_solution, stamp_admittance, stamp_current,
-                          stamp_extended, stamp_voltage_source)
+                          stamp_extended, stamp_tline_coupling,
+                          stamp_tline_ports, stamp_voltage_source)
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
-from .tran import _host, _nl_index_sets, _stamp_nonlinear, _switch_update
+from .tran import (_host, _nl_index_sets, _stamp_bsources, _stamp_nonlinear,
+                   _switch_update, prepare_bsources)
 
 
 @dataclass
@@ -118,6 +126,9 @@ def _op_core(arr: dict, v_dc: torch.Tensor, i_dc: torch.Tensor,
     s_on_r = 1.0 / arr["s_ron"].abs().clamp_min(EPS)
     s_off_r = 1.0 / arr["s_roff"].abs().clamp_min(EPS)
     l_zero = torch.zeros(arr["l_bidx"].shape[0], dtype=dtype, device=dev)
+    tl = arr.get("tl")
+    tl_c = None if tl is None else -torch.ones_like(tl["z0"])
+    bsrc = arr.get("bsrc_t", [])
 
     def assemble(x, sw_on, vjd, vjq):
         A = torch.zeros(lead + (nvar_op + 1, nvar_op + 1), dtype=dtype,
@@ -134,6 +145,11 @@ def _op_core(arr: dict, v_dc: torch.Tensor, i_dc: torch.Tensor,
         stamp_voltage_source(A, b, arr["v_idx"], v_dc)
         stamp_current(b, arr["ext"]["i_idx"], i_dc)
         stamp_extended(A, arr["ext"])
+        if tl is not None:
+            # a line at DC: the theta -> 0 steady state, a differential
+            # short (v and i equal across the ports)
+            stamp_tline_ports(A, tl["t_idx"], tl["z0"])
+            stamp_tline_coupling(A, tl["t_idx"], tl["z0"], tl_c)
         stamp_admittance(A, s_idx[:, :2], torch.where(sw_on, s_on_r, s_off_r))
         x_pad = pad_solution(x, nvar_op)
         vd = x_pad[..., d_idx[:, 0]] - x_pad[..., d_idx[:, 1]]
@@ -154,6 +170,8 @@ def _op_core(arr: dict, v_dc: torch.Tensor, i_dc: torch.Tensor,
         # MOSFET/BJT companions at the current iterate (it=1: no
         # previous-timestep seed)
         _stamp_nonlinear(A, b, nl, sets, x_pad, 1, None, None, vq_lim=vq_lim)
+        if bsrc:  # behavioral sources at t = 0
+            _stamp_bsources(A, b, bsrc, x_pad, 0.0)
         return (A[..., :nvar_op, :nvar_op], b[..., :nvar_op], vd_lim,
                 vq_lim)
 
@@ -221,27 +239,13 @@ def _op_indices(tensors: CircuitTensors):
     return nvar_op, remap, l_bidx, v_idx_op
 
 
-def check_ported_op(ckt: ParsedCircuit, tensors: CircuitTensors,
-                    method: str, what: str = "the operating point") -> None:
-    """Raise ``NotImplementedError`` for what the operating-point slice
-    does not carry yet, naming the ROADMAP item that brings it."""
-    if method == "schur":
-        raise NotImplementedError(
-            "the Schur tier is not ported yet (ROADMAP §1 item 6)")
-    for kind, present in (("K (mutual inductance) elements", tensors.n_k),
-                          ("T (transmission line) elements", tensors.n_t),
-                          ("B (behavioral) sources", len(ckt.B))):
-        if present:
-            raise NotImplementedError(
-                f"{kind} are not ported to {what} yet (ROADMAP §1 item 2)")
-
-
-def _op_arrays(tensors: CircuitTensors, device: torch.device,
-               dtype: torch.dtype, ext: dict | None = None,
-               nl: dict | None = None) -> dict:
+def _op_arrays(ckt: ParsedCircuit, tensors: CircuitTensors,
+               device: torch.device, dtype: torch.dtype,
+               ext: dict | None = None, nl: dict | None = None) -> dict:
     """The op system's index tensors (int64, remapped to its dump slot)
-    and its fixed value tensors; ``ext``/``nl`` default to the netlist's
-    (unbatched), ``op_batch`` passes batched ones."""
+    and its fixed value tensors, the T lines and the prepared B sources
+    of ``ckt``; ``ext``/``nl`` default to the netlist's (unbatched),
+    ``op_batch`` passes batched ones."""
     nvar_op, remap, l_bidx, v_idx_op = _op_indices(tensors)
     dump = nvar_op
 
@@ -267,10 +271,13 @@ def _op_arrays(tensors: CircuitTensors, device: torch.device,
                 else ext),
         "nl": (nl_arrays(tensors, device, dtype, dump=dump) if nl is None
                else nl),
+        "tl": tl_arrays(tensors, device, dtype, dump=dump),
+        "bsrc_t": prepare_bsources(bsrc_static(ckt, nvar_op), device),
     }
 
 
-def _run_op_core(tensors: CircuitTensors, v_dc: np.ndarray,
+def _run_op_core(ckt: ParsedCircuit, tensors: CircuitTensors,
+                 v_dc: np.ndarray,
                  i_dc: np.ndarray, r_vals: np.ndarray, max_iters: int,
                  tol: float, method: str, device: torch.device,
                  ext: dict | None = None, nl: dict | None = None,
@@ -286,7 +293,7 @@ def _run_op_core(tensors: CircuitTensors, v_dc: np.ndarray,
                                device=device)
 
     return _op_core(
-        _op_arrays(tensors, device, f64, ext=ext, nl=nl), val(v_dc),
+        _op_arrays(ckt, tensors, device, f64, ext=ext, nl=nl), val(v_dc),
         val(i_dc), val(r_vals), tensors.nvar + tensors.n_l,
         max_iters=max_iters, tol=tol, method=method,
         lead=() if batch is None else (batch,),
@@ -312,7 +319,7 @@ def simulate_op(
     device = resolve_device(device)
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported_op(ckt, tensors, method)
+    check_ported(method)
     nvar_op, remap, _l_bidx, _v_idx_op = _op_indices(tensors)
 
     x0 = None
@@ -327,7 +334,7 @@ def simulate_op(
 
     def attempt(x_seed, v_scale=1.0, gshunt=None):
         x_a, sw_a, ok_a, _ = _run_op_core(
-            tensors, tensors.v_dc * v_scale, tensors.i_dc * v_scale,
+            ckt, tensors, tensors.v_dc * v_scale, tensors.i_dc * v_scale,
             tensors.r_vals, max_iters, tol, method, device, x0=x_seed,
             gshunt=gshunt)
         # one device->host transfer of [x | switch states | ok]
@@ -429,6 +436,18 @@ def _op_epilogue(ckt: ParsedCircuit, tensors: CircuitTensors, x: np.ndarray,
                     tensors.q_polarity * vbe, tensors.q_polarity * vbc)[7]
         for k, name in enumerate(tensors.q_names):
             currents[name] = float(i_c[k])
+    # behavioral sources: a V-kind source's current is its branch
+    # unknown, an I-kind source's its expression at the solution (t = 0)
+    for b_el in ckt.B:
+        if b_el.kind == "v":
+            currents[b_el.name] = float(x[b_el.index])
+        else:
+            refs = np.asarray(bsrc_refs(b_el, len(x)), np.int64).reshape(-1, 2)
+            currents[b_el.name] = float(
+                b_el.fn(x_pad[refs[:, 0]] - x_pad[refs[:, 1]], 0.0))
+    for k, name in enumerate(tensors.t_names):
+        currents[name] = float(x[tensors.t_idx[k, 4]])
+        currents[f"{name}#p2"] = float(x[tensors.t_idx[k, 5]])
     return OPResult(node_voltages=node_voltages, element_currents=currents,
                     switch_states=switch_states)
 
@@ -452,7 +471,8 @@ class DCResult:
     passes: np.ndarray | None = None        # (B,) Newton passes per point
 
 
-def _batched_op(tensors: CircuitTensors, v_dc: np.ndarray, i_dc: np.ndarray,
+def _batched_op(ckt: ParsedCircuit, tensors: CircuitTensors,
+                v_dc: np.ndarray, i_dc: np.ndarray,
                 r_vals: np.ndarray, B: int, max_iters: int, tol: float,
                 method: str, device: torch.device, ext: dict | None = None,
                 nl: dict | None = None
@@ -461,7 +481,7 @@ def _batched_op(tensors: CircuitTensors, v_dc: np.ndarray, i_dc: np.ndarray,
     [x | valid | passes]. Returns host (x (B, nvar_op), valid, passes)."""
     nvar_op = tensors.nvar + tensors.n_l
     x, _sw, valid, passes = _run_op_core(
-        tensors, v_dc, i_dc, r_vals, max_iters, tol, method, device,
+        ckt, tensors, v_dc, i_dc, r_vals, max_iters, tol, method, device,
         ext=ext, nl=nl, batch=B)
     packed = torch.cat([x, valid[:, None].to(x.dtype),
                         passes[:, None].to(x.dtype)], dim=1).cpu().numpy()
@@ -485,7 +505,7 @@ def simulate_dc(
         return None
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported_op(ckt, tensors, method, "the .dc sweep")
+    check_ported(method)
     spec = ckt.dc
     n1 = int(np.floor((spec.stop - spec.start) / spec.step + 0.5)) + 1
     grid1 = spec.start + spec.step * np.arange(n1)
@@ -521,8 +541,8 @@ def simulate_dc(
         place(sweep2, spec.src2.upper(), spec.src2)
 
     _nvar_op, remap, _l_bidx, _v_idx_op = _op_indices(tensors)
-    x, valid, passes = _batched_op(tensors, v_dc, i_dc, tensors.r_vals, B,
-                                   max_iters, _tol_floor(tol), method,
+    x, valid, passes = _batched_op(ckt, tensors, v_dc, i_dc, tensors.r_vals,
+                                   B, max_iters, _tol_floor(tol), method,
                                    device)
     x_pad = np.concatenate([x, np.zeros((B, 1))], axis=1)
 
@@ -597,7 +617,7 @@ def op_batch(
     ckt = _resolve(circuit, dialect=dialect)
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported_op(ckt, tensors, method, "op_batch")
+    check_ported(method)
     B = _batch_size(overrides)
     _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
                tensors.v_names, tensors.i_names, tensors.g_names,
@@ -615,8 +635,9 @@ def op_batch(
                     if k.endswith("idx") else v) for k, v in arrays.items()}
 
     x, valid, passes = _batched_op(
-        tensors, v_dc, i_dc, r_vals, B, max_iters, _tol_floor(tol), method,
-        device, ext=remapped(_batched_ext(tensors, overrides, B, device, f64)),
+        ckt, tensors, v_dc, i_dc, r_vals, B, max_iters, _tol_floor(tol),
+        method, device,
+        ext=remapped(_batched_ext(tensors, overrides, B, device, f64)),
         nl=remapped(_batched_nl(tensors, overrides, B, device, f64)))
     return BatchOPResult(node_names=tensors.node_names, x=x, valid=valid,
                          passes=passes)

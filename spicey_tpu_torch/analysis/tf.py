@@ -13,8 +13,10 @@ The linearized conductance matrix is assembled on the host in NumPy in the
 ``.op`` unknown ordering (op.py), as the JAX package assembles it; both
 right-hand sides, the unit input excitation and the unit output current
 probe, go to the device in ONE batched real solve (kernel K2 on the card).
-B sources (§1 item 2) and the Schur tier (item 6) raise
-``NotImplementedError`` through ``op.check_ported_op``.
+B sources linearize at the operating point, I-kind as VCCS rows, V-kind
+as their branch row with the gradient couplings (the Newton loop's
+decomposition; ``bexpr_partials`` on float64 CPU tensors). The Schur tier
+(item 6) raises ``NotImplementedError`` through ``ops/linsolve.check_ported``.
 """
 
 from __future__ import annotations
@@ -26,11 +28,12 @@ import torch
 
 from ..constants import EPS
 from ..ir.circuit import CircuitTensors, build_tensors
-from ..ops.linsolve import solve
+from ..ops.linsolve import check_ported, solve
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
-from .ac import find_input_source, format_out_spec, small_signal_rows
-from .op import _op_indices, check_ported_op, simulate_op
+from .ac import (bsource_gradients, find_input_source, format_out_spec,
+                 small_signal_rows)
+from .op import _op_indices, simulate_op
 
 
 @dataclass
@@ -65,7 +68,7 @@ def simulate_tf(
         return None
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported_op(ckt, tensors, method, ".tf")
+    check_ported(method)
 
     spec = ckt.tf
     if op is None:
@@ -129,6 +132,23 @@ def simulate_tf(
     # nonlinear devices (diode/switch/MOSFET/BJT) as small-signal VCCS
     ss_idx, ss_g = small_signal_rows(tensors, op)
     vccs(remap(ss_idx), ss_g)
+    if ckt.B:
+        # behavioral sources at the operating point, the Newton loop's
+        # decomposition: I-kind as VCCS rows, V-kind as their branch row
+        # with the gradient couplings
+        for kind, i1, i2, br, refs, gs in bsource_gradients(
+                ckt, tensors, op, nvar_op):
+            if kind == "i":
+                for (a, b2), g in zip(refs, gs):
+                    vccs(np.asarray([[i1, i2, a, b2]]), np.asarray([g]))
+            else:
+                A[i1, br] += 1.0
+                A[i2, br] -= 1.0
+                A[br, i1] += 1.0
+                A[br, i2] -= 1.0
+                for (a, b2), g in zip(refs, gs):
+                    A[br, a] -= g
+                    A[br, b2] += g
     A = A[:nvar_op, :nvar_op]
 
     # RHS 1: unit input excitation (all other sources stay zeroed)

@@ -35,6 +35,24 @@ the true one). A deck with MOSFETs or BJTs iterates to convergence
 ``integration="trap"|"gear2"`` and ``nr="converged"`` are the JAX
 package's.
 
+The extended K, T and B elements are the JAX package's too:
+  - K-coupled inductors: the per-inductor companion c/L becomes the
+    matrix companion c * M^{-1}, M = diag(L) + k sqrt(L_a L_b) on the
+    coupled pairs, inverted once per run per variant (``_mutual_inv``,
+    kernel K3 on the card); a singular M (perfect coupling, |k| = 1)
+    flags the run invalid;
+  - T lines (Branin's method of characteristics): two port-current
+    unknowns per line, Z0 rows in the matrix and the delayed far-end
+    Thevenin sources in the RHS, read by linear interpolation from a
+    circular history buffer of the port waves w = v + Z0 i (``(lead, H,
+    nT, 2)``, H covering the longest delay); a batch may sweep each
+    line's Z0 and Td;
+  - B sources: each Newton pass linearizes the expression at the iterate,
+    its value and per-reference partials (parsing/bexpr.py) stamping as
+    VCCS rows plus a current injection (I-kind) or as the branch row of
+    v(n+) - v(n-) = f (V-kind); a deck with B sources iterates Newton to
+    convergence and never factors once.
+
 Past N = 128 ``method="gj"`` solves dense on every deck (K2 or K3 in a global
 workspace where a system overflows shared memory), as the JAX package does
 on a deck with no subcircuit structure; on a subcircuit board the JAX
@@ -42,9 +60,8 @@ package plans a Schur partition there and retries dense, and the port's
 answer is that dense one. The structured route and the automatic Schur
 dispatch wait for the Schur tier (item 6).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: K coupling, T lines and B sources (§1 item 2); the Schur tier
-(item 6). The JAX package's host interp tier, placement and
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
+the Schur tier (item 6). The JAX package's host interp tier, placement and
 ``accurate_exp`` have no counterpart (item 10): on the card the device
 path is the path, and only the dtype half of the Newton tolerance floor
 (16 ulps) is kept.
@@ -59,13 +76,16 @@ import torch
 
 from ..constants import (DIODE_VD_MAX, DIODE_VD_MIN, EPS, GMIN, MAX_NR_ITERS,
                          VT_300K)
-from ..ir.circuit import (CircuitTensors, build_tensors, dchg_arrays,
-                          effective_time_step, ext_arrays, nl_arrays,
-                          qchg_arrays, sample_source_values)
+from ..ir.circuit import (CircuitTensors, bsrc_refs, bsrc_static,
+                          build_tensors, dchg_arrays, effective_time_step,
+                          ext_arrays, lk_arrays, nl_arrays, qchg_arrays,
+                          sample_source_values, tl_arrays)
 from ..models.devices import bjt_ebers_moll, diode_charge_cap, mos_level1
-from ..ops.linsolve import inverse, solve
+from ..ops.linsolve import check_ported, inverse, solve
 from ..ops.stamps import (pad_solution, stamp_admittance, stamp_current,
-                          stamp_extended, stamp_vccs, stamp_voltage_source)
+                          stamp_extended, stamp_mutual, stamp_tline_ports,
+                          stamp_vccs, stamp_voltage_source)
+from ..parsing.bexpr import bexpr_partials
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
 from .results import TranResult
@@ -80,40 +100,178 @@ class TranState:
     where it stopped, the netlist's .tran spec giving the next segment's
     length. ``carry`` is the JAX package's layout (v_prev_c, i_prev_c,
     i_prev_l, v_prev_l, vd_prev_d, vm_prev, vq_prev, sw_on, v_prev2_c,
-    i_prev2_l[, q_prev_d][, q_prev_q]), the charges present when the deck
-    stores diode or BJT junction charge, as host NumPy arrays, so a JAX
-    checkpoint resumes here and the other way round."""
+    i_prev2_l[, q_prev_d][, q_prev_q][, w_hist, t_cnt]), the charges
+    present when the deck stores diode or BJT junction charge, the T-line
+    history buffer and its step counter when it has lines, as host NumPy
+    arrays, so a JAX checkpoint resumes here and the other way round."""
 
     carry: tuple
     t: float
     dt: float
 
 
-def check_ported_tran(ckt: ParsedCircuit, tensors: CircuitTensors,
-                      method: str) -> None:
-    """Raise ``NotImplementedError`` for what the transient slice does not
-    carry yet, naming the ROADMAP item that brings it."""
-    if method == "schur":
-        raise NotImplementedError(
-            "the Schur tier is not ported yet (ROADMAP §1 item 6)")
-    for what, present in (("K (mutual inductance) elements", tensors.n_k),
-                          ("T (transmission line) elements", tensors.n_t),
-                          ("B (behavioral) sources", len(ckt.B))):
-        if present:
-            raise NotImplementedError(
-                f"{what} are not ported to the transient yet "
-                "(ROADMAP §1 item 2)")
-
-
 def _vdrop(x_pad: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x_pad[..., idx[:, 0]] - x_pad[..., idx[:, 1]]
 
 
+def _mutual_inv(l_vals: torch.Tensor, lk: dict
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse inductance matrix of K-coupled inductors.
+
+    M = diag(L) + offdiag(k_ab * sqrt(L_a * L_b)) over the coupled pairs;
+    returns (M^{-1}, ok) over the broadcast leading dims of ``l_vals``
+    (..., nL) and the coefficients (..., nK), ``ok`` per variant. The
+    inverse is ``ops/linsolve.inverse``: kernel K3 on a CUDA tensor (its
+    register form at the nL <= 8 of a deck's windings), the plain
+    Gauss-Jordan on the CPU."""
+    k_vals = lk["k_vals"]
+    n_l = l_vals.shape[-1]
+    lead = torch.broadcast_shapes(l_vals.shape[:-1], k_vals.shape[:-1])
+    lv = l_vals.expand(lead + (n_l,))
+    a, b = lk["k_pairs"][:, 0], lk["k_pairs"][:, 1]
+    m = (k_vals * torch.sqrt(lv[..., a] * lv[..., b])).to(l_vals.dtype)
+    M = torch.diag_embed(lv)
+    flat = M.view(lead + (n_l * n_l,))
+    flat.index_add_(-1, a * n_l + b, m.expand(lead + a.shape))
+    flat.index_add_(-1, b * n_l + a, m.expand(lead + a.shape))
+    return inverse(M)
+
+
 def _l_stamp(A_pad: torch.Tensor, l_idx: torch.Tensor, c: float,
-             l_vals: torch.Tensor) -> torch.Tensor:
-    """Inductor companion admittance c/L per element (the diagonal case;
-    K-coupled inductors are ROADMAP §1 item 2)."""
-    return stamp_admittance(A_pad, l_idx, c / l_vals)
+             l_vals: torch.Tensor,
+             minv: torch.Tensor | None = None) -> torch.Tensor:
+    """Inductor companion admittance: c/L per element, or the matrix
+    companion c * M^{-1} when mutual couplings are present."""
+    if minv is None:
+        return stamp_admittance(A_pad, l_idx, c / l_vals)
+    return stamp_mutual(A_pad, l_idx, c * minv)
+
+
+def _l_mv(c: float, l_vals: torch.Tensor, minv: torch.Tensor | None,
+          v: torch.Tensor) -> torch.Tensor:
+    """(c/L) * v per element, or c * M^{-1} @ v with mutual couplings."""
+    if minv is None:
+        return (c / l_vals) * v
+    return c * (minv * v[..., None, :]).sum(dim=-1)
+
+
+def tline_hist_len(td: np.ndarray, dt: float) -> int:
+    """Circular-buffer length covering the longest line delay (+2 slots
+    for the interpolation pair and the in-flight write), from the host
+    values of every line's (and every variant's) Td; 0 without lines."""
+    td = np.asarray(td, np.float64)
+    if td.size == 0:
+        return 0
+    return int(np.ceil(max(float(td.max()) / max(dt, EPS), 1.0))) + 2
+
+
+def _tline_read(w_hist: torch.Tensor, cnt: int,
+                td_steps: torch.Tensor) -> torch.Tensor:
+    """The delayed far-end Thevenin sources (..., nT, 2) = (E1, E2) at the
+    step about to be solved, by linear interpolation on the circular
+    buffer ``w_hist`` (..., H, nT, 2), zeros before the wave arrives.
+    ``td_steps``: each line's delay in steps, (nT,) or batch-swept
+    (..., nT)."""
+    hist_len = w_hist.shape[-3]
+    p = float(cnt) - td_steps
+    k = torch.floor(p)
+    frac = (p - k)[..., None]
+    ki = k.to(torch.int64)
+    lead = w_hist.shape[:-3]
+    n_t = w_hist.shape[-2]
+
+    def gather(kk: torch.Tensor) -> torch.Tensor:
+        idx = kk.expand(lead + (n_t,))[..., None, :, None].expand(
+            lead + (1, n_t, 2))
+        return torch.gather(w_hist, -3, idx)[..., 0, :, :]
+
+    w_k = torch.where((ki >= 0)[..., None], gather(ki % hist_len), 0.0)
+    w_k1 = torch.where((ki >= -1)[..., None], gather((ki + 1) % hist_len),
+                       0.0)
+    w = w_k * (1.0 - frac) + w_k1 * frac
+    # E1 mirrors the far end's w2, E2 the near end's w1
+    return torch.stack([w[..., 1], w[..., 0]], dim=-1)
+
+
+def _tline_write(tl: dict, w_hist: torch.Tensor, cnt: int,
+                 x_pad: torch.Tensor) -> None:
+    """Record the accepted step's port waves w = v + Z0 i in place."""
+    t_idx = tl["t_idx"]
+    w1 = (x_pad[..., t_idx[:, 0]] - x_pad[..., t_idx[:, 1]]
+          + tl["z0"] * x_pad[..., t_idx[:, 4]])
+    w2 = (x_pad[..., t_idx[:, 2]] - x_pad[..., t_idx[:, 3]]
+          + tl["z0"] * x_pad[..., t_idx[:, 5]])
+    w_hist[..., cnt % w_hist.shape[-3], :, :] = torch.stack([w1, w2],
+                                                            dim=-1)
+
+
+def prepare_bsources(bsrc: tuple, device: torch.device) -> list[dict]:
+    """``ir.circuit.bsrc_static``'s entries with their index patterns as
+    tensors on ``device``, built once per run: the reference gathers (ra,
+    rb), an I-kind source's VCCS rows [i1, i2, a_j, b_j] and current pair,
+    a V-kind source's +1 / -1 branch pattern and the (row, column) pairs
+    of its gradient couplings."""
+    def idx(rows: object, width: int) -> torch.Tensor:
+        return torch.as_tensor(
+            np.asarray(rows, np.int64).reshape(-1, width), device=device)
+
+    out = []
+    for kind, fn, i1, i2, br, refs in bsrc:
+        pairs = idx(refs, 2)
+        src = {"kind": kind, "fn": fn, "ra": pairs[:, 0], "rb": pairs[:, 1]}
+        if kind == "i":
+            src["vccs"] = idx([[i1, i2, a, b] for a, b in refs], 4)
+            src["pair"] = idx([[i1, i2]], 2)
+        else:
+            src["plus"] = idx([[i1, br], [br, i1]], 2)
+            src["minus"] = idx([[i2, br], [br, i2]], 2)
+            src["br"] = idx([br], 1)[:, 0]
+            src["grad_a"] = idx([[br, a] for a, _ in refs], 2)
+            src["grad_b"] = idx([[br, b] for _, b in refs], 2)
+        out.append(src)
+    return out
+
+
+def _stamp_bsources(A: torch.Tensor, b: torch.Tensor, bsrc: list[dict],
+                    x_pad: torch.Tensor, t: float) -> None:
+    """Behavioral-source Newton companions (spicey_tpu/analysis/tran.py:
+    242-280). Each source linearizes as f(vals) ~ f0 + sum_j g_j (vals_j -
+    vals0_j) with vals_j = x[a_j] - x[b_j], the partials by forward-mode
+    AD (``bexpr_partials``). An I-kind source stamps per-reference VCCS
+    rows plus a current injection; a V-kind source its branch row
+    v(n+) - v(n-) - f = 0 with the gradient couplings."""
+    for src in bsrc:
+        vals = x_pad[..., src["ra"]] - x_pad[..., src["rb"]]  # (..., nRef)
+        f0, gs = bexpr_partials(src["fn"], vals, t)
+        lin = f0
+        for j, g in enumerate(gs):
+            lin = lin - g * vals[..., j]
+        # lin = f0 - sum_j g_j vals_j, the constant term of the companion
+        g = (torch.stack(gs, dim=-1) if gs
+             else vals.new_zeros(vals.shape[:-1] + (0,)))
+        if src["kind"] == "i":
+            stamp_vccs(A, src["vccs"], g)
+            stamp_current(b, src["pair"], lin[..., None])
+        else:
+            one = torch.ones((), dtype=A.dtype, device=A.device)
+            _add_pattern(A, src["plus"], one)
+            _add_pattern(A, src["minus"], -one)
+            _add_pattern(A, src["grad_a"], -g)
+            _add_pattern(A, src["grad_b"], g)
+            b.index_add_(-1, src["br"], lin[..., None])
+
+
+def _add_pattern(A: torch.Tensor, rc: torch.Tensor,
+                 y: torch.Tensor) -> None:
+    """A[..., r_e, c_e] += y[..., e] for the (row, column) pairs ``rc``
+    (nE, 2); a scalar ``y`` adds to every pair."""
+    if rc.shape[0] == 0:
+        return
+    n1 = A.shape[-1]
+    lead = A.shape[:-2]
+    A.view(*lead, n1 * n1).index_add_(
+        -1, rc[:, 0] * n1 + rc[:, 1], y.to(A.dtype).expand(
+            *lead, rc.shape[0]))
 
 
 def _zeros(lead: tuple, n: int, dtype: torch.dtype,
@@ -152,7 +310,8 @@ def _companion_currents(arr: dict, dt_c: float, integration: str,
     """The stamp_current values of the C and L companions:
       trap   C: -(G v_n + i_n)             L: i_n + (c/L) v_n
       gear2  C: -(C/dt)(2 v_n - 0.5 v_n-1)  L: (2 i_n - 0.5 i_n-1) / 1.5
-      BE     C: -G v_n                      L: i_n"""
+      BE     C: -G v_n                      L: i_n
+    (c/L becomes c M^{-1} with mutual couplings, ``arr["minv"]``)."""
     (v_prev_c, i_prev_c, i_prev_l, v_prev_l, _vd, _vm, _vq, _sw,
      v_prev2_c, i_prev2_l) = carry[:10]
     c_vals, l_vals = arr["c_vals"], arr["l_vals"]
@@ -161,7 +320,7 @@ def _companion_currents(arr: dict, dt_c: float, integration: str,
     startup = first or second
     if integration == "trap":
         return (-(g_c * v_prev_c + i_prev_c),
-                i_prev_l + (c_l / l_vals) * v_prev_l)
+                i_prev_l + _l_mv(c_l, l_vals, arr.get("minv"), v_prev_l))
     if integration == "gear2" and not startup:
         return (-(c_vals / dt_c) * (2.0 * v_prev_c - 0.5 * v_prev2_c),
                 (2.0 * i_prev_l - 0.5 * i_prev2_l) / 1.5)
@@ -284,12 +443,16 @@ def _diode_charge(vd: torch.Tensor, arr: dict,
 def _stamp_system(arr: dict, nvar: int, dt: float, vs_t: torch.Tensor,
                   x: torch.Tensor, it: int, carry: list, sw_on: torch.Tensor,
                   integration: str = "be", first: bool = False,
-                  second: bool = False, vt_scale: torch.Tensor | float = 1.0
+                  second: bool = False, vt_scale: torch.Tensor | float = 1.0,
+                  e_t: torch.Tensor | None = None, t: float = 0.0
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Assemble one Newton pass's (A, b), sliced to (..., nvar[, nvar]).
     ``arr`` carries the MOSFET/BJT arrays under "nl" (with their index
-    sets from ``_nl_index_sets`` under "nl_sets") and the junction
-    charges under "dchg"/"qchg" (None when absent)."""
+    sets from ``_nl_index_sets`` under "nl_sets"), the junction charges
+    under "dchg"/"qchg", the coupled inductors' M^{-1} under "minv", the
+    T lines under "tl" (with their far-end sources ``e_t`` (..., nT, 2)
+    at this step) and the prepared B sources under "bsrc_t", evaluated at
+    time ``t`` (each None or empty when absent)."""
     A, b = _zeros(x.shape[:-1], nvar + 1, x.dtype, x.device)
     dt_c = max(dt, EPS)
     stamp_admittance(A, arr["r_idx"], 1.0 / arr["r_vals"])
@@ -299,7 +462,7 @@ def _stamp_system(arr: dict, nvar: int, dt: float, vs_t: torch.Tensor,
         arr["c_vals"], dt_c, integration, first, second))
     stamp_current(b, arr["c_idx"], ieq_c)
     _l_stamp(A, arr["l_idx"], _l_factor(dt_c, integration, first, second),
-             arr["l_vals"])
+             arr["l_vals"], arr.get("minv"))
     stamp_current(b, arr["l_idx"], isrc_l)
     # switches by their hysteresis state
     r_sw = torch.where(sw_on, arr["s_ron"], arr["s_roff"])
@@ -310,6 +473,13 @@ def _stamp_system(arr: dict, nvar: int, dt: float, vs_t: torch.Tensor,
     # extended-dialect current sources: direct RHS injection
     ext = arr["ext"]
     stamp_current(b, ext["i_idx"], vs_t[..., n_v:])
+    tl = arr.get("tl")
+    if tl is not None:
+        # T lines: near-end topology + the delayed far-end Thevenin
+        # sources from the history buffer (Branin)
+        stamp_tline_ports(A, tl["t_idx"], tl["z0"])
+        b.index_add_(-1, tl["t_idx"][:, 4], e_t[..., 0])
+        b.index_add_(-1, tl["t_idx"][:, 5], e_t[..., 1])
     stamp_extended(A, ext)
     # diode Shockley companions; the clamp window scales with T/300
     d_idx = arr["d_idx"]
@@ -351,6 +521,8 @@ def _stamp_system(arr: dict, nvar: int, dt: float, vs_t: torch.Tensor,
             stamp_admittance(A, sets["q_bc"], c_bc / dt_c)
             stamp_current(b, sets["q_bc"],
                           (q_bc - q_prev[..., 1] - cv_bc) / dt_c)
+    if arr.get("bsrc_t"):
+        _stamp_bsources(A, b, arr["bsrc_t"], pad_solution(x, nvar), t)
     return A[..., :nvar, :nvar], b[..., :nvar]
 
 
@@ -358,17 +530,22 @@ def linear_system_matrix(nvar: int, lead: tuple, dtype: torch.dtype,
                          arr: dict, g_c: torch.Tensor, c_l: float
                          ) -> torch.Tensor:
     """The (sliced) time-invariant matrix of a linear circuit: R +
-    C companion (g_c) + L companion (c_l/L) + V-source rows + extended
-    controlled sources."""
+    C companion (g_c) + L companion (c_l/L, or c_l M^{-1} with couplings,
+    ``arr["minv"]``) + V-source rows + extended controlled sources (+ the
+    T lines' port rows, ``arr["tl"]``: a line is linear, its Z0 rows
+    time-invariant)."""
     dev = arr["r_vals"].device
     A, b_dummy = _zeros(lead, nvar + 1, dtype, dev)
     stamp_admittance(A, arr["r_idx"], 1.0 / arr["r_vals"])
     stamp_admittance(A, arr["c_idx"], g_c)
-    _l_stamp(A, arr["l_idx"], c_l, arr["l_vals"])
+    _l_stamp(A, arr["l_idx"], c_l, arr["l_vals"], arr.get("minv"))
     stamp_voltage_source(A, b_dummy, arr["v_idx"],
                          torch.zeros(arr["v_idx"].shape[:1], dtype=dtype,
                                      device=dev))
     stamp_extended(A, arr["ext"])
+    tl = arr.get("tl")
+    if tl is not None:
+        stamp_tline_ports(A, tl["t_idx"], tl["z0"])
     return A[..., :nvar, :nvar]
 
 
@@ -391,7 +568,8 @@ def _init_carry(lead: tuple, n: dict, dtype: torch.dtype,
                 device: torch.device, d_chg: bool = False,
                 q_chg: bool = False) -> list:
     """A fresh run's carry: every companion state at rest, the committed
-    junction charges (q(0) = 0) appended when the deck stores them."""
+    junction charges (q(0) = 0) appended when the deck stores them (the
+    T-line history is appended by ``_tran_core``)."""
     def z(*shape: int) -> torch.Tensor:
         return torch.zeros(lead + shape, dtype=dtype, device=device)
 
@@ -412,32 +590,53 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
                max_nr: int | None = None, lead: tuple = (),
                record: int | None = None, init_state: tuple | None = None,
                resume: bool = False, nr_floor: torch.Tensor | None = None,
-               vt_scale: torch.Tensor | float = 1.0
+               vt_scale: torch.Tensor | float = 1.0,
+               times: np.ndarray | None = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, list]:
     """The time loop; returns (xs, sw_states, valid, final carry).
 
     ``arr`` holds the index tensors (int64) and value tensors: values
     lead with the variants axis when ``lead=(B,)`` (r/c/l (B, nE), ext
-    values (B, nX)) or are unbatched. ``vs_grid`` is (S+1, nSrc) or
-    (S+1, B, nSrc). ``record=i`` stacks only unknown i per step, (S+1,
-    [B]) instead of (S+1, [B], nvar). ``init_state`` with ``resume=True``
-    continues a checkpoint: no step is re-marked as the t = 0 bootstrap."""
+    values (B, nX), the couplings' k (B, nK), the lines' Z0/Td (B, nT))
+    or are unbatched. ``vs_grid`` is (S+1, nSrc) or (S+1, B, nSrc).
+    ``record=i`` stacks only unknown i per step, (S+1, [B]) instead of
+    (S+1, [B], nvar). ``init_state`` with ``resume=True`` continues a
+    checkpoint: no step is re-marked as the t = 0 bootstrap. ``times``:
+    each step's absolute time, which behavioral sources read (k * dt in
+    the working precision by default)."""
     dtype, dev = vs_grid.dtype, vs_grid.device
     nl = arr["nl"]
     n = {"c": arr["c_idx"].shape[0], "l": arr["l_idx"].shape[0],
          "s": arr["s_idx"].shape[0], "d": arr["d_idx"].shape[0],
          "m": nl["m_idx"].shape[0], "q": nl["q_idx"].shape[0]}
-    arr = dict(arr, nl_sets=_nl_index_sets(nl))
+    bsrc = arr.get("bsrc", ())
+    arr = dict(arr, nl_sets=_nl_index_sets(nl),
+               bsrc_t=prepare_bsources(bsrc, dev))
     pos_d, pos_q = _charge_slots(arr)
+    n_chg = (pos_d is not None) + (pos_q is not None)
     if max_nr is None:
         max_nr = MAX_NR_ITERS if nr == "spicey" else 50
     linear = (n["s"] == 0 and n["d"] == 0 and n["m"] == 0 and n["q"] == 0
-              and nr == "spicey")
+              and not bsrc and nr == "spicey")
     dt_c = max(dt, EPS)
     n_v = arr["v_idx"].shape[0]
     ext = arr["ext"]
 
     valid_all = torch.ones(lead, dtype=torch.bool, device=dev)
+    # K-coupled inductors: M^{-1} is fixed for the whole run (L and k do
+    # not change mid-run), so it is inverted once here; a singular M
+    # flags the lane
+    minv = None
+    if arr.get("lk") is not None:
+        minv, minv_ok = _mutual_inv(arr["l_vals"], arr["lk"])
+        arr["minv"] = minv
+        valid_all = valid_all & minv_ok.expand(lead)
+    tl = arr.get("tl")
+    if tl is not None:
+        # each line's delay in steps, clamped >= 1 (a line shorter than
+        # the step cannot be causal on a fixed grid); Td may be (nT,) or
+        # batch-swept (B, nT)
+        td_steps = torch.clamp(tl["td"] / dt_c, min=1.0)
     if linear:
         # the matrix is time-invariant (per integration phase): factor
         # ONCE, then each step is a multiply by the inverse plus one
@@ -458,11 +657,25 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
         else:
             A_start, Ainv_start = A_main, Ainv_main
 
-    carry = (_init_carry(lead, n, dtype, dev, pos_d is not None,
-                         pos_q is not None) if init_state is None
-             else [torch.tensor(np.asarray(a), device=dev) for a in init_state])
+    if init_state is None:
+        carry = _init_carry(lead, n, dtype, dev, pos_d is not None,
+                            pos_q is not None)
+        if tl is not None:
+            w_hist = torch.zeros(lead + (arr["hist_len"], tl["t_idx"].shape[0],
+                                         2), dtype=dtype, device=dev)
+        t_cnt = 0
+    else:
+        carry = [torch.tensor(np.asarray(a), device=dev)
+                 for a in init_state[:10 + n_chg]]
+        if tl is not None:
+            w_hist = torch.tensor(np.asarray(init_state[10 + n_chg]),
+                                  dtype=dtype, device=dev)
+            t_cnt = int(init_state[11 + n_chg])
     carry = [a if a.dtype == torch.bool else a.to(dtype) for a in carry]
     n_steps = vs_grid.shape[0]
+    if times is None:
+        np_dt = np.float32 if dtype == torch.float32 else np.float64
+        times = np.arange(n_steps, dtype=np_dt) * np_dt(dt)
     xs = torch.empty((n_steps,) + lead + (() if record is not None
                                           else (nvar,)),
                      dtype=dtype, device=dev)
@@ -476,6 +689,8 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
         (v_prev_c, i_prev_c, i_prev_l, v_prev_l, vd_prev_d, vm_prev,
          vq_prev, sw_on, v_prev2_c, i_prev2_l) = carry[:10]
         charges = carry[10:]
+        e_t = (_tline_read(w_hist, t_cnt, td_steps) if tl is not None
+               else None)
         if linear:
             b = torch.zeros(lead + (nvar + 1,), dtype=dtype, device=dev)
             ieq_c, isrc_l = _companion_currents(arr, dt_c, integration,
@@ -485,6 +700,9 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
             b.index_add_(-1, arr["v_idx"][:, 2],
                          vs_t[..., :n_v].expand(lead + (n_v,)))
             stamp_current(b, ext["i_idx"], vs_t[..., n_v:])
+            if tl is not None:
+                b.index_add_(-1, tl["t_idx"][:, 4], e_t[..., 0])
+                b.index_add_(-1, tl["t_idx"][:, 5], e_t[..., 1])
             b = b[..., :nvar]
             startup = first or (second and integration == "gear2")
             Ainv, A_t = ((Ainv_start, A_start) if startup
@@ -499,7 +717,8 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
             step_ok = torch.ones(lead, dtype=torch.bool, device=dev)
             for it in range(max_nr):
                 A, b = _stamp_system(arr, nvar, dt, vs_t, x, it, carry, sw,
-                                     integration, first, second, vt_scale)
+                                     integration, first, second, vt_scale,
+                                     e_t=e_t, t=float(times[s]))
                 x_new, solve_ok = solve(A, b, method=method)
                 new_on = _switch_update(arr["s_idx"], arr["s_von"],
                                         arr["s_voff"], sw,
@@ -548,16 +767,16 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
             i_prev2_l_new = i_prev_l
             if integration == "trap":
                 i_prev_l = i_prev_l + (
-                    (dt_c / l_vals) * vd_l if first
-                    else (dt_c / 2.0 / l_vals) * (v_prev_l + vd_l))
+                    _l_mv(dt_c, l_vals, minv, vd_l) if first
+                    else _l_mv(dt_c / 2.0, l_vals, minv, v_prev_l + vd_l))
                 v_prev_l = vd_l
             elif integration == "gear2":
-                i_prev_l = (i_prev_l + (dt_c / l_vals) * vd_l
+                i_prev_l = (i_prev_l + _l_mv(dt_c, l_vals, minv, vd_l)
                             if first or second
-                            else (dt_c / 1.5 / l_vals) * vd_l
+                            else _l_mv(dt_c / 1.5, l_vals, minv, vd_l)
                             + (2.0 * i_prev_l - 0.5 * i_prev2_l) / 1.5)
             else:
-                i_prev_l = i_prev_l + (dt_c / l_vals) * vd_l
+                i_prev_l = i_prev_l + _l_mv(dt_c, l_vals, minv, vd_l)
             i_prev2_l = i_prev2_l_new
         if n["d"]:
             vd_prev_d = _vdrop(x_pad, arr["d_idx"])
@@ -577,11 +796,16 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
             vq_prev = torch.stack(
                 [x_pad[..., q_idx[:, 1]] - x_pad[..., q_idx[:, 2]],
                  x_pad[..., q_idx[:, 1]] - x_pad[..., q_idx[:, 0]]], dim=-1)
+        if tl is not None:
+            _tline_write(tl, w_hist, t_cnt, x_pad)
+            t_cnt += 1
         valid_all = valid_all & step_ok
         carry = [v_prev_c, i_prev_c, i_prev_l, v_prev_l, vd_prev_d, vm_prev,
                  vq_prev, sw_on, v_prev2_c, i_prev2_l] + charges
         xs[s] = x if record is None else x[..., record]
         sw_states[s] = sw_on
+    if tl is not None:
+        carry = carry + [w_hist, torch.tensor(t_cnt, dtype=torch.int32)]
     return xs, sw_states, valid_all, carry
 
 
@@ -589,11 +813,18 @@ def tran_arrays(tensors: CircuitTensors, device: torch.device,
                 dtype: torch.dtype, r_vals: torch.Tensor | None = None,
                 c_vals: torch.Tensor | None = None,
                 l_vals: torch.Tensor | None = None,
-                ext: dict | None = None, nl: dict | None = None) -> dict:
+                ext: dict | None = None, nl: dict | None = None,
+                lk: dict | None = None, tl: dict | None = None,
+                ckt: ParsedCircuit | None = None,
+                dt: float | None = None) -> dict:
     """The index and value tensors ``_tran_core`` reads. The r/c/l values,
-    ``ext`` and the MOSFET/BJT arrays ``nl`` default to the netlist's
-    (unbatched); the Monte-Carlo analyses pass batched ones. "dchg" and
-    "qchg" hold the junction charges, None when the deck has none."""
+    ``ext``, the MOSFET/BJT arrays ``nl``, the couplings ``lk`` and the T
+    lines ``tl`` default to the netlist's (unbatched); the batch and
+    Monte-Carlo analyses pass batched ones. "dchg" and "qchg" hold the
+    junction charges, "lk" and "tl" the couplings and lines (each None
+    when the deck has none), "bsrc" the B sources of ``ckt``
+    (``ir.circuit.bsrc_static``; none without ``ckt``) and "hist_len" the
+    lines' history length at step ``dt`` (read once from the Td values)."""
     def idx(a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
@@ -601,6 +832,8 @@ def tran_arrays(tensors: CircuitTensors, device: torch.device,
         return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
                                device=device)
 
+    if tl is None:
+        tl = tl_arrays(tensors, device, dtype)
     return {
         "r_idx": idx(tensors.r_idx),
         "r_vals": val(tensors.r_vals) if r_vals is None else r_vals,
@@ -618,6 +851,11 @@ def tran_arrays(tensors: CircuitTensors, device: torch.device,
         "nl": nl_arrays(tensors, device, dtype) if nl is None else nl,
         "dchg": dchg_arrays(tensors, device, dtype),
         "qchg": qchg_arrays(tensors, device, dtype),
+        "lk": lk_arrays(tensors, device, dtype) if lk is None else lk,
+        "tl": tl,
+        "bsrc": () if ckt is None else bsrc_static(ckt, tensors.nvar),
+        "hist_len": (0 if tl is None
+                     else tline_hist_len(tl["td"].cpu().numpy(), dt)),
     }
 
 
@@ -689,8 +927,15 @@ def _element_currents(tensors: CircuitTensors, xs: np.ndarray,
             out[name] = i_c[:, k]
     if tensors.n_l:
         vd = vdrop(tensors.l_idx)
+        # K-coupled: companion updates are c * M^{-1} @ vd (the host
+        # analog of the loop's _l_mv)
+        minv_h = _mutual_inv(
+            torch.as_tensor(np.asarray(tensors.l_vals, np.float64)),
+            lk_arrays(tensors, "cpu"))[0].numpy() if tensors.n_k else None
 
         def lmv(c: float, v: np.ndarray) -> np.ndarray:
+            if minv_h is not None:
+                return c * (v @ minv_h.T)
             return (c / tensors.l_vals) * v
 
         if integration == "trap":
@@ -790,6 +1035,11 @@ def _element_currents(tensors: CircuitTensors, xs: np.ndarray,
             i_c = i_c - (q_bc - q_prev) / dt_c
         for k, name in enumerate(tensors.q_names):
             out[name] = i_c[:, k]
+    # T lines: the port currents are branch unknowns; <name> is port 1,
+    # <name>#p2 port 2
+    for k, name in enumerate(tensors.t_names):
+        out[name] = xs_pad[:, tensors.t_idx[k, 4]]
+        out[f"{name}#p2"] = xs_pad[:, tensors.t_idx[k, 5]]
     return out
 
 
@@ -800,7 +1050,8 @@ def _host(fn, *args: object) -> tuple[np.ndarray, ...]:
     return tuple(o.numpy() for o in outs)
 
 
-def _ic_carry(ckt: ParsedCircuit, tensors: CircuitTensors) -> tuple:
+def _ic_carry(ckt: ParsedCircuit, tensors: CircuitTensors,
+              dt: float) -> tuple:
     """The starting carry of a fresh run with extended .ic / element
     ``ic=``: each capacitor's companion state at its initial voltage
     (unspecified nodes at 0), each inductor's at its initial current. The
@@ -825,6 +1076,9 @@ def _ic_carry(ckt: ParsedCircuit, tensors: CircuitTensors) -> tuple:
         carry += (z(tensors.n_d),)
     if tensors.has_q_charge:
         carry += (z((tensors.n_q, 2)),)
+    if tensors.n_t:
+        carry += (z((tline_hist_len(tensors.t_td, dt), tensors.n_t, 2)),
+                  np.int32(0))
     return carry
 
 
@@ -860,10 +1114,11 @@ def simulate_tran(
         raise ValueError("nr must be 'spicey' or 'converged'")
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported_tran(ckt, tensors, method)
-    # MOSFET/BJT devices need Newton iteration: the reference's
-    # break-on-switch-stability rule is upgraded, as in the JAX package
-    if (tensors.n_m or tensors.n_q) and nr == "spicey":
+    check_ported(method)
+    # MOSFET/BJT devices and behavioral sources need Newton iteration: the
+    # reference's break-on-switch-stability rule is upgraded, as in the
+    # JAX package
+    if (tensors.n_m or tensors.n_q or ckt.B) and nr == "spicey":
         nr = "converged"
 
     dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
@@ -886,7 +1141,7 @@ def simulate_tran(
         init_state = state.carry
     elif (ckt.initial_conditions or any(c.ic is not None for c in ckt.C)
           or any(el.ic is not None for el in ckt.L)):
-        init_carry = _ic_carry(ckt, tensors)
+        init_carry = _ic_carry(ckt, tensors, dt)
         init_state = init_carry
 
     f64 = torch.float64
@@ -900,10 +1155,11 @@ def simulate_tran(
             device=device)
     xs, sw_states, valid, fin = _tran_core(
         torch.as_tensor(vs_grid, dtype=f64, device=device), dt,
-        tran_arrays(tensors, device, f64), tensors.nvar, method=method,
-        integration=integration, nr=nr, nr_tol=nr_tol, max_nr=max_nr,
-        init_state=init_state, resume=state is not None, nr_floor=nr_floor,
-        vt_scale=vt_scale_of(tensors, device, f64))
+        tran_arrays(tensors, device, f64, ckt=ckt, dt=dt), tensors.nvar,
+        method=method, integration=integration, nr=nr, nr_tol=nr_tol,
+        max_nr=max_nr, init_state=init_state, resume=state is not None,
+        nr_floor=nr_floor, vt_scale=vt_scale_of(tensors, device, f64),
+        times=times)
     # one device->host transfer of [solution | switch states | validity]
     packed = torch.cat([xs, sw_states.to(f64),
                         valid.to(f64).expand(xs.shape[0], 1)],
@@ -934,6 +1190,19 @@ def _tran_epilogue(ckt: ParsedCircuit, tensors: CircuitTensors,
         src_grid=vs_grid,
         state0=state.carry if state is not None else init_carry,
         resumed=state is not None)
+    # behavioral-source currents: a V-kind source's from its branch
+    # unknown, an I-kind source's by evaluating its expression over the
+    # trajectory (the parser's NumPy closure, on the host)
+    xs_pad = np.concatenate([xs, np.zeros((xs.shape[0], 1))], axis=1)
+    for b_el in ckt.B:
+        if b_el.kind == "v":
+            element_currents[b_el.name] = xs[:, b_el.index]
+        else:
+            refs = np.asarray(bsrc_refs(b_el, tensors.nvar),
+                              np.int64).reshape(-1, 2)
+            element_currents[b_el.name] = np.broadcast_to(
+                b_el.fn(xs_pad[:, refs[:, 0]] - xs_pad[:, refs[:, 1]], times),
+                times.shape).copy()
     # probe filter (simulateTRAN.ts:240-249): keep canonical-casing keys
     if ckt.tran_probes:
         upper = {p.upper() for p in ckt.tran_probes}

@@ -9,10 +9,16 @@ and test decks (``bench.py``, ``tests/test_pallas_fused.py``,
 ``tests/fixtures/netlists.py``), copied: the port imports nothing of the
 JAX package or its tests. The small-signal decks at the end (the bench's
 op/dc/tf deck, a two-stage BJT amplifier, an RC-ladder noise deck) are
-the operating-point slice's.
+the operating-point slice's; the K, T and B decks after them (a
+transformer, a board trace, the uA741 macromodel, a tanh amplifier) are
+``chip_smoke.py`` phase 23's, from ``tests/test_coupling.py``,
+``tests/test_tline.py``, ``tests/fixtures/ua741.py``,
+``tests/test_step.py`` and ``tests/test_bsource.py``.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 # bench.py:579-586, the transient Monte-Carlo: an RC low-pass driven by a
 # pulse, 201 points
@@ -226,4 +232,154 @@ r2 out 0 1k
 .ac dec 50 1 1meg
 .tran 1u 200u
 .step param r1 100 1100 1
+"""
+
+
+# ---- K, T and B elements (ROADMAP §1 item 2) ----------------------------
+
+# tests/test_coupling.py:17: a 1:2 transformer (L1 1 H, L2 4 H, k 0.9)
+# between a 10 ohm source and a 100 ohm load, five frequencies
+TRANSFORMER_AC = """* transformer
+v1 in 0 dc 0 ac 1
+r1 in p 10
+l1 p 0 1
+l2 s 0 4
+k1 l1 l2 0.9
+rload s 0 100
+.ac lin 5 1k 5k
+.end
+"""
+
+# tests/test_coupling.py:62 with k1 0.9: the same transformer at 1 mH /
+# 4 mH under a 1 kHz sine, 2 us steps; the run cut from 5 ms to 1 ms
+TRANSFORMER_TRAN = """* transformer tran
+v1 in 0 dc 0 ac 1 SIN(0 1 1k)
+r1 in p 10
+l1 p 0 1m
+l2 s 0 4m
+k1 l1 l2 0.9
+rload s 0 100
+.tran 2u 1m
+.end
+"""
+
+
+def analytic_transformer(freqs: np.ndarray, L1: float = 1.0,
+                         L2: float = 4.0, k: float = 0.9, Rs: float = 10.0,
+                         Rl: float = 100.0) -> np.ndarray:
+    """tests/test_coupling.py:29: the transformer's nodal solution in
+    complex arithmetic, (F, [v(p), v(s)])."""
+    M = k * np.sqrt(L1 * L2)
+    out = []
+    for f in freqs:
+        w = 2 * np.pi * f
+        Y = np.linalg.inv(1j * w * np.array([[L1, M], [M, L2]]))
+        A = np.array([[1 / Rs + Y[0, 0], Y[0, 1]],
+                      [Y[1, 0], Y[1, 1] + 1 / Rl]], complex)
+        out.append(np.linalg.solve(A, np.array([1 / Rs, 0], complex)))
+    return np.array(out)
+
+
+# tests/test_tline.py:17 (MATCHED): a 50 ohm, 5 ns line between a matched
+# source and load under a 1 V pulse; the pulse held for 1 us and the run
+# 150 ns long (from 40 ns), so that with Z0 and Td swept no variant's
+# reflections remain at its end (each round trip shrinks them by
+# |Gs GL| <= 0.03) and late-time v(b) is the divider rl / (rs + rl)
+TLINE_TRAN = """the matched line
+v1 in 0 PULSE(0 1 0 1n 1n 1u 2u)
+rs in a 50
+t1 a 0 b 0 z0=50 td=5n
+rl b 0 50
+.tran 0.5n 150n
+"""
+
+# tests/test_tline.py:148: the matched line's AC, |v(b)/v(a)| = 1 and the
+# phase -w Td
+TLINE_AC = """the matched ac
+v1 in 0 dc 0 ac 1
+rs in a 50
+t1 a 0 b 0 z0=50 td=5n
+rl b 0 50
+.ac lin 5 10meg 90meg
+"""
+
+# tests/fixtures/ua741.py: the uA741 Boyle macromodel (TI/PSpice lineage),
+# unmodified: POLY(2)/POLY(5) sources (lowered to B sources), a BJT input
+# pair, diode rail clamps, an H-source output limiter
+UA741 = """.subckt ua741 1 2 3 4 5
+c1 11 12 8.661E-12
+c2 6 7 30.00E-12
+dc 5 53 dx
+de 54 5 dx
+dlp 90 91 dx
+dln 92 90 dx
+dp 4 3 dx
+egnd 99 0 poly(2) (3,0) (4,0) 0 .5 .5
+fb 7 99 poly(5) vb vc ve vlp vln 0 10.61E6 -10E6 10E6 10E6 -10E6
+ga 6 0 11 12 188.5E-6
+gcm 0 6 10 99 5.961E-9
+iee 10 4 dc 15.16E-6
+hlim 90 0 vlim 1K
+q1 11 2 13 qx
+q2 12 1 14 qx
+r2 6 9 100.0E3
+rc1 3 11 5.305E3
+rc2 3 12 5.305E3
+re1 13 10 1.836E3
+re2 14 10 1.836E3
+ree 10 99 13.19E6
+ro1 8 5 50
+ro2 7 99 100
+rp 3 4 18.16E3
+vb 9 0 dc 0
+vc 3 53 dc 1
+ve 54 4 dc 1
+vlim 7 8 dc 0
+vlp 91 0 dc 40
+vln 0 92 dc 40
+.model dx D(Is=800.0E-18 Rs=1)
+.model qx NPN(Is=800.0E-18 Bf=93.75)
+.ends
+"""
+
+# tests/test_step.py:79: the uA741 as an inverting amplifier on +-15 V
+# rails (rin 1k, rfb 10k, 50 mV in), the feedback resistor stepped from
+# 5k to 20k by 15 ohm: 1,001 operating points, each -rfb/rin x 50 mV
+UA741_STEP = UA741 + """
+vcc vcc 0 dc 15
+vee vee 0 dc -15
+vin in 0 dc 0.05
+rin in minus 1k
+rfb minus out 10k
+xamp 0 minus vcc vee out ua741
+.op
+.step param rfb 5k 20k 15
+"""
+
+# the same amplifier with an AC drive and a 20 mV, 10 kHz sine on its
+# input: .op, acop .ac from 1 Hz to 10 MHz (tests/test_poly.py:178's
+# sweep), .noise over the same band and a 50 us transient
+UA741_AMP = UA741 + """
+vcc vcc 0 dc 15
+vee vee 0 dc -15
+vin in 0 dc 0.05 ac 1 sin(0.05 0.02 10k)
+rin in minus 1k
+rfb minus out 10k
+xamp 0 minus vcc vee out ua741
+.options acop
+.op
+.ac dec 10 1 10meg
+.noise v(out) vin dec 10 1 10meg
+.tran 1u 50u
+"""
+
+# tests/test_bsource.py:47: a V-kind tanh amplifier, v(out) =
+# 2 tanh(5 v(in)) under a 0.2 V, 1 kHz sine, into a 1k load
+BSRC_TANH = """* bv
+v1 in 0 SIN(0 0.2 1k)
+rb in 0 1k
+bamp out 0 V=2*tanh(5*v(in))
+rl out 0 1k
+.tran 10u 1m
+.end
 """

@@ -565,6 +565,76 @@ def bv_branch_rows(ckt: ParsedCircuit, dump: int) -> np.ndarray:
     return np.asarray(rows, dtype=np.int32).reshape(-1, 3)
 
 
+def bsrc_static(ckt: ParsedCircuit, dump: int) -> tuple:
+    """The behavioral (B) sources for one system size, each as (kind, fn,
+    i1, i2, branch_or_-1, ((ref_a, ref_b), ...)) with ``fn`` the
+    expression compiled over torch functions (parsing/bexpr.py). Index
+    pairs are computed against a system whose ground dump slot is ``dump``
+    (tran/AC: tensors.nvar; .op: nvar_op), so the same parsed circuit
+    serves every engine; references gather as vals[..., j] = x_pad[a_j] -
+    x_pad[b_j] (a branch reference pairs with the dump slot, which reads
+    0). An empty tuple when the deck has none."""
+    from ..parsing.bexpr import compile_bexpr
+
+    def midx(node_id: int) -> int:
+        return dump if node_id == 0 else node_id - 1
+
+    return tuple((b.kind, compile_bexpr(b.expr, backend="torch")[1],
+                  midx(b.n1), midx(b.n2), b.index if b.kind == "v" else -1,
+                  bsrc_refs(b, dump)) for b in ckt.B)
+
+
+def bsrc_refs(b: object, dump: int) -> tuple:
+    """A B source's references as index pairs ((a, b), ...) into a
+    system whose ground dump slot is ``dump``: a node-pair reference
+    gathers x_pad[a] - x_pad[b], a branch reference pairs its unknown with
+    the dump slot, which reads 0."""
+    def midx(node_id: int) -> int:
+        return dump if node_id == 0 else node_id - 1
+
+    return tuple((midx(a), midx(b2)) if kind == "nodes" else (a, dump)
+                 for kind, a, b2 in b.ref_pairs)
+
+
+def tl_arrays(tensors: CircuitTensors, device: torch.device | str,
+              dtype: torch.dtype = torch.float64,
+              dump: int | None = None) -> dict | None:
+    """Transmission lines (extended T) as a dict of tensors on ``device``,
+    or None when the deck has none (every engine's no-lines path): the
+    (nT, 6) index rows [i1, i2, i3, i4, br1, br2] (int64, the ground slot
+    re-targeted to ``dump`` as in ``ext_arrays``) and the Z0 and Td
+    values."""
+    if tensors.n_t == 0:
+        return None
+    idx = tensors.t_idx
+    if dump is not None:
+        idx = np.where(idx == tensors.nvar, dump, idx)
+    return {
+        "t_idx": torch.as_tensor(np.asarray(idx, np.int64), device=device),
+        "z0": torch.as_tensor(np.asarray(tensors.t_z0, np.float64),
+                              dtype=dtype, device=device),
+        "td": torch.as_tensor(np.asarray(tensors.t_td, np.float64),
+                              dtype=dtype, device=device),
+    }
+
+
+def lk_arrays(tensors: CircuitTensors, device: torch.device | str,
+              dtype: torch.dtype = torch.float64) -> dict | None:
+    """Mutual couplings (extended K) as a dict of tensors on ``device``,
+    or None when the deck has none (the scalar per-inductor companion):
+    the (nK, 2) pairs of positions into the L arrays (int64) and the
+    coupling coefficients. A dict switches the engines to the matrix
+    companion Gamma = c * M^{-1} (analysis/tran.py, analysis/ac.py)."""
+    if tensors.n_k == 0:
+        return None
+    return {
+        "k_pairs": torch.as_tensor(np.asarray(tensors.k_pairs, np.int64),
+                                   device=device),
+        "k_vals": torch.as_tensor(np.asarray(tensors.k_vals, np.float64),
+                                  dtype=dtype, device=device),
+    }
+
+
 def from_jax_tensors(t: object) -> CircuitTensors:
     """The JAX package's ``CircuitTensors`` as this package's.
 

@@ -250,6 +250,14 @@ def gj_inverse(A: torch.Tensor, eps: float = EPS
     return inv.reshape(lead + (n, n)), valid.reshape(lead)
 
 
+def check_ported(method: str) -> None:
+    """Raise ``NotImplementedError`` for a solve tier the port does not
+    carry yet in any analysis, naming the ROADMAP item that brings it."""
+    if method == "schur":
+        raise NotImplementedError(
+            "the Schur tier is not ported yet (ROADMAP §1 item 6)")
+
+
 def _check_method(method: str) -> None:
     if method not in ("gj", "pallas"):
         raise ValueError(f"unknown solve method {method!r} "

@@ -160,6 +160,64 @@ def stamp_ccvs(A_pad: torch.Tensor, idx: torch.Tensor,
     return A_pad
 
 
+def stamp_mutual(A_pad: torch.Tensor, l_idx: torch.Tensor,
+                 G: torch.Tensor) -> torch.Tensor:
+    """Coupled-inductor companion matrix stamp (extended K lines).
+
+    The current of inductor a is sum_b G[a,b] * (v[i1_b] - v[i2_b]), so
+    every (a, b) pair contributes the 4-point pattern across a's KCL rows
+    and b's voltage columns. G: (..., nL, nL), its pairs flattened row
+    by row into the element axis."""
+    n_l = l_idx.shape[0]
+    i1, i2 = l_idx[:, 0], l_idx[:, 1]
+    rows1, cols1 = i1.repeat_interleave(n_l), i1.repeat(n_l)
+    rows2, cols2 = i2.repeat_interleave(n_l), i2.repeat(n_l)
+    g = G.reshape(G.shape[:-2] + (n_l * n_l,))
+    _add(A_pad, rows1, cols1, g)
+    _add(A_pad, rows1, cols2, -g)
+    _add(A_pad, rows2, cols1, -g)
+    _add(A_pad, rows2, cols2, g)
+    return A_pad
+
+
+def stamp_tline_ports(A_pad: torch.Tensor, t_idx: torch.Tensor,
+                      z0: torch.Tensor) -> torch.Tensor:
+    """Transmission-line near-end pattern (Branin model; extended T lines).
+
+    t_idx: (nT, 6) = [i1, i2, i3, i4, br1, br2]; z0: (..., nT). Each port's
+    branch row enforces v(+) - v(-) - Z0*i_port = E(t) (the delayed far-end
+    Thevenin source lands in the RHS), and the port currents enter the node
+    KCL rows. This is the whole matrix contribution in the transient: the
+    far-end coupling is history, not topology."""
+    i1, i2, i3, i4 = t_idx[:, 0], t_idx[:, 1], t_idx[:, 2], t_idx[:, 3]
+    b1, b2 = t_idx[:, 4], t_idx[:, 5]
+    for (p, q, br) in ((i1, i2, b1), (i3, i4, b2)):
+        _add(A_pad, p, br, 1.0)
+        _add(A_pad, q, br, -1.0)
+        _add(A_pad, br, p, 1.0)
+        _add(A_pad, br, q, -1.0)
+        _add(A_pad, br, br, -z0)
+    return A_pad
+
+
+def stamp_tline_coupling(A_pad: torch.Tensor, t_idx: torch.Tensor,
+                         z0: torch.Tensor, c: torch.Tensor
+                         ) -> torch.Tensor:
+    """Far-end coupling rows with coefficient ``c`` (..., nT) per plane.
+
+    Branch row br1 gains ``c`` times (v(i3) - v(i4) + Z0*i2) and br2 the
+    mirror; in AC ``c = -e^{-j w Td}`` split into its real and imaginary
+    planes, at DC ``c = -1`` (the theta -> 0 steady state: a differential
+    short, the classic SPICE T-element DC behaviour)."""
+    i1, i2, i3, i4 = t_idx[:, 0], t_idx[:, 1], t_idx[:, 2], t_idx[:, 3]
+    b1, b2 = t_idx[:, 4], t_idx[:, 5]
+    for (br, p, q, obr) in ((b1, i3, i4, b2), (b2, i1, i2, b1)):
+        _add(A_pad, br, p, c)
+        _add(A_pad, br, q, -c)
+        _add(A_pad, br, obr, c * z0)
+    return A_pad
+
+
 def stamp_extended(A_pad: torch.Tensor, ext: dict) -> torch.Tensor:
     """All linear extended-dialect controlled sources from an ext dict
     (ir.circuit.ext_arrays): G/E/F/H. Independent I sources are RHS-only

@@ -355,19 +355,29 @@ def test_batched_singular_flags_not_raises(method):
 
 
 def test_unported_elements_raise():
+    """The K and B decks the batch analyses refused before ROADMAP §1
+    item 2 now match the JAX package (its sequential scan), every lane
+    valid, at rtol 1e-9 / atol 1e-12 of the largest value."""
     k_net = ("* k deck\nv1 1 0 ac 1\nl1 1 0 1m\nl2 2 0 1m\nr1 2 0 1k\n"
              "k1 l1 l2 0.5\n.ac dec 2 1 100\n.tran 1u 10u\n.end\n")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        simulate_ac_batch(k_net, {"r1": np.ones(2)}, dialect="extended",
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        simulate_tran_batch(k_net, {"r1": np.ones(2)}, dialect="extended",
-                            device="cpu")
     b_net = ("* b deck\nv1 in 0 PULSE(0 1 0 1u 1u 5u 10u)\nr1 in 0 1k\n"
              "b1 out 0 V=2*v(in)\nr2 out 0 1k\n.tran 1u 10u\n.end\n")
-    with pytest.raises(NotImplementedError, match="B .behavioral"):
-        simulate_tran_batch(b_net, {"r1": np.ones(2)}, dialect="extended",
-                            device="cpu")
+    ov = {"r1": np.array([1e3, 2e3])}
+    for got, want in (
+            (simulate_ac_batch(k_net, ov, dialect="extended", device="cpu"),
+             jbatch.simulate_ac_batch(k_net, ov, dialect="extended")),
+            (simulate_tran_batch(k_net, ov, dialect="extended",
+                                 device="cpu"),
+             jbatch.simulate_tran_batch(k_net, ov, dialect="extended",
+                                        time_parallel="never")),
+            (simulate_tran_batch(b_net, ov, dialect="extended",
+                                 device="cpu"),
+             jbatch.simulate_tran_batch(b_net, ov, dialect="extended"))):
+        x = got.x if hasattr(got, "x") else got.xs
+        want_x = np.asarray(want.x if hasattr(want, "x") else want.xs)
+        assert got.valid.all() and np.asarray(want.valid).all()
+        np.testing.assert_allclose(
+            x, want_x, rtol=1e-9, atol=1e-12 * float(np.abs(want_x).max()))
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -249,11 +249,17 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="precision"):
         mc_ac_stats(RC_NET, {"r1": np.ones(2)}, node="2", precision="f16",
                     device="cpu")
+    # a K deck, refused before ROADMAP §1 item 2, runs and matches the
+    # JAX package
     k_net = ("* k deck\nv1 1 0 ac 1\nl1 1 0 1m\nl2 2 0 1m\nr1 2 0 1k\n"
              "k1 l1 l2 0.5\n.ac dec 2 1 100\n.end\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mc_ac_stats(k_net, {"r1": np.ones(2)}, node="2", dialect="extended",
-                    device="cpu")
+    # l2 moves M = k sqrt(L1 L2) and with it |V(2)| ~ M / L1 (an r1 sweep
+    # would leave the two lanes equal to ~1e-12, their std cancellation)
+    ov = {"l2": np.array([1e-3, 4e-3])}
+    got = mc_ac_stats(k_net, ov, node="2", dialect="extended", device="cpu")
+    want = jmc.mc_ac_stats(k_net, ov, node="2", dialect="extended")
+    assert got.n_valid == want.n_valid == 2
+    _stats_close(got, want, rtol=1e-9)
     with pytest.raises(NotImplementedError, match="Schur"):
         mc_ac_stats(RC_NET, {"r1": np.ones(2)}, node="2", method="schur",
                     device="cpu")

@@ -262,11 +262,17 @@ def test_sampled_f32_fused_is_seeded():
 
 
 def test_unported_routes_and_bad_arguments_raise():
+    # a K deck, refused before ROADMAP §1 item 2, runs and matches the
+    # JAX package's sequential scan
     k_net = ("* k\nv1 1 0 PULSE(0 1 0 1n 1n 5u 10u)\nl1 1 0 1m\n"
              "l2 2 0 1m\nr1 2 0 1k\nk1 l1 l2 0.5\n.tran 1u 10u\n.end\n")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 2"):
-        mc_tran_stats(k_net, {"r1": np.ones(2)}, node="2",
-                      dialect="extended", device="cpu")
+    ov = {"r1": np.array([1e3, 2e3])}
+    got = mc_tran_stats(k_net, ov, node="2", dialect="extended",
+                        device="cpu")
+    want = jmc.mc_tran_stats(k_net, ov, node="2", dialect="extended",
+                             time_parallel="never")
+    assert got.n_valid == want.n_valid == 2
+    _stats_close(got, want, rtol=1e-9)
     with pytest.raises(ValueError, match="time_parallel"):
         mc_tran_stats(RC, {"R1": np.ones(2)}, node="2", time_parallel="yes",
                       device="cpu")

@@ -7,8 +7,11 @@ fused tier's plain versions, linear and nonlinear), the MOSFET ring
 through ``simulate``, a small ring Monte-Carlo, the bench's op/dc/tf deck,
 the two-stage amplifier's .op/.tf/.ac/.noise, an ``op_batch``, a
 ``simulate_ac_batch`` through the fused full-solution route, a
-``.step`` deck and the panel-blocked solves of ``ops/mxu.py``; an AST
-scan asserts that no module of the port imports jax or the JAX package.
+``.step`` deck, the panel-blocked solves of ``ops/mxu.py``, and a K deck
+(the transformer's .ac against its closed form, a k1 sweep), a T deck
+(a line's port currents, a Td sweep) and a B deck (the tanh amplifier's
+transient and its f32 ``method="pallas"`` Monte-Carlo); an AST scan
+asserts that no module of the port imports jax or the JAX package.
 """
 
 import ast
@@ -27,6 +30,7 @@ _SCRIPT = r"""
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises
 sys.modules["spicey_tpu"] = None
+import numpy as np
 import spicey_tpu_torch as st
 deck = open(sys.argv[1]).read()
 golden = open(sys.argv[2]).read()
@@ -80,6 +84,27 @@ assert v.all() and torch.allclose(x, torch.full((2, 40), 0.5, dtype=x.dtype))
 xr, xi, v = mxu.mxu_solve_complex(A, A, torch.ones((2, 40)).double(),
                                   torch.zeros((2, 40)).double())
 assert v.all() and torch.allclose(xr, -xi) and torch.allclose(xr, 0.25 + 0 * xr)
+ext = dict(dialect="extended", device="cpu")
+k = st.simulate(decks.TRANSFORMER_AC, **ext).ac
+ref = decks.analytic_transformer(k.freqs)
+assert abs(k.node_voltages["s"] - ref[:, 1]).max() < 1e-9
+assert "l2" in k.element_currents
+kt = st.simulate_tran_batch(
+    decks.TRANSFORMER_TRAN.replace(".tran 2u 1m", ".tran 2u 0.1m"),
+    {"k1": [0.5, 0.9]}, **ext)
+assert kt.valid.all() and kt.xs.shape[0] == 2
+line = decks.TLINE_TRAN.replace(".tran 0.5n 150n", ".tran 0.5n 20n")
+tl = st.simulate(line, **ext).tran
+assert "t1#p2" in tl.element_currents
+tb = st.simulate_tran_batch(line, {"t1.td": [4e-9, 6e-9]}, **ext)
+assert tb.valid.all()
+bv = decks.BSRC_TANH.replace(".tran 10u 1m", ".tran 10u 0.1m")
+b = st.simulate(bv, **ext).tran
+vin, vout = b.node_voltages["in"], b.node_voltages["out"]
+assert abs(vout - 2 * np.tanh(5 * vin)).max() < 1e-12
+bm = st.mc_tran_stats(bv, {"rl": [900.0, 1100.0]}, node="out",
+                      method="pallas", precision="f32", **ext)
+assert bm.n_valid == 2
 print("OK")
 """
 

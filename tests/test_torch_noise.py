@@ -197,10 +197,12 @@ def test_noise_guard_resolves_ill_conditioned_systems():
 
 
 def test_unported_noise_raises():
+    # a B deck's .noise, refused before ROADMAP §1 item 2, matches the JAX
+    # package (its gradient at the operating point shapes the transfer)
     net = NOISE_DECKS["resistor"].replace(
         ".noise", "b1 out 0 i=1m*v(in)\n.noise")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        st.simulate(net, dialect="extended", device="cpu")
+    _same_noise(st.simulate(net, dialect="extended", device="cpu").noise,
+                sj.simulate(net, dialect="extended").noise)
     with pytest.raises(ValueError, match="Unknown source"):
         st.simulate("t\nv1 1 0 dc 1\nr1 1 0 1k\n.noise v(1) vx dec 5 1 10\n",
                     dialect="extended", device="cpu")

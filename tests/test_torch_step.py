@@ -98,11 +98,11 @@ def test_step_with_meas_is_refused():
 
 
 def test_step_ua741_needs_b_sources():
-    """The uA741 macromodel's behavioral sources are not ported to the
-    operating point (ROADMAP §1 item 2): the deck of test_step.py's gain
-    family is refused, not run wrong."""
-    with pytest.raises(NotImplementedError, match="item 2"):
-        simulate(UA741 + """
+    """The uA741 macromodel's behavioral sources (its POLY sources, lowered
+    to B sources) run in the operating point since ROADMAP §1 item 2: the
+    gain family of test_step.py steps through ``op_batch`` and matches the
+    JAX package at 1e-9, each lane -rfb/rin x 0.05 within 5e-3."""
+    deck = UA741 + """
 vcc vcc 0 dc 15
 vee vee 0 dc -15
 vin in 0 dc 0.05
@@ -111,4 +111,11 @@ rfb minus out 10k
 xamp 0 minus vcc vee out ua741
 .op
 .step param rfb list 5k 10k 20k
-""", dialect="extended", device="cpu")
+"""
+    got = simulate(deck, dialect="extended", device="cpu").step
+    want = spicey_tpu.simulate(deck, dialect="extended").step
+    assert got.op.valid.all() and np.asarray(want.op.valid).all()
+    np.testing.assert_allclose(got.op.x, want.op.x, rtol=1e-9,
+                               atol=1e-12 * float(np.abs(want.op.x).max()))
+    np.testing.assert_allclose(got.op.node_voltage("out"),
+                               [-0.25, -0.5, -1.0], rtol=5e-3)
