@@ -171,7 +171,30 @@ line each:
      the statistics equal to the CPU path's on the same 100k), and with
      ``method="pallas"`` at f32, which must launch neither K8 nor K9 and
      give the ``method="gj"`` f32 statistics at 2e-5;
-  9. every instantiation launched during 3-8 and 10-23 (printed after
+  24. the post-analyses through ``simulate()`` on cuda (decks in
+     ``spicey_tpu_torch/decks.py``), each workload counted and timed as in
+     phase 23 (the seconds-long uA741 workloads (a), (b) and (d) with one
+     timed call, as phase 23's amplifier), none launching K5, K7, K8 or K9: (a) the uA741 amplifier's
+     ``.pz`` and ``.sens`` (K2's panel tier at N = 36, K1, K4): poles and
+     zeros equal to the CPU path's as sets, every sensitivity at 1e-9
+     with an atol of 1e-12 of the volts per 1% change over its own p / 100,
+     d v(out)/d rfb within 2% of -v(in)/rin and within 1e-3 of a central
+     difference of two card operating points at rfb +-0.1%, the pole
+     nearest the origin within 10% of 2 pi x the -3 dB frequency of the
+     deck's acop .ac; (b) its ``.four 10k v(out)`` over a 200 us
+     transient: the fundamental within 3% of 0.2 V, THD under 1%, equal to
+     the CPU path; (c) ``decks.STEP_MEAS``: three ``.meas tran`` lines over
+     STEP_DECK's 1,001 lanes (K3's register form, K1), every value
+     finite, lanes 0, 500 and 1000 equal to ``simulate()`` of the deck at
+     that r1 alone, 64 lanes equal to the CPU path; (d)
+     ``decks.UA741_CONTROL``, every post-analysis and a ``.control`` tail:
+     its text equal to the CPU path's (numbers to their last printed
+     digit), the binary rawfile it writes read back bit for bit, then
+     ``python -m spicey_tpu_torch --raw --binary`` as a subprocess on the
+     card with jax blocked, its standard output equal to the in-process
+     CLI's, which runs inside ``profiled()`` and must name the pz, sens,
+     four, meas and control spans;
+  9. every instantiation launched during 3-8 and 10-24 (printed after
      them; the f32 instances of K4 and K7 are on no main path and are
      checked in phase 2 and timed here only); CUDA-event times of each
      kernel, its plain version and, where one PyTorch call computes the
@@ -454,6 +477,47 @@ def check_close(got: torch.Tensor, want: torch.Tensor, rtol: float,
         raise AssertionError(f"{what}: max abs err {err:.3e} above rtol "
                              f"{rtol:g} (scale {scale:.3e})")
     return err
+
+
+def pair_nearest(got: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """``got`` reordered so that each entry is the nearest unpaired value
+    to the ``want`` entry at its position, closest pairs first (poles and
+    zeros, as eigenvalues, come in no order of their own)."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"{got.shape} values against {want.shape}")
+    dist = np.abs(got[:, None] - want[None, :])
+    out = np.empty_like(want)
+    free_g = np.ones(len(got), bool)
+    free_w = np.ones(len(want), bool)
+    for _ in range(len(want)):
+        d = np.where(free_g[:, None] & free_w[None, :], dist, np.inf)
+        i, j = np.unravel_index(np.argmin(d), d.shape)
+        out[j] = got[i]
+        free_g[i] = free_w[j] = False
+    return out
+
+
+def text_gap(got: str, want: str) -> tuple[int, float]:
+    """(numbers that differ, the largest relative gap among them) between
+    two texts that must agree in everything but their printed numbers;
+    raises where they differ otherwise."""
+    gl, wl = got.splitlines(), want.splitlines()
+    if len(gl) != len(wl):
+        raise AssertionError(f"{len(gl)} lines against {len(wl)}")
+    n, gap = 0, 0.0
+    for g_line, w_line in zip(gl, wl):
+        if g_line == w_line:
+            continue
+        gt, wt = re.split(r"[\s,]+", g_line), re.split(r"[\s,]+", w_line)
+        if len(gt) != len(wt):
+            raise AssertionError(f"{g_line!r} against {w_line!r}")
+        for a, b in zip(gt, wt):
+            if a != b:
+                fa, fb = float(a), float(b)
+                n += 1
+                gap = max(gap, abs(fa - fb) / max(abs(fb), 1e-300))
+    return n, gap
 
 
 def main() -> int:
@@ -2589,6 +2653,237 @@ def main() -> int:
         f"K8/K9 never launched, stats = gj f32 at 2e-5, {bpl_s:.3f} s "
         f"| {smi}")
     say("23 K, T, B", f"{time.perf_counter() - t23:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ---- 24. the post-analyses (ROADMAP §1 items 8 and 13) ----------------
+    # .pz/.sens, .four, .step + .meas and a .control tail with rawfiles and
+    # the CLI through simulate() on cuda, each workload counted on its own
+    # (workload(): K5, K7, K8 and K9 must not launch on any of these decks,
+    # which run method="gj"), each against the CPU path and its own physics
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from spicey_tpu_torch.__main__ import main as cli_main
+
+    t24 = time.perf_counter()
+    fused = [*mc_ac_fused.K5.values(), mc_ac_fused.K7[f64],
+             *mc_tran_fused.K8.values(), *mc_tran_fused.K9.values()]
+    K1f, K4f = gj.K1[f64], gj.K4[f64]
+    cpu_kw = dict(dialect=X, device="cpu")
+
+    # (a) ua741-pz-sens: poles/zeros and sensitivities at the amplifier's
+    # shared operating point (K2 on its panel tier, N = 36), against the
+    # CPU path; d v(out)/d rfb against -v(in)/rin and a central difference
+    # of two card operating points; the dominant pole against the -3 dB
+    # frequency of the same deck's acop .ac
+    pzs, pzs_s = workload(
+        "24a ua741 pz+sens", lambda: st.simulate(
+            decks.UA741_PZ_SENS, dialect=X, device=dev),
+        [K2f, K1f, K4f], tiers=[(K2f, "panel")], reps=1, absent=fused)
+    want = st.simulate(decks.UA741_PZ_SENS, **cpu_kw)
+    pz_gap = 0.0
+    for f in ("poles", "zeros"):
+        g, w = pair_nearest(getattr(pzs.pz, f), getattr(want.pz, f)), \
+            getattr(want.pz, f)
+        same(g, w, f"ua741 {f}", atol=1e-12 * float(np.abs(w).max()))
+        pz_gap = max(pz_gap, float((np.abs(g - w) / np.abs(w)).max()))
+    # every sensitivity on one scale for every unit: 1e-12 of the largest
+    # |value * p / 100| (volts per 1% change) over the entry's |p| / 100,
+    # a parameter of value 0 taken as 1 of its unit
+    scale = 1e-12 * max(abs(v) for v in want.sens.normalized.values())
+    if list(pzs.sens.values) != list(want.sens.values):
+        raise AssertionError("ua741 .sens: parameters differ")
+    sens_gap = 0.0
+    for name, v in want.sens.values.items():
+        atol = scale * 100.0 / (abs(want.sens.params[name]) or 1.0)
+        same(pzs.sens.values[name], v, f"ua741 sens {name}", atol=atol)
+        sens_gap = max(sens_gap, abs(pzs.sens.values[name] - v)
+                       / (1e-9 * abs(v) + atol))
+    s_rfb = pzs.sens.values["rfb"]
+    same(s_rfb, -0.05 / 1e3, "sens rfb = -v(in)/rin", rtol=0.02, atol=0.0)
+
+    def vout_at(rfb):
+        net = decks.UA741_PZ_SENS.replace("rfb minus out 10k",
+                                          f"rfb minus out {rfb!r}")
+        return st.simulate_op(st.parse_netlist(net, dialect=X),
+                              device=dev).node_voltages["out"]
+
+    fd = (vout_at(1e4 * 1.001) - vout_at(1e4 * 0.999)) / (2 * 10.0)
+    same(s_rfb, fd, "sens rfb against a central difference", rtol=1e-3,
+         atol=0.0)
+    gain = np.abs(pzs.ac.node_voltages["out"] / pzs.ac.node_voltages["in"])
+    k = int(np.argmax(gain < gain[0] / np.sqrt(2)))
+    f3 = float(np.exp(np.interp(
+        np.log(gain[0] / np.sqrt(2)), np.log(gain[[k, k - 1]]),
+        np.log(pzs.ac.freqs[[k, k - 1]]))))
+    p0 = pzs.pz.poles[np.argmin(np.abs(pzs.pz.poles))]
+    same(abs(p0), 2 * np.pi * f3, "dominant pole against the -3 dB "
+         "frequency", rtol=0.10, atol=0.0)
+    say("24 post-analyses", f"(a) ua741 .pz/.sens (N = 36): "
+        f"{len(pzs.pz.poles)} poles, {len(pzs.pz.zeros)} zeros = CPU path "
+        f"as sets (largest relative gap {pz_gap:.2e}), "
+        f"{len(pzs.sens.values)} sensitivities = CPU path at 1e-9, each "
+        f"with its atol of 1e-12 of the volts per 1% (largest gap "
+        f"{sens_gap:.2e} of the tolerance); "
+        f"d v(out)/d rfb {s_rfb:.6e} V/ohm (-v(in)/rin -5e-5 at 2%, "
+        f"central difference {fd:.6e} at 1e-3); dominant pole "
+        f"{abs(p0):.6e} rad/s, 2 pi f(-3 dB) {2 * np.pi * f3:.6e} at 10%; "
+        f"wall {pzs_s:.3f} s | {smi}")
+
+    # (b) ua741-four: .four 10k v(out) over two periods: the fundamental
+    # 20 mV x a closed-loop gain of ~10, THD under 1%, = the CPU path
+    fo, fo_s = workload(
+        "24b ua741 four", lambda: st.simulate(
+            decks.UA741_FOUR, dialect=X, device=dev),
+        [K2f, K1f, K4f], tiers=[(K2f, "panel")], reps=1, absent=fused)
+    want = st.simulate(decks.UA741_FOUR, **cpu_kw).four
+    g, w = fo.four.probes["out"], want.probes["out"]
+    same(g.magnitude, w.magnitude, "ua741 four magnitudes",
+         atol=1e-12 * float(w.magnitude.max()))
+    same(g.magnitude * np.exp(1j * np.radians(g.phase_deg)),
+         w.magnitude * np.exp(1j * np.radians(w.phase_deg)),
+         "ua741 four harmonics", atol=1e-12 * float(w.magnitude.max()))
+    same(g.thd_percent, w.thd_percent, "ua741 THD",
+         atol=100e-12 * float(w.magnitude.max()) / float(w.magnitude[1]))
+    same(g.magnitude[1], 0.2, "ua741 fundamental", rtol=0.03, atol=0.0)
+    if not g.thd_percent < 1.0:
+        raise AssertionError(f"ua741 THD {g.thd_percent} %")
+    say("24 post-analyses", f"(b) ua741 .four 10k over "
+        f"{len(fo.tran.times)} steps: fundamental {g.magnitude[1]:.6e} V "
+        f"(0.2 at 3%), THD {g.thd_percent:.3e} % (< 1), = CPU path; wall "
+        f"{fo_s:.3f} s | {smi}")
+
+    # (c) step-meas-1001: STEP_DECK's 1,001 lanes reduced by three .meas
+    # tran lines (K3's register form factors each lane's matrix once; K1
+    # the stepped .ac); first, middle and last lane against simulate() of
+    # the deck at that r1 alone, 64 lanes against the CPU path
+    sm, sm_s = workload(
+        "24c step-meas 1001", lambda: st.simulate(
+            decks.STEP_MEAS, dialect=X, device=dev).step,
+        [K3f, K1f], tiers=[(K3f, "register")], absent=fused)
+    names = ("vmax", "trise", "vavg")
+    got = {n: (a.shape, int(np.isfinite(a).sum())) for n, a in sm.meas.items()}
+    if got != {n: ((1001,), 1001) for n in names}:
+        raise AssertionError(f"step-meas: (shape, finite) {got}")
+    base = decks.STEP_MEAS.replace(".step param r1 100 1100 1\n", "")
+    for lane in (0, 500, 1000):
+        r1 = float(sm.values[lane])
+        one = st.simulate(base.replace("r1 in a 100", f"r1 in a {r1!r}"),
+                          dialect=X, device=dev).meas
+        for n in names:
+            same(sm.meas[n][lane], one[n], f"step-meas lane {lane} {n}",
+                 atol=0.0)
+    ckt = st.parse_netlist(decks.STEP_MEAS, dialect=X)
+    cpu = st.meas_batch(ckt, st.simulate_tran_batch(
+        ckt, {"r1": sm.values[:64]}, device="cpu"))
+    for n in names:
+        same(sm.meas[n][:64], cpu[n], f"step-meas 64 lanes {n}",
+             atol=1e-12 * float(np.abs(cpu[n]).max()))
+    say("24 post-analyses", f"(c) step-meas: {len(sm.values)} lanes x "
+        f"{len(sm.tran.times)} steps, .meas vmax {sm.meas['vmax'].min():.4f}"
+        f"-{sm.meas['vmax'].max():.4f} V, trise "
+        f"{sm.meas['trise'].min():.4e}-{sm.meas['trise'].max():.4e} s, vavg "
+        f"{sm.meas['vavg'].min():.4f}-{sm.meas['vavg'].max():.4f} V, all "
+        f"finite; lanes 0/500/1000 = simulate() alone, 64 = CPU path at "
+        f"1e-9; wall {sm_s:.3f} s | {smi}")
+
+    # (d) control-raw-cli: the uA741 with every post-analysis and a
+    # .control tail (print, let, wrdata, binary and ASCII rawfiles): the
+    # text against the CPU path's, the binary rawfile read back bit for
+    # bit; then python -m spicey_tpu_torch on the card as a subprocess
+    # with jax blocked, its standard output the in-process CLI's, which
+    # runs inside profiled()
+    from spicey_tpu_torch.formatting.rawfile import read_rawfile
+    from spicey_tpu_torch.utils import profiling
+
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_24_")
+    tmp = tmp_dir.name
+    ctl, ctl_s = workload(
+        "24d control-raw-cli", lambda: st.simulate(
+            decks.UA741_CONTROL, dialect=X, device=dev, base_dir=tmp),
+        [K2f, K1f, K4f], tiers=[(K2f, "panel")], reps=1, absent=fused)
+    raw_bytes = Path(tmp, "ua741.raw").read_bytes()
+    # the CLI as a subprocess on the card, jax blocked, started now and
+    # read after the host-side comparisons (it is a new process: ~8 s to
+    # reach the card)
+    cli_dir = Path(tmp, "cli")
+    blocker = cli_dir / "block" / "jax"
+    blocker.mkdir(parents=True)
+    (blocker / "__init__.py").write_text(
+        "raise ImportError('jax is blocked')\n")
+    deck_path = cli_dir / "ua741.cir"
+    deck_path.write_text(decks.UA741_CONTROL)
+    argv = [str(deck_path), "--raw", str(cli_dir / "cli.raw"), "--binary"]
+    repo = str(Path(__file__).resolve().parent)
+    t_cli = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spicey_tpu_torch", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=cli_dir, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(blocker.parent), repo])))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_24_cpu_") as d:
+        want = st.simulate(decks.UA741_CONTROL, base_dir=d, **cpu_kw)
+    n_diff, gap = text_gap(ctl.control_output, want.control_output)
+    if gap > 1e-6:
+        raise AssertionError(f"control text: {n_diff} numbers differ, "
+                             f"up to {gap:.3e} relative")
+    plots = dict(read_rawfile(raw_bytes))
+    expect = {"Operating Point": (None, ctl.op), "AC Analysis":
+              (ctl.ac.freqs, ctl.ac), "Transient Analysis":
+              (ctl.tran.times, ctl.tran)}
+    if list(plots) != list(expect):
+        raise AssertionError(f"rawfile plots {list(plots)}")
+    n_vec = 0
+    for plot, (axis, r) in expect.items():
+        series = plots[plot]
+        if axis is not None:
+            ax = series["frequency" if plot.startswith("AC") else "time"]
+            if not np.array_equal(np.real(ax), axis):
+                raise AssertionError(f"rawfile {plot} axis")
+            n_vec += 1
+        for node, v in r.node_voltages.items():
+            if not np.array_equal(series[f"v({node})"], np.atleast_1d(v)):
+                raise AssertionError(f"rawfile {plot} v({node})")
+            n_vec += 1
+        for el, i in r.element_currents.items():
+            key = f"{el}#branch"
+            if key in series:
+                if not np.array_equal(series[key], np.atleast_1d(i)):
+                    raise AssertionError(f"rawfile {plot} {key}")
+                n_vec += 1
+    # the in-process CLI on a deck file of its own directory (the .control
+    # tail writes beside it), inside profiled()
+    own = Path(tmp, "own")
+    own.mkdir()
+    (own / "ua741.cir").write_text(decks.UA741_CONTROL)
+    buf = io.StringIO()
+    with profiling.profiled(), contextlib.redirect_stdout(buf):
+        cli_main([str(own / "ua741.cir"), "--raw", str(own / "cli.raw"),
+                  "--binary"])
+    spans = {line.split(", ")[0] for line in profiling.report().splitlines()}
+    if not {"pz", "sens", "four", "meas", "control"} <= spans:
+        raise AssertionError(f"profiled() spans {sorted(spans)}")
+    cli_out, cli_err = proc.communicate(timeout=300)
+    cli_s = time.perf_counter() - t_cli
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI exit {proc.returncode}: "
+                             f"{cli_err[-2000:]}")
+    if cli_out != buf.getvalue():
+        raise AssertionError("CLI standard output differs from the "
+                             "in-process CLI's")
+    say("24 post-analyses", f"(d) ua741 .control: text = CPU path "
+        f"({n_diff} numbers differ in their last printed digit, up to "
+        f"{gap:.2e} relative), binary rawfile: {len(plots)} plots, {n_vec} "
+        f"vectors read back bit for bit; wall {ctl_s:.3f} s; python -m "
+        f"spicey_tpu_torch --raw --binary with jax blocked: exit 0, stdout "
+        f"= in-process ({len(cli_out.splitlines())} lines), "
+        f"{cli_s:.1f} s; profiled() spans pz, sens, four, meas, control "
+        f"| {smi}")
+    tmp_dir.cleanup()
+    zero_counts()
+    say("24 post-analyses", f"{time.perf_counter() - t24:.1f} s")
     torch.cuda.empty_cache()
 
     # ---- 9. launches and times --------------------------------------------

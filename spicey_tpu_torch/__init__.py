@@ -20,10 +20,18 @@ the DC operating point and the analyses built on it: ``.op``, ``.dc``,
 through K4 (the complex inverse), and the batched corner sweeps:
 ``simulate_ac_batch`` (full solutions; K7, the fused full-solution
 kernel, or K1), ``simulate_tran_batch`` (K2, K3) and ``.step`` in
-``simulate()``. The host layer (parsing, IR,
-formatting) is a jax-free copy of the JAX package's. Public entry points
-run on the CUDA card unless called with ``device="cpu"``, and state
-float64 or float32 at every tensor creation.
+``simulate()``, and the post-analyses on top of them: ``.pz`` and
+``.sens`` at the shared operating point, ``.four`` and ``.meas`` over the
+finished sweeps (``meas_batch`` over a ``.step`` transient's lanes), a
+``.control`` block's print/let/wrdata/write tail, the ngspice rawfile and
+``python -m spicey_tpu_torch``. The host layer (parsing, IR, formatting,
+the post-analyses) is a jax-free copy of the JAX package's. Public entry
+points run on the CUDA card unless called with ``device="cpu"``, and
+state float64 or float32 at every tensor creation.
+
+Of ``spicey_tpu``'s public names three are not here: ``make_mesh`` and
+``sharder`` (the multi-device mesh, ROADMAP §1 item 9) and ``warmup``
+(the TPU device handshake and compile cache, item 10).
 """
 
 from __future__ import annotations
@@ -31,26 +39,39 @@ from __future__ import annotations
 from .analysis.ac import simulate_ac
 from .analysis.batch import (BatchACResult, BatchTranResult,
                              simulate_ac_batch, simulate_tran_batch)
+from .analysis.four import FourierProbe, FourierResult, simulate_four
 from .analysis.mc import (MCStats, mc_ac_sampled, mc_ac_stats,
                           mc_tran_sampled, mc_tran_stats)
+from .analysis.meas import (MeasSpec, evaluate_meas, evaluate_meas_batch,
+                            meas_batch, simulate_meas)
 from .analysis.noise import NoiseResult, simulate_noise
 from .analysis.op import (BatchOPResult, DCResult, OPResult, op_batch,
                           simulate_dc, simulate_op)
+from .analysis.pz import PZResult, format_pz_result, simulate_pz
 from .analysis.results import (ACResult, SimulationResult, StepResult,
                                TranResult)
+from .analysis.sens import SensResult, format_sens_result, simulate_sens
 from .analysis.simulate import simulate
 from .analysis.tf import TFResult, simulate_tf
 from .analysis.tran import TranState, simulate_tran
 from .constants import EPS, VT_300K
 from .formatting.jsnum import to_precision
 from .formatting.compare import compare_voltage_levels
+from .formatting.rawfile import format_rawfile, read_rawfile, write_rawfile
+from .formatting.svg import convert_simulation_graphs_to_svg
 from .formatting.text import (format_ac_result, format_dc_result,
-                              format_noise_result, format_op_result,
-                              format_tf_result, format_tran_result)
+                              format_four_result, format_noise_result,
+                              format_op_result, format_tf_result,
+                              format_tran_result)
 from .formatting.vgraph import (eec_engine_tran_to_vgraphs,
                                 spicey_tran_to_vgraphs)
 from .ir.circuit import CircuitTensors, build_tensors, from_jax_tensors
+from .math_complex import Complex
 from .parsing.netlist import ParsedCircuit, parse_netlist
+from .parsing.numbers import parse_number_with_units
+from .parsing.waveforms import (PulseSpec, parse_pulse_args, parse_pwl_args,
+                                pulse_value, pwl_value)
+from .utils.profiling import profiled, report, span
 
 # camelCase aliases matching the reference's npm surface (lib/index.ts:1-12)
 parseNetlist = parse_netlist
@@ -67,12 +88,18 @@ __all__ = [
     "BatchOPResult",
     "BatchTranResult",
     "CircuitTensors",
+    "Complex",
     "DCResult",
     "EPS",
+    "FourierResult",
     "MCStats",
+    "MeasSpec",
     "NoiseResult",
     "OPResult",
+    "PZResult",
     "ParsedCircuit",
+    "PulseSpec",
+    "SensResult",
     "SimulationResult",
     "StepResult",
     "TFResult",
@@ -81,36 +108,53 @@ __all__ = [
     "VT_300K",
     "build_tensors",
     "compare_voltage_levels",
+    "convert_simulation_graphs_to_svg",
     "eecEngineTranToVGraphs",
     "eec_engine_tran_to_vgraphs",
-    "format_ac_result",
-    "format_dc_result",
-    "format_noise_result",
-    "format_op_result",
-    "format_tf_result",
-    "format_tran_result",
     "formatAcResult",
     "formatTranResult",
+    "format_ac_result",
+    "format_dc_result",
+    "format_four_result",
+    "format_noise_result",
+    "format_op_result",
+    "format_pz_result",
+    "format_rawfile",
+    "format_sens_result",
+    "format_tf_result",
+    "format_tran_result",
     "from_jax_tensors",
     "mc_ac_sampled",
     "mc_ac_stats",
     "mc_tran_sampled",
     "mc_tran_stats",
+    "meas_batch",
     "op_batch",
     "parseNetlist",
     "parse_netlist",
+    "parse_number_with_units",
+    "parse_pulse_args",
+    "parse_pwl_args",
+    "pulse_value",
+    "pwl_value",
+    "read_rawfile",
     "simulate",
     "simulateAC",
     "simulateTRAN",
     "simulate_ac",
     "simulate_ac_batch",
     "simulate_dc",
+    "simulate_four",
+    "simulate_meas",
     "simulate_noise",
     "simulate_op",
+    "simulate_pz",
+    "simulate_sens",
     "simulate_tf",
     "simulate_tran",
     "simulate_tran_batch",
     "spiceyTranToVGraphs",
     "spicey_tran_to_vgraphs",
     "to_precision",
+    "write_rawfile",
 ]

@@ -6,9 +6,9 @@ Shapes mirror the reference's return records:
   - TRAN: {times, nodeVoltages, elementCurrents}
           (spicey/lib/analysis/simulateTRAN.ts:251)
 The extended analyses' results (OPResult, DCResult, TFResult, NoiseResult,
-and the batched BatchACResult, BatchTranResult, BatchOPResult) live beside
-their analyses, as in the JAX package; ``.step`` gathers the batched ones
-in a StepResult.
+PZResult, SensResult, FourierResult, and the batched BatchACResult,
+BatchTranResult, BatchOPResult) live beside their analyses, as in the JAX
+package; ``.step`` gathers the batched ones in a StepResult.
 Series are NumPy arrays instead of JS number lists; dict insertion order
 matches the reference's recording order (nodes in discovery order, then
 element currents in R, C, L, V[, S, D] stamp order).
@@ -58,8 +58,8 @@ class StepResult:
     """Extended ``.step``: every step value is one lane of a batched run.
 
     ``ac``/``tran``/``op`` are the Batch* results (lane order follows
-    ``values``); ``meas`` maps each .meas name to its per-step array
-    (always None here: ``.meas`` is not ported, ROADMAP §1 item 8)."""
+    ``values``); ``meas`` maps each .meas tran name to its per-step array
+    (``analysis/meas.py:meas_batch`` over the batched transient)."""
 
     param: str
     values: np.ndarray                 # (S,) step values

@@ -1,13 +1,15 @@
-"""Universal entry point: parse -> [OP] -> DC -> TF -> NOISE -> AC -> TRAN
--> STEP.
+"""Universal entry point: parse -> [OP] -> DC -> TF -> NOISE -> PZ -> SENS
+-> AC -> TRAN -> FOUR -> MEAS -> STEP -> CONTROL.
 
 Contract: spicey/lib/analysis/simulate.ts:5-10, with the JAX package's
-extended analyses (spicey_tpu/analysis/simulate.py:38-115): the operating
-point is solved once and shared by ``.op``, ``.tf`` and ``.noise``; a
-``.step`` sweep runs each of ``.ac``, ``.tran`` and ``.op`` once more as a
-batched call with one lane per step value. A deck that asks for an
-analysis not ported yet raises ``NotImplementedError`` naming the ROADMAP
-item that brings it, rather than returning ``None`` for it.
+extended analyses in its order (spicey_tpu/analysis/simulate.py:22-126):
+the operating point is solved once and shared by ``.op``, ``.tf``,
+``.noise``, ``.pz`` and ``.sens``; ``.four`` and ``.meas`` read the
+finished sweeps; a ``.step`` sweep runs each of ``.ac``, ``.tran`` and
+``.op`` once more as a batched call with one lane per step value, and its
+``.meas tran`` lines over the batched transient; a ``.control`` block's
+post-processing tail runs last. Each analysis runs inside a
+``utils/profiling.span`` of the JAX package's name.
 """
 
 from __future__ import annotations
@@ -18,29 +20,19 @@ import torch
 from ..ir.circuit import build_tensors
 from ..parsing.netlist import ParsedCircuit, parse_netlist
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .ac import simulate_ac
 from .batch import simulate_ac_batch, simulate_tran_batch
+from .control import run_control
+from .four import simulate_four
+from .meas import meas_batch, simulate_meas
 from .noise import simulate_noise
 from .op import op_batch, simulate_dc, simulate_op
+from .pz import simulate_pz
 from .results import SimulationResult, StepResult
+from .sens import simulate_sens
 from .tf import simulate_tf
 from .tran import simulate_tran
-
-# analysis -> ROADMAP §1 item that ports it
-_NOT_PORTED = (
-    (".pz", "item 8", lambda c: c.pz is not None),
-    (".sens", "item 8", lambda c: c.sens is not None),
-    (".four", "item 8", lambda c: c.four is not None),
-    (".control", "item 8", lambda c: bool(c.control)),
-)
-
-
-def _require_ported(circuit: ParsedCircuit) -> None:
-    for name, item, asked in _NOT_PORTED:
-        if asked(circuit):
-            raise NotImplementedError(
-                f"{name} is not ported to spicey_tpu_torch yet "
-                f"(ROADMAP §1 {item})")
 
 
 def _tran_options(options: dict) -> dict:
@@ -73,49 +65,76 @@ def simulate(netlist_text: str, method: str = "gj",
     given) makes the AC sweep linearize nonlinear devices around the DC
     operating point; the default keeps the reference's behaviour of not
     stamping them. ``base_dir`` resolves relative ``.include``/``.lib``
-    paths (extended dialect)."""
+    paths (extended dialect) and the output files of a ``.control``
+    block."""
     device = resolve_device(device)
-    circuit = parse_netlist(netlist_text, dialect=dialect, base_dir=base_dir)
-    _require_ported(circuit)
-    tensors = build_tensors(circuit)
-    # .tf and .noise both linearize at the operating point: solve it once
-    # and share it rather than re-running Newton per analysis
-    need_op = (circuit.op or circuit.tf is not None
-               or circuit.noise is not None)
-    op_point = (simulate_op(circuit, tensors=tensors, method=method,
-                            device=device) if need_op else None)
-    dc = simulate_dc(circuit, tensors=tensors, method=method, device=device)
-    tf = simulate_tf(circuit, tensors=tensors, method=method, op=op_point,
-                     device=device)
-    noise = simulate_noise(circuit, tensors=tensors, method=method,
-                           op=op_point, device=device)
-    if ac_linearize is None and circuit.options.get("acop"):
-        ac_linearize = "op"
-    ac = simulate_ac(circuit, tensors=tensors, method=method,
-                     linearize=ac_linearize, device=device)
-    tran = simulate_tran(circuit, tensors=tensors, method=method,
-                         device=device, **_tran_options(circuit.options))
-    return SimulationResult(circuit=circuit, ac=ac, tran=tran,
-                            op=op_point if circuit.op else None, dc=dc,
-                            tf=tf, noise=noise,
-                            step=_step(circuit, method, device))
+    kw = dict(method=method, device=device)
+    with span("parse"):
+        circuit = parse_netlist(netlist_text, dialect=dialect,
+                                base_dir=base_dir)
+        tensors = build_tensors(circuit)
+    with span("op"):
+        # .tf, .noise, .pz and .sens all linearize at the operating point:
+        # solve it once and share it rather than re-running Newton per
+        # analysis
+        need_op = (circuit.op or circuit.tf is not None
+                   or circuit.noise is not None or circuit.pz is not None
+                   or circuit.sens is not None)
+        op_point = (simulate_op(circuit, tensors=tensors, **kw)
+                    if need_op else None)
+    with span("dc"):
+        dc = simulate_dc(circuit, tensors=tensors, **kw)
+    with span("tf"):
+        tf = simulate_tf(circuit, tensors=tensors, op=op_point, **kw)
+    with span("noise"):
+        noise = simulate_noise(circuit, tensors=tensors, op=op_point, **kw)
+    with span("pz"):
+        pz = simulate_pz(circuit, tensors=tensors, op=op_point, **kw)
+    with span("sens"):
+        sens = simulate_sens(circuit, tensors=tensors, op=op_point, **kw)
+    with span("ac"):
+        if ac_linearize is None and circuit.options.get("acop"):
+            ac_linearize = "op"
+        ac = simulate_ac(circuit, tensors=tensors, linearize=ac_linearize,
+                         **kw)
+    with span("tran"):
+        tran = simulate_tran(circuit, tensors=tensors, **kw,
+                             **_tran_options(circuit.options))
+    with span("four"):
+        four = simulate_four(circuit, tran)
+    with span("meas"):
+        meas = simulate_meas(circuit, tran, ac=ac, dc=dc)
+    with span("step"):
+        step = _step(circuit, method, device)
+    res = SimulationResult(circuit=circuit, ac=ac, tran=tran,
+                           op=op_point if circuit.op else None, dc=dc,
+                           tf=tf, four=four, noise=noise, meas=meas, pz=pz,
+                           sens=sens, step=step)
+    if circuit.control:
+        # the .control block's post-processing tail (print/echo/let/write/
+        # wrdata): host work after every analysis
+        with span("control"):
+            res.control_output = run_control(res, base_dir=base_dir)
+    return res
 
 
 def _step(circuit: ParsedCircuit, method: str,
           device: torch.device) -> StepResult | None:
     """Extended ``.step``: each value is one lane of a batched run of
-    ``.ac``, ``.tran`` and ``.op``; the single-circuit results keep the
-    base element values. ``.meas`` is refused when the deck is parsed
-    (ROADMAP §1 item 8), so ``meas`` stays None."""
+    ``.ac``, ``.tran`` and ``.op``, and every ``.meas tran`` line is
+    evaluated over the lanes of the batched transient; the single-circuit
+    results keep the base element values."""
     if circuit.step is None:
         return None
     vals = np.asarray(circuit.step.values, dtype=np.float64)
     ov = {circuit.step.param: vals}
     kw = dict(method=method, device=device)
+    ac = (simulate_ac_batch(circuit, ov, **kw)
+          if circuit.ac is not None else None)
+    tran = (simulate_tran_batch(circuit, ov, **kw)
+            if circuit.tran is not None else None)
     return StepResult(
-        param=circuit.step.param, values=vals,
-        ac=(simulate_ac_batch(circuit, ov, **kw)
-            if circuit.ac is not None else None),
-        tran=(simulate_tran_batch(circuit, ov, **kw)
-              if circuit.tran is not None else None),
-        op=op_batch(circuit, ov, **kw) if circuit.op else None)
+        param=circuit.step.param, values=vals, ac=ac, tran=tran,
+        op=op_batch(circuit, ov, **kw) if circuit.op else None,
+        meas=(meas_batch(circuit, tran)
+              if circuit.meas and tran is not None else None))

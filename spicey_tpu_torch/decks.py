@@ -13,7 +13,10 @@ the operating-point slice's; the K, T and B decks after them (a
 transformer, a board trace, the uA741 macromodel, a tanh amplifier) are
 ``chip_smoke.py`` phase 23's, from ``tests/test_coupling.py``,
 ``tests/test_tline.py``, ``tests/fixtures/ua741.py``,
-``tests/test_step.py`` and ``tests/test_bsource.py``.
+``tests/test_step.py`` and ``tests/test_bsource.py``. The post-analysis
+decks at the very end (the uA741 amplifier with ``.pz``, ``.sens``,
+``.four``, ``.meas`` and a ``.control`` block, and STEP_DECK with
+``.meas`` lines) are ``chip_smoke.py`` phase 24's.
 """
 
 from __future__ import annotations
@@ -382,4 +385,50 @@ bamp out 0 V=2*tanh(5*v(in))
 rl out 0 1k
 .tran 10u 1m
 .end
+"""
+
+
+# ---- the post-analyses (ROADMAP §1 items 8 and 13) ----------------------
+
+# the uA741 amplifier's poles and zeros from its input to its output and
+# the DC sensitivity of v(out) to every parameter, at the operating point
+# the deck's .op shares (N = 36)
+UA741_PZ_SENS = UA741_AMP + """.pz in 0 out 0 vol pz
+.sens v(out)
+"""
+
+# its transient over two periods of the 10 kHz drive and the harmonics of
+# v(out) over the last one: a 20 mV drive times a closed-loop gain of ~10
+UA741_FOUR = (UA741_AMP.replace(".tran 1u 50u", ".tran 1u 200u")
+              + ".four 10k v(out)\n")
+
+# STEP_DECK's 1,001 lanes reduced to numbers: the peak, the rise time
+# from 0.2 V to 1 V (every lane's peak is above 1.5 V) and the average
+# over the last 50 us
+STEP_MEAS = STEP_DECK + """.meas tran vmax max v(out)
+.meas tran trise trig v(out)=0.2 rise=1 targ v(out)=1 rise=1
+.meas tran vavg avg v(out) from=150u to=200u
+"""
+
+# every post-analysis in one deck, over one period of the drive (the
+# least a .four 10k takes), and a .control tail that prints, computes, and
+# writes the result as columns and as ngspice rawfiles (binary, then
+# ASCII) relative to the run's base_dir
+UA741_CONTROL = UA741_AMP.replace(".tran 1u 50u", ".tran 1u 100u") + """\
+.four 10k v(out)
+.pz in 0 out 0 vol pz
+.sens v(out)
+.meas tran vmax max v(out)
+.meas tran tcross when v(out)=-0.5 fall=1
+.control
+echo ua741 post-analyses
+print v(out) v(in)
+let gain = v(out)/v(in)
+let vpk = vecmax(v(out))
+print vpk gain
+wrdata ua741.dat v(out) v(in)
+write ua741.raw
+set filetype=ascii
+write ua741_ascii.raw
+.endc
 """

@@ -8,8 +8,8 @@ Contract:
   - format_tran_result: spicey/lib/formatting/formatTranResult.ts:1-23
     header ``t(s), <node>:V, ...``; 6-sig-fig rows.
   - format_dc_result, format_tf_result, format_noise_result,
-    format_op_result: the extended analyses' tables, copies of
-    spicey_tpu/formatting/text.py:67-158.
+    format_op_result, format_four_result: the extended analyses' tables,
+    copies of spicey_tpu/formatting/text.py:67-182.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import numpy as np
 from .jsnum import to_precision
 
 if TYPE_CHECKING:  # import-cycle-free annotations only
+    from ..analysis.four import FourierResult
     from ..analysis.noise import NoiseResult
     from ..analysis.op import DCResult, OPResult
     from ..analysis.results import ACResult, TranResult
@@ -97,6 +98,67 @@ def format_tf_result(tf: TFResult | None) -> str:
         f"output_impedance({tf.out_spec}) = "
         f"{to_precision(tf.output_impedance, 6)}",
     ])
+
+
+def format_noise_result(noise: NoiseResult | None) -> str:
+    """Text table for the extended-dialect .noise analysis."""
+    if noise is None:
+        return "No NOISE analysis.\n"
+    lines = [
+        f"Noise analysis at {noise.out_spec}, input {noise.src_name}, "
+        f"total output noise = "
+        f"{to_precision(float(noise.total_output_rms), 6)} Vrms",
+        "f(Hz), onoise(V/sqrt(Hz)), inoise(V/sqrt(Hz)), |gain|",
+    ]
+    onoise = noise.output_v_per_sqrt_hz
+    inoise = noise.input_v_per_sqrt_hz
+    gain = np.abs(noise.gain)
+    for k in range(len(noise.freqs)):
+        lines.append(", ".join([
+            to_precision(float(noise.freqs[k]), 6),
+            to_precision(float(onoise[k]), 6),
+            to_precision(float(inoise[k]), 6),
+            to_precision(float(gain[k]), 6),
+        ]))
+    return "\n".join(lines)
+
+
+def format_op_result(op: OPResult | None) -> str:
+    """Text table for the extended-dialect .op operating point."""
+    if op is None:
+        return "No OP analysis.\n"
+    lines = ["node, V"]
+    for name, v in op.node_voltages.items():
+        lines.append(f"{name}, {to_precision(float(v), 6)}")
+    lines.append("element, I")
+    for name, i in op.element_currents.items():
+        lines.append(f"{name}, {to_precision(float(i), 6)}")
+    return "\n".join(lines)
+
+
+def format_four_result(four: FourierResult | None) -> str:
+    """Text table for the extended-dialect .four Fourier analysis
+    (ngspice-style per-probe harmonic table)."""
+    if four is None:
+        return "No FOUR analysis.\n"
+    blocks = []
+    for name, p in four.probes.items():
+        lines = [
+            f"Fourier analysis for v({name}), fundamental "
+            f"{to_precision(float(four.fundamental), 6)} Hz, "
+            f"THD = {to_precision(float(p.thd_percent), 6)} %",
+            "harmonic, f(Hz), magnitude, phase(deg), normalized",
+        ]
+        for k in range(len(p.freqs)):
+            lines.append(", ".join([
+                str(k),
+                to_precision(float(p.freqs[k]), 6),
+                to_precision(float(p.magnitude[k]), 6),
+                to_precision(float(p.phase_deg[k]), 6),
+                to_precision(float(p.normalized[k]), 6),
+            ]))
+        blocks.append("\n".join(lines))
+    return "\n\n".join(blocks)
 
 
 def format_noise_result(noise: NoiseResult | None) -> str:

@@ -860,8 +860,9 @@ def _parse_directive(ckt: ParsedCircuit, tokens: list[str], line: str,
         out_pos, out_neg = _parse_v_output_spec(out_tok, ".tf", line)
         ckt.tf = TFAnalysis(out_pos=out_pos, out_neg=out_neg, src=src)
     elif dir_name in (".meas", ".measure") and dialect == "extended":
-        raise NotImplementedError(
-            ".meas is not ported yet (ROADMAP §1 item 8)")
+        from ..analysis.meas import parse_meas_line
+
+        ckt.meas.append(parse_meas_line(line))
     elif dir_name == ".noise" and dialect == "extended":
         out_tok = _require(tokens, 1, ".noise missing output spec")
         src = _require(tokens, 2, ".noise missing input source name")

@@ -131,12 +131,25 @@ def test_from_jax_tensors_rejects_other_fields():
 
 
 def test_unported_analyses_raise():
-    """What the port does not run yet raises NotImplementedError naming its
-    ROADMAP item; .op/.dc/.tf/.noise, linearize="op" and .step are
-    ported."""
+    """What the JAX package runs, the port runs with the same result, and
+    what it rejects, the port rejects with its exception and message:
+    .pz (here of a deck whose .pz names v(1), not a node, which both
+    reject), .meas, .op/.dc/.tf/.noise, linearize="op" and .step are
+    ported (``method="schur"``, ROADMAP §1 item 6, still raises
+    NotImplementedError, tests/test_torch_linsolve.py)."""
     pz = BASICS01.replace(".end", ".pz v(1) v(0) v(2) v(0) vol pz\n.end")
-    with pytest.raises(NotImplementedError, match=r"\.pz .*ROADMAP §1 item 8"):
+    with pytest.raises(ValueError) as jax_err:
+        spicey_tpu.simulate(pz, dialect="extended")
+    with pytest.raises(ValueError) as port_err:
         simulate(pz, dialect="extended", device="cpu")
+    assert str(port_err.value) == str(jax_err.value)
+    good = simulate(pz.replace("v(1) v(0) v(2) v(0)", "1 0 2 0"),
+                    dialect="extended", device="cpu").pz
+    want = spicey_tpu.simulate(pz.replace("v(1) v(0) v(2) v(0)", "1 0 2 0"),
+                               dialect="extended").pz
+    np.testing.assert_allclose(good.poles, want.poles, rtol=1e-9)
+    np.testing.assert_allclose(good.poles, [-1.0 / (30 * 100e-6)],
+                               rtol=1e-9)
     step = BASICS01.replace(".end", ".step param r1 10 30 10\n.end")
     stepped = simulate(step, dialect="extended", device="cpu").step
     assert stepped.ac.x.shape == (3, 201, 3) and stepped.ac.valid.all()
@@ -148,9 +161,12 @@ def test_unported_analyses_raise():
     plain = simulate(BASICS01, device="cpu").ac
     np.testing.assert_array_equal(lin.node_voltages["2"],
                                   plain.node_voltages["2"])
-    with pytest.raises(NotImplementedError, match=r"\.meas"):
-        parse_netlist(BASICS01.replace(
-            ".end", ".meas ac vmax max vm(2)\n.end"), dialect="extended")
+    meas = BASICS01.replace(".end", ".meas ac vmax max vm(2)\n.end")
+    got = simulate(meas, dialect="extended", device="cpu").meas
+    want = spicey_tpu.simulate(meas, dialect="extended").meas
+    assert list(got) == ["vmax"]
+    np.testing.assert_allclose(got["vmax"], want["vmax"], rtol=1e-9)
+    assert parse_netlist(meas, dialect="extended").meas[0].acc == "vm"
     # a deck without .ac has no AC result, as in the JAX package
     assert simulate_ac(parse_netlist("* empty\nr1 1 0 1k\n.end\n"),
                        device="cpu") is None

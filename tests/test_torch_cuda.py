@@ -4,7 +4,9 @@ re-solves, the batched corner sweeps (``simulate_ac_batch``,
 ``simulate_tran_batch``, ``.step``), a flat N = 129 ladder's .ac and
 .op, and the K, T and B workloads of ``chip_smoke.py`` phase 23 at small
 size (a transformer, a matched line with its delay swept, the uA741
-amplifier, a B-source Monte-Carlo) against the CPU path, on the card.
+amplifier, a B-source Monte-Carlo) and phase 24's (a) and (c) (the
+uA741's .pz and .sens, STEP_DECK's .step with .meas) against the CPU
+path, on the card.
 
 Tests marked ``cuda`` need an NVIDIA GPU with the CUDA toolkit and skip
 elsewhere; run them on the card with
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 import spicey_tpu_torch as st
+from chip_smoke import pair_nearest
 from spicey_tpu_torch import decks
 from spicey_tpu_torch.ir.circuit import (effective_time_step,
                                          sample_source_values)
@@ -1046,3 +1049,49 @@ def test_bsource_mc_on_cuda_equals_cpu(cuda):
     assert (mc_tran_fused.K8[torch.float32].launches,
             mc_tran_fused.K9[torch.float32].launches) == before
     np.testing.assert_allclose(c.mean, b.mean, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_ua741_pz_sens_on_cuda_equals_cpu(cuda):
+    """Phase 24 (a) at small size (no .noise, no .tran): the uA741's .pz
+    and .sens at the operating point K2's panel tier solves, poles and
+    zeros = the CPU path's as sets, every sensitivity at rtol 1e-9 with an
+    atol on one scale for every unit (1e-12 of the largest |value * p /
+    100|, the volts per 1% change, over the entry's |p| / 100; p = 0 taken
+    as 1), d v(out)/d rfb within 2% of -v(in)/rin."""
+    net = (decks.UA741_PZ_SENS
+           .replace(".noise v(out) vin dec 10 1 10meg\n", "")
+           .replace(".tran 1u 50u\n", ""))
+    before = gj_real.K2_TIERS[torch.float64]["panel"]
+    got = st.simulate(net, dialect="extended", device=cuda)
+    assert gj_real.K2_TIERS[torch.float64]["panel"] > before
+    want = st.simulate(net, dialect="extended", device="cpu")
+    for f in ("poles", "zeros"):
+        w = getattr(want.pz, f)
+        np.testing.assert_allclose(pair_nearest(getattr(got.pz, f), w), w,
+                                   rtol=1e-9,
+                                   atol=1e-12 * float(np.abs(w).max()))
+    scale = 1e-12 * max(abs(v) for v in want.sens.normalized.values())
+    assert list(got.sens.values) == list(want.sens.values)
+    for name, v in want.sens.values.items():
+        atol = scale * 100.0 / (abs(want.sens.params[name]) or 1.0)
+        assert abs(got.sens.values[name] - v) <= 1e-9 * abs(v) + atol, name
+    np.testing.assert_allclose(got.sens.values["rfb"], -5e-5, rtol=0.02)
+
+
+@pytest.mark.cuda
+def test_step_meas_on_cuda_equals_cpu(cuda):
+    """Phase 24 (c) at small size: STEP_MEAS over 21 lanes, each .meas
+    array finite and equal to the CPU path's at rtol 1e-9; the transient
+    factors each lane once on K3's register form."""
+    net = decks.STEP_MEAS.replace("100 1100 1", "100 1100 50")
+    before = gj_real.K3_TIERS[torch.float64]["register"]
+    got = st.simulate(net, dialect="extended", device=cuda).step
+    assert gj_real.K3_TIERS[torch.float64]["register"] > before
+    want = st.simulate(net, dialect="extended", device="cpu").step
+    assert list(got.meas) == list(want.meas) == ["vmax", "trise", "vavg"]
+    for name, w in want.meas.items():
+        assert got.meas[name].shape == (21,)
+        assert np.isfinite(got.meas[name]).all()
+        np.testing.assert_allclose(got.meas[name], w, rtol=1e-9,
+                                   atol=1e-12 * float(np.abs(w).max()))

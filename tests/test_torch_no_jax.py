@@ -10,8 +10,10 @@ the two-stage amplifier's .op/.tf/.ac/.noise, an ``op_batch``, a
 ``.step`` deck, the panel-blocked solves of ``ops/mxu.py``, and a K deck
 (the transformer's .ac against its closed form, a k1 sweep), a T deck
 (a line's port currents, a Td sweep) and a B deck (the tanh amplifier's
-transient and its f32 ``method="pallas"`` Monte-Carlo); an AST scan
-asserts that no module of the port imports jax or the JAX package.
+transient and its f32 ``method="pallas"`` Monte-Carlo), a deck with
+``.pz``, ``.sens``, ``.four``, ``.meas`` and a ``.control`` block that
+writes a rawfile, and the CLI (``__main__.main([..., "--cpu"])``); an AST
+scan asserts that no module of the port imports jax or the JAX package.
 """
 
 import ast
@@ -105,6 +107,24 @@ assert abs(vout - 2 * np.tanh(5 * vin)).max() < 1e-12
 bm = st.mc_tran_stats(bv, {"rl": [900.0, 1100.0]}, node="out",
                       method="pallas", precision="f32", **ext)
 assert bm.n_valid == 2
+post = ("the post analyses\n.model mn nmos(vto=1 kp=2m)\nvdd vdd 0 5\n"
+        "vg g 0 dc 2 ac 1 sin(2 0.1 1k)\nrd vdd d 1k\nm1 d g 0 mn\n"
+        "cgd g d 1p\n.pz g 0 d 0 vol pz\n.sens v(d)\n.tran 10u 2m\n"
+        ".four 1k v(d)\n.meas tran vmax max v(d)\n.control\n"
+        "let gain = v(d)/v(g)\nprint vmax\nwrdata post.dat v(d)\n"
+        "write post.raw\n.endc\n")
+pr = st.simulate(post, **ext)
+assert abs(pr.pz.zeros[0] - 2e9) < 1e-3 and pr.pz.poles.size == 1
+assert pr.sens.values["m1:vto"] > 0 and pr.four.probes["d"].thd_percent > 0
+assert pr.meas["vmax"] > 3
+assert pr.control_output == "print: no such vector vmax"
+assert st.read_rawfile(open("post.raw", "rb").read())[0][0] == \
+    "Transient Analysis"
+open("post.cir", "w").write(post)
+from spicey_tpu_torch.__main__ import main
+assert main(["post.cir", "--cpu", "--quiet", "--raw", "cli.raw"]) == 0
+assert [p for p, _ in st.read_rawfile(open("cli.raw", "rb").read())] == [
+    "Transient Analysis"]
 print("OK")
 """
 

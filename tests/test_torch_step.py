@@ -1,10 +1,11 @@
 """.step through the port's ``simulate()`` against the JAX package on the CPU.
 
-``tests/test_step.py``'s decks without ``.meas``: every step value is one
-lane of ``simulate_ac_batch``, ``simulate_tran_batch`` and ``op_batch``,
-held to ``spicey_tpu.simulate``'s ``StepResult`` at rtol 1e-9 / atol
-1e-12 and, for the divider, to its closed form. ``.meas`` is refused when
-the deck is parsed (ROADMAP §1 item 8), so ``StepResult.meas`` stays None.
+``tests/test_step.py``'s decks: every step value is one lane of
+``simulate_ac_batch``, ``simulate_tran_batch`` and ``op_batch``, held to
+``spicey_tpu.simulate``'s ``StepResult`` at rtol 1e-9 / atol 1e-12 and,
+for the divider, to its closed form; its DECK's ``.meas`` line is added
+back in ``test_step_with_meas_is_refused``, where ``StepResult.meas``
+holds each ``.meas`` name's per-lane array (ROADMAP §1 item 8).
 """
 
 import numpy as np
@@ -91,10 +92,19 @@ def test_step_unknown_param_raises():
 
 
 def test_step_with_meas_is_refused():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        simulate(DECK + ".meas tran vmax max v(out)\n"
-                 ".step param r1 500 2000 500\n", dialect="extended",
-                 device="cpu")
+    """.step with .meas ran in the JAX package only until ROADMAP §1 item 8
+    came to the port: now StepResult.meas holds each .meas tran name's
+    per-lane array, equal to spicey_tpu's at rtol 1e-9 / atol 1e-12."""
+    deck = (DECK + ".meas tran vmax max v(out)\n"
+            ".meas tran t50 when v(out)=0.5 rise=1\n"
+            ".step param r1 500 2000 500\n")
+    got = simulate(deck, dialect="extended", device="cpu").step
+    want = spicey_tpu.simulate(deck, dialect="extended").step
+    assert list(got.meas) == list(want.meas) == ["vmax", "t50"]
+    for name, w in want.meas.items():
+        assert got.meas[name].shape == (4,)
+        np.testing.assert_allclose(got.meas[name], w, rtol=1e-9,
+                                   atol=1e-12 * float(np.abs(w).max()))
 
 
 def test_step_ua741_needs_b_sources():
