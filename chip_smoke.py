@@ -194,7 +194,37 @@ line each:
      card with jax blocked, its standard output equal to the in-process
      CLI's, which runs inside ``profiled()`` and must name the pz, sens,
      four, meas and control spans;
-  9. every instantiation launched during 3-8 and 10-24 (printed after
+  25. the Schur tier and the time-parallel transient (ROADMAP items 6 and
+     3) through the public entry points on cuda, each workload counted on
+     its own, none launching K4, K5, K7, K8 or K9: (a)
+     ``decks.schur_ladder_netlist(64)`` and ``(256)`` (N = 386 / 1538, 64 /
+     256 blocks of 4, interfaces of 130 / 514) with ``.ac dec 40 1 1e6``
+     (241 points) through ``method="schur"``, the default ``"gj"`` (its
+     automatic dispatch past N = 128) and the dense ``"pallas"`` (K1's
+     panel tier at N = 386 / 1538), each equal to the CPU path's Schur
+     solve at rtol 1e-9 / atol 1e-12 of the largest value (ladder-256 at
+     its 7 decade points), walls side by side, the Schur routes failing
+     unless K1's multi entry ran; (b) the 64-stage board with a clamp diode
+     per stage (``decks.SCHUR_CLAMP``) through ``simulate_op`` and a
+     50-step ``simulate_tran``, forced Schur, Newton on K2's multi entry,
+     equal to the CPU path; (c) ``mc_ac_stats`` of the 64-stage board over
+     256 variants (r1, c1 of every 4th stage), Schur against the dense
+     route on the card and 16 variants against the CPU path; then K1's and
+     K2's multi entry on the block systems (a) and (b) handed it
+     (captured from the run), f64 at 1e-12 and f32 as accurate as the
+     plain f32 version against an f64 solve, valid identical, timed beside
+     the plain version, ``torch.linalg.solve`` and the bound (the JSON
+     line's multi entries), and at ``tools/profile_torch_schur.py``'s
+     shapes; (d) ``mc_tran_stats`` of ``decks.tp_rlc_netlist("20m")``
+     (tests/test_mc.py:343's RLC, 100,000 steps) over 16 variants, BE and
+     trap, the time-parallel core (K3 once) against the sequential loop
+     on the card (mean, max, min at 1e-9, std at 1e-7), and K3 at that
+     path's shape against the plain inverse, timed; (e)
+     ``simulate_tran_batch`` full trajectories (256 x 2,001 steps), tp
+     against the loop at 1e-9; (f) the crossover sweep
+     (``profile_torch_schur.crossover_sweep``): tp and loop walls at S in
+     {201, 10k, 100k} x B in {16, 1k, 16k};
+  9. every instantiation launched during 3-8 and 10-25 (printed after
      them; the f32 instances of K4 and K7 are on no main path and are
      checked in phase 2 and timed here only); CUDA-event times of each
      kernel, its plain version and, where one PyTorch call computes the
@@ -560,10 +590,14 @@ def main() -> int:
                # kernels and run in phases 2 and 9 only
                + [gj.K4[torch.float64], mc_ac_fused.K7[torch.float64]]
                # K10's path is the solver sweep of phase 22
-               + list(mxu.K10a.values()) + list(mxu.K10b.values())}
+               + list(mxu.K10a.values()) + list(mxu.K10b.values())
+               # K1's and K2's multi entry, the Schur tier's block solves
+               # (phase 25, f64; f32 runs there against the plain version)
+               + [gj.K1_MULTI[torch.float64], gj_real.K2_MULTI[torch.float64]]}
     err = {name: 0.0 for name in kernels}
     # name -> (kernel ms, plain ms, library ms or None, bound ms, bound by)
     ms: dict[str, tuple] = {}
+    shape: dict[str, str] = {}  # name -> the shape of its ms entry
     launches = {name: 0 for name in kernels}
 
     # the tiers of K1, K2 and K4: name -> that instantiation's tier
@@ -2886,12 +2920,331 @@ def main() -> int:
     say("24 post-analyses", f"{time.perf_counter() - t24:.1f} s")
     torch.cuda.empty_cache()
 
+    # ---- 25. the Schur tier and the time-parallel transient (items 6, 3) --
+    # each workload through the public entry points with its own counters
+    # (zeroed before its calls, read after); none may launch K4, K5, K7,
+    # K8 or K9. Walls: host clock around a warm call ending in
+    # synchronize(). The multi entry is held to its plain version on the
+    # very block systems the AC and transient Schur solves hand it
+    # (captured in (a) and (b)), f64 and f32, and timed there.
+    from spicey_tpu_torch.decks import (SCHUR_CLAMP, SCHUR_TRAN_KW,
+                                        schur_ladder_netlist, tp_rlc_netlist)
+    from spicey_tpu_torch.ops import schur as schur_mod
+    from tools import profile_torch_schur as pschur
+
+    t25 = time.perf_counter()
+    K1m, K2m = gj.K1_MULTI[f64], gj_real.K2_MULTI[f64]
+    not25 = (list(gj.K4.values()) + list(mc_ac_fused.K5.values())
+             + list(mc_ac_fused.K7.values())
+             + [mc_tran_fused.K8[torch.float32],
+                mc_tran_fused.K9[torch.float32]])
+
+    base25 = {}
+
+    def start25():
+        """Zero the counters before a workload (K4 f32 and K7 f32 are no
+        main-path kernels and keep their counts: remember them)."""
+        zero_counts()
+        base25.update({k.name: k.launches for k in not25})
+
+    def counted25(label, expect, tiers=()):
+        bad = [k.name for k in not25 if k.launches != base25[k.name]]
+        if bad:
+            raise AssertionError(f"25 {label}: launched {bad}")
+        counted(f"25 {label}", expect, tiers)
+
+    def fields_close(got, want, what):
+        """Every series at rtol 1e-9, atol 1e-12 of the field's largest
+        value."""
+        scale = max(float(np.abs(v).max()) for v in want.values())
+        for name, v in want.items():
+            same(got[name], v, f"{what} {name}", atol=1e-12 * scale)
+
+    captured = {}
+
+    def capturing(key, fn):
+        """``fn`` (a schur-module solve) that keeps its first inputs."""
+        def run(*a, **k):
+            captured.setdefault(key, [t.clone() for t in a])
+            return fn(*a, **k)
+        return run
+
+    # (a) schur-ladder-ac: the 64- and 256-stage boards at 241 frequencies
+    # through the forced tier, the default method's dispatch and the dense
+    # route (K1's panel tier at N = 386 / 1538), each against the CPU
+    # path's Schur solve (ladder-256: at its 7 frequencies of decade
+    # points, the 40th ones of the card's grid)
+    X = "extended"
+    schur_walls = {}
+    for stages in (64, 256):
+        net = schur_ladder_netlist(stages, analysis=".ac dec 40 1 1e6")
+        ckt = st.parse_netlist(net, dialect=X)
+        tens = st.build_tensors(ckt)
+        plan = schur_mod.plan_partition(ckt, tens)
+        cpu_net = net if stages == 64 else net.replace("dec 40", "dec 1")
+        want = st.simulate_ac(st.parse_netlist(cpu_net, dialect=X),
+                              method="schur", device="cpu")
+        step = 1 if stages == 64 else 40
+        for method in ("schur", "gj", "pallas"):
+            real_spm = schur_mod.solve_planes_multi
+            if stages == 64 and method == "schur":
+                schur_mod.solve_planes_multi = capturing("k1", real_spm)
+            start25()
+            try:
+                st.simulate_ac(st.parse_netlist(net, dialect=X),
+                               method=method, device=dev)  # warm
+                got, schur_walls[(stages, method)] = timed(
+                    lambda: st.simulate_ac(st.parse_netlist(net, dialect=X),
+                                           method=method, device=dev))
+            finally:
+                schur_mod.solve_planes_multi = real_spm
+            n_freq = len(got.freqs)
+            np.testing.assert_allclose(got.freqs[::step], want.freqs,
+                                       rtol=1e-15)
+            fields_close({k: v[::step] for k, v in
+                          got.node_voltages.items()}, want.node_voltages,
+                         f"schur ladder-{stages} {method}")
+            dense = method == "pallas"
+            counted25(f"schur-ladder-{stages} ac {method}",
+                      [gj.K1[f64]] + ([] if dense else [K1m]),
+                      tiers=[(gj.K1[f64], "panel" if dense else "multi")])
+            del got
+            torch.cuda.empty_cache()
+        say("25 schur", f"(a) ladder-{stages} .ac ({n_freq} points; "
+            f"N = {tens.nvar}, {plan.n_blocks} blocks of "
+            f"{plan.n_max}, N_I = {plan.n_interface}): schur "
+            f"{schur_walls[(stages, 'schur')]:.3f} s, gj (auto) "
+            f"{schur_walls[(stages, 'gj')]:.3f} s, dense (K1 panel, "
+            f"N = {tens.nvar}) {schur_walls[(stages, 'pallas')]:.3f} s; each "
+            f"= the CPU Schur path at 1e-9 | {smi}")
+
+    # (b) schur-clamp-tran-op: the 64-stage board with a clamp diode per
+    # stage through .op and .tran (50 steps): Newton, every pass a real
+    # Schur solve on K2's multi entry, against the CPU path's
+    net = schur_ladder_netlist(64, stage_extra=SCHUR_CLAMP, **SCHUR_TRAN_KW)
+    real_sm = schur_mod.solve_multi
+    schur_mod.solve_multi = capturing("k2", real_sm)
+    start25()
+    try:
+        op_k, op_s = timed(lambda: st.simulate_op(
+            st.parse_netlist(net, dialect=X), method="schur", device=dev))
+        tr_k, tr_s = timed(lambda: st.simulate_tran(
+            st.parse_netlist(net, dialect=X), method="schur", device=dev))
+    finally:
+        schur_mod.solve_multi = real_sm
+    counted25("schur-clamp op+tran", [gj_real.K2[f64], K2m],
+              tiers=[(gj_real.K2[f64], "multi")])
+    same_op(op_k, st.simulate_op(st.parse_netlist(net, dialect=X),
+                                 method="schur", device="cpu"), "clamp op")
+    tr_c = st.simulate_tran(st.parse_netlist(net, dialect=X),
+                            method="schur", device="cpu")
+    np.testing.assert_array_equal(tr_k.times, tr_c.times)
+    fields_close(tr_k.node_voltages, tr_c.node_voltages, "clamp tran v")
+    fields_close(tr_k.element_currents, tr_c.element_currents,
+                 "clamp tran i")
+    say("25 schur", f"(b) clamp board (N = "
+        f"{st.build_tensors(st.parse_netlist(net, dialect=X)).nvar}, "
+        f"{len(tr_k.times)} points): .op {op_s:.3f} s, .tran {tr_s:.3f} s, "
+        f"= the CPU Schur path at 1e-9 | {smi}")
+
+    # (c) schur-mc-ac: mc_ac_stats over the 64-stage board, 256 variants
+    # (r1 and c1 of every 4th stage at U(0.9, 1.1)), the default method
+    # (Schur) against the dense route on the card; 16 variants against the
+    # CPU path
+    net = schur_ladder_netlist(64)
+    rng25 = np.random.default_rng(SEED + 25)
+    mc_over = {f"{e}.x{s}": base * (0.9 + 0.2 * rng25.random(256))
+               for s in range(1, 65, 4) for e, base in (("r1", 1e3),
+                                                         ("c1", 1e-9))}
+    start25()
+    mc_s, mc_s_s = timed(lambda: st.mc_ac_stats(
+        net, mc_over, node="o64", dialect=X, chunk=64, device=dev))
+    counted25("schur-mc-ac", [gj.K1[f64], K1m],
+              tiers=[(gj.K1[f64], "multi")])
+    mc_d, mc_d_s = timed(lambda: st.mc_ac_stats(
+        net, mc_over, node="o64", dialect=X, chunk=64, method="pallas",
+        device=dev))
+    zero_counts()
+    sub = {k: v[:16] for k, v in mc_over.items()}
+    k16 = st.mc_ac_stats(net, sub, node="o64", dialect=X, device=dev)
+    c16 = st.mc_ac_stats(net, sub, node="o64", dialect=X, device="cpu")
+    zero_counts()
+    for f in ("mean", "std", "min", "max"):
+        same(getattr(mc_s, f), getattr(mc_d, f), f"schur mc {f}",
+             atol=1e-12 * float(np.abs(mc_d.max).max()))
+        same(getattr(k16, f), getattr(c16, f), f"schur mc 16 {f}",
+             atol=1e-12 * float(np.abs(c16.max).max()))
+    if not mc_s.n_valid == mc_d.n_valid == 256:
+        raise AssertionError(f"schur mc: n_valid {mc_s.n_valid}")
+    say("25 schur", f"(c) mc_ac_stats ladder-64, 256 variants x "
+        f"{len(mc_s.grid)} points: schur {mc_s_s:.3f} s, dense "
+        f"{mc_d_s:.3f} s, equal at 1e-9; 16 variants = the CPU path | {smi}")
+
+    # the multi entry on the captured block systems: K1 (complex, the
+    # ladder-64 AC's 64 x 241 blocks) and K2 (real, a Newton pass of the
+    # clamp board), f64 at TOL and f32 as accurate as the plain f32
+    # version against an f64 solve, valid identical; then timed beside the
+    # plain version, torch.linalg.solve and the bound
+    for key, kern, plain_fn in (
+            ("k1", gj.gj_solve_planes_multi_cuda,
+             linsolve.gj_solve_planes_multi),
+            ("k2", gj_real.gj_solve_multi_cuda, linsolve.gj_solve_multi)):
+        ins = [t.contiguous() for t in captured[key]]
+        complex_ = key == "k1"
+        nb, n, r = ins[0].shape[0], ins[0].shape[1], ins[-1].shape[-1]
+        name = (K1m if complex_ else K2m).name
+        want64 = plain_fn(*ins)
+        for dtype in (f64, torch.float32):
+            cast = [t.to(dtype) for t in ins]
+            got = kern(*cast)
+            pw = plain_fn(*cast)
+            if not torch.equal(got[-1], pw[-1]):
+                raise AssertionError(f"{name} {TAG[dtype]}: valid differs")
+            pv = pw[-1]
+            if dtype == f64:
+                e = max(check_close(g[pv], w[pv], TOL[dtype], name)
+                        for g, w in zip(got[:-1], pw[:-1]))
+                err[name] = max(err[name], e)
+            else:
+                e_k = max(float((g.double() - w)[pv].abs().max())
+                          for g, w in zip(got[:-1], want64[:-1]))
+                e_p = max(float((g.double() - w)[pv].abs().max())
+                          for g, w in zip(pw[:-1], want64[:-1]))
+                scale = max(float(w[pv].abs().max()) for w in want64[:-1])
+                if e_k > 2 * e_p + TOL[dtype] * scale:
+                    raise AssertionError(f"{name} f32: error vs f64 "
+                                         f"{e_k:.3e}, plain's {e_p:.3e}")
+                e = e_k
+            say("25 compare", f"{name.replace('f64', TAG[dtype])} at "
+                f"({nb}, n={n}, R={r}): valid identical "
+                f"({int(pv.sum())}/{nb}), max_abs_err {e:.3e}")
+            del got, pw, cast
+        if complex_:
+            Ac = torch.complex(ins[0], ins[1])
+            Bc = torch.complex(ins[2], ins[3])
+            lib = cuda_ms(lambda: torch.linalg.solve(Ac, Bc), 5)
+            del Ac, Bc
+        else:
+            lib = cuda_ms(lambda: torch.linalg.solve(ins[0], ins[1]), 5)
+        t = (cuda_ms(lambda: kern(*ins), 20), cuda_ms(lambda: plain_fn(*ins),
+                                                      3),
+             lib, *pschur.multi_bound(nb, n, r, complex_, f64))
+        zero_counts()
+        shape[name] = (f"{'ladder-64 ac' if complex_ else 'clamp-64 newton'}"
+                       f" ({nb}, n={n}, R={r})")
+        ms[name] = t
+        say("25 times", f"{name} at {shape[name]}: kernel {t[0]:.4f} ms, "
+            f"plain {t[1]:.3f} ms, library {t[2]:.4f} ms (linalg.solve, "
+            f"{'complex' if complex_ else 'real'} f64), bound {t[3]:.4f} ms "
+            f"({t[4]}), {100 * t[3] / t[0]:.2f}% of it (CUDA events) | {smi}")
+    for row in pschur.time_multi(dev, 5, SEED, emit=lambda line: say(
+            "25 times", line)):
+        pass
+    zero_counts()
+
+    # (d) tp-rlc-100k: mc_tran_stats of the linear RLC of tests/test_mc.py
+    # at 100,000 steps and 16 variants, BE and trap, the time-parallel
+    # core (K3 once) against the sequential loop on the card at the JAX
+    # tests' tolerances
+    net = tp_rlc_netlist("20m")
+    tp_over = {"R1": 100.0 * (1 + 0.2 * rng25.random(16)),
+               "C1": 1e-6 * (1 + 0.2 * rng25.random(16))}
+    tp_walls = {}
+    for integ in ("be", "trap"):  # one warm call of the tp route each
+        st.mc_tran_stats(tp_rlc_netlist("20u"), tp_over, node="b",
+                         dialect=X, integration=integ, device=dev)
+    for integ in ("be", "trap"):
+        start25()
+        tp, tp_walls[(integ, "tp")] = timed(lambda: st.mc_tran_stats(
+            net, tp_over, node="b", dialect=X, integration=integ,
+            device=dev))
+        counted25(f"tp-rlc-100k {integ}", [gj_real.K3[f64]])
+        sq, tp_walls[(integ, "loop")] = timed(lambda: st.mc_tran_stats(
+            net, tp_over, node="b", dialect=X, integration=integ,
+            time_parallel="never", device=dev))
+        zero_counts()
+        if not (tp.n_valid == sq.n_valid == 16 and len(tp.grid) == 100_001):
+            raise AssertionError(f"tp {integ}: {tp.n_valid} valid, "
+                                 f"{len(tp.grid)} points")
+        for f in ("mean", "max", "min"):
+            same(getattr(tp, f), getattr(sq, f), f"tp {integ} {f}")
+        same(tp.std, sq.std, f"tp {integ} std", rtol=1e-7)
+        say("25 tp", f"(d) rlc {integ} 16 x 100,001 steps: time-parallel "
+            f"{tp_walls[(integ, 'tp')]:.3f} s, loop "
+            f"{tp_walls[(integ, 'loop')]:.3f} s "
+            f"({tp_walls[(integ, 'loop')] / tp_walls[(integ, 'tp')]:.1f}x), "
+            f"mean/max/min at 1e-9, std at 1e-7 | {smi}")
+        del tp, sq
+    # K3 at the time-parallel path's shape: the BE matrices (A^-1's input)
+    # of (d)'s 16 variants, captured from the path itself
+    real_inv = linsolve.inverse
+    linsolve.inverse = capturing("k3", real_inv)
+    try:
+        st.mc_tran_stats(net.replace("20m", "1u"), tp_over, node="b",
+                         dialect=X, device=dev)
+    finally:
+        linsolve.inverse = real_inv
+    Atp = captured["k3"][0].contiguous()
+    pinv, pv = linsolve.gj_inverse(Atp)
+    inv, v = gj_real.gj_inverse_cuda(Atp)
+    if not torch.equal(v, pv):
+        raise AssertionError("K3 at the tp shape: valid differs")
+    e = check_close(inv, pinv, TOL[f64], "K3 tp shape")
+    t = (cuda_ms(lambda: gj_real.gj_inverse_cuda(Atp), 50),
+         cuda_ms(lambda: linsolve.gj_inverse(Atp), 5),
+         cuda_ms(lambda: torch.linalg.inv(Atp), 20),
+         *bound(Atp.shape[0] * inverse_flops(Atp.shape[1]),
+                8 * Atp.shape[0] * 2 * Atp.shape[1] ** 2 + Atp.shape[0],
+                f64))
+    zero_counts()
+    say("25 times", f"{gj_real.K3[f64].name} "
+        f"({gj_real.tier_for(Atp.shape[1], f64, inverse=True)}) at the tp "
+        f"shape ({Atp.shape[0]}, {Atp.shape[1]}): = plain (max_abs_err "
+        f"{e:.2e}), kernel {t[0]:.4f} ms, plain {t[1]:.3f} ms, library "
+        f"{t[2]:.4f} ms (linalg.inv, f64), bound {t[3]:.5f} ms ({t[4]}), "
+        f"{100 * t[3] / t[0]:.2f}% of it (CUDA events) | {smi}")
+
+    # (e) tp-batch: simulate_tran_batch's full trajectories, 256 variants
+    # x 2,001 steps, the time-parallel core against the loop at 1e-9 / 1e-12
+    net = tp_rlc_netlist("400u")
+    b_over = {"R1": 100.0 * (1 + 0.2 * rng25.random(256))}
+    start25()
+    tb, tb_s = timed(lambda: st.simulate_tran_batch(net, b_over, dialect=X,
+                                                    device=dev))
+    counted25("tp-batch", [gj_real.K3[f64]])
+    sb, sb_s = timed(lambda: st.simulate_tran_batch(
+        net, b_over, dialect=X, time_parallel="never", device=dev))
+    zero_counts()
+    same(tb.xs, sb.xs, "tp batch xs")
+    if not (tb.valid.all() and sb.valid.all()):
+        raise AssertionError("tp batch: invalid lanes")
+    say("25 tp", f"(e) simulate_tran_batch {tb.xs.shape}: time-parallel "
+        f"{tb_s:.3f} s, loop {sb_s:.3f} s, equal at 1e-9 | {smi}")
+    del tb, sb
+
+    # (f) the crossover: tp against the loop at S in {201, 10k, 100k} x B in
+    # {16, 1k, 16k} (tools/profile_torch_schur.py:crossover_sweep; (d)'s
+    # BE walls are its (100k, 16) cell)
+    start25()
+    rows = pschur.crossover_sweep(
+        dev, seed=SEED, emit=lambda line: say("25 crossover", line),
+        known={(100_000, 16): {"tp_s": tp_walls[("be", "tp")],
+                               "loop_s": tp_walls[("be", "loop")]}})
+    counted25("crossover", [gj_real.K3[f64]])
+    wins = [(r["steps"], r["batch"]) for r in rows
+            if None not in (r["tp_s"], r["loop_s"])
+            and r["tp_s"] < r["loop_s"]]
+    picks = [(r["steps"], r["batch"]) for r in rows if r["guard_picks_tp"]]
+    say("25 crossover", f"tp faster at (S, B) {wins}; the JAX guard picks "
+        f"tp at {picks}")
+    say("25 schur+tp", f"{time.perf_counter() - t25:.1f} s")
+    torch.cuda.empty_cache()
+
     # ---- 9. launches and times --------------------------------------------
     missing = [name for name, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     say("9 launches", json.dumps(launches))
-    shape = {}
     for dtype, planes in ladder_planes.items():
         nb, n = planes[0].shape[0], planes[0].shape[1]
         el = planes[0].element_size()

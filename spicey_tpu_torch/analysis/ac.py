@@ -34,15 +34,13 @@ the far-end coupling -e^{-j w Td} split across the planes. A V-kind B
 source stamps as a 0 V short; with ``linearize="op"`` every B source adds
 its gradients at the operating point (``_bsource_small_signal``).
 
-Past N = 128 ``method="gj"`` solves dense on every deck (K1 in a global
-workspace where a system overflows shared memory), as the JAX package does
-on a deck with no subcircuit structure; on a subcircuit board the JAX
-package plans a Schur partition there and retries dense, and the port's
-answer is that dense one. The structured route and the automatic Schur
-dispatch wait for the Schur tier (item 6).
-
-Not ported yet, raising ``NotImplementedError``: the Schur tier
-(``method="schur"``, item 6). The JAX package's host interp tier for tiny
+The structured tier (ops/schur.py) routes the solve as the JAX package
+routes it: forced by ``method="schur"`` (a ``ValueError`` on a circuit with
+no block structure), taken by the default ``method="gj"`` on a
+subcircuit board past N = 128, and retried dense over the whole sweep
+when a block pivot fails; ``method="pallas"`` stays dense. A flat deck
+past N = 128 solves dense (K1 in a global workspace where a system
+overflows shared memory). The JAX package's host interp tier for tiny
 decks has no counterpart: the device path is the path.
 """
 
@@ -56,7 +54,8 @@ import torch
 from ..constants import DIODE_VD_MAX, DIODE_VD_MIN, EPS, GMIN, VT_300K
 from ..ir.circuit import (CircuitTensors, bsrc_static, build_tensors,
                           bv_branch_rows, ext_arrays, lk_arrays, tl_arrays)
-from ..ops.linsolve import check_ported, solve_planes
+from ..ops.linsolve import solve_planes
+from ..ops.schur import plan_for
 from ..ops.stamps import (
     stamp_admittance,
     stamp_current,
@@ -172,20 +171,24 @@ def _ac_sweep_core(freqs: torch.Tensor, r_idx: torch.Tensor,
                    method: str = "gj", ext: dict | None = None,
                    i_re: torch.Tensor | None = None,
                    i_im: torch.Tensor | None = None,
-                   lk: dict | None = None, tl: dict | None = None
+                   lk: dict | None = None, tl: dict | None = None,
+                   plan: dict | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Assemble + one batched solve over the whole grid. Values as in
     ``_assemble_grid``, the couplings ``lk`` (k (nK,) or (B, nK)) and the
-    lines ``tl`` (Z0/Td (B, nT)) when the deck has them; returns (x_re,
-    x_im, valid) shaped (B, F, N), (B, F, N), (B, F), a variant whose
-    inductance matrix is singular invalid at every frequency."""
+    lines ``tl`` (Z0/Td (B, nT)) when the deck has them; ``plan`` (a
+    ``SchurPlan.arrays()``) routes the solve through the structured tier,
+    the assembly unchanged. Returns (x_re, x_im, valid) shaped (B, F, N),
+    (B, F, N), (B, F), a variant whose inductance matrix is singular
+    invalid at every frequency."""
     minv = minv_ok = None
     if lk is not None:
         minv, minv_ok = _mutual_inv(l_vals, lk)
     A_re, A_im, b_re, b_im = _assemble_grid(
         freqs, r_idx, r_vals, c_idx, c_vals, l_idx, l_vals, v_idx,
         v_re, v_im, nvar, ext=ext, i_re=i_re, i_im=i_im, minv=minv, tl=tl)
-    x_re, x_im, valid = solve_planes(A_re, A_im, b_re, b_im, method=method)
+    x_re, x_im, valid = solve_planes(A_re, A_im, b_re, b_im, method=method,
+                                     plan=plan)
     if minv_ok is not None:
         valid = valid & minv_ok.reshape(-1, 1)
     return x_re, x_im, valid
@@ -516,7 +519,6 @@ def simulate_ac(
         tensors = build_tensors(ckt)
     if linearize not in (None, "op"):
         raise ValueError("linearize must be None or 'op'")
-    check_ported(method)
     freqs = build_frequency_array(ckt.ac.mode, ckt.ac.N, ckt.ac.f1, ckt.ac.f2)
     v_idx_ac, v_re, v_im = ac_vsource_arrays(ckt, tensors)
     iph = tensors.i_ac_phase_deg * math.pi / 180.0
@@ -539,23 +541,34 @@ def simulate_ac(
                                   index_tensor(ss_idx, device)])
         ext["g_gm"] = torch.cat([ext["g_gm"], vals(ss_g)[0]])
 
-    x_re, x_im, valid = _ac_sweep_core(
-        torch.as_tensor(freqs, dtype=f64, device=device),
-        index_tensor(tensors.r_idx, device), vals(tensors.r_vals),
-        index_tensor(c_idx_eff, device), vals(c_vals_eff),
-        index_tensor(tensors.l_idx, device), vals(tensors.l_vals),
-        index_tensor(v_idx_ac, device), vals(v_re), vals(v_im),
-        tensors.nvar, method=method,
-        ext={k: (v if k.endswith("idx") else v[None])
-             for k, v in ext.items()},
-        i_re=vals(tensors.i_ac_mag * np.cos(iph))[0],
-        i_im=vals(tensors.i_ac_mag * np.sin(iph))[0],
-        lk=lk_arrays(tensors, device, f64),
-        tl=batched_tl(tl_arrays(tensors, device, f64)),
-    )
-    # one device->host transfer of the packed result
-    packed = torch.cat([x_re[0], x_im[0], valid[0][:, None].to(f64)],
-                       dim=1).cpu().numpy()
+    # the structured tier: forced by "schur", auto past N = 128 for "gj"
+    plan = plan_for(method, ckt, tensors, tensors.nvar, device)
+
+    def run(plan_arrays: dict | None) -> np.ndarray:
+        x_re, x_im, valid = _ac_sweep_core(
+            torch.as_tensor(freqs, dtype=f64, device=device),
+            index_tensor(tensors.r_idx, device), vals(tensors.r_vals),
+            index_tensor(c_idx_eff, device), vals(c_vals_eff),
+            index_tensor(tensors.l_idx, device), vals(tensors.l_vals),
+            index_tensor(v_idx_ac, device), vals(v_re), vals(v_im),
+            tensors.nvar, method="gj" if method == "schur" else method,
+            ext={k: (v if k.endswith("idx") else v[None])
+                 for k, v in ext.items()},
+            i_re=vals(tensors.i_ac_mag * np.cos(iph))[0],
+            i_im=vals(tensors.i_ac_mag * np.sin(iph))[0],
+            lk=lk_arrays(tensors, device, f64),
+            tl=batched_tl(tl_arrays(tensors, device, f64)),
+            plan=plan_arrays,
+        )
+        # one device->host transfer of the packed result
+        return torch.cat([x_re[0], x_im[0], valid[0][:, None].to(f64)],
+                         dim=1).cpu().numpy()
+
+    packed = run(plan)
+    if plan is not None and not bool(np.all(packed[:, -1] > 0.5)):
+        # block-local pivoting failed where global pivoting may not:
+        # retry the whole sweep dense before declaring it singular
+        packed = run(None)
     nv = tensors.nvar
     if not bool(np.all(packed[:, -1] > 0.5)):
         raise ValueError("Singular matrix in AC solve")

@@ -28,10 +28,14 @@ on a CPU tensor), all in float64:
   - the transient: the batched time loop of analysis/tran.py with a
     (B,) lead, K2 every Newton pass, or K3 once for a linear deck (K and
     T decks included; a B deck iterates Newton to convergence).
+  - a linear BE transient where ``timeparallel.worthwhile`` says the regime
+    fits (``time_parallel="auto"``): full trajectories from the
+    parallel-in-time core (``mc._tp_solutions``, one K3 inverse per
+    variant, the time axis in O(log S) depth).
 V-kind B sources stamp as 0 V shorts in AC, as the JAX package's batch AC
-does. ``time_parallel`` keeps the JAX package's switch, but "auto"
-and "never" both run the sequential loop until the time-parallel core is
-ported (item 3). The JAX package's ``device_put`` sharding hook (item 9)
+does. As in the JAX package, neither batch entry point plans a Schur
+partition: ``method="schur"`` names the dense elimination here. The JAX
+package's ``device_put`` sharding hook (item 9)
 and ``interpret`` have no counterpart. Entry points run on the card
 unless ``device="cpu"``.
 
@@ -50,13 +54,14 @@ import torch
 from ..ir.circuit import (CircuitTensors, build_tensors, bv_branch_rows,
                           effective_time_step, ext_arrays, nl_arrays,
                           sample_source_values, tl_arrays)
-from ..ops.linsolve import check_ported
 from ..ops.mc_ac_fused import (FUSED_MAX_N, PackedPattern,
                                build_stamp_pattern, combine_values,
                                mc_ac_fused_x, pack_pattern)
 from ..parsing.netlist import ParsedCircuit, parse_netlist
 from ..utils.device import resolve_device
 from .ac import _ac_sweep_core, build_frequency_array, index_tensor
+from .timeparallel import eligible as tp_eligible
+from .timeparallel import worthwhile as tp_worthwhile
 from .tran import _tran_core, tran_arrays, vt_scale_of
 
 
@@ -249,7 +254,6 @@ def simulate_ac_batch(
         raise ValueError("netlist has no .ac analysis")
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported(method)
     B = _batch_size(overrides)
     _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
                tensors.k_names, _tl_names(tensors),
@@ -314,14 +318,16 @@ def simulate_tran_batch(
     nvar) trajectories. ``overrides`` sweep R/C/L values, the extended
     G/E/F/H gains, MOSFET/JFET betas (by M/J name), BJT Is (by Q name)
     and the DC value of waveform-less V/I sources. Decks with MOSFETs or
-    BJTs iterate Newton to convergence, as in the JAX package."""
+    BJTs iterate Newton to convergence, as in the JAX package.
+    ``time_parallel``: "auto" (default) takes the parallel-in-time core
+    for a linear circuit in its regime (``timeparallel.worthwhile`` at
+    itemsize 8); "never" forces the sequential loop."""
     device = resolve_device(device)
     ckt = _resolve(circuit, dialect=dialect)
     if ckt.tran is None:
         raise ValueError("netlist has no .tran analysis")
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported(method)
     if time_parallel not in ("auto", "never"):
         raise ValueError("time_parallel must be 'auto' or 'never'")
     B = _batch_size(overrides)
@@ -371,9 +377,20 @@ def simulate_tran_batch(
                       lk=_batched_lk(tensors, overrides, B, device, f64),
                       tl=_batched_tl(tensors, overrides, B, device, f64),
                       ckt=ckt, dt=dt)
-    xs, sw_states, valid, _carry = _tran_core(
-        vs, dt, arr, tensors.nvar, method=method, nr=nr, lead=(B,),
-        vt_scale=vt_scale_of(tensors, device, f64))
+    if (time_parallel == "auto" and tp_eligible(tensors, ckt, nr, "be")
+            and tp_worthwhile(tensors, steps, B, 8, device=device)):
+        # a linear circuit in the parallel-in-time regime: full
+        # trajectories from the affine maps (mc._tp_solutions)
+        from .mc import _tp_solutions
+
+        xs, valid = _tp_solutions(vs, dt, arr, tensors.nvar, None)
+        sw_states = torch.zeros(xs.shape[:2] + (0,), dtype=torch.bool,
+                                device=device)
+    else:
+        xs, sw_states, valid, _carry = _tran_core(
+            vs, dt, arr, tensors.nvar,
+            method="gj" if method == "schur" else method, nr=nr, lead=(B,),
+            vt_scale=vt_scale_of(tensors, device, f64))
     # one device->host copy of [solution | switch states], variants first
     packed = torch.cat([xs, sw_states.to(f64)], dim=-1).permute(1, 0, 2)
     packed = packed.contiguous().cpu().numpy()

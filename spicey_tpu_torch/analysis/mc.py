@@ -24,19 +24,23 @@ Transient routes, as the JAX package routes them:
     switches, diodes, MOSFETs/JFETs or BJTs (junction charge included),
     with the reference's switch-stability exit for S/D decks and Newton
     to convergence for M/Q decks;
+  - a linear BE or trap deck where ``timeparallel.worthwhile`` says the
+    regime fits (``time_parallel="auto"``): the parallel-in-time core
+    (analysis/timeparallel.py, ``_tp_solutions``), one A^-1 per variant
+    (K3) and the time axis in O(log S) depth;
   - everything else: the batched time loop of analysis/tran.py, one
     (B, N, N) solve per Newton pass (K2), or one inverse for a linear
     deck (K3) and a matvec per step.
 On a CPU tensor the same routes run their plain versions. Entry points
 run on the card unless ``device="cpu"``.
 
-Past N = 128 ``method="gj"`` solves dense on every deck (K1, K2 or K3 in
-a global workspace where a system overflows shared memory; ``chunk``
-bounds that workspace, B N (N + 1) elements per plane), as the JAX
-package does on a deck with no subcircuit structure; on a subcircuit board
-the JAX package plans a Schur partition there and retries dense, and the
-port's answer is that dense one. The structured route and the automatic
-Schur dispatch wait for the Schur tier (item 6).
+The structured tier (ops/schur.py) routes as in the JAX package: forced
+by ``method="schur"``, taken by ``method="gj"`` on a subcircuit board past
+N = 128 (the AC sweep, the transient loop), its block solves on K1's and
+K2's multi entry; a variant whose block pivots fail counts as invalid
+(no dense retry in the Monte-Carlo statistics, as in the JAX package). A
+flat deck past N = 128 solves dense (K1, K2 or K3 in a global workspace;
+``chunk`` bounds it, B N (N + 1) elements per plane).
 
 Exact quantiles follow ``jnp.nanpercentile``'s linear interpolation, done
 by hand: ``torch.quantile`` refuses inputs above 2^24 elements, and the
@@ -55,8 +59,9 @@ from ..constants import EPS, MAX_NR_ITERS, VT_300K
 from ..ir.circuit import (build_tensors, effective_time_step, ext_arrays,
                           lk_arrays, nl_arrays, sample_source_values,
                           tl_arrays)
+from ..ops import linsolve
 from ..ops import mc_tran_fused as mtf
-from ..ops.linsolve import check_ported
+from ..ops.schur import plan_for
 from ..ops.mc_ac_fused import PackedPattern, combine_values, mc_ac_fused
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
@@ -64,7 +69,12 @@ from .ac import _ac_sweep_core, build_frequency_array, index_tensor
 from .batch import (_batch_size, _batch_values, _batched_ext, _batched_nl,
                     _batched_tl, _consumed, _fused_pattern, _pad_v_phasors,
                     _resolve, _tl_names, _v_idx_ac)
-from .tran import _tran_core, tran_arrays, vt_scale_of
+from .timeparallel import eligible as tp_eligible
+from .timeparallel import (linear_tran_maps, linear_tran_maps_trap,
+                           linear_tran_solutions)
+from .timeparallel import worthwhile as tp_worthwhile
+from .tran import (_mutual_inv, _tran_core, linear_system_matrix,
+                   tran_arrays, vt_scale_of)
 
 _DTYPES = {"f64": torch.float64, "f32": torch.float32}
 
@@ -188,13 +198,16 @@ def _mc_ac_stats_core(freqs: torch.Tensor, idx: dict,
                       method: str, qs: tuple, chunk: int | None = None,
                       q_method: str = "exact",
                       pattern: PackedPattern | None = None,
-                      lk: dict | None = None, tl: dict | None = None
-                      ) -> torch.Tensor:
+                      lk: dict | None = None, tl: dict | None = None,
+                      plan: dict | None = None) -> torch.Tensor:
     """Solve every (variant, frequency) system, reduce over the variants.
 
     Values lead with the variants axis B; ``idx`` holds the r/c/l/v index
     tensors; ``lk`` the couplings (unbatched k) and ``tl`` the T lines
-    (Z0/Td (B, nT)) when the deck has them. ``chunk`` solves the batch in
+    (Z0/Td (B, nT)) when the deck has them; ``plan`` (a
+    ``SchurPlan.arrays()``) routes the solves through the structured tier
+    (a variant whose block pivots fail counts as invalid, as in the JAX
+    package: no dense retry here). ``chunk`` solves the batch in
     blocks of that many variants, bounding the solve buffers; only the
     (B, F) response accumulates. Returns the packed statistics (see
     ``_pack_stats``)."""
@@ -213,7 +226,7 @@ def _mc_ac_stats_core(freqs: torch.Tensor, idx: dict,
         x_re, x_im, valid = _ac_sweep_core(
             freqs, idx["r"], r_vals[sl], idx["c"], c_vals[sl], idx["l"],
             l_vals[sl], idx["v"], v_re[sl], v_im[sl], nvar, method=method,
-            ext=ext_b, i_re=i_re, i_im=i_im, lk=lk, tl=tl_b)
+            ext=ext_b, i_re=i_re, i_im=i_im, lk=lk, tl=tl_b, plan=plan)
         xr, xi = x_re[..., node_idx], x_im[..., node_idx]
         return torch.sqrt(xr * xr + xi * xi), valid
 
@@ -264,6 +277,10 @@ def _run(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
            "c": index_tensor(tensors.c_idx, device),
            "l": index_tensor(tensors.l_idx, device),
            "v": index_tensor(_v_idx_ac(ckt, tensors), device)}
+    # the structured tier: forced by "schur", auto past N = 128 for "gj"
+    plan = plan_for(method, ckt, tensors, tensors.nvar, device)
+    if method == "schur":
+        method = "gj"
     packed = _mc_ac_stats_core(
         torch.as_tensor(freqs, dtype=fdt, device=device), idx,
         r_vals.to(fdt), c_vals.to(fdt), l_vals.to(fdt), v_re, v_im, ext,
@@ -271,7 +288,7 @@ def _run(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
         tuple(float(q) for q in quantiles), chunk=chunk,
         q_method=quantile_method,
         pattern=_fused_pattern(ckt, tensors, method, device),
-        lk=lk_arrays(tensors, device, fdt), tl=tl)
+        lk=lk_arrays(tensors, device, fdt), tl=tl, plan=plan)
     res = _unpack_stats(packed.cpu().numpy(), tuple(quantiles), freqs)
     res.n_total = B
     return res
@@ -307,7 +324,6 @@ def mc_ac_stats(
         raise ValueError("netlist has no .ac analysis")
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported(method)
     fdt = _check_args(precision, quantile_method)
     B = _batch_size(overrides)
     _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
@@ -396,7 +412,6 @@ def mc_ac_sampled(
         raise ValueError("netlist has no .ac analysis")
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported(method)
     fdt = _check_args(precision, quantile_method)
     targets = _sample_targets(tensors, spreads)
     gen = torch.Generator(device=device)
@@ -525,11 +540,14 @@ def _mc_tran_stats_core(vs_grid: torch.Tensor, dt: float, arr: dict,
                         integration: str = "be", chunk: int | None = None,
                         q_method: str = "exact",
                         vt_scale: torch.Tensor | float = 1.0,
-                        nr: str = "spicey") -> torch.Tensor:
+                        nr: str = "spicey", plan: dict | None = None
+                        ) -> torch.Tensor:
     """The batched time loop (analysis/tran._tran_core with lead (B,)),
     recording only the probed node, then the reduction. ``chunk`` runs
     the variants in blocks of that many, bounding the loop's buffers;
-    only the (B, S+1) response accumulates."""
+    only the (B, S+1) response accumulates. ``plan``: the structured tier
+    (a lane whose block pivots fail counts as invalid, as in the JAX
+    package)."""
     B = arr["r_vals"].shape[0]
 
     def run_block(sl: slice) -> tuple[torch.Tensor, torch.Tensor]:
@@ -538,7 +556,7 @@ def _mc_tran_stats_core(vs_grid: torch.Tensor, dt: float, arr: dict,
         xs, _sw, valid, _carry = _tran_core(
             vs, dt, arr_b, nvar, method=method, integration=integration,
             nr=nr, lead=(arr_b["r_vals"].shape[0],), record=node_idx,
-            vt_scale=vt_scale)
+            vt_scale=vt_scale, plan=plan)
         return xs.T, valid  # (b, S+1), (b,)
 
     step = B if chunk is None or chunk >= B else chunk
@@ -552,12 +570,77 @@ def _mc_tran_stats_core(vs_grid: torch.Tensor, dt: float, arr: dict,
                        valid.sum())
 
 
+def _tp_solutions(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
+                  node_idx: int | None, integration: str = "be"
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Parallel-in-time linear transient (analysis/timeparallel.py): one
+    affine-map assembly per variant, then every step's state by log-depth
+    doubling over the time axis, not S sequential steps.
+
+    ``vs_grid``: (S+1, m) shared or (S+1, B, m) per-variant sources;
+    ``arr``: tran_arrays' dict with (B, nE) values, its couplings ``lk``
+    (the matrix companion Gamma = c M^{-1} rides the maps). ``integration``
+    "be" or "trap" (the doubled state and the BE bootstrap step). A^-1 is
+    ``linsolve.inverse``, kernel K3 on the card at every N (the JAX
+    package's guard at mc.py:1225-1248 exists because its TPU inverse
+    kernel runs out of VMEM past a size; K3 has no N cap, so that guard
+    has no counterpart here). Returns (xs, valid): xs (S+1, B) for the
+    probed row ``node_idx``, or the full (S+1, B, N) when it is None."""
+    r_vals, c_vals, l_vals = arr["r_vals"], arr["c_vals"], arr["l_vals"]
+    B = r_vals.shape[0]
+    dtype = r_vals.dtype
+    dt_c = max(dt, EPS)
+    minv = minv_ok = None
+    if arr.get("lk") is not None:
+        minv, minv_ok = _mutual_inv(l_vals, arr["lk"])   # (B, nL, nL), (B,)
+    arr_m = dict(arr, minv=minv)
+
+    # the assembly of the sequential factor-once path (tran.py)
+    def assemble(g_c_scale: float, c_l: float) -> torch.Tensor:
+        return linear_system_matrix(nvar, (B,), dtype, arr_m,
+                                    c_vals * g_c_scale, c_l)
+
+    u = (vs_grid if vs_grid.ndim == 3
+         else vs_grid[:, None, :].expand(vs_grid.shape[0], B,
+                                         vs_grid.shape[1])).to(dtype)
+    i_idx = arr["ext"]["i_idx"]
+    if integration == "trap":
+        Ainv_start, ok_s = linsolve.inverse(assemble(1.0 / dt_c, dt_c))
+        Ainv_main, ok_m = linsolve.inverse(assemble(2.0 / dt_c,
+                                                    dt_c / 2.0))
+        valid = ok_s & ok_m
+        T, R, X, Y, R_start, Y_start = linear_tran_maps_trap(
+            Ainv_start, Ainv_main, arr["c_idx"], c_vals, arr["l_idx"],
+            l_vals, arr["v_idx"], i_idx, dt_c, nvar, minv=minv)
+        xs = linear_tran_solutions(T, R, X, Y, u, record_row=node_idx,
+                                   R_start=R_start, Y_start=Y_start)
+    else:
+        Ainv, valid = linsolve.inverse(assemble(1.0 / dt_c, dt_c))
+        T, R, X, Y = linear_tran_maps(
+            Ainv, arr["c_idx"], c_vals, arr["l_idx"], l_vals, arr["v_idx"],
+            i_idx, dt_c, nvar, minv=minv)
+        xs = linear_tran_solutions(T, R, X, Y, u, record_row=node_idx)
+    if minv_ok is not None:
+        valid = valid & minv_ok
+    return xs, valid
+
+
+def _mc_tran_tp_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
+                     node_idx: int, qs: tuple, q_method: str = "exact",
+                     integration: str = "be") -> torch.Tensor:
+    """``_tp_solutions`` of the probed node, then the reduction, packed as
+    the sequential core packs it."""
+    xs, valid = _tp_solutions(vs_grid, dt, arr, nvar, node_idx,
+                              integration=integration)
+    return _pack_stats(_stats_of(xs.T, valid, qs, q_method=q_method),
+                       valid.sum())
+
+
 def _check_tran_args(ckt: ParsedCircuit, method: str,
                      precision: str, quantile_method: str,
                      time_parallel: str, integration: str) -> torch.dtype:
     if ckt.tran is None:
         raise ValueError("netlist has no .tran analysis")
-    check_ported(method)
     if time_parallel not in ("auto", "never"):
         raise ValueError("time_parallel must be 'auto' or 'never'")
     if integration not in ("be", "trap", "gear2"):
@@ -571,10 +654,14 @@ def _run_tran(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
               v_over: dict, node: str, quantiles, method: str,
               precision: str, integration: str, chunk: int | None,
               quantile_method: str, device: torch.device,
-              tl: dict | None = None) -> MCStats:
+              tl: dict | None = None, time_parallel: str = "auto",
+              tp_crossover: float | None = None,
+              tp_mem_budget: float | None = None) -> MCStats:
     """Shared tail of mc_tran_stats and mc_tran_sampled: per-variant
     source values, the route, the core, one transfer to the host.
-    ``tl``: the T lines (Z0/Td batched or not), None without."""
+    ``tl``: the T lines (Z0/Td batched or not), None without. The routes
+    in the JAX package's order: the fused kernels, then the Schur plan,
+    then the time-parallel core, else the loop."""
     fdt = _DTYPES[precision]
     B = r_vals.shape[0]
     node_idx = [n.upper() for n in tensors.node_names].index(node.upper())
@@ -609,10 +696,28 @@ def _run_tran(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
                           c_vals=c_vals.to(fdt), l_vals=l_vals.to(fdt),
                           ext=cast(ext), nl=cast(nl), tl=tl, ckt=ckt,
                           dt=dt)
-        packed = _mc_tran_stats_core(
-            vs, dt, arr, tensors.nvar, node_idx, method, qs,
-            integration=integration, chunk=chunk, q_method=quantile_method,
-            vt_scale=vt_scale_of(tensors, device, fdt), nr=nr)
+        # the structured tier: forced by "schur", auto past N = 128 for
+        # "gj"; invalid lanes leave the stats like any other failure
+        plan = plan_for(method, ckt, tensors, tensors.nvar, device)
+        steps = vs.shape[0] - 1
+        if (time_parallel == "auto" and method != "schur" and chunk is None
+                and tp_eligible(tensors, ckt, nr, integration)
+                and tp_worthwhile(tensors, steps, B, fdt.itemsize,
+                                  tp_mem_budget, tp_crossover, integration,
+                                  device=device)):
+            # a linear circuit in the regime where the whole time axis
+            # in O(log S) depth beats the sequential loop
+            packed = _mc_tran_tp_core(vs, dt, arr, tensors.nvar, node_idx,
+                                      qs, q_method=quantile_method,
+                                      integration=integration)
+        else:
+            packed = _mc_tran_stats_core(
+                vs, dt, arr, tensors.nvar, node_idx,
+                "gj" if method == "schur" else method, qs,
+                integration=integration, chunk=chunk,
+                q_method=quantile_method,
+                vt_scale=vt_scale_of(tensors, device, fdt), nr=nr,
+                plan=plan)
     res = _unpack_stats(packed.cpu().numpy(), tuple(quantiles), times)
     res.n_total = B
     return res
@@ -632,6 +737,8 @@ def mc_tran_stats(
     integration: str = "be",
     chunk: int | None = None,
     device: torch.device | str | None = None,
+    tp_crossover: float | None = None,
+    tp_mem_budget: float | None = None,
 ) -> MCStats:
     """Distribution of V(node) per timestep across parameter variants.
 
@@ -645,9 +752,15 @@ def mc_tran_stats(
     "be" (reference semantics), "trap" or "gear2". ``chunk`` runs the
     variants in blocks of that size.
 
-    ``time_parallel`` keeps the JAX package's switch, but both "auto"
-    and "never" run the sequential loop until analysis/timeparallel.py
-    is ported (ROADMAP §1 item 3)."""
+    ``time_parallel``: "auto" (default) evaluates a LINEAR circuit
+    (BE or trap) with the parallel-in-time core
+    (analysis/timeparallel.py, the time axis in O(log S) depth) where
+    ``timeparallel.worthwhile`` says the regime fits and no ``chunk`` is
+    asked; "never" forces the sequential loop. ``tp_crossover`` and
+    ``tp_mem_budget`` tune that guard (or ``SPICEY_TPU_TP_CROSSOVER`` /
+    ``SPICEY_TPU_TP_MEM_BUDGET``). ``method="schur"`` forces the
+    structured tier (and the loop); ``"gj"`` takes it past N = 128 on a
+    subcircuit board."""
     device = resolve_device(device)
     ckt = _resolve(circuit, dialect=dialect)
     if tensors is None:
@@ -678,7 +791,9 @@ def mc_tran_stats(
         {k: v for k, v in overrides.items() if k.lower() in v_lower},
         node, quantiles, method, precision, integration, chunk,
         quantile_method, device,
-        tl=_batched_tl(tensors, overrides, B, device, fdt))
+        tl=_batched_tl(tensors, overrides, B, device, fdt),
+        time_parallel=time_parallel, tp_crossover=tp_crossover,
+        tp_mem_budget=tp_mem_budget)
 
 
 def mc_tran_sampled(
@@ -698,6 +813,8 @@ def mc_tran_sampled(
     time_parallel: str = "auto",
     integration: str = "be",
     device: torch.device | str | None = None,
+    tp_crossover: float | None = None,
+    tp_mem_budget: float | None = None,
 ) -> MCStats:
     """Transient yield analysis with ON-DEVICE parameter sampling, the
     time-domain twin of mc_ac_sampled: ``spreads`` maps R/C/L element
@@ -725,4 +842,6 @@ def mc_tran_sampled(
                      sample_source_values(ckt, times), times, dt, {}, node,
                      quantiles, method, precision, integration, chunk,
                      quantile_method, device,
-                     tl=tl_arrays(tensors, device, fdt))
+                     tl=tl_arrays(tensors, device, fdt),
+                     time_parallel=time_parallel, tp_crossover=tp_crossover,
+                     tp_mem_budget=tp_mem_budget)

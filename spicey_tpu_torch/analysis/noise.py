@@ -30,19 +30,20 @@ plus base flicker; MOSFET channel thermal by region at the operating point
 ((8/3)kT*gm in saturation, 4kT*gds in triode, zero in cutoff) plus flicker.
 kT uses the circuit's ``.temp``.
 
-Past N = 128 ``method="gj"`` solves dense on every deck (K4 in a global
-workspace where a system overflows shared memory), as the JAX package does
-on a deck with no subcircuit structure; on a subcircuit board the JAX
-package plans a Schur partition there and retries dense, and the port's
-answer is that dense one. The structured route and the automatic Schur
-dispatch wait for the Schur tier (item 6).
+The structured tier (ops/schur.py) routes as in the JAX package: forced
+by ``method="schur"``, taken by ``method="gj"`` on a subcircuit board past
+N = 128. Under a plan the forward and the adjoint systems are two Schur
+solves (the transpose of a BBD matrix is BBD with the same partition, so
+A^T takes the plan unchanged), not the inverse route; where a block pivot
+fails the whole sweep is retried on the dense route above. A flat deck
+past N = 128 runs the dense route (K4 in a global workspace where a
+system overflows shared memory).
 
 B sources are noiseless (ngspice semantics) but their gradients at the
 operating point shape the transfer (``ac._bsource_small_signal``); K
 couplings and T lines enter the systems as in AC (analysis/ac.py), and a
 singular coupled-inductance matrix raises before any solve, as the JAX
-package checks it (``_mutual_ok_np``). Not ported yet, raising
-``NotImplementedError``: the Schur tier (item 6).
+package checks it (``_mutual_ok_np``).
 """
 
 from __future__ import annotations
@@ -56,8 +57,8 @@ from ..constants import EPS, K_BOLTZMANN, Q_ELECTRON, T_NOISE
 from ..ir.circuit import (CircuitTensors, build_tensors, bv_branch_rows,
                           ext_arrays, lk_arrays, tl_arrays)
 from ..models.devices import bjt_ebers_moll, mos_level1
-from ..ops.linsolve import (_check_method, check_ported, inverse_planes,
-                            solve_planes)
+from ..ops.linsolve import _check_method, inverse_planes, solve_planes
+from ..ops.schur import plan_for
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
 from .ac import (_assemble_grid, _op_voltage_pad, batched_tl,
@@ -237,6 +238,21 @@ def _noise_core(A_re: torch.Tensor, A_im: torch.Tensor, b_re: torch.Tensor,
     return x_re, x_im, z_re, z_im, ok_f, ok_a, int(counts.sum())
 
 
+def _noise_schur(A_re: torch.Tensor, A_im: torch.Tensor,
+                 b_re: torch.Tensor, b_im: torch.Tensor, e_out: torch.Tensor,
+                 plan: dict) -> tuple[torch.Tensor, ...]:
+    """The forward and the adjoint solves through the structured tier, as
+    the JAX package's ``_noise_core`` runs them under a plan: A x = b and
+    A^T z = e_out, both with ``plan``. Returns what ``_noise_core`` does,
+    with no re-solved system."""
+    x_re, x_im, ok_f = solve_planes(A_re, A_im, b_re, b_im, plan=plan)
+    e = e_out.expand(b_re.shape)
+    z_re, z_im, ok_a = solve_planes(A_re.transpose(-1, -2),
+                                    A_im.transpose(-1, -2), e,
+                                    torch.zeros_like(e), plan=plan)
+    return x_re, x_im, z_re, z_im, ok_f, ok_a, 0
+
+
 def noise_system(ckt: ParsedCircuit, tensors: CircuitTensors, op,
                  device: torch.device) -> tuple:
     """The .noise systems at the operating point ``op``, float64 on
@@ -343,7 +359,6 @@ def simulate_noise(
         return None
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported(method)
     _check_method(method)
     if tensors.n_k and not _mutual_ok_np(tensors):
         raise ValueError("Singular coupled-inductance matrix in .noise")
@@ -355,11 +370,24 @@ def simulate_noise(
                                                       device)
     F = freqs.shape[0]
     f64 = torch.float64
-    x_re, x_im, z_re, z_im, ok_f, ok_a, n_resolved = _noise_core(
-        *planes, e_out, method)
-    # one device->host transfer of the packed result
-    packed = torch.cat([x_re, x_im, z_re, z_im, ok_f[:, None].to(f64),
-                        ok_a[:, None].to(f64)], dim=1).cpu().numpy()
+    # the structured tier (the AC-space plan), dense retry on failure
+    plan = plan_for(method, ckt, tensors, nvar, device)
+    dense_method = "gj" if method == "schur" else method
+
+    def run(plan_arrays: dict | None) -> tuple[np.ndarray, int]:
+        if plan_arrays is None:
+            out = _noise_core(*planes, e_out, dense_method)
+        else:
+            out = _noise_schur(*planes, e_out, plan_arrays)
+        x_re, x_im, z_re, z_im, ok_f, ok_a, n_resolved = out
+        # one device->host transfer of the packed result
+        return torch.cat([x_re, x_im, z_re, z_im, ok_f[:, None].to(f64),
+                          ok_a[:, None].to(f64)], dim=1).cpu().numpy(), \
+            n_resolved
+
+    packed, n_resolved = run(plan)
+    if plan is not None and not bool(np.all(packed[:, -2:] > 0.5)):
+        packed, n_resolved = run(None)
     if not bool(np.all(packed[:, -2:] > 0.5)):
         raise ValueError("Singular matrix in .noise solve")
     x = packed[:, :nvar] + 1j * packed[:, nvar:2 * nvar]

@@ -29,19 +29,19 @@ convergence aids, tried in order when plain Newton fails: gmin stepping
 stepping (10% to 100%), each stage seeded from the last; ``.nodeset`` seeds
 the first Newton iterate.
 
-Past N = 128 ``method="gj"`` solves dense on every deck (K2 in a global
-workspace where a system overflows shared memory), as the JAX package
-does on a deck with no subcircuit structure. On a subcircuit board the JAX
-package plans a Schur partition there and retries dense where the block
-pivots fail; the port's answer is its dense one.
+The structured tier (ops/schur.py, the op-space plan
+``plan_partition_op``: nodes, branches and the L shorts) routes the
+solves as the JAX package routes them: forced by ``method="schur"``, taken
+by ``method="gj"`` on a subcircuit board past 128 op unknowns, and retried
+dense where a block pivot fails (``simulate_op`` before its homotopy
+ladder, ``simulate_dc`` over the whole sweep; ``op_batch`` leaves such a
+lane invalid); ``method="pallas"`` stays dense. A flat deck past N = 128
+solves dense (K2 in a global workspace where a system overflows shared
+memory).
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP item: the
-Schur tier (``method="schur"``, and with it the structured route and the
-automatic Schur dispatch on subcircuit boards past N = 128, item 6). The
-JAX
-package's host interp tier and its measured
-``newton_tol_floor`` probe are TPU machinery (item 10): the tolerance floor
-keeps its dtype term, 16 ulps.
+The JAX package's host interp tier and its measured ``newton_tol_floor``
+probe are TPU machinery (item 10): the tolerance floor keeps its dtype
+term, 16 ulps.
 """
 
 from __future__ import annotations
@@ -56,7 +56,8 @@ from ..constants import EPS, GMIN, VT_300K
 from ..ir.circuit import (CircuitTensors, bsrc_refs, bsrc_static,
                           build_tensors, ext_arrays, nl_arrays, tl_arrays)
 from ..models.devices import bjt_ebers_moll, mos_level1
-from ..ops.linsolve import check_ported, solve
+from ..ops.linsolve import solve
+from ..ops.schur import plan_for
 from ..ops.stamps import (pad_solution, stamp_admittance, stamp_current,
                           stamp_extended, stamp_tline_coupling,
                           stamp_tline_ports, stamp_voltage_source)
@@ -101,7 +102,8 @@ def _pnjlim(vnew: torch.Tensor, vold: torch.Tensor, vt: torch.Tensor,
 def _op_core(arr: dict, v_dc: torch.Tensor, i_dc: torch.Tensor,
              r_vals: torch.Tensor, nvar_op: int, max_iters: int = 100,
              tol: float = 1e-12, method: str = "gj", lead: tuple = (),
-             x0: torch.Tensor | None = None, gshunt: float | None = None
+             x0: torch.Tensor | None = None, gshunt: float | None = None,
+             plan: dict | None = None
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                         torch.Tensor]:
     """Newton/hysteresis iteration to the DC solution.
@@ -110,8 +112,9 @@ def _op_core(arr: dict, v_dc: torch.Tensor, i_dc: torch.Tensor,
     tensors may lead with the batch axis when ``lead=(B,)``: v_dc (B, nV),
     i_dc (B, nI), r_vals (B, nR), the ext and nl values (B, nX). Each pass
     is one (..., N, N) solve; a lane's state freezes once it is done.
-    ``gshunt``: the gmin-stepping shunt from every node to ground. Returns
-    (x, switch states, valid, Newton passes per lane)."""
+    ``gshunt``: the gmin-stepping shunt from every node to ground;
+    ``plan``: the structured tier's op-space plan. Returns (x, switch
+    states, valid, Newton passes per lane)."""
     dtype, dev = v_dc.dtype, v_dc.device
     nl = arr["nl"]
     sets = _nl_index_sets(nl)
@@ -188,7 +191,7 @@ def _op_core(arr: dict, v_dc: torch.Tensor, i_dc: torch.Tensor,
     passes = torch.zeros(lead, dtype=torch.int32, device=dev)
     for _ in range(max_iters):
         A, b, vd_used, vq_used = assemble(x, sw, vjd, vjq)
-        x_new, solve_ok = solve(A, b, method=method)
+        x_new, solve_ok = solve(A, b, method=method, plan=plan)
         new_on = _switch_update(s_idx, arr["s_von"], arr["s_voff"], sw,
                                 pad_solution(x_new, nvar_op))
         switched = torch.any(new_on != sw, dim=-1)
@@ -282,7 +285,7 @@ def _run_op_core(ckt: ParsedCircuit, tensors: CircuitTensors,
                  tol: float, method: str, device: torch.device,
                  ext: dict | None = None, nl: dict | None = None,
                  batch: int | None = None, x0: np.ndarray | None = None,
-                 gshunt: float | None = None
+                 gshunt: float | None = None, plan: dict | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
     """Host values to device tensors, then ``_op_core`` in float64."""
@@ -297,7 +300,7 @@ def _run_op_core(ckt: ParsedCircuit, tensors: CircuitTensors,
         val(i_dc), val(r_vals), tensors.nvar + tensors.n_l,
         max_iters=max_iters, tol=tol, method=method,
         lead=() if batch is None else (batch,),
-        x0=None if x0 is None else val(x0), gshunt=gshunt)
+        x0=None if x0 is None else val(x0), gshunt=gshunt, plan=plan)
 
 
 def _tol_floor(tol: float) -> float:
@@ -319,7 +322,6 @@ def simulate_op(
     device = resolve_device(device)
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported(method)
     nvar_op, remap, _l_bidx, _v_idx_op = _op_indices(tensors)
 
     x0 = None
@@ -331,18 +333,28 @@ def simulate_op(
         for i, name in enumerate(tensors.node_names):
             x0[i] = ns.get(name.upper(), 0.0)
     tol = _tol_floor(tol)
+    # the structured tier (op-space plan): forced by "schur", auto past
+    # 128 op unknowns for "gj"; a failed Schur attempt retries dense before
+    # the homotopy ladder
+    plan = plan_for(method, ckt, tensors, nvar_op, device, op=True)
+    solve_method = "gj" if method == "schur" else method
 
     def attempt(x_seed, v_scale=1.0, gshunt=None):
         x_a, sw_a, ok_a, _ = _run_op_core(
             ckt, tensors, tensors.v_dc * v_scale, tensors.i_dc * v_scale,
-            tensors.r_vals, max_iters, tol, method, device, x0=x_seed,
-            gshunt=gshunt)
+            tensors.r_vals, max_iters, tol, solve_method, device, x0=x_seed,
+            gshunt=gshunt, plan=plan)
         # one device->host transfer of [x | switch states | ok]
         packed_a = torch.cat([x_a, sw_a.to(x_a.dtype),
                               ok_a.to(x_a.dtype).reshape(1)]).cpu().numpy()
         return packed_a, bool(packed_a[-1] > 0.5)
 
     packed, ok = attempt(x0)
+    if not ok and plan is not None:
+        # block-local pivoting (or a vanished-C structural hole) failed
+        # where global pivoting may not: retry dense, then the ladder
+        plan = None
+        packed, ok = attempt(x0)
     if not ok:
         # ngspice-style convergence aids, tried in order (each stage seeds
         # the next from its converged solution):
@@ -475,14 +487,15 @@ def _batched_op(ckt: ParsedCircuit, tensors: CircuitTensors,
                 v_dc: np.ndarray, i_dc: np.ndarray,
                 r_vals: np.ndarray, B: int, max_iters: int, tol: float,
                 method: str, device: torch.device, ext: dict | None = None,
-                nl: dict | None = None
+                nl: dict | None = None, plan: dict | None = None
                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """One batched Newton over B lanes; one device->host transfer of
     [x | valid | passes]. Returns host (x (B, nvar_op), valid, passes)."""
     nvar_op = tensors.nvar + tensors.n_l
     x, _sw, valid, passes = _run_op_core(
-        ckt, tensors, v_dc, i_dc, r_vals, max_iters, tol, method, device,
-        ext=ext, nl=nl, batch=B)
+        ckt, tensors, v_dc, i_dc, r_vals, max_iters, tol,
+        "gj" if method == "schur" else method, device, ext=ext, nl=nl,
+        batch=B, plan=plan)
     packed = torch.cat([x, valid[:, None].to(x.dtype),
                         passes[:, None].to(x.dtype)], dim=1).cpu().numpy()
     return (packed[:, :nvar_op], packed[:, nvar_op] > 0.5,
@@ -505,7 +518,6 @@ def simulate_dc(
         return None
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported(method)
     spec = ckt.dc
     n1 = int(np.floor((spec.stop - spec.start) / spec.step + 0.5)) + 1
     grid1 = spec.start + spec.step * np.arange(n1)
@@ -540,10 +552,17 @@ def simulate_dc(
     if spec.src2 is not None:
         place(sweep2, spec.src2.upper(), spec.src2)
 
-    _nvar_op, remap, _l_bidx, _v_idx_op = _op_indices(tensors)
+    nvar_op, remap, _l_bidx, _v_idx_op = _op_indices(tensors)
+    # the structured tier (see simulate_op); lanes the block pivoting fails
+    # retry dense as a whole sweep before they surface invalid
+    plan = plan_for(method, ckt, tensors, nvar_op, device, op=True)
     x, valid, passes = _batched_op(ckt, tensors, v_dc, i_dc, tensors.r_vals,
                                    B, max_iters, _tol_floor(tol), method,
-                                   device)
+                                   device, plan=plan)
+    if plan is not None and not bool(valid.all()):
+        x, valid, passes = _batched_op(ckt, tensors, v_dc, i_dc,
+                                       tensors.r_vals, B, max_iters,
+                                       _tol_floor(tol), method, device)
     x_pad = np.concatenate([x, np.zeros((B, 1))], axis=1)
 
     node_voltages = {
@@ -617,7 +636,6 @@ def op_batch(
     ckt = _resolve(circuit, dialect=dialect)
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported(method)
     B = _batch_size(overrides)
     _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
                tensors.v_names, tensors.i_names, tensors.g_names,
@@ -634,10 +652,14 @@ def op_batch(
         return {k: (torch.where(v == tensors.nvar, dump, v)
                     if k.endswith("idx") else v) for k, v in arrays.items()}
 
+    # the structured tier (see simulate_op); a lane whose block pivots
+    # fail stays invalid, as any other batch failure
+    plan = plan_for(method, ckt, tensors, dump, device, op=True)
     x, valid, passes = _batched_op(
         ckt, tensors, v_dc, i_dc, r_vals, B, max_iters, _tol_floor(tol),
         method, device,
         ext=remapped(_batched_ext(tensors, overrides, B, device, f64)),
-        nl=remapped(_batched_nl(tensors, overrides, B, device, f64)))
+        nl=remapped(_batched_nl(tensors, overrides, B, device, f64)),
+        plan=plan)
     return BatchOPResult(node_names=tensors.node_names, x=x, valid=valid,
                          passes=passes)

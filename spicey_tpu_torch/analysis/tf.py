@@ -15,8 +15,11 @@ right-hand sides, the unit input excitation and the unit output current
 probe, go to the device in ONE batched real solve (kernel K2 on the card).
 B sources linearize at the operating point, I-kind as VCCS rows, V-kind
 as their branch row with the gradient couplings (the Newton loop's
-decomposition; ``bexpr_partials`` on float64 CPU tensors). The Schur tier
-(item 6) raises ``NotImplementedError`` through ``ops/linsolve.check_ported``.
+decomposition; ``bexpr_partials`` on float64 CPU tensors). The structured
+tier (ops/schur.py) takes the op-space plan as the JAX package does:
+forced by ``method="schur"``, taken by ``method="gj"`` past 128 op
+unknowns on a subcircuit board, both right-hand sides retried dense when a
+block pivot fails.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch
 
 from ..constants import EPS
 from ..ir.circuit import CircuitTensors, build_tensors
-from ..ops.linsolve import check_ported, solve
+from ..ops.linsolve import solve
+from ..ops.schur import plan_for
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
 from .ac import (bsource_gradients, find_input_source, format_out_spec,
@@ -68,7 +72,6 @@ def simulate_tf(
         return None
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported(method)
 
     spec = ckt.tf
     if op is None:
@@ -168,11 +171,21 @@ def simulate_tf(
 
     f64 = torch.float64
     A_t = torch.as_tensor(A, dtype=f64, device=device)
-    x, ok = solve(A_t.expand((2,) + A.shape),
-                  torch.as_tensor(rhs, dtype=f64, device=device),
-                  method=method)
-    # one device->host transfer of [x | ok]
-    packed = torch.cat([x, ok[:, None].to(f64)], dim=1).cpu().numpy()
+    # the structured tier: the op-linearized system lives in op space
+    # (nodes + branches + L shorts), so the op plan applies
+    plan = plan_for(method, ckt, tensors, nvar_op, device, op=True)
+
+    def tf_solve(plan_arrays: dict | None) -> np.ndarray:
+        x, ok = solve(A_t.expand((2,) + A.shape),
+                      torch.as_tensor(rhs, dtype=f64, device=device),
+                      method="gj" if method == "schur" else method,
+                      plan=plan_arrays)
+        # one device->host transfer of [x | ok]
+        return torch.cat([x, ok[:, None].to(f64)], dim=1).cpu().numpy()
+
+    packed = tf_solve(plan)
+    if plan is not None and not bool(np.all(packed[:, -1] > 0.5)):
+        packed = tf_solve(None)
     if not bool(np.all(packed[:, -1] > 0.5)):
         raise ValueError("Singular matrix in .tf small-signal solve")
     x_pad = np.concatenate([packed[:, :nvar_op], np.zeros((2, 1))], axis=1)

@@ -53,18 +53,21 @@ The extended K, T and B elements are the JAX package's too:
     v(n+) - v(n-) = f (V-kind); a deck with B sources iterates Newton to
     convergence and never factors once.
 
-Past N = 128 ``method="gj"`` solves dense on every deck (K2 or K3 in a global
-workspace where a system overflows shared memory), as the JAX package does
-on a deck with no subcircuit structure; on a subcircuit board the JAX
-package plans a Schur partition there and retries dense, and the port's
-answer is that dense one. The structured route and the automatic Schur
-dispatch wait for the Schur tier (item 6).
+The structured tier (ops/schur.py) routes the solves as the JAX package
+routes them: forced by ``method="schur"`` (a ``ValueError`` on a circuit
+with no block structure), taken by the default ``method="gj"`` on a
+subcircuit board past N = 128 (the AC plan: the companions stamp only
+node pairs the static patterns already cover), and the whole run retried
+dense when a block pivot fails; ``method="pallas"`` stays dense. Under a
+plan every Newton pass is a Schur solve, and a linear deck's factor-once
+A^-1 is the Schur solve of the identity's columns (one multi-RHS call),
+not the inverse kernel, as the JAX package's ``inv_of`` does. A flat deck
+past N = 128 solves dense (K2 or K3 in a global workspace where a system
+overflows shared memory).
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
-the Schur tier (item 6). The JAX package's host interp tier, placement and
-``accurate_exp`` have no counterpart (item 10): on the card the device
-path is the path, and only the dtype half of the Newton tolerance floor
-(16 ulps) is kept.
+The JAX package's host interp tier, placement and ``accurate_exp`` have
+no counterpart (item 10): on the card the device path is the path, and
+only the dtype half of the Newton tolerance floor (16 ulps) is kept.
 """
 
 from __future__ import annotations
@@ -81,7 +84,8 @@ from ..ir.circuit import (CircuitTensors, bsrc_refs, bsrc_static,
                           ext_arrays, lk_arrays, nl_arrays, qchg_arrays,
                           sample_source_values, tl_arrays)
 from ..models.devices import bjt_ebers_moll, diode_charge_cap, mos_level1
-from ..ops.linsolve import check_ported, inverse, solve
+from ..ops.linsolve import inverse, solve
+from ..ops.schur import plan_for, schur_solve_multi
 from ..ops.stamps import (pad_solution, stamp_admittance, stamp_current,
                           stamp_extended, stamp_mutual, stamp_tline_ports,
                           stamp_vccs, stamp_voltage_source)
@@ -135,6 +139,18 @@ def _mutual_inv(l_vals: torch.Tensor, lk: dict
     flat.index_add_(-1, a * n_l + b, m.expand(lead + a.shape))
     flat.index_add_(-1, b * n_l + a, m.expand(lead + a.shape))
     return inverse(M)
+
+
+def _factor(A: torch.Tensor, plan: dict | None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A^-1 of every system and its flag: the inverse (K3 on the card),
+    or under a Schur plan the structured solves of the identity's columns
+    in one multi-RHS call, as the JAX package's ``inv_of`` builds it."""
+    if plan is None:
+        return inverse(A)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return schur_solve_multi(A, eye.expand(A.shape), plan["blk_ix"],
+                             plan["blk_mask"], plan["if_ix"])
 
 
 def _l_stamp(A_pad: torch.Tensor, l_idx: torch.Tensor, c: float,
@@ -591,7 +607,7 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
                record: int | None = None, init_state: tuple | None = None,
                resume: bool = False, nr_floor: torch.Tensor | None = None,
                vt_scale: torch.Tensor | float = 1.0,
-               times: np.ndarray | None = None
+               times: np.ndarray | None = None, plan: dict | None = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, list]:
     """The time loop; returns (xs, sw_states, valid, final carry).
 
@@ -603,7 +619,9 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
     (S+1, [B], nvar). ``init_state`` with ``resume=True`` continues a
     checkpoint: no step is re-marked as the t = 0 bootstrap. ``times``:
     each step's absolute time, which behavioral sources read (k * dt in
-    the working precision by default)."""
+    the working precision by default). ``plan``: a ``SchurPlan.arrays()``
+    routing every solve, and the factor-once A^-1, through the structured
+    tier."""
     dtype, dev = vs_grid.dtype, vs_grid.device
     nl = arr["nl"]
     n = {"c": arr["c_idx"].shape[0], "l": arr["l_idx"].shape[0],
@@ -649,10 +667,10 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
                 _l_factor(dt_c, integration, first, second))
 
         A_main = assemble(False, False)
-        Ainv_main, factor_ok = inverse(A_main)
+        Ainv_main, factor_ok = _factor(A_main, plan)
         if integration in ("trap", "gear2"):
             A_start = assemble(True, False)
-            Ainv_start, ok_start = inverse(A_start)
+            Ainv_start, ok_start = _factor(A_start, plan)
             factor_ok = factor_ok & ok_start
         else:
             A_start, Ainv_start = A_main, Ainv_main
@@ -719,7 +737,7 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
                 A, b = _stamp_system(arr, nvar, dt, vs_t, x, it, carry, sw,
                                      integration, first, second, vt_scale,
                                      e_t=e_t, t=float(times[s]))
-                x_new, solve_ok = solve(A, b, method=method)
+                x_new, solve_ok = solve(A, b, method=method, plan=plan)
                 new_on = _switch_update(arr["s_idx"], arr["s_von"],
                                         arr["s_voff"], sw,
                                         pad_solution(x_new, nvar))
@@ -1114,7 +1132,6 @@ def simulate_tran(
         raise ValueError("nr must be 'spicey' or 'converged'")
     if tensors is None:
         tensors = build_tensors(ckt)
-    check_ported(method)
     # MOSFET/BJT devices and behavioral sources need Newton iteration: the
     # reference's break-on-switch-stability rule is upgraded, as in the
     # JAX package
@@ -1153,17 +1170,28 @@ def simulate_tran(
             1e-6 if nr_vntol is None else nr_vntol,
             1e-12 if nr_abstol is None else nr_abstol), dtype=f64,
             device=device)
-    xs, sw_states, valid, fin = _tran_core(
-        torch.as_tensor(vs_grid, dtype=f64, device=device), dt,
-        tran_arrays(tensors, device, f64, ckt=ckt, dt=dt), tensors.nvar,
-        method=method, integration=integration, nr=nr, nr_tol=nr_tol,
-        max_nr=max_nr, init_state=init_state, resume=state is not None,
-        nr_floor=nr_floor, vt_scale=vt_scale_of(tensors, device, f64),
-        times=times)
-    # one device->host transfer of [solution | switch states | validity]
-    packed = torch.cat([xs, sw_states.to(f64),
-                        valid.to(f64).expand(xs.shape[0], 1)],
-                       dim=1).cpu().numpy()
+    # the structured tier: forced by "schur", auto past N = 128 for "gj"
+    plan = plan_for(method, ckt, tensors, tensors.nvar, device)
+
+    def run(plan_arrays: dict | None) -> tuple[np.ndarray, list]:
+        xs, sw_states, valid, fin = _tran_core(
+            torch.as_tensor(vs_grid, dtype=f64, device=device), dt,
+            tran_arrays(tensors, device, f64, ckt=ckt, dt=dt), tensors.nvar,
+            method="gj" if method == "schur" else method,
+            integration=integration, nr=nr, nr_tol=nr_tol, max_nr=max_nr,
+            init_state=init_state, resume=state is not None,
+            nr_floor=nr_floor, vt_scale=vt_scale_of(tensors, device, f64),
+            times=times, plan=plan_arrays)
+        # one device->host transfer of [solution | switch states | validity]
+        return torch.cat([xs, sw_states.to(f64),
+                          valid.to(f64).expand(xs.shape[0], 1)],
+                         dim=1).cpu().numpy(), fin
+
+    packed, fin = run(plan)
+    if plan is not None and not bool(packed[0, -1] > 0.5):
+        # block-local pivoting failed where global pivoting may not:
+        # retry the whole run dense before declaring it singular
+        packed, fin = run(None)
     if not bool(packed[0, -1] > 0.5):
         raise ValueError("Singular matrix in TRAN solve")
     xs_np = packed[:, :tensors.nvar]

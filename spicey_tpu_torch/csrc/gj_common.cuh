@@ -14,7 +14,7 @@
 // reg_gj_real and reg_gj_inv_real only the columns right of the pivot,
 // the only ones read later.
 //
-// Four layouts here, and a fifth in gj_panel.cuh:
+// Five layouts here, and a sixth in gj_panel.cuh:
 //   block_gj   one block per system, the (n, w) planes row-major in shared
 //              memory or a global workspace, thread-strided updates with a
 //              barrier per step (K1-K4 when their block tier is forced);
@@ -31,6 +31,10 @@
 //              constant (the register forms of K8 and K9; K5's complex
 //              reg_gj is its counterpart), and reg_gj_inv_real, the
 //              inverse in place (K3's register form);
+//   multi_solve_kernel one warp per system of [A | B] with r right-hand
+//              sides: warp_gj factors A, then each lane streams its
+//              columns of B through the recorded steps (K1's and K2's
+//              "multi" entry, the Schur tier's block solves);
 //   gj_panel.cuh: one block per system in panels of 16 (or 32) columns,
 //              the trailing columns updated by one product per panel (the
 //              panel tier of K1, K2 and K4; K10a/K10b with their own step).
@@ -436,6 +440,154 @@ int warp_launch(const void* A0, const void* A1, const void* b0,
                               (cudaStream_t)stream>>>(
         (const T*)A0, (const T*)A1, (const T*)b0, (const T*)b1, (T*)x0,
         (T*)x1, (uint8_t*)valid, batch, n, thr);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---- many right-hand sides: one warp per system, factor then stream ------
+
+// K1's and K2's "multi" entry, [A | B] for a right block B of r columns
+// (the Schur tier's block solves, ops/schur.py: n = 3-4 unknowns, r = 1 +
+// N_I = 69-515 columns, K x F of them). Neither the warp tier (a row per
+// lane: 4 of 32 lanes would sweep all r columns) nor the panel tier (a
+// block per system, n >= 33) fits that shape. So the work is split where
+// its arithmetic splits: the pivot order and the multipliers depend on A
+// alone, and each column of B then takes the same n steps on its own.
+//   1. Factor: the warp reduces A (n x n, n <= WARP_MAX_N) with warp_gj at
+//      width n. warp_gj never touches a column at or left of its step, so
+//      afterwards a[i][k] holds row i's multiplier of step k (i != p_k)
+//      and a[p_k][k] the undivided pivot; lane k leaves p_k in piv[k] and
+//      the step's divisor (real: pv, or 1 for a rejected pivot; complex:
+//      pv and 1 / |pv|^2, or 1) in stp.
+//   2. Stream: lane l takes columns l, l + 32, ... of B. A column's n
+//      entries go to the lane's own slot of shared memory (entry i at
+//      i * 32 + l: the warp's slots fall in distinct banks), take the n
+//      steps there (pivot row entry / pivot, every other row minus its
+//      multiplier times that; the plain versions' arithmetic, column by
+//      column), and leave un-permuted, row k of X from pivot row p_k,
+//      consecutive lanes writing consecutive columns.
+// No barrier but the __syncwarp after each phase's writes. Bound: the
+// bytes of B in and X out (16 n r bytes per complex f64 system against
+// ~8 n^2 r flops), once r is past a few columns.
+
+constexpr int MULTI_WARPS = 4;  // systems (warps) per block
+
+// Shared-memory bytes of one warp of multi_solve_kernel: the (n, n) planes
+// at the odd stride n | 1, one n-entry column slot per lane and plane,
+// three step values per column, then the n pivot rows; padded to 16 so
+// the next warp's doubles stay aligned.
+template <typename T, int P>
+__host__ __device__ inline size_t multi_warp_bytes(int n) {
+  const size_t vals = (size_t)P * n * (n | 1) + (size_t)P * n * 32 + 3 * n;
+  const size_t bytes = vals * sizeof(T) + (size_t)n * sizeof(int);
+  return (bytes + 15) & ~(size_t)15;
+}
+
+// Warp q of block b solves system b * MULTI_WARPS + q of A (B, n, n) and
+// B (B, n, r) per plane into X (B, n, r) per plane; valid as bytes.
+template <typename T, int P>
+__global__ void __launch_bounds__(32 * MULTI_WARPS)
+    multi_solve_kernel(const T* __restrict__ A0, const T* __restrict__ A1,
+                       const T* __restrict__ B0, const T* __restrict__ B1,
+                       T* __restrict__ X0, T* __restrict__ X1,
+                       uint8_t* __restrict__ valid_out, int batch, int n,
+                       int r, T thr) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long sys = (long long)blockIdx.x * MULTI_WARPS + warp;
+  if (sys >= batch) return;  // the whole warp: no barrier follows
+  const int ld = n | 1, nn = n * n;
+  T* base = reinterpret_cast<T*>(smem_raw + (size_t)warp *
+                                                multi_warp_bytes<T, P>(n));
+  T* a[P];
+  T* col[P];
+  for (int c = 0; c < P; ++c) a[c] = base + (size_t)c * n * ld;
+  base += (size_t)P * n * ld;
+  for (int c = 0; c < P; ++c) col[c] = base + (size_t)c * n * 32 + lane;
+  base += (size_t)P * n * 32;
+  T* stp = base;
+  int* piv = reinterpret_cast<int*>(base + 3 * n);
+
+  // ---- 1. factor A ----------------------------------------------------
+  const T* A[2] = {A0 + sys * nn, P == 2 ? A1 + sys * nn : nullptr};
+  for (int idx = lane; idx < nn; idx += 32) {
+    const int i = idx / n, j = idx - i * n;
+    for (int c = 0; c < P; ++c) a[c][i * ld + j] = A[c][idx];
+  }
+  __syncwarp();
+  int perm_k;
+  const bool ok = warp_gj<T, P>(a, n, n, ld, thr, perm_k);
+  if (lane < n) {
+    piv[lane] = perm_k;
+    const int q = perm_k * ld + lane;
+    if constexpr (P == 1) {
+      const T pv = a[0][q];
+      stp[lane] = fabs(pv) >= thr ? pv : T(1);
+    } else {
+      const T pvr = a[0][q], pvi = a[1][q];
+      const T d = pvr * pvr + pvi * pvi;
+      stp[3 * lane] = pvr;
+      stp[3 * lane + 1] = pvi;
+      stp[3 * lane + 2] = T(1) / (d >= thr ? d : T(1));
+    }
+  }
+  __syncwarp();
+
+  // ---- 2. stream the columns of B ---------------------------------------
+  const size_t off = (size_t)sys * n * r;
+  const T* Bp[2] = {B0 + off, P == 2 ? B1 + off : nullptr};
+  T* Xp[2] = {X0 + off, P == 2 ? X1 + off : nullptr};
+  for (int j = lane; j < r; j += 32) {
+    for (int i = 0; i < n; ++i)
+      for (int c = 0; c < P; ++c) col[c][i * 32] = Bp[c][(size_t)i * r + j];
+    for (int k = 0; k < n; ++k) {
+      const int p = piv[k];
+      if constexpr (P == 1) {
+        const T xp = col[0][p * 32] / stp[k];
+        col[0][p * 32] = xp;
+        for (int i = 0; i < n; ++i)
+          if (i != p) col[0][i * 32] = col[0][i * 32] - a[0][i * ld + k] * xp;
+      } else {
+        const T pvr = stp[3 * k], pvi = stp[3 * k + 1];
+        const T inv_d = stp[3 * k + 2];
+        const T xr = col[0][p * 32], xi = col[1][p * 32];
+        const T qr = (xr * pvr + xi * pvi) * inv_d;
+        const T qi = (xi * pvr - xr * pvi) * inv_d;
+        col[0][p * 32] = qr;
+        col[1][p * 32] = qi;
+        for (int i = 0; i < n; ++i) {
+          if (i == p) continue;
+          const T fr = a[0][i * ld + k], fi = a[1][i * ld + k];
+          col[0][i * 32] = col[0][i * 32] - (fr * qr - fi * qi);
+          col[1][i * 32] = col[1][i * 32] - (fr * qi + fi * qr);
+        }
+      }
+    }
+    for (int k = 0; k < n; ++k)
+      for (int c = 0; c < P; ++c)
+        Xp[c][(size_t)k * r + j] = col[c][piv[k] * 32];
+  }
+  if (lane == 0) valid_out[sys] = ok ? 1 : 0;
+}
+
+// Launch the multi entry on ``stream`` (n <= WARP_MAX_N, r >= 1).
+template <typename T, int P>
+int multi_launch(const void* A0, const void* A1, const void* B0,
+                 const void* B1, void* X0, void* X1, void* valid, int batch,
+                 int n, int r, T thr, void* stream) {
+  if (n < 1 || n > WARP_MAX_N || r < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = MULTI_WARPS * multi_warp_bytes<T, P>(n);
+  cudaError_t err = cudaFuncSetAttribute(
+      multi_solve_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (batch > 0) {
+    const int blocks =
+        (int)(((long long)batch + MULTI_WARPS - 1) / MULTI_WARPS);
+    multi_solve_kernel<T, P><<<blocks, 32 * MULTI_WARPS, smem,
+                               (cudaStream_t)stream>>>(
+        (const T*)A0, (const T*)A1, (const T*)B0, (const T*)B1, (T*)X0,
+        (T*)X1, (uint8_t*)valid, batch, n, r, thr);
   }
   return (int)cudaGetLastError();
 }

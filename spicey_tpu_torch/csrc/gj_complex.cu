@@ -74,6 +74,14 @@
 //          them (at N = 64 in f64: one workspace slot per resident block, 3
 //          blocks per SM). Bound: the panel's pivot steps (barriers), then
 //          the product.
+//
+// K1's multi entry (gj_complex_multi_*) reduces [A | B] on the planes for
+// a right block B of r columns: the Schur tier's complex block solves
+// (ops/schur.py: n = 3-4, r = 1 + N_I = 69-515, K x F of them), in
+// gj_common.cuh:multi_solve_kernel up to n = 32 (a warp per system, A
+// factored by warp_gj, each lane streaming its columns of B through the
+// recorded steps; bound by the bytes of B and X) and the panel tier at
+// R = r from 33.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -191,7 +199,7 @@ size_t inv_smem_bytes(int n, bool planes_in_smem) {
   return gj::block_smem_bytes<T, 2>(n, 2 * n, planes_in_smem);
 }
 
-enum Tier { WARP = 0, BLOCK = 1, PANEL = 2 };
+enum Tier { WARP = 0, BLOCK = 1, PANEL = 2, MULTI = 3 };
 
 template <typename T>
 int launch_inv(const void* A_re, const void* A_im, void* M_re, void* M_im,
@@ -253,6 +261,27 @@ int launch(const void* A_re, const void* A_im, const void* b_re,
   return (int)cudaGetLastError();
 }
 
+// K1's multi entry on planes, [A | B] with r right-hand sides (the Schur
+// tier's complex block solves): gj_common.cuh:multi_solve_kernel for
+// n <= 32, the panel tier at R = r from 33.
+template <typename T>
+int launch_multi(const void* A_re, const void* A_im, const void* B_re,
+                 const void* B_im, void* X_re, void* X_im, void* valid,
+                 void* workspace, int batch, int n, int r, double eps,
+                 int tier, void* stream) {
+  const T eps2 = (T)(eps * eps);
+  if (tier == MULTI) {
+    if (workspace != nullptr) return (int)cudaErrorInvalidValue;
+    return gj::multi_launch<T, 2>(A_re, A_im, B_re, B_im, X_re, X_im, valid,
+                                  batch, n, r, eps2, stream);
+  }
+  if (tier == PANEL)
+    return gj::panel::launch<T, 2>(A_re, A_im, B_re, B_im, X_re, X_im,
+                                   valid, workspace, batch, n, r, eps2,
+                                   stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -285,6 +314,31 @@ int gj_complex_f64(const void* A_re, const void* A_im, const void* b_re,
                    void* stream) {
   return launch<double>(A_re, A_im, b_re, b_im, x_re, x_im, valid, workspace,
                         batch, n, eps, tier, stream);
+}
+
+// The multi entry's workspace: systems of (2, N, N + r) for a batch of
+// B, nonzero only where the panel tier's plan puts data in global memory.
+int gj_complex_multi_workspace_systems(int n, int r, int batch,
+                                       int is_double, int tier) {
+  if (tier != PANEL) return 0;
+  return is_double ? gj::panel::workspace_systems<double, 2>(n, r, batch)
+                   : gj::panel::workspace_systems<float, 2>(n, r, batch);
+}
+
+int gj_complex_multi_f32(const void* A_re, const void* A_im,
+                         const void* B_re, const void* B_im, void* X_re,
+                         void* X_im, void* valid, void* workspace, int batch,
+                         int n, int r, double eps, int tier, void* stream) {
+  return launch_multi<float>(A_re, A_im, B_re, B_im, X_re, X_im, valid,
+                             workspace, batch, n, r, eps, tier, stream);
+}
+
+int gj_complex_multi_f64(const void* A_re, const void* A_im,
+                         const void* B_re, const void* B_im, void* X_re,
+                         void* X_im, void* valid, void* workspace, int batch,
+                         int n, int r, double eps, int tier, void* stream) {
+  return launch_multi<double>(A_re, A_im, B_re, B_im, X_re, X_im, valid,
+                              workspace, batch, n, r, eps, tier, stream);
 }
 
 // K4: systems of (2, N, 2N) elements the tier's global workspace must

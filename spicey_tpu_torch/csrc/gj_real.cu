@@ -51,6 +51,14 @@
 // There it reads N^2 and writes N^2 values per system, against 2 N^3
 // flops: the bytes bound it up to N = 160 in f64 (80 in f32) at the
 // H100's 3.35 TB/s and 67 TFLOP/s, the operations beyond.
+//
+// K2's multi entry (gj_real_solve_multi_*) reduces [A | B] for a right
+// block B of r columns: the Schur tier's block solves (ops/schur.py), tiny
+// blocks (n = 3-4) with wide borders (r = 1 + N_I, 69-515), K x B of them.
+// Up to n = 32 it runs gj_common.cuh:multi_solve_kernel (one warp per
+// system: warp_gj factors A, each lane streams its columns of B through
+// the recorded steps), bound by the bytes of B and X; from 33 the panel
+// tier at R = r (gj_panel.cuh reads B per system).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -292,8 +300,9 @@ int launch_block(const void* A, const void* b, void* out, void* valid,
 }
 
 // the wrappers' tier codes (ops/gj_real.py:CODES); THREAD is K2's only,
-// REGISTER K3's only
-enum Tier { WARP = 0, BLOCK = 1, PANEL = 2, THREAD = 3, REGISTER = 4 };
+// REGISTER K3's only, MULTI the multi-RHS entry's
+enum Tier { WARP = 0, BLOCK = 1, PANEL = 2, THREAD = 3, REGISTER = 4,
+            MULTI = 5 };
 
 template <typename T>
 int launch_solve(const void* A, const void* b, void* x, void* valid,
@@ -345,6 +354,28 @@ int launch_inverse(const void* A, void* out, void* valid, void* workspace,
   }
 }
 
+// K2's multi entry, [A | B] with r right-hand sides (the Schur tier's
+// block solves and its interface solve with several columns): the warp
+// kernel of gj_common.cuh:multi_solve_kernel for n <= 32, the panel tier
+// at R = r from 33 (gj_panel.cuh reads B (n, r) per system).
+template <typename T>
+int launch_multi(const void* A, const void* B, void* X, void* valid,
+                 void* workspace, int batch, int n, int r, double eps,
+                 int tier, void* stream) {
+  switch (tier) {
+    case MULTI:
+      if (workspace != nullptr) return (int)cudaErrorInvalidValue;
+      return gj::multi_launch<T, 1>(A, nullptr, B, nullptr, X, nullptr,
+                                    valid, batch, n, r, (T)eps, stream);
+    case PANEL:
+      return gj::panel::launch<T, 1>(A, nullptr, B, nullptr, X, nullptr,
+                                     valid, workspace, batch, n, r, (T)eps,
+                                     stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -365,6 +396,29 @@ int gj_real_workspace_systems(int n, int batch, int inv, int is_double,
   const size_t bytes = is_double ? block_smem<double>(n, inv, true)
                                  : block_smem<float>(n, inv, true);
   return bytes > gj::SMEM_MAX ? batch : 0;
+}
+
+// The multi entry's workspace: systems of (N, N + r) for a batch of B,
+// nonzero only where the panel tier's plan puts data in global memory.
+int gj_real_multi_workspace_systems(int n, int r, int batch, int is_double,
+                                    int tier) {
+  if (tier != PANEL) return 0;
+  return is_double ? gj::panel::workspace_systems<double, 1>(n, r, batch)
+                   : gj::panel::workspace_systems<float, 1>(n, r, batch);
+}
+
+int gj_real_solve_multi_f32(const void* A, const void* B, void* X,
+                            void* valid, void* workspace, int batch, int n,
+                            int r, double eps, int tier, void* stream) {
+  return launch_multi<float>(A, B, X, valid, workspace, batch, n, r, eps,
+                             tier, stream);
+}
+
+int gj_real_solve_multi_f64(const void* A, const void* B, void* X,
+                            void* valid, void* workspace, int batch, int n,
+                            int r, double eps, int tier, void* stream) {
+  return launch_multi<double>(A, B, X, valid, workspace, batch, n, r, eps,
+                              tier, stream);
 }
 
 int gj_real_solve_f32(const void* A, const void* b, void* x, void* valid,

@@ -16,7 +16,9 @@ transformer, a board trace, the uA741 macromodel, a tanh amplifier) are
 ``tests/test_step.py`` and ``tests/test_bsource.py``. The post-analysis
 decks at the very end (the uA741 amplifier with ``.pz``, ``.sens``,
 ``.four``, ``.meas`` and a ``.control`` block, and STEP_DECK with
-``.meas`` lines) are ``chip_smoke.py`` phase 24's.
+``.meas`` lines) are ``chip_smoke.py`` phase 24's; the Schur boards and
+the time-parallel RLC deck after them (``tests/test_schur.py``,
+``tests/test_mc.py``) phase 25's.
 """
 
 from __future__ import annotations
@@ -432,3 +434,55 @@ set filetype=ascii
 write ua741_ascii.raw
 .endc
 """
+
+
+# tests/test_schur.py:_ladder_netlist: an RC low-pass chain of identical
+# .subckt stages, each with ``inner`` internal nodes and a unity VCVS
+# output buffer (one branch unknown per stage that couples interior to
+# interface); ``stage_extra`` lines (a clamp diode) go inside the stage.
+# The subcircuit structure makes the MNA matrix bordered block diagonal:
+# the Schur tier's board (64 stages, inner 3: N = 322, 64 blocks of 4,
+# an interface of 130; 256 stages: N = 1538, 256 blocks, 514).
+def schur_ladder_netlist(n_stages: int, inner: int = 4,
+                         analysis: str = ".ac dec 5 1 1e6",
+                         source: str = "vsrc in 0 dc 1 ac 1",
+                         stage_extra: tuple = ()) -> str:
+    body = [source, analysis]
+    sub = [".subckt stage a y"]
+    prev = "a"
+    for i in range(1, inner + 1):
+        sub.append(f"r{i} {prev} m{i} 1k")
+        sub.append(f"c{i} m{i} 0 1n")
+        prev = f"m{i}"
+    sub.extend(stage_extra)
+    sub.append(f"ebuf y 0 {prev} 0 1")
+    sub.append(".ends")
+    lines = ["* schur ladder fixture"] + sub + body
+    prev = "in"
+    for s in range(1, n_stages + 1):
+        lines.append(f"x{s} {prev} o{s} stage")
+        prev = f"o{s}"
+    lines.append(f"rload {prev} 0 10k")
+    lines.append(".end")
+    return "\n".join(lines)
+
+
+# tests/test_schur.py:_TRAN_KW and the clamp diode of its nonlinear
+# transient: every stage's m2 clamped to ground, a 5 V pulse, 50 steps
+SCHUR_TRAN_KW = dict(analysis=".tran 1u 50u",
+                     source="vsrc in 0 PULSE(0 5 0 1n 1n 50u 100u)")
+SCHUR_CLAMP = (".model dd d(is=1e-14)", "dcl m2 0 dd")
+
+# tests/test_mc.py:343, the linear RLC Monte-Carlo of the time-parallel
+# core (a VCCS included); ``tp_rlc_netlist(tstop)`` runs it to ``tstop``
+# at its 0.2 us step (30u: 150 steps; 20m: 100,000)
+def tp_rlc_netlist(tstop: str = "30u") -> str:
+    return ("x rlc mc\n"
+            "V1 in 0 PULSE(0 5 0 1n 1n 5u 10u)\n"
+            "R1 in a 100\n"
+            "L1 a b 1m\n"
+            "C1 b 0 1u\n"
+            "R2 b 0 2k\n"
+            "g1 0 b in 0 0.1m\n"
+            f".tran 0.2u {tstop}\n"
+            ".end\n")

@@ -20,6 +20,15 @@ trailing columns, the right-hand side or the identity block included, on
 the tensor cores in f64). ``K1_TIERS`` and ``K4_TIERS`` count each tier's
 launches beside ``K1``'s and ``K4``'s totals.
 
+K1's multi entry (``gj_solve_planes_multi_cuda``) solves [A | B] for a
+right block B of R columns, the Schur tier's block solves (ops/schur.py):
+``gj_common.cuh:multi_solve_kernel`` up to N = 32 (one warp per system,
+A factored once by ``warp_gj``, each lane streaming its columns of B
+through the recorded steps), the panel tier at R columns from 33
+(``MULTI_TIERS``, chosen by ``gj_real.multi_tier_for``). Its launches
+count in ``K1``, in ``K1_TIERS`` ("multi" or "panel") and in its own
+``K1_MULTI``; its plain version is ``linsolve.gj_solve_planes_multi``.
+
 N has no upper limit: where a system's planes overflow the 227 KB of
 shared memory a block may hold, the kernel eliminates in a global
 workspace. The block tier's solve does so from N = 119 in f64 and 169 in
@@ -73,8 +82,21 @@ K1_PANEL_MIN = 33
 # tier at the .noise shapes, PERF.md)
 K4_WARP_MAX = 32
 K4_PANEL_MIN = 33
-# launches of each tier, per instantiation (K1, K4 count their sums)
-K1_TIERS = {dt: dict.fromkeys(TIERS, 0)
+# the multi entry's own launch counter (each of its launches is one of K1's
+# too, under K1_TIERS' "multi" or "panel"), so a run can list it apart
+K1_MULTI = {dt: Kernel(name=f"gj_complex_multi_{tag}",
+                       source="spicey_tpu_torch/csrc/gj_complex.cu",
+                       replaces="spicey_tpu/ops/pallas_gj.py:651")
+            for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64"))}
+# K1's multi entry ([A | B], r right-hand sides, the C side's code 3): the
+# warp kernel gj_common.cuh:multi_solve_kernel up to N = 32, the panel
+# tier from 33 (ops/gj_real.py:multi_tier_for)
+MULTI_TIERS = ("multi", "panel")
+MULTI_CODE = 3
+# launches of each tier, per instantiation (K1, K4 count their sums;
+# "multi" counts the multi entry's warp kernel, its panel launches count
+# as "panel")
+K1_TIERS = {dt: dict.fromkeys(TIERS + ("multi",), 0)
             for dt in (torch.float32, torch.float64)}
 K4_TIERS = {dt: dict.fromkeys(TIERS, 0)
             for dt in (torch.float32, torch.float64)}
@@ -96,8 +118,14 @@ _LAUNCH_ARGS = [ctypes.c_void_p] * 8 + [
 _INV_ARGS = [ctypes.c_void_p] * 6 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int,
     ctypes.c_void_p]
+_MULTI_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+    ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
 _SIGNATURES = {
     "gj_complex_workspace_systems": ([ctypes.c_int] * 4, ctypes.c_int),
+    "gj_complex_multi_workspace_systems": ([ctypes.c_int] * 5,
+                                           ctypes.c_int),
+    "gj_complex_multi_f32": (_MULTI_ARGS, ctypes.c_int),
+    "gj_complex_multi_f64": (_MULTI_ARGS, ctypes.c_int),
     "gj_complex_f32": (_LAUNCH_ARGS, ctypes.c_int),
     "gj_complex_f64": (_LAUNCH_ARGS, ctypes.c_int),
     "gj_complex_inv_workspace_systems": ([ctypes.c_int] * 4, ctypes.c_int),
@@ -215,3 +243,61 @@ def gj_inverse_planes_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
     K4[A_re.dtype].launches += 1
     K4_TIERS[A_re.dtype][tier] += 1
     return m_re, m_im, valid
+
+
+def gj_solve_planes_multi_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
+                               B_re: torch.Tensor, B_im: torch.Tensor,
+                               eps: float = EPS, tier: str | None = None
+                               ) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Launch K1's multi entry on batch-first planes: A_* (nb, N, N), B_*
+    (nb, N, R), all CUDA, contiguous, one float dtype. Returns (X_re,
+    X_im (nb, N, R), valid (nb,)), the plain
+    ``linsolve.gj_solve_planes_multi``'s function. ``tier`` forces one of
+    ``MULTI_TIERS`` (the comparisons); None takes the multi chooser's."""
+    from .gj_real import multi_tier_for
+
+    ts = (A_re, A_im, B_re, B_im)
+    if A_re.ndim != 3 or A_re.shape[1] != A_re.shape[2]:
+        raise ValueError(f"A_re must be (B, N, N), got {tuple(A_re.shape)}")
+    nb, n = A_re.shape[0], A_re.shape[1]
+    if n < 1:
+        raise ValueError(f"K1 multi solves N >= 1, got N={n}")
+    if B_re.ndim != 3 or B_re.shape[:2] != (nb, n) or B_re.shape[2] < 1:
+        raise ValueError(f"K1 multi: B must be (B, N, R) with B, N = "
+                         f"{(nb, n)}, got {tuple(B_re.shape)}")
+    r = B_re.shape[2]
+    if A_im.shape != A_re.shape or B_im.shape != B_re.shape:
+        raise ValueError("plane shapes disagree")
+    if nb * n * r >= 2**31:
+        raise ValueError("K1 multi takes fewer than 2^31 elements of B")
+    if A_re.dtype not in (torch.float32, torch.float64) \
+            or any(t.dtype != A_re.dtype for t in ts):
+        raise TypeError("K1 multi takes float32 or float64 planes of one "
+                        "dtype")
+    tier = multi_tier_for(n) if tier is None else tier
+    if tier not in MULTI_TIERS or (tier == "multi" and n > WARP_MAX_N):
+        raise ValueError(f"K1 multi has no tier {tier!r} at N={n}")
+    if any(not t.is_cuda or t.device != A_re.device for t in ts):
+        raise ValueError("K1 multi takes CUDA tensors on one device")
+    if any(not t.is_contiguous() for t in ts):
+        raise ValueError("K1 multi takes contiguous tensors")
+    code_tier = MULTI_CODE if tier == "multi" else TIERS.index(tier)
+    lib = load_library()
+    dbl = A_re.dtype == torch.float64
+    X_re = torch.empty((nb, n, r), dtype=A_re.dtype, device=A_re.device)
+    X_im = torch.empty_like(X_re)
+    valid = torch.empty((nb,), dtype=torch.bool, device=A_re.device)
+    n_ws = lib.gj_complex_multi_workspace_systems(n, r, nb, int(dbl),
+                                                  code_tier)
+    ws = workspace((n_ws, 2, n, n + r), A_re, "K1 multi") if n_ws else None
+    fn = lib.gj_complex_multi_f64 if dbl else lib.gj_complex_multi_f32
+    code = fn(ptr(A_re), ptr(A_im), ptr(B_re), ptr(B_im), ptr(X_re),
+              ptr(X_im), ptr(valid),
+              ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n, r,
+              float(eps), code_tier, stream_ptr(A_re.device))
+    check(code, f"gj_complex multi {tier} launch")
+    K1[A_re.dtype].launches += 1
+    K1_TIERS[A_re.dtype][tier] += 1
+    K1_MULTI[A_re.dtype].launches += 1
+    return X_re, X_im, valid

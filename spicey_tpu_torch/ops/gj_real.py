@@ -28,6 +28,13 @@ thread per system, [A | I] reduced in place in its registers,
 on one plane) and panel (R = N right-hand sides, the identity); block
 only when forced. ``K2_TIERS`` and ``K3_TIERS`` count each tier's
 launches beside ``K2``'s and ``K3``'s totals.
+
+K2's multi entry (``gj_solve_multi_cuda``) solves [A | B] for a right
+block B of R columns, the Schur tier's real block solves (ops/schur.py):
+``gj_common.cuh:multi_solve_kernel`` up to N = 32, the panel tier at R
+columns from 33 (``MULTI_TIERS``, ``multi_tier_for``); its launches count
+in ``K2``, ``K2_TIERS`` and ``K2_MULTI``; its plain version is
+``linsolve.gj_solve_multi``.
 """
 
 from __future__ import annotations
@@ -50,10 +57,21 @@ K3 = {dt: Kernel(name=f"gj_inv_real_{tag}",
                  replaces="spicey_tpu/ops/pallas_gj.py:468")
       for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64"))}
 
+# the multi entry's own launch counter (each of its launches is one of K2's
+# too, under K2_TIERS' "multi" or "panel"), so a run can list it apart
+K2_MULTI = {dt: Kernel(name=f"gj_real_multi_{tag}",
+                       source="spicey_tpu_torch/csrc/gj_real.cu",
+                       replaces="spicey_tpu/ops/pallas_gj.py:430")
+            for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64"))}
+
 # the C side's tier codes (csrc/gj_real.cu:Tier)
-CODES = {"warp": 0, "block": 1, "panel": 2, "thread": 3, "register": 4}
+CODES = {"warp": 0, "block": 1, "panel": 2, "thread": 3, "register": 4,
+         "multi": 5}
 TIERS = ("warp", "block", "panel", "thread")   # K2's
 INV_TIERS = ("register", "warp", "block", "panel")  # K3's
+# K2's multi entry ([A | B], r right-hand sides): the warp kernel
+# gj_common.cuh:multi_solve_kernel up to N = 32, the panel tier from 33
+MULTI_TIERS = ("multi", "panel")
 THREAD_MAX_N = 16                              # gj_common.cuh:THREAD_MAX_N
 K3_REG_INSTANCES = 8                           # gj_real.cu:REG_MAX_N
 # The crossovers: the thread tier up to K2_THREAD_MAX (per dtype), the
@@ -80,8 +98,9 @@ K3_REG_INSTANCES = 8                           # gj_real.cu:REG_MAX_N
 K2_THREAD_MAX = {torch.float32: 11, torch.float64: 10}
 K2_WARP_MAX = 32
 K2_PANEL_MIN = 33
-# launches of each tier, per instantiation (K2 counts their sum)
-K2_TIERS = {dt: dict.fromkeys(TIERS, 0)
+# launches of each tier, per instantiation (K2 counts their sum; "multi"
+# counts the multi entry's warp kernel, its panel launches count as "panel")
+K2_TIERS = {dt: dict.fromkeys(TIERS + ("multi",), 0)
             for dt in (torch.float32, torch.float64)}
 # K3's crossovers: the register form up to its last instance,
 # K3_REG_INSTANCES, in both dtypes, the warp tier from there up to
@@ -121,6 +140,11 @@ def tier_for(n: int, dtype: torch.dtype, inverse: bool = False) -> str:
     return "panel" if n >= K2_PANEL_MIN else "block"
 
 
+def multi_tier_for(n: int) -> str:
+    """The tier K1's and K2's multi entry runs an (n, n) system in."""
+    return "multi" if n <= WARP_MAX_N else "panel"
+
+
 def _takes(tier: str, n: int) -> bool:
     """Whether ``tier`` can take an (n, n) system at all (register: N with
     an instance; thread: 4-bit pivot rows; warp: a row per lane)."""
@@ -140,8 +164,13 @@ _SOLVE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
 _INV_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_double, ctypes.c_int,
                                      ctypes.c_void_p]
+_MULTI_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+    ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
 _SIGNATURES = {
     "gj_real_workspace_systems": ([ctypes.c_int] * 5, ctypes.c_int),
+    "gj_real_multi_workspace_systems": ([ctypes.c_int] * 5, ctypes.c_int),
+    "gj_real_solve_multi_f32": (_MULTI_ARGS, ctypes.c_int),
+    "gj_real_solve_multi_f64": (_MULTI_ARGS, ctypes.c_int),
     "gj_real_solve_f32": (_SOLVE_ARGS, ctypes.c_int),
     "gj_real_solve_f64": (_SOLVE_ARGS, ctypes.c_int),
     "gj_real_inverse_f32": (_INV_ARGS, ctypes.c_int),
@@ -247,3 +276,39 @@ def gj_inverse_cuda(A: torch.Tensor, eps: float = EPS,
     K3[A.dtype].launches += 1
     K3_TIERS[A.dtype][tier] += 1
     return inv, valid
+
+
+def gj_solve_multi_cuda(A: torch.Tensor, B: torch.Tensor, eps: float = EPS,
+                        tier: str | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2's multi entry: A (nb, N, N), B (nb, N, R), CUDA,
+    contiguous, one float dtype. Returns (X (nb, N, R), valid (nb,)), the
+    plain ``linsolve.gj_solve_multi``'s function. ``tier`` forces one of
+    ``MULTI_TIERS`` (the comparisons); None takes ``multi_tier_for``'s."""
+    nb, n = _check_systems(A, "K2 multi")
+    if B.ndim != 3 or B.shape[:2] != (nb, n) or B.shape[2] < 1:
+        raise ValueError(f"K2 multi: B must be (B, N, R) with B, N = "
+                         f"{(nb, n)}, got {tuple(B.shape)}")
+    r = B.shape[2]
+    if nb * n * r >= 2**31:
+        raise ValueError("K2 multi takes fewer than 2^31 elements of B")
+    tier = multi_tier_for(n) if tier is None else tier
+    if tier not in MULTI_TIERS or (tier == "multi" and n > WARP_MAX_N):
+        raise ValueError(f"K2 multi has no tier {tier!r} at N={n}")
+    _check_tensors((A, B), "K2 multi")
+    lib = load_library()
+    X = torch.empty((nb, n, r), dtype=A.dtype, device=A.device)
+    valid = torch.empty((nb,), dtype=torch.bool, device=A.device)
+    dbl = A.dtype == torch.float64
+    n_ws = lib.gj_real_multi_workspace_systems(n, r, nb, int(dbl),
+                                               CODES[tier])
+    ws = workspace((n_ws, n, n + r), A, "K2 multi") if n_ws else None
+    fn = lib.gj_real_solve_multi_f64 if dbl else lib.gj_real_solve_multi_f32
+    code = fn(ptr(A), ptr(B), ptr(X), ptr(valid),
+              ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n, r,
+              float(eps), CODES[tier], stream_ptr(A.device))
+    check(code, f"gj_real multi {tier} launch")
+    K2[A.dtype].launches += 1
+    K2_TIERS[A.dtype][tier] += 1
+    K2_MULTI[A.dtype].launches += 1
+    return X, valid

@@ -24,8 +24,13 @@ unused row with the largest |a|, ties to the lowest row, invalid when
 [A | I] with the same pivot order, so column j of its inverse is
 ``gj_solve(A, e_j)``, the JAX package's ``inv_of`` (analysis/tran.py).
 
-``solve_planes``, ``inverse_planes``, ``solve`` and ``inverse`` dispatch
-by the tensor's device: a CUDA tensor always launches the kernel (the
+``gj_solve_multi`` and ``gj_solve_planes_multi`` reduce [A | B] for a
+right block B of R columns with the same pivots (the plain versions of
+K2's and K1's "multi" entry: the Schur tier's block solves, ops/schur.py);
+the inverses are these with B = I.
+
+``solve_planes``, ``inverse_planes``, ``solve``, ``inverse`` and the
+multi forms dispatch by the tensor's device: a CUDA tensor always launches the kernel (the
 instantiation follows the dtype), a CPU tensor runs the plain version.
 The one other branch is a system with no unknowns (N = 0: a deck whose
 only node is ground), which every analysis of such a deck reaches: there
@@ -111,6 +116,28 @@ def gj_solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
             valid.reshape(lead))
 
 
+def gj_solve_planes_multi(A_re: torch.Tensor, A_im: torch.Tensor,
+                          B_re: torch.Tensor, B_im: torch.Tensor,
+                          eps: float = EPS
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Multi-RHS complex Gauss-Jordan on (re, im) planes, A X = B, batched
+    (plain K1 multi): the pivots of ``gj_solve_planes`` with an R-column
+    right block, so each column is that solve's arithmetic.
+
+    A_*: (..., N, N); B_*: (..., N, R). Returns (X_re, X_im (..., N, R),
+    valid (...))."""
+    lead = A_re.shape[:-2]
+    n, r = A_re.shape[-1], B_re.shape[-1]
+    Ar = torch.cat([A_re, B_re], dim=-1).reshape(-1, n, n + r)
+    Ai = torch.cat([A_im, B_im], dim=-1).reshape(-1, n, n + r)
+    Ar, Ai, perm, valid = _gj_complex(Ar, Ai, n, eps)
+    # pivot row perm[k] carries row k of X in its right block
+    rows = perm[:, :, None].expand(-1, -1, r)
+    return (Ar[:, :, n:].gather(1, rows).reshape(lead + (n, r)),
+            Ai[:, :, n:].gather(1, rows).reshape(lead + (n, r)),
+            valid.reshape(lead))
+
+
 def gj_inverse_planes(A_re: torch.Tensor, A_im: torch.Tensor,
                       eps: float = EPS
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -119,18 +146,11 @@ def gj_inverse_planes(A_re: torch.Tensor, A_im: torch.Tensor,
     j of the inverse is ``gj_solve_planes(A, e_j)``'s elimination.
 
     A_*: (..., N, N). Returns (M_re, M_im (..., N, N), valid (...))."""
-    lead = A_re.shape[:-2]
     n = A_re.shape[-1]
-    Ar = A_re.reshape(-1, n, n)
-    nb = Ar.shape[0]
-    eye = torch.eye(n, dtype=A_re.dtype, device=A_re.device).expand(nb, n, n)
-    Ar = torch.cat([Ar, eye], dim=-1)
-    Ai = torch.cat([A_im.reshape(-1, n, n), torch.zeros_like(eye)], dim=-1)
-    Ar, Ai, perm, valid = _gj_complex(Ar, Ai, n, eps)
-    rows = perm[:, :, None].expand(-1, -1, n)
-    return (Ar[:, :, n:].gather(1, rows).reshape(lead + (n, n)),
-            Ai[:, :, n:].gather(1, rows).reshape(lead + (n, n)),
-            valid.reshape(lead))
+    eye = torch.eye(n, dtype=A_re.dtype, device=A_re.device).expand(
+        A_re.shape)
+    return gj_solve_planes_multi(A_re, A_im, eye, torch.zeros_like(eye),
+                                 eps=eps)
 
 
 def _no_unknowns(A: torch.Tensor) -> torch.Tensor:
@@ -140,7 +160,8 @@ def _no_unknowns(A: torch.Tensor) -> torch.Tensor:
 
 def solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
                  b_re: torch.Tensor, b_im: torch.Tensor,
-                 method: str = "gj", eps: float = EPS
+                 method: str = "gj", eps: float = EPS,
+                 plan: dict | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Complex solve on (re, im) planes. A_*: (..., N, N); b_*: (..., N).
 
@@ -148,10 +169,17 @@ def solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
     like: "gj" (its f64 plane GJ) and "pallas" (its kernel tier). Both name
     the same elimination here, and the device picks the implementation:
     K1 on a CUDA tensor, in the tensor's precision; the plain version on
-    the CPU."""
+    the CPU. ``plan``: a ``SchurPlan.arrays()``, which routes the solve
+    through the structured tier (ops/schur.py) whatever the method, as in
+    the JAX package; without one "schur" names the dense elimination."""
     _check_method(method)
     if A_re.shape[-1] == 0:
         return b_re.clone(), b_im.clone(), _no_unknowns(A_re)
+    if plan is not None:
+        from .schur import schur_solve_planes
+
+        return schur_solve_planes(A_re, A_im, b_re, b_im, plan["blk_ix"],
+                                  plan["blk_mask"], plan["if_ix"], eps)
     if A_re.is_cuda:
         from .gj import gj_solve_planes_cuda
 
@@ -165,6 +193,30 @@ def solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
         return (xr.reshape(lead + (n,)), xi.reshape(lead + (n,)),
                 valid.reshape(lead))
     return gj_solve_planes(A_re, A_im, b_re, b_im, eps=eps)
+
+
+def solve_planes_multi(A_re: torch.Tensor, A_im: torch.Tensor,
+                       B_re: torch.Tensor, B_im: torch.Tensor,
+                       eps: float = EPS
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Complex A X = B on (re, im) planes for R right-hand sides: K1's
+    multi entry on a CUDA tensor, the plain ``gj_solve_planes_multi`` on
+    the CPU. A_*: (..., N, N); B_*: (..., N, R)."""
+    if A_re.shape[-1] == 0:
+        return B_re.clone(), B_im.clone(), _no_unknowns(A_re)
+    if A_re.is_cuda:
+        from .gj import gj_solve_planes_multi_cuda
+
+        lead = A_re.shape[:-2]
+        n, r = A_re.shape[-1], B_re.shape[-1]
+        xr, xi, valid = gj_solve_planes_multi_cuda(
+            A_re.reshape(-1, n, n).contiguous(),
+            A_im.reshape(-1, n, n).contiguous(),
+            B_re.reshape(-1, n, r).contiguous(),
+            B_im.reshape(-1, n, r).contiguous(), eps=eps)
+        return (xr.reshape(lead + (n, r)), xi.reshape(lead + (n, r)),
+                valid.reshape(lead))
+    return gj_solve_planes_multi(A_re, A_im, B_re, B_im, eps=eps)
 
 
 def inverse_planes(A_re: torch.Tensor, A_im: torch.Tensor,
@@ -235,45 +287,53 @@ def gj_solve(A: torch.Tensor, b: torch.Tensor, eps: float = EPS
     return x.reshape(lead + (n,)), valid.reshape(lead)
 
 
+def gj_solve_multi(A: torch.Tensor, B: torch.Tensor, eps: float = EPS
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multi-RHS real Gauss-Jordan, A X = B, batched (plain K2 multi): the
+    pivots of ``gj_solve`` with an R-column right block.
+
+    A: (..., N, N); B: (..., N, R). Returns (X (..., N, R), valid (...))."""
+    lead = A.shape[:-2]
+    n, r = A.shape[-1], B.shape[-1]
+    Ab = torch.cat([A, B], dim=-1).reshape(-1, n, n + r)
+    Ab, perm, valid = _gj_real(Ab, n, eps)
+    X = Ab[:, :, n:].gather(1, perm[:, :, None].expand(-1, -1, r))
+    return X.reshape(lead + (n, r)), valid.reshape(lead)
+
+
 def gj_inverse(A: torch.Tensor, eps: float = EPS
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The true inverse by reducing [A | I], batched (plain K3).
 
     A: (..., N, N). Returns (Ainv (..., N, N), valid (...))."""
-    lead = A.shape[:-2]
     n = A.shape[-1]
-    eye = torch.eye(n, dtype=A.dtype, device=A.device)
-    A2 = A.reshape(-1, n, n)
-    Ab = torch.cat([A2, eye.expand(A2.shape[0], n, n)], dim=-1)
-    Ab, perm, valid = _gj_real(Ab, n, eps)
-    inv = Ab[:, :, n:].gather(1, perm[:, :, None].expand(-1, -1, n))
-    return inv.reshape(lead + (n, n)), valid.reshape(lead)
-
-
-def check_ported(method: str) -> None:
-    """Raise ``NotImplementedError`` for a solve tier the port does not
-    carry yet in any analysis, naming the ROADMAP item that brings it."""
-    if method == "schur":
-        raise NotImplementedError(
-            "the Schur tier is not ported yet (ROADMAP §1 item 6)")
+    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
+    return gj_solve_multi(A, eye, eps=eps)
 
 
 def _check_method(method: str) -> None:
-    if method not in ("gj", "pallas"):
+    if method not in ("gj", "pallas", "schur"):
         raise ValueError(f"unknown solve method {method!r} "
-                         "(this package has 'gj' and 'pallas')")
+                         "(this package has 'gj', 'pallas' and 'schur')")
 
 
 def solve(A: torch.Tensor, b: torch.Tensor, method: str = "gj",
-          eps: float = EPS) -> tuple[torch.Tensor, torch.Tensor]:
+          eps: float = EPS, plan: dict | None = None
+          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Real solve with method dispatch. A: (..., N, N); b: (..., N).
 
     "gj" and "pallas" keep the JAX package's names and name the same
     elimination here: K2 on a CUDA tensor, in the tensor's precision; the
-    plain ``gj_solve`` on the CPU."""
+    plain ``gj_solve`` on the CPU. ``plan``: a ``SchurPlan.arrays()``, the
+    structured tier (ops/schur.py), as in ``solve_planes``."""
     _check_method(method)
     if A.shape[-1] == 0:
         return b.clone(), _no_unknowns(A)
+    if plan is not None:
+        from .schur import schur_solve
+
+        return schur_solve(A, b, plan["blk_ix"], plan["blk_mask"],
+                           plan["if_ix"], eps)
     if A.is_cuda:
         from .gj_real import gj_solve_cuda
 
@@ -283,6 +343,25 @@ def solve(A: torch.Tensor, b: torch.Tensor, method: str = "gj",
                                  b.reshape(-1, n).contiguous(), eps=eps)
         return x.reshape(lead + (n,)), valid.reshape(lead)
     return gj_solve(A, b, eps=eps)
+
+
+def solve_multi(A: torch.Tensor, B: torch.Tensor, eps: float = EPS
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Real A X = B for R right-hand sides: K2's multi entry on a CUDA
+    tensor, the plain ``gj_solve_multi`` on the CPU. A: (..., N, N);
+    B: (..., N, R)."""
+    if A.shape[-1] == 0:
+        return B.clone(), _no_unknowns(A)
+    if A.is_cuda:
+        from .gj_real import gj_solve_multi_cuda
+
+        lead = A.shape[:-2]
+        n, r = A.shape[-1], B.shape[-1]
+        x, valid = gj_solve_multi_cuda(A.reshape(-1, n, n).contiguous(),
+                                       B.reshape(-1, n, r).contiguous(),
+                                       eps=eps)
+        return x.reshape(lead + (n, r)), valid.reshape(lead)
+    return gj_solve_multi(A, B, eps=eps)
 
 
 def inverse(A: torch.Tensor, eps: float = EPS

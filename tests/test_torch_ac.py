@@ -135,8 +135,7 @@ def test_unported_analyses_raise():
     what it rejects, the port rejects with its exception and message:
     .pz (here of a deck whose .pz names v(1), not a node, which both
     reject), .meas, .op/.dc/.tf/.noise, linearize="op" and .step are
-    ported (``method="schur"``, ROADMAP §1 item 6, still raises
-    NotImplementedError, tests/test_torch_linsolve.py)."""
+    ported (``method="schur"`` too, tests/test_torch_schur.py)."""
     pz = BASICS01.replace(".end", ".pz v(1) v(0) v(2) v(0) vol pz\n.end")
     with pytest.raises(ValueError) as jax_err:
         spicey_tpu.simulate(pz, dialect="extended")

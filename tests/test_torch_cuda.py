@@ -1095,3 +1095,128 @@ def test_step_meas_on_cuda_equals_cpu(cuda):
         assert np.isfinite(got.meas[name]).all()
         np.testing.assert_allclose(got.meas[name], w, rtol=1e-9,
                                    atol=1e-12 * float(np.abs(w).max()))
+
+
+# ---- K1's and K2's multi entry, the Schur tier, the time-parallel core ----
+
+MULTI_CASES = [(1, 1), (4, 1), (4, 131), (16, 515), (31, 33), (32, 32),
+               (33, 7), (64, 131)]
+
+
+def _multi_systems(n, r, dtype, complex_, seed=0):
+    rng = np.random.default_rng(seed + 7 * n + r)
+    planes = [rng.standard_normal((37, n, n)) + n * np.eye(n)]
+    if complex_:
+        planes.append(rng.standard_normal((37, n, n)))
+    rhs = [rng.standard_normal((37, n, r)) for _ in planes]
+    for A in planes:
+        A[0] = 0.0  # a singular lane
+    planes[0][1, 0, 0] = np.nan  # a NaN lane
+    return [torch.as_tensor(a, dtype=dtype) for a in planes + rhs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("complex_", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,r", MULTI_CASES)
+def test_multi_matches_plain(cuda, n, r, dtype, complex_):
+    """Every tier of the multi entry (the warp kernel to N = 32, the panel
+    tier at R right-hand sides) against the plain multi solve, at the
+    edges of N and R: valid identical, the valid lanes at TOL."""
+    cpu = _multi_systems(n, r, dtype, complex_)
+    plain = (linsolve.gj_solve_planes_multi if complex_
+             else linsolve.gj_solve_multi)
+    want = plain(*cpu)
+    module = gj if complex_ else gj_real
+    kernel = (gj.K1 if complex_ else gj_real.K2)[dtype]
+    for tier in gj_real.MULTI_TIERS:
+        if tier == "multi" and n > gj.WARP_MAX_N:
+            continue
+        before = (kernel.launches, module_tiers(complex_, dtype)[tier])
+        fn = (gj.gj_solve_planes_multi_cuda if complex_
+              else gj_real.gj_solve_multi_cuda)
+        got = fn(*[t.to(cuda) for t in cpu], tier=tier)
+        assert (kernel.launches, module_tiers(complex_, dtype)[tier]) == \
+            (before[0] + 1, before[1] + 1)
+        rv = want[-1]
+        assert torch.equal(got[-1].cpu(), rv) and not rv[0] and not rv[1]
+        for g, w in zip(got[:-1], want[:-1]):
+            torch.testing.assert_close(g.cpu()[rv], w[rv], rtol=TOL[dtype],
+                                       atol=TOL[dtype] * float(w[rv].abs()
+                                                               .max()))
+    assert module.MULTI_TIERS == ("multi", "panel")
+
+
+def module_tiers(complex_, dtype):
+    return (gj.K1_TIERS if complex_ else gj_real.K2_TIERS)[dtype]
+
+
+def test_multi_wrappers_refuse_bad_input():
+    """The multi wrappers refuse what the kernels do not take, before
+    anything is built: CPU tensors, B of the wrong shape, mixed dtypes, a
+    warp kernel forced past N = 32."""
+    A, Ai, B, Bi = _multi_systems(4, 3, torch.float64, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        gj_real.gj_solve_multi_cuda(A, B)
+    with pytest.raises(ValueError, match="CUDA"):
+        gj.gj_solve_planes_multi_cuda(A, Ai, B, Bi)
+    with pytest.raises(ValueError, match=r"\(B, N, R\)"):
+        gj_real.gj_solve_multi_cuda(A, B[:, :3])
+    with pytest.raises(ValueError, match=r"\(B, N, R\)"):
+        gj.gj_solve_planes_multi_cuda(A, Ai, B[..., 0], Bi[..., 0])
+    with pytest.raises(TypeError, match="one"):
+        gj.gj_solve_planes_multi_cuda(A, Ai, B, Bi.float())
+    big = _multi_systems(33, 2, torch.float64, False)
+    with pytest.raises(ValueError, match="no tier 'multi' at N=33"):
+        gj_real.gj_solve_multi_cuda(*big, tier="multi")
+    assert gj_real.multi_tier_for(32) == "multi"
+    assert gj_real.multi_tier_for(33) == "panel"
+
+
+@pytest.mark.cuda
+def test_schur_ac_on_cuda_equals_cpu(cuda):
+    """Phase 25 (a) at small size: the 64-stage ladder's AC through the
+    forced Schur tier and the default method's dispatch on the card,
+    against the CPU path's Schur solve at rtol 1e-9 / atol 1e-12 of the
+    largest value; the block solves run K1's multi entry."""
+    net = decks.schur_ladder_netlist(64, analysis=".ac dec 5 1 1e6")
+    want = st.simulate_ac(st.parse_netlist(net, dialect="extended"),
+                          method="schur", device="cpu")
+    scale = max(float(np.abs(v).max()) for v in want.node_voltages.values())
+    for method in ("schur", "gj"):
+        before = gj.K1_TIERS[torch.float64]["multi"]
+        got = st.simulate_ac(st.parse_netlist(net, dialect="extended"),
+                             method=method, device=cuda)
+        assert gj.K1_TIERS[torch.float64]["multi"] == before + 1
+        for name, w in want.node_voltages.items():
+            np.testing.assert_allclose(got.node_voltages[name], w,
+                                       rtol=1e-9, atol=1e-12 * scale)
+
+
+@pytest.mark.cuda
+def test_time_parallel_on_cuda_equals_cpu(cuda):
+    """Phase 25 (d) at small size: the RLC Monte-Carlo through the
+    time-parallel core on the card (K3 once) against the same core on the
+    CPU and the loop on the card, BE and trap, at the JAX tests'
+    tolerances."""
+    net = decks.tp_rlc_netlist("400u")  # 2,000 steps
+    rng = np.random.default_rng(3)
+    over = {"R1": 100.0 * (1 + 0.2 * rng.random(16)),
+            "C1": 1e-6 * (1 + 0.2 * rng.random(16))}
+    kw = dict(node="b", dialect="extended")
+    for integ in ("be", "trap"):
+        before = gj_real.K3[torch.float64].launches
+        tp = st.mc_tran_stats(net, over, integration=integ, device=cuda,
+                              **kw)
+        assert gj_real.K3[torch.float64].launches > before
+        cpu = st.mc_tran_stats(net, over, integration=integ, device="cpu",
+                               **kw)
+        seq = st.mc_tran_stats(net, over, integration=integ,
+                               time_parallel="never", device=cuda, **kw)
+        for other in (cpu, seq):
+            assert tp.n_valid == other.n_valid == 16
+            for f in ("mean", "max", "min"):
+                np.testing.assert_allclose(getattr(tp, f), getattr(other, f),
+                                           rtol=1e-9, atol=1e-12, err_msg=f)
+            np.testing.assert_allclose(tp.std, other.std, rtol=1e-7,
+                                       atol=1e-12)

@@ -110,10 +110,13 @@ def test_inverses_keep_their_route(n, dtype):
 
 def test_tier_counters_cover_every_tier():
     for dtype in DTYPES:
-        assert set(gj.K1_TIERS[dtype]) == set(gj.TIERS) \
-            == {"warp", "block", "panel"}
+        # the solve's tiers, and the multi entry's warp kernel ("multi";
+        # its panel launches count as "panel")
+        assert set(gj.K1_TIERS[dtype]) == set(gj.TIERS) | {"multi"} \
+            == {"warp", "block", "panel", "multi"}
         assert set(gj_real.K2_TIERS[dtype]) == set(gj_real.TIERS) \
-            == {"thread", "warp", "block", "panel"}
+            | {"multi"} == {"thread", "warp", "block", "panel", "multi"}
+        assert gj.MULTI_TIERS == gj_real.MULTI_TIERS == ("multi", "panel")
 
 
 def test_wrappers_refuse_a_tier_that_cannot_take_n():

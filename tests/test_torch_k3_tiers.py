@@ -81,7 +81,8 @@ def test_k3_tier_counters_cover_every_tier():
             == {"register", "warp", "block", "panel"}
     # the register form is K3's alone, the thread tier K2's
     assert "register" not in gj_real.TIERS
-    assert set(gj_real.TIERS) | set(gj_real.INV_TIERS) == set(gj_real.CODES)
+    assert set(gj_real.TIERS) | set(gj_real.INV_TIERS) \
+        | set(gj_real.MULTI_TIERS) == set(gj_real.CODES)
 
 
 @pytest.mark.parametrize("n,tier,message", [

@@ -80,11 +80,25 @@ def test_mc_ac_stats_past_128_matches_jax():
 
 
 def test_schur_method_still_raises():
-    for run in (lambda: st.simulate_op(st.parse_netlist(LADDER_DC),
-                                       method="schur", device="cpu"),
-                lambda: st.simulate_ac(st.parse_netlist(LADDER),
-                                       method="schur", device="cpu"),
-                lambda: st.mc_ac_stats(LADDER, {"r1": [101.0]}, node="n1",
-                                       method="schur", device="cpu")):
-        with pytest.raises(NotImplementedError, match=r"Schur.*item 6"):
-            run()
+    """The flat ladder has no subcircuit structure, so no Schur plan: a
+    forced ``method="schur"`` raises the same ValueError in both
+    packages (a parity case since the Schur tier was ported)."""
+    pairs = (
+        (lambda: st.simulate_op(st.parse_netlist(LADDER_DC),
+                                method="schur", device="cpu"),
+         lambda: jax_simulate_op(sj.parse_netlist(LADDER_DC),
+                                 method="schur")),
+        (lambda: st.simulate_ac(st.parse_netlist(LADDER), method="schur",
+                                device="cpu"),
+         lambda: sj.simulate_ac(sj.parse_netlist(LADDER), method="schur")),
+        (lambda: st.mc_ac_stats(LADDER, {"r1": [101.0]}, node="n1",
+                                method="schur", device="cpu"),
+         lambda: jax_mc_ac_stats(LADDER, {"r1": [101.0]}, node="n1",
+                                 method="schur")))
+    for port, ref in pairs:
+        with pytest.raises(ValueError) as jerr:
+            ref()
+        with pytest.raises(ValueError) as terr:
+            port()
+        assert str(terr.value) == str(jerr.value)
+        assert "method='schur' requires block structure" in str(terr.value)

@@ -260,6 +260,12 @@ def test_unported_options_raise():
     want = jmc.mc_ac_stats(k_net, ov, node="2", dialect="extended")
     assert got.n_valid == want.n_valid == 2
     _stats_close(got, want, rtol=1e-9)
-    with pytest.raises(NotImplementedError, match="Schur"):
+    # method="schur" on a deck with no subcircuit structure: both packages
+    # refuse it with the same ValueError (ROADMAP §1 item 6, ported)
+    with pytest.raises(ValueError) as jerr:
+        jmc.mc_ac_stats(RC_NET, {"r1": np.ones(2)}, node="2",
+                        method="schur")
+    with pytest.raises(ValueError) as terr:
         mc_ac_stats(RC_NET, {"r1": np.ones(2)}, node="2", method="schur",
                     device="cpu")
+    assert str(terr.value) == str(jerr.value)

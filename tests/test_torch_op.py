@@ -122,9 +122,15 @@ def test_unported_op_raises():
             "b1 b 0 i=0.5*tanh(50*(v(b)-0.5))+0.5*v(b)\n.op\n")
     _same_op(st.simulate(gmin, dialect="extended", device="cpu").op,
              sj.simulate(gmin, dialect="extended").op)
-    with pytest.raises(NotImplementedError, match="Schur.*item 6"):
+    # method="schur" on a deck with no subcircuit structure: both packages
+    # refuse it with the same ValueError (ROADMAP §1 item 6, ported)
+    with pytest.raises(ValueError) as jerr:
+        jax_simulate_op(sj.parse_netlist(OP_DECKS["divider"][0]),
+                        method="schur")
+    with pytest.raises(ValueError) as terr:
         st.simulate_op(st.parse_netlist(OP_DECKS["divider"][0]),
                        method="schur", device="cpu")
+    assert str(terr.value) == str(jerr.value)
     # 131 unknowns of a flat divider chain: past N = 128 the port solves
     # dense, as the JAX package does on a deck with no subcircuit
     # structure (refused here before; tests/test_torch_large_n.py holds

@@ -351,8 +351,14 @@ def test_simulate_runs_the_bench_nonlinear_decks(deck):
 
 
 def test_schur_method_raises():
-    with pytest.raises(NotImplementedError, match=r"Schur.*item 6"):
+    """RC_PULSE has no subcircuit structure: a forced Schur solve raises
+    the JAX package's ValueError in both packages."""
+    with pytest.raises(ValueError) as jerr:
+        spicey_tpu.simulate_tran(spicey_tpu.parse_netlist(netlists.RC_PULSE),
+                                 method="schur")
+    with pytest.raises(ValueError) as terr:
         _port(netlists.RC_PULSE, method="schur")
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):
