@@ -217,14 +217,36 @@ line each:
      line's multi entries), and at ``tools/profile_torch_schur.py``'s
      shapes; (d) ``mc_tran_stats`` of ``decks.tp_rlc_netlist("20m")``
      (tests/test_mc.py:343's RLC, 100,000 steps) over 16 variants, BE and
-     trap, the time-parallel core (K3 once) against the sequential loop
-     on the card (mean, max, min at 1e-9, std at 1e-7), and K3 at that
-     path's shape against the plain inverse, timed; (e)
-     ``simulate_tran_batch`` full trajectories (256 x 2,001 steps), tp
-     against the loop at 1e-9; (f) the crossover sweep
+     trap, through the time-parallel core (K3 once), timed, and over the
+     first ``TP_LOOP_STEPS`` steps against the sequential loop on the card
+     (mean, max, min at 1e-9, std at 1e-7; the loop is launch-bound, ~0.5
+     ms a step), and K3 at that path's shape against the plain inverse,
+     timed; (e) ``simulate_tran_batch`` full trajectories (256 x 2,001
+     steps), tp against the loop at 1e-9; (f) the crossover sweep
      (``profile_torch_schur.crossover_sweep``): tp and loop walls at S in
-     {201, 10k, 100k} x B in {16, 1k, 16k};
-  9. every instantiation launched during 3-8 and 10-25 (printed after
+     {201, 10k, 100k} x B in {16, 1k, 16k}, the loop to 10k steps;
+  26. sensitivity, fitting and the adaptive transient (ROADMAP item 9)
+     through the public entry points on cuda
+     (``tools/profile_torch_sens.py:phase26``), each workload on its own
+     counters: (a) ``sensitivity_ac`` of the N = 66 ladder, 8 targets,
+     against the CPU path, forward-mode AD through the plain GJ on the
+     card and a central difference; (b) ``sensitivity_tran`` of
+     ``decks.BOOST_FINE`` (1001 points, 3 targets); (c) of
+     ``decks.TRANSFORMER_TRAN`` (l1, rload); (d) ``fit_ac`` of the ladder's
+     r32 and c32 from +20%, 200 Adam steps; (e) ``fit_tran`` of the RC
+     deck of tests/test_fit.py:44, 150 steps; (f) ``simulate_tran_adaptive``
+     of ``decks.BOOST_NET`` and of ``decks.UA741_AMP``'s first 5 ns,
+     counts equal to the CPU path's, and its first 20 ns, voltages only
+     (the counts drift there); sensitivities and the boost's
+     trajectory at rtol 1e-9 / atol 1e-12 of each series' max, the fits'
+     first 20 losses at 1e-6 and their values against the truth (the CPU
+     references computed in worker processes while the card runs) and
+     the primal of (e) timed. K1/K2/K3 must launch for
+     each workload's forward, tangent and adjoint dispatches (the
+     derivative rules of ops/linsolve.py, ``RULE_CALLS``; every K1/K2
+     launch one of them), the adaptive runs plain K2, and no K4-K10 may
+     launch;
+  9. every instantiation launched during 3-8 and 10-26 (printed after
      them; the f32 instances of K4 and K7 are on no main path and are
      checked in phase 2 and timed here only); CUDA-event times of each
      kernel, its plain version and, where one PyTorch call computes the
@@ -329,6 +351,9 @@ K4_TIER_NS = (1, 3, 11, 16, 31, 32, 33, 64, 128, 129, 256, 410)
 # K3's tiers in phase 2: each tier edge, the transients' N (3, 64, 129,
 # 256)
 K3_TIER_NS = (1, 3, 8, 9, 16, 17, 32, 33, 64, 129, 256)
+# phase 25 (d): the sequential loop's horizon (the time-parallel route
+# runs 100,000 steps)
+TP_LOOP_STEPS = 5_000
 # the H100 SXM's peaks (NVIDIA data sheet): HBM3 bytes/s; FLOP/s for the
 # type: f32 outside the tensor cores (their TF32 rounds the operands), f64
 # on them (full f64; 34 TFLOP/s outside them)
@@ -3143,37 +3168,45 @@ def main() -> int:
     zero_counts()
 
     # (d) tp-rlc-100k: mc_tran_stats of the linear RLC of tests/test_mc.py
-    # at 100,000 steps and 16 variants, BE and trap, the time-parallel
-    # core (K3 once) against the sequential loop on the card at the JAX
-    # tests' tolerances
+    # at 100,000 steps and 16 variants, BE and trap, through the
+    # time-parallel core (K3 once); the sequential loop, ~0.5 ms a step on
+    # the card (PR 14: 49.5 / 56.2 s at 100k), runs the first TP_LOOP_STEPS
+    # steps on the same dt, and the timed 100k run's first TP_LOOP_STEPS + 1
+    # points are held against it at the JAX tests' tolerances
     net = tp_rlc_netlist("20m")
+    net_loop = tp_rlc_netlist(f"{0.2 * TP_LOOP_STEPS:g}u")
     tp_over = {"R1": 100.0 * (1 + 0.2 * rng25.random(16)),
                "C1": 1e-6 * (1 + 0.2 * rng25.random(16))}
     tp_walls = {}
     for integ in ("be", "trap"):  # one warm call of the tp route each
         st.mc_tran_stats(tp_rlc_netlist("20u"), tp_over, node="b",
                          dialect=X, integration=integ, device=dev)
+    head = slice(0, TP_LOOP_STEPS + 1)
     for integ in ("be", "trap"):
         start25()
         tp, tp_walls[(integ, "tp")] = timed(lambda: st.mc_tran_stats(
             net, tp_over, node="b", dialect=X, integration=integ,
             device=dev))
         counted25(f"tp-rlc-100k {integ}", [gj_real.K3[f64]])
-        sq, tp_walls[(integ, "loop")] = timed(lambda: st.mc_tran_stats(
-            net, tp_over, node="b", dialect=X, integration=integ,
-            time_parallel="never", device=dev))
-        zero_counts()
-        if not (tp.n_valid == sq.n_valid == 16 and len(tp.grid) == 100_001):
+        if not (tp.n_valid == 16 and len(tp.grid) == 100_001):
             raise AssertionError(f"tp {integ}: {tp.n_valid} valid, "
                                  f"{len(tp.grid)} points")
+        sq, tp_walls[(integ, "loop")] = timed(lambda: st.mc_tran_stats(
+            net_loop, tp_over, node="b", dialect=X, integration=integ,
+            time_parallel="never", device=dev))
+        zero_counts()
+        if not (sq.n_valid == 16 and len(sq.grid) == TP_LOOP_STEPS + 1):
+            raise AssertionError(f"loop {integ}: {sq.n_valid} valid, "
+                                 f"{len(sq.grid)} points")
+        same(tp.grid[head], sq.grid, f"tp {integ} grid")
         for f in ("mean", "max", "min"):
-            same(getattr(tp, f), getattr(sq, f), f"tp {integ} {f}")
-        same(tp.std, sq.std, f"tp {integ} std", rtol=1e-7)
+            same(getattr(tp, f)[head], getattr(sq, f), f"tp {integ} {f}")
+        same(tp.std[head], sq.std, f"tp {integ} std", rtol=1e-7)
         say("25 tp", f"(d) rlc {integ} 16 x 100,001 steps: time-parallel "
-            f"{tp_walls[(integ, 'tp')]:.3f} s, loop "
-            f"{tp_walls[(integ, 'loop')]:.3f} s "
-            f"({tp_walls[(integ, 'loop')] / tp_walls[(integ, 'tp')]:.1f}x), "
-            f"mean/max/min at 1e-9, std at 1e-7 | {smi}")
+            f"{tp_walls[(integ, 'tp')]:.3f} s; its first "
+            f"{TP_LOOP_STEPS + 1:,} points = the loop's over them "
+            f"({tp_walls[(integ, 'loop')]:.3f} s), mean/max/min at 1e-9, "
+            f"std at 1e-7 | {smi}")
         del tp, sq
     # K3 at the time-parallel path's shape: the BE matrices (A^-1's input)
     # of (d)'s 16 variants, captured from the path itself
@@ -3224,12 +3257,13 @@ def main() -> int:
 
     # (f) the crossover: tp against the loop at S in {201, 10k, 100k} x B in
     # {16, 1k, 16k} (tools/profile_torch_schur.py:crossover_sweep; (d)'s
-    # BE walls are its (100k, 16) cell)
+    # BE tp wall is its (100k, 16) cell); the loop runs to 10k steps (at
+    # 100k it is ten times its 10k wall: launch-bound, PR 14)
     start25()
     rows = pschur.crossover_sweep(
         dev, seed=SEED, emit=lambda line: say("25 crossover", line),
-        known={(100_000, 16): {"tp_s": tp_walls[("be", "tp")],
-                               "loop_s": tp_walls[("be", "loop")]}})
+        known={(100_000, 16): {"tp_s": tp_walls[("be", "tp")]}},
+        loop_max_steps=10_000)
     counted25("crossover", [gj_real.K3[f64]])
     wins = [(r["steps"], r["batch"]) for r in rows
             if None not in (r["tp_s"], r["loop_s"])
@@ -3238,6 +3272,61 @@ def main() -> int:
     say("25 crossover", f"tp faster at (S, B) {wins}; the JAX guard picks "
         f"tp at {picks}")
     say("25 schur+tp", f"{time.perf_counter() - t25:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ---- 26. sensitivity, fitting, the adaptive transient (item 9) -------
+    # tools/profile_torch_sens.py:phase26's workloads through the public
+    # entry points, each on its own counters (zeroed before its call, read
+    # after, before any comparison run): K1/K2/K3 must launch for the
+    # roles each workload names (forward, tangent, adjoint: the derivative
+    # rules' dispatches, ops/linsolve.py:RULE_CALLS), every launch of them
+    # must be one of the rules' dispatches (the adaptive transient: plain
+    # K2 launches, no rule), and no K4-K10 may launch
+    from tools import profile_torch_sens as psens
+
+    t26 = time.perf_counter()
+    not26 = (list(gj.K4.values()) + list(mc_ac_fused.K5.values())
+             + list(mc_ac_fused.K7.values())
+             + list(mc_tran_fused.K8.values())
+             + list(mc_tran_fused.K9.values())
+             + list(mxu.K10a.values()) + list(mxu.K10b.values()))
+    tag26 = {"K1": gj.K1[f64], "K2": gj_real.K2[f64], "K3": gj_real.K3[f64]}
+    roles26 = ("forward", "tangent", "adjoint")
+
+    def run26(label, fn, rules):
+        zero_counts()
+        base = {k.name: k.launches for k in not26}
+        calls0 = dict(linsolve.RULE_CALLS)
+        out, wall = timed(fn)
+        calls = {key: n - calls0[key] for key, n in linsolve.RULE_CALLS.items()}
+        bad = [k.name for k in not26 if k.launches != base[k.name]]
+        if bad:
+            raise AssertionError(f"26 {label}: launched {bad}")
+        differentiated = any(role != "launch" for _, role in rules)
+        for tag, role in rules:
+            if role != "launch" and calls[(tag, role)] == 0:
+                raise AssertionError(f"26 {label}: no {tag} {role} dispatch")
+        for tag, k in tag26.items():
+            # K1 / K2: one launch per rule dispatch; K3's tangent and
+            # adjoint are products of its inverse, its launches forwards
+            by_rule = calls[(tag, "forward")] + (
+                0 if tag == "K3" else calls[(tag, "tangent")]
+                + calls[(tag, "adjoint")])
+            if differentiated and k.launches != by_rule:
+                raise AssertionError(f"26 {label}: {k.name} {k.launches} "
+                                     f"launches, {by_rule} by the rules")
+            if not differentiated and any(calls[(tag, r)] for r in roles26):
+                raise AssertionError(f"26 {label}: a rule ran")
+        say("26 " + label, "rule dispatches " + json.dumps(
+            {f"{t} {r}": n for (t, r), n in calls.items() if n}))
+        counted(f"26 {label}", [tag26[t] for t, _ in rules])
+        return out, wall
+
+    walls26 = psens.phase26(dev, run26, lambda line: say("26 sens/fit/adapt",
+                                                         line), smi)
+    zero_counts()
+    say("26 sens/fit/adapt", f"{time.perf_counter() - t26:.1f} s "
+        f"(workload walls {json.dumps({k: round(v, 3) for k, v in walls26.items()})})")
     torch.cuda.empty_cache()
 
     # ---- 9. launches and times --------------------------------------------

@@ -24,21 +24,27 @@ kernel, or K1), ``simulate_tran_batch`` (K2, K3) and ``.step`` in
 ``.sens`` at the shared operating point, ``.four`` and ``.meas`` over the
 finished sweeps (``meas_batch`` over a ``.step`` transient's lanes), a
 ``.control`` block's print/let/wrdata/write tail, the ngspice rawfile and
-``python -m spicey_tpu_torch``. The host layer (parsing, IR, formatting,
+``python -m spicey_tpu_torch``, and the analyses that differentiate or
+choose their own steps: ``sensitivity_ac``/``sensitivity_tran``
+(forward-mode tangents), ``fit_ac`` (reverse mode) and ``fit_tran``
+through the derivative rules of K1, K2 and K3 (ops/linsolve.py), and the
+LTE-controlled ``simulate_tran_adaptive`` (K2). The host layer (parsing, IR, formatting,
 the post-analyses) is a jax-free copy of the JAX package's. Public entry
 points run on the CUDA card unless called with ``device="cpu"``, and
 state float64 or float32 at every tensor creation.
 
 Of ``spicey_tpu``'s public names three are not here: ``make_mesh`` and
-``sharder`` (the multi-device mesh, ROADMAP §1 item 9) and ``warmup``
-(the TPU device handshake and compile cache, item 10).
+``sharder`` (the multi-device mesh, the last of ROADMAP §1 item 9) and
+``warmup`` (the TPU device handshake and compile cache, item 10).
 """
 
 from __future__ import annotations
 
 from .analysis.ac import simulate_ac
+from .analysis.adaptive import AdaptiveTranResult, simulate_tran_adaptive
 from .analysis.batch import (BatchACResult, BatchTranResult,
                              simulate_ac_batch, simulate_tran_batch)
+from .analysis.fit import FitResult, fit_ac, fit_tran
 from .analysis.four import FourierProbe, FourierResult, simulate_four
 from .analysis.mc import (MCStats, mc_ac_sampled, mc_ac_stats,
                           mc_tran_sampled, mc_tran_stats)
@@ -51,6 +57,7 @@ from .analysis.pz import PZResult, format_pz_result, simulate_pz
 from .analysis.results import (ACResult, SimulationResult, StepResult,
                                TranResult)
 from .analysis.sens import SensResult, format_sens_result, simulate_sens
+from .analysis.sensitivity import sensitivity_ac, sensitivity_tran
 from .analysis.simulate import simulate
 from .analysis.tf import TFResult, simulate_tf
 from .analysis.tran import TranState, simulate_tran
@@ -71,7 +78,7 @@ from .parsing.netlist import ParsedCircuit, parse_netlist
 from .parsing.numbers import parse_number_with_units
 from .parsing.waveforms import (PulseSpec, parse_pulse_args, parse_pwl_args,
                                 pulse_value, pwl_value)
-from .utils.profiling import profiled, report, span
+from .utils.profiling import count, profiled, report, span
 
 # camelCase aliases matching the reference's npm surface (lib/index.ts:1-12)
 parseNetlist = parse_netlist
@@ -84,6 +91,7 @@ eecEngineTranToVGraphs = eec_engine_tran_to_vgraphs
 
 __all__ = [
     "ACResult",
+    "AdaptiveTranResult",
     "BatchACResult",
     "BatchOPResult",
     "BatchTranResult",
@@ -91,6 +99,7 @@ __all__ = [
     "Complex",
     "DCResult",
     "EPS",
+    "FitResult",
     "FourierResult",
     "MCStats",
     "MeasSpec",
@@ -109,8 +118,11 @@ __all__ = [
     "build_tensors",
     "compare_voltage_levels",
     "convert_simulation_graphs_to_svg",
+    "count",
     "eecEngineTranToVGraphs",
     "eec_engine_tran_to_vgraphs",
+    "fit_ac",
+    "fit_tran",
     "formatAcResult",
     "formatTranResult",
     "format_ac_result",
@@ -138,6 +150,8 @@ __all__ = [
     "pulse_value",
     "pwl_value",
     "read_rawfile",
+    "sensitivity_ac",
+    "sensitivity_tran",
     "simulate",
     "simulateAC",
     "simulateTRAN",
@@ -152,6 +166,7 @@ __all__ = [
     "simulate_sens",
     "simulate_tf",
     "simulate_tran",
+    "simulate_tran_adaptive",
     "simulate_tran_batch",
     "spiceyTranToVGraphs",
     "spicey_tran_to_vgraphs",

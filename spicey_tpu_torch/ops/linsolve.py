@@ -39,11 +39,27 @@ in the JAX package, whose solves take empty arrays; the kernels, which
 refuse N = 0, are not called. The JAX package's
 f32-kernel-plus-f64-refinement wrapper (``pallas_gj.py:562-640``) has no
 counterpart: the card solves f64 natively.
+
+Derivatives. The JAX package differentiates its plain Gauss-Jordan
+natively; a kernel launch is opaque to torch's AD (a dual tensor handed to
+a ctypes wrapper gives the primal answer and drops the tangent). So
+``solve``, ``solve_planes`` and ``inverse`` route an input that carries a
+forward-mode tangent or ``requires_grad`` through a
+``torch.autograd.Function`` (``_Solve``, ``_SolvePlanes``, ``_Inverse``)
+whose forward is the same dispatch and whose JVP and VJP are one more
+dispatch with the same matrix (its transpose, or A^H on the planes), so
+the card differentiates with the kernel it solves with, and the CPU with
+the plain version, never natively through it. The inverse's rules are
+products of the inverse itself. Inputs without a tangent take the
+dispatch directly. The multi entries, K4 and the Schur tier have no rule
+(no analysis differentiates through them) and refuse a differentiated
+input on the card.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..constants import EPS
 
@@ -171,7 +187,9 @@ def solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
     K1 on a CUDA tensor, in the tensor's precision; the plain version on
     the CPU. ``plan``: a ``SchurPlan.arrays()``, which routes the solve
     through the structured tier (ops/schur.py) whatever the method, as in
-    the JAX package; without one "schur" names the dense elimination."""
+    the JAX package; without one "schur" names the dense elimination. An
+    input with a forward-mode tangent or ``requires_grad`` goes through
+    the derivative rules (``_SolvePlanes``) on the same dispatch."""
     _check_method(method)
     if A_re.shape[-1] == 0:
         return b_re.clone(), b_im.clone(), _no_unknowns(A_re)
@@ -180,6 +198,15 @@ def solve_planes(A_re: torch.Tensor, A_im: torch.Tensor,
 
         return schur_solve_planes(A_re, A_im, b_re, b_im, plan["blk_ix"],
                                   plan["blk_mask"], plan["if_ix"], eps)
+    if _differentiated(A_re, A_im, b_re, b_im):
+        return _SolvePlanes.apply(A_re, A_im, b_re, b_im, eps)
+    return _solve_planes_dense(A_re, A_im, b_re, b_im, eps)
+
+
+def _solve_planes_dense(A_re: torch.Tensor, A_im: torch.Tensor,
+                        b_re: torch.Tensor, b_im: torch.Tensor, eps: float
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 on a CUDA tensor, the plain ``gj_solve_planes`` on the CPU."""
     if A_re.is_cuda:
         from .gj import gj_solve_planes_cuda
 
@@ -205,6 +232,7 @@ def solve_planes_multi(A_re: torch.Tensor, A_im: torch.Tensor,
     if A_re.shape[-1] == 0:
         return B_re.clone(), B_im.clone(), _no_unknowns(A_re)
     if A_re.is_cuda:
+        _no_rule(A_re, A_im, B_re, B_im)
         from .gj import gj_solve_planes_multi_cuda
 
         lead = A_re.shape[:-2]
@@ -228,6 +256,7 @@ def inverse_planes(A_re: torch.Tensor, A_im: torch.Tensor,
     if A_re.shape[-1] == 0:
         return A_re.clone(), A_im.clone(), _no_unknowns(A_re)
     if A_re.is_cuda:
+        _no_rule(A_re, A_im)
         from .gj import gj_inverse_planes_cuda
 
         lead = A_re.shape[:-2]
@@ -325,7 +354,9 @@ def solve(A: torch.Tensor, b: torch.Tensor, method: str = "gj",
     "gj" and "pallas" keep the JAX package's names and name the same
     elimination here: K2 on a CUDA tensor, in the tensor's precision; the
     plain ``gj_solve`` on the CPU. ``plan``: a ``SchurPlan.arrays()``, the
-    structured tier (ops/schur.py), as in ``solve_planes``."""
+    structured tier (ops/schur.py), as in ``solve_planes``. An input with a
+    forward-mode tangent or ``requires_grad`` goes through the derivative
+    rules (``_Solve``) on the same dispatch."""
     _check_method(method)
     if A.shape[-1] == 0:
         return b.clone(), _no_unknowns(A)
@@ -334,6 +365,14 @@ def solve(A: torch.Tensor, b: torch.Tensor, method: str = "gj",
 
         return schur_solve(A, b, plan["blk_ix"], plan["blk_mask"],
                            plan["if_ix"], eps)
+    if _differentiated(A, b):
+        return _Solve.apply(A, b, eps)
+    return _solve_dense(A, b, eps)
+
+
+def _solve_dense(A: torch.Tensor, b: torch.Tensor, eps: float
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 on a CUDA tensor, the plain ``gj_solve`` on the CPU."""
     if A.is_cuda:
         from .gj_real import gj_solve_cuda
 
@@ -353,6 +392,7 @@ def solve_multi(A: torch.Tensor, B: torch.Tensor, eps: float = EPS
     if A.shape[-1] == 0:
         return B.clone(), _no_unknowns(A)
     if A.is_cuda:
+        _no_rule(A, B)
         from .gj_real import gj_solve_multi_cuda
 
         lead = A.shape[:-2]
@@ -367,9 +407,19 @@ def solve_multi(A: torch.Tensor, B: torch.Tensor, eps: float = EPS
 def inverse(A: torch.Tensor, eps: float = EPS
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The true inverse of a batch: K3 on a CUDA tensor, the plain
-    ``gj_inverse`` on the CPU. A: (..., N, N)."""
+    ``gj_inverse`` on the CPU. A: (..., N, N). An input with a
+    forward-mode tangent or ``requires_grad`` goes through the derivative
+    rules (``_Inverse``) on the same dispatch."""
     if A.shape[-1] == 0:
         return A.clone(), _no_unknowns(A)
+    if _differentiated(A):
+        return _Inverse.apply(A, eps)
+    return _inverse_dense(A, eps)
+
+
+def _inverse_dense(A: torch.Tensor, eps: float
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3 on a CUDA tensor, the plain ``gj_inverse`` on the CPU."""
     if A.is_cuda:
         from .gj_real import gj_inverse_cuda
 
@@ -379,3 +429,165 @@ def inverse(A: torch.Tensor, eps: float = EPS
                                      eps=eps)
         return inv.reshape(lead + (n, n)), valid.reshape(lead)
     return gj_inverse(A, eps=eps)
+
+
+# ---- derivative rules --------------------------------------------------
+# Rule dispatches that reached a CUDA tensor, by kernel and role: each
+# "tangent" or "adjoint" solve of K1 / K2 is one more launch of that kernel
+# (its wrapper counts the launch); K3's rules are products of the
+# kernel's own inverse and launch nothing. "forward" counts the primal
+# dispatches made through the rules.
+RULE_CALLS = {(k, role): 0 for k in ("K1", "K2", "K3")
+              for role in ("forward", "tangent", "adjoint")}
+
+
+def _tangent(t: torch.Tensor) -> torch.Tensor | None:
+    return fwAD.unpack_dual(t).tangent
+
+
+def _differentiated(*ts: torch.Tensor) -> bool:
+    """Whether any input carries a forward-mode tangent, or takes part in
+    a recorded reverse-mode graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return True
+    return any(_tangent(t) is not None for t in ts)
+
+
+def _no_rule(*ts: torch.Tensor) -> None:
+    """The multi entries and K4 have no derivative rule: refuse a
+    differentiated input on the card rather than drop its tangent in the
+    launch (the plain versions on the CPU differentiate natively)."""
+    if _differentiated(*ts):
+        raise NotImplementedError(
+            "no derivative rule for this solve on a CUDA tensor (the "
+            "rules cover solve, solve_planes and inverse)")
+
+
+def _count(kernel: str, role: str, t: torch.Tensor) -> None:
+    if t.is_cuda:
+        RULE_CALLS[(kernel, role)] += 1
+
+
+def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(M, v[..., None])[..., 0]
+
+
+def _outer(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return u[..., :, None] * v[..., None, :]
+
+
+def _or_zeros(t: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(like) if t is None else t
+
+
+class _Solve(torch.autograd.Function):
+    """x = A^-1 b through ``_solve_dense`` (K2 on the card), with
+    JVP dx = A^-1 (db - dA x) and VJP g_b = A^-T g, g_A = -g_b x^T: each
+    rule one more dispatch on the same A (or its transpose)."""
+
+    @staticmethod
+    def forward(A, b, eps):
+        _count("K2", "forward", A)
+        return _solve_dense(A, b, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        A, _b, eps = inputs
+        x, valid = output
+        ctx.mark_non_differentiable(valid)
+        ctx.save_for_backward(A, x)
+        ctx.save_for_forward(A, x)
+        ctx.eps = eps
+
+    @staticmethod
+    def jvp(ctx, dA, db, _deps):
+        A, x = ctx.saved_tensors
+        rhs = _or_zeros(db, x)
+        if dA is not None:
+            rhs = rhs - _mv(dA, x)
+        _count("K2", "tangent", A)
+        return _solve_dense(A, rhs, ctx.eps)[0], None
+
+    @staticmethod
+    def backward(ctx, gx, _gvalid):
+        A, x = ctx.saved_tensors
+        _count("K2", "adjoint", A)
+        gb = _solve_dense(A.transpose(-1, -2), gx, ctx.eps)[0]
+        return -_outer(gb, x), gb, None
+
+
+class _SolvePlanes(torch.autograd.Function):
+    """The complex solve on (re, im) planes through ``_solve_planes_dense``
+    (K1 on the card). JVP: dx = A^-1 (db - dA x) in complex arithmetic on
+    the planes, one more solve with A. VJP: one solve with A^H (planes
+    A_re^T, -A_im^T), (g_r, g_i) its answer: g_b = (g_r, g_i), g_Are =
+    -(g_r x_r^T + g_i x_i^T), g_Aim = g_r x_i^T - g_i x_r^T."""
+
+    @staticmethod
+    def forward(A_re, A_im, b_re, b_im, eps):
+        _count("K1", "forward", A_re)
+        return _solve_planes_dense(A_re, A_im, b_re, b_im, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        A_re, A_im, _br, _bi, eps = inputs
+        x_re, x_im, valid = output
+        ctx.mark_non_differentiable(valid)
+        ctx.save_for_backward(A_re, A_im, x_re, x_im)
+        ctx.save_for_forward(A_re, A_im, x_re, x_im)
+        ctx.eps = eps
+
+    @staticmethod
+    def jvp(ctx, dAr, dAi, dbr, dbi, _deps):
+        A_re, A_im, x_re, x_im = ctx.saved_tensors
+        rr, ri = _or_zeros(dbr, x_re), _or_zeros(dbi, x_im)
+        if dAr is not None:
+            rr = rr - _mv(dAr, x_re)
+            ri = ri - _mv(dAr, x_im)
+        if dAi is not None:
+            rr = rr + _mv(dAi, x_im)
+            ri = ri - _mv(dAi, x_re)
+        _count("K1", "tangent", A_re)
+        dxr, dxi, _ = _solve_planes_dense(A_re, A_im, rr, ri, ctx.eps)
+        return dxr, dxi, None
+
+    @staticmethod
+    def backward(ctx, g_re, g_im, _gvalid):
+        A_re, A_im, x_re, x_im = ctx.saved_tensors
+        _count("K1", "adjoint", A_re)
+        gr, gi, _ = _solve_planes_dense(
+            A_re.transpose(-1, -2).contiguous(),
+            (-A_im.transpose(-1, -2)).contiguous(), g_re, g_im, ctx.eps)
+        g_Are = -(_outer(gr, x_re) + _outer(gi, x_im))
+        g_Aim = _outer(gr, x_im) - _outer(gi, x_re)
+        return g_Are, g_Aim, gr, gi, None
+
+
+class _Inverse(torch.autograd.Function):
+    """A^-1 through ``_inverse_dense`` (K3 on the card); JVP -A^-1 dA A^-1
+    and VJP -A^-T G A^-T, products of the kernel's own inverse."""
+
+    @staticmethod
+    def forward(A, eps):
+        _count("K3", "forward", A)
+        return _inverse_dense(A, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        inv, valid = output
+        ctx.mark_non_differentiable(valid)
+        ctx.save_for_backward(inv)
+        ctx.save_for_forward(inv)
+
+    @staticmethod
+    def jvp(ctx, dA, _deps):
+        (inv,) = ctx.saved_tensors
+        _count("K3", "tangent", inv)
+        return -torch.matmul(inv, torch.matmul(dA, inv)), None
+
+    @staticmethod
+    def backward(ctx, g, _gvalid):
+        (inv,) = ctx.saved_tensors
+        _count("K3", "adjoint", inv)
+        inv_t = inv.transpose(-1, -2)
+        return -torch.matmul(inv_t, torch.matmul(g, inv_t)), None

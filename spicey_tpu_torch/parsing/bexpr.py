@@ -192,6 +192,27 @@ def bexpr_partials(fn: Callable, vals: torch.Tensor, t: object
     n_ref = vals.shape[-1]
     if n_ref == 0:
         return batch(fn(vals, t)), []
+    if fwad._current_level >= 0:
+        # inside an outer forward-mode level (the sensitivity analyses,
+        # fit_tran) torch nests none: the partials come by reverse mode,
+        # whose graph carries the outer tangent into them (forward over
+        # reverse), as the JAX package's jvp inside jacfwd does; the
+        # graph is cut at both ends, so no step's graph outlives its pass
+        def cut(x: object) -> object:
+            if not isinstance(x, torch.Tensor):
+                return x
+            primal, tangent = fwad.unpack_dual(x)
+            return (primal.detach() if tangent is None
+                    else fwad.make_dual(primal.detach(), tangent.detach()))
+
+        with torch.enable_grad():
+            v = cut(vals).requires_grad_()
+            out = fn(v, t)
+            if not (isinstance(out, torch.Tensor) and out.requires_grad):
+                zero = torch.zeros(lead, dtype=vals.dtype, device=vals.device)
+                return batch(cut(out)), [zero] * n_ref
+            (g,) = torch.autograd.grad(batch(out).sum(), v, create_graph=True)
+        return batch(cut(out)), [cut(g[..., j]) for j in range(n_ref)]
     eye = torch.eye(n_ref, dtype=vals.dtype, device=vals.device)
     f0, gs = None, []
     with fwad.dual_level():

@@ -1,4 +1,4 @@
-"""Lightweight instrumentation: wall-clock spans.
+"""Lightweight instrumentation: wall-clock spans and counters.
 
 The reference has no tracing/profiling of any kind (SURVEY §5 — no timers,
 no counters anywhere in lib/). This module gives the engine a minimal,
@@ -15,8 +15,8 @@ Spans nest; each records call count and total/own wall time. Collection is
 off by default and costs nothing when disabled (a module-level flag check).
 CUDA asynchronous launch caveat: spans measure host wall-clock; call
 ``torch.cuda.synchronize()`` around device work you want attributed
-precisely (the engine adds none). A copy of spicey_tpu/utils/profiling.py
-without its counters, which nothing in either package calls.
+precisely (the engine adds none). A copy of spicey_tpu/utils/profiling.py;
+``count`` bumps a named counter, which ``report`` lists after the spans.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ class _State:
     enabled: bool = False
     spans: dict[str, _Node] = field(default_factory=dict)
     stack: list[str] = field(default_factory=list)
+    counters: dict[str, float] = field(default_factory=dict)
 
 
 _state = _State()
@@ -45,9 +46,10 @@ _state = _State()
 
 @contextmanager
 def profiled(reset: bool = True):
-    """Enable span collection inside the block."""
+    """Enable span/counter collection inside the block."""
     if reset:
         _state.spans.clear()
+        _state.counters.clear()
     prev = _state.enabled
     _state.enabled = True
     try:
@@ -78,8 +80,14 @@ def span(name: str):
             _state.spans.setdefault(parent, _Node()).children_s += elapsed
 
 
+def count(name: str, value: float = 1.0) -> None:
+    """Bump a named counter (no-op unless inside profiled())."""
+    if _state.enabled:
+        _state.counters[name] = _state.counters.get(name, 0.0) + value
+
+
 def report() -> str:
-    """Human-readable table of collected spans."""
+    """Human-readable table of collected spans and counters."""
     lines = ["span, calls, total_ms, own_ms"]
     for name in sorted(_state.spans):
         n = _state.spans[name]
@@ -87,4 +95,8 @@ def report() -> str:
         lines.append(
             f"{name}, {n.count}, {n.total_s * 1e3:.3f}, {own * 1e3:.3f}"
         )
+    if _state.counters:
+        lines.append("counter, value")
+        for name in sorted(_state.counters):
+            lines.append(f"{name}, {_state.counters[name]:g}")
     return "\n".join(lines)

@@ -6,7 +6,10 @@ re-solves, the batched corner sweeps (``simulate_ac_batch``,
 size (a transformer, a matched line with its delay swept, the uA741
 amplifier, a B-source Monte-Carlo) and phase 24's (a) and (c) (the
 uA741's .pz and .sens, STEP_DECK's .step with .meas) against the CPU
-path, on the card.
+path, on the card; and the derivative rules of ops/linsolve.py (each
+tangent or adjoint of K1's and K2's solves one more launch, K3's rules
+none, the multi entries refusing a dual) with phase 26 at small size
+(sensitivities, a fit, an adaptive run) against the CPU path.
 
 Tests marked ``cuda`` need an NVIDIA GPU with the CUDA toolkit and skip
 elsewhere; run them on the card with
@@ -1220,3 +1223,142 @@ def test_time_parallel_on_cuda_equals_cpu(cuda):
                                            rtol=1e-9, atol=1e-12, err_msg=f)
             np.testing.assert_allclose(tp.std, other.std, rtol=1e-7,
                                        atol=1e-12)
+
+
+# ---- the derivative rules (ops/linsolve.py) on the card -----------------
+
+def _rule_systems(n, B, seed=11):
+    rng = np.random.default_rng(seed)
+    planes = [rng.standard_normal((B, n, n)) + n * np.eye(n),
+              rng.standard_normal((B, n, n)), *rng.standard_normal((2, B, n))]
+    tangents = [rng.standard_normal((B, n, n)), rng.standard_normal((B, n, n)),
+                *rng.standard_normal((2, B, n))]
+    cot = rng.standard_normal((2, B, n))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64)  # noqa: E731
+    return ([t(a) for a in planes], [t(a) for a in tangents],
+            [t(a) for a in cot])
+
+
+def _jvp_vjp(fn, primals, tangents, cot, dev):
+    """fn's outputs, their tangents (forward mode) and the inputs'
+    gradients of sum(out * cot) (reverse mode), all on ``dev``."""
+    import torch.autograd.forward_ad as fwAD
+
+    p = [a.to(dev) for a in primals]
+    with fwAD.dual_level():
+        outs = fn(*[fwAD.make_dual(a, d.to(dev)) for a, d in
+                    zip(p, tangents)])
+        tan = [fwAD.unpack_dual(o).tangent for o in outs]
+    ins = [a.clone().requires_grad_() for a in p]
+    outs = fn(*ins)
+    loss = sum((o * c.to(dev)).sum() for o, c in zip(outs, cot))
+    grads = torch.autograd.grad(loss, ins)
+    return ([o.detach().cpu() for o in outs], [t.cpu() for t in tan],
+            [g.cpu() for g in grads])
+
+
+def _same_f64(got, want):
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [6, 40])
+def test_solve_rules_launch_k2(cuda, n):
+    planes, tangents, cot = _rule_systems(n, 64)
+    f64 = torch.float64
+    fn = lambda A, b: (linsolve.solve(A, b)[0],)  # noqa: E731
+    k2 = gj_real.K2[f64].launches
+    rules = dict(linsolve.RULE_CALLS)
+    got = _jvp_vjp(fn, (planes[0], planes[2]), (tangents[0], tangents[2]),
+                   cot[:1], cuda)
+    # forward + tangent, then forward + adjoint: four K2 launches
+    assert gj_real.K2[f64].launches == k2 + 4
+    for role, n_calls in (("forward", 2), ("tangent", 1), ("adjoint", 1)):
+        assert linsolve.RULE_CALLS[("K2", role)] == rules[("K2", role)] + n_calls
+    want = _jvp_vjp(fn, (planes[0], planes[2]), (tangents[0], tangents[2]),
+                    cot[:1], "cpu")
+    for g, w in zip(got, want):
+        _same_f64(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [6, 40])
+def test_solve_planes_rules_launch_k1(cuda, n):
+    planes, tangents, cot = _rule_systems(n, 64)
+    f64 = torch.float64
+    fn = lambda *a: linsolve.solve_planes(*a)[:2]  # noqa: E731
+    k1 = gj.K1[f64].launches
+    rules = dict(linsolve.RULE_CALLS)
+    got = _jvp_vjp(fn, planes, tangents, cot, cuda)
+    assert gj.K1[f64].launches == k1 + 4
+    for role, n_calls in (("forward", 2), ("tangent", 1), ("adjoint", 1)):
+        assert linsolve.RULE_CALLS[("K1", role)] == rules[("K1", role)] + n_calls
+    want = _jvp_vjp(fn, planes, tangents, cot, "cpu")
+    for g, w in zip(got, want):
+        _same_f64(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 12, 40])
+def test_inverse_rules_launch_k3_once(cuda, n):
+    """The inverse's tangent and adjoint are products of its own inverse:
+    one K3 launch per forward, none for the rules."""
+    planes, tangents, _ = _rule_systems(n, 64)
+    f64 = torch.float64
+    fn = lambda A: (linsolve.inverse(A)[0],)  # noqa: E731
+    G = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (64, n, n)))
+    k3 = gj_real.K3[f64].launches
+    got = _jvp_vjp(fn, planes[:1], tangents[:1], [G], cuda)
+    assert gj_real.K3[f64].launches == k3 + 2
+    want = _jvp_vjp(fn, planes[:1], tangents[:1], [G], "cpu")
+    for g, w in zip(got, want):
+        _same_f64(g, w)
+
+
+@pytest.mark.cuda
+def test_multi_entries_refuse_a_dual_on_the_card(cuda):
+    import torch.autograd.forward_ad as fwAD
+
+    planes, tangents, _ = _rule_systems(4, 8)
+    A, B = planes[0].to(cuda), planes[1].to(cuda)
+    with fwAD.dual_level():
+        with pytest.raises(NotImplementedError, match="no derivative rule"):
+            linsolve.solve_multi(fwAD.make_dual(A, tangents[0].to(cuda)), B)
+        with pytest.raises(NotImplementedError, match="no derivative rule"):
+            linsolve.inverse_planes(fwAD.make_dual(A, tangents[0].to(cuda)),
+                                    B)
+
+
+@pytest.mark.cuda
+def test_sensitivity_fit_adaptive_match_cpu(cuda):
+    """phase 26 at small size: sensitivities of the RC low-pass and a
+    short boost transient, ten fit_ac steps and an adaptive RC run, each
+    equal to the CPU path."""
+    ac = ("* rc\nv1 1 0 dc 0 ac 1\nr1 1 2 30\nc1 2 0 100u\n"
+          ".ac dec 10 1 100\n.end\n")
+    boost = decks.BOOST_NET.replace(".tran 0.001 0.1 uic",
+                                    ".tran 0.001 0.01 uic")
+    for dev_ckt, cpu_ckt, fn in (
+            (st.parse_netlist(ac), st.parse_netlist(ac),
+             lambda c, d: st.sensitivity_ac(c, "2", ["r1", "c1"], device=d)),
+            (st.parse_netlist(boost), st.parse_netlist(boost),
+             lambda c, d: st.sensitivity_tran(c, "N3", ["LL1", "RR1"],
+                                              device=d))):
+        got, want = fn(dev_ckt, cuda), fn(cpu_ckt, "cpu")
+        for k, w in want.items():
+            np.testing.assert_allclose(got[k], w, rtol=1e-9,
+                                       atol=1e-12 * np.abs(w).max())
+    target = np.abs(st.simulate_ac(st.parse_netlist(ac.replace(
+        "r1 1 2 30", "r1 1 2 47")), device="cpu").node_voltages["2"])
+    fits = [st.fit_ac(st.parse_netlist(ac), "2", target, ["r1"], steps=10,
+                      device=d) for d in (cuda, "cpu")]
+    np.testing.assert_allclose(fits[0].loss_history, fits[1].loss_history,
+                               rtol=1e-9)
+    rc = "t\nV1 1 0 dc 5\nR1 1 2 1k\nC1 2 0 1u\n.tran 10u 10m\n"
+    runs = [st.simulate_tran_adaptive(st.parse_netlist(rc), rtol=1e-3,
+                                      device=d) for d in (cuda, "cpu")]
+    assert runs[0].n_accepted == runs[1].n_accepted
+    np.testing.assert_allclose(runs[0].times, runs[1].times, rtol=1e-9)

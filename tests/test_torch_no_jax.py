@@ -12,7 +12,9 @@ the two-stage amplifier's .op/.tf/.ac/.noise, an ``op_batch``, a
 (a line's port currents, a Td sweep) and a B deck (the tanh amplifier's
 transient and its f32 ``method="pallas"`` Monte-Carlo), a deck with
 ``.pz``, ``.sens``, ``.four``, ``.meas`` and a ``.control`` block that
-writes a rawfile, and the CLI (``__main__.main([..., "--cpu"])``); an AST
+writes a rawfile, the CLI (``__main__.main([..., "--cpu"])``), a
+transient sensitivity of the boost converter and an adaptive RC
+transient; an AST
 scan asserts that no module of the port imports jax or the JAX package.
 """
 
@@ -125,6 +127,13 @@ from spicey_tpu_torch.__main__ import main
 assert main(["post.cir", "--cpu", "--quiet", "--raw", "cli.raw"]) == 0
 assert [p for p, _ in st.read_rawfile(open("cli.raw", "rb").read())] == [
     "Transient Analysis"]
+sens = st.sensitivity_tran(st.parse_netlist(open(sys.argv[3]).read()), "N3",
+                           ["RR1", "CC1"], device="cpu")
+assert sens["RR1"].shape == (101,) and np.isfinite(sens["CC1"]).all()
+ad = st.simulate_tran_adaptive(st.parse_netlist(
+    "t\nV1 1 0 dc 5\nR1 1 2 1k\nC1 2 0 1u\n.tran 10u 10m\n"), rtol=1e-3,
+    device="cpu")
+assert not ad.exhausted and ad.times[-1] == 10e-3
 print("OK")
 """
 

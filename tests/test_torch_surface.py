@@ -165,3 +165,43 @@ def test_all_covers_the_jax_surface():
     assert missing == {"make_mesh", "sharder", "warmup"}
     for name in st.__all__:
         assert hasattr(st, name), name
+
+
+def test_public_attributes_cover_the_jax_package():
+    """Every public module attribute of spicey_tpu (not only its __all__,
+    which leaves out sensitivity_*, fit_*, FitResult,
+    simulate_tran_adaptive, AdaptiveTranResult and count) is in the port
+    but the mesh (make_mesh, sharder: the rest of ROADMAP §1 item 9) and
+    warmup (item 10)."""
+    import types
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")
+                and not isinstance(getattr(mod, n), types.ModuleType)}
+
+    assert public(sj) - public(st) == {"make_mesh", "sharder", "warmup"}
+    for name in ("sensitivity_ac", "sensitivity_tran", "fit_ac", "fit_tran",
+                 "FitResult", "simulate_tran_adaptive", "AdaptiveTranResult",
+                 "count"):
+        assert name in st.__all__, name
+
+
+def test_profiling_counters_match_jax():
+    """count() bumps a named counter inside profiled() only, and report()
+    lists the counters after the spans as the JAX package does."""
+    st.count("outside")
+    reports = []
+    for mod in (sj, st):
+        with mod.profiled():
+            with mod.span("s"):
+                mod.count("solves")
+                mod.count("solves", 2.5)
+                mod.count("passes", 3)
+        reports.append(mod.report().splitlines())
+    jax_rep, port_rep = reports
+    k = port_rep.index("counter, value")
+    assert port_rep[k:] == jax_rep[jax_rep.index("counter, value"):]
+    assert port_rep[k:] == ["counter, value", "passes, 3", "solves, 3.5"]
+    with st.profiled():
+        pass
+    assert "counter, value" not in st.report()

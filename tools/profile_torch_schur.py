@@ -202,13 +202,15 @@ def route_bytes(route: str, nb: int, steps: int, k: int, m: int) -> float:
 
 def crossover_sweep(dev, steps=(201, 10_000, 100_000),
                     batches=(16, 1_000, 16_000), seed: int = 0,
-                    emit=print, known: dict | None = None) -> list[dict]:
+                    emit=print, known: dict | None = None,
+                    loop_max_steps: int | None = None) -> list[dict]:
     """tp against the sequential loop at every (S, B) of the grid, one
     call each (one warm call of each route first, at the smallest cell),
     with the JAX package's guard's pick. ``known`` maps (S, B) to walls
     already measured in this process ({"tp_s", "loop_s"}), not run again.
     A route whose peak (``route_bytes``) would take more than half the
-    card is not run in that cell."""
+    card is not run in that cell, nor the loop past ``loop_max_steps``
+    steps (its wall then None)."""
     import spicey_tpu_torch as st
     from spicey_tpu_torch.analysis import timeparallel as tp
     from spicey_tpu_torch.decks import tp_rlc_netlist
@@ -240,7 +242,9 @@ def crossover_sweep(dev, steps=(201, 10_000, 100_000),
                                      ("never", "loop_s", "loop")):
                 if key in walls:
                     continue
-                if route_bytes(route, nb, s, k, m) > half:
+                if route_bytes(route, nb, s, k, m) > half or (
+                        route == "loop" and loop_max_steps is not None
+                        and s > loop_max_steps):
                     walls[key] = None
                     continue
                 res, walls[key] = timed(lambda: run(net, over, mode))
