@@ -246,7 +246,21 @@ line each:
      derivative rules of ops/linsolve.py, ``RULE_CALLS``; every K1/K2
      launch one of them), the adaptive runs plain K2, and no K4-K10 may
      launch;
-  9. every instantiation launched during 3-8 and 10-26 (printed after
+  27. the device mesh (ROADMAP item 9) through the four batched entry
+     points on cuda (``tools/profile_torch_mesh.py:phase27``), each call
+     on its own counters: ``make_mesh()`` holds exactly the card's
+     devices; yield-64k (``mc_ac_stats`` f32 pallas, K5), tran-rc-64k
+     (K8), boost-8k (K9), tp-rlc-32 (the time-parallel core, K3),
+     batch-ac-4096 (``simulate_ac_batch``, K7 and K1) and
+     diode-switch-1024 (``simulate_tran_batch``, the K2 loop) unsharded,
+     with ``device_put=sharder(make_mesh())`` (bit for bit, the same
+     launches) and on meshes that repeat the card, ``{"batch": 4}`` and,
+     for ``simulate_ac_batch``, ``{"batch": 2, "freq": 2}`` (equal to the
+     unsharded call at the JAX mesh tests' tolerances, each kernel
+     launched once per piece, K2 once per pass of each piece), the walls
+     sharded and unsharded; then ``warmup(full=True)`` in a new process
+     beside the CLI's cold start of phase 24;
+  9. every instantiation launched during 3-8 and 10-27 (printed after
      them; the f32 instances of K4 and K7 are on no main path and are
      checked in phase 2 and timed here only); CUDA-event times of each
      kernel, its plain version and, where one PyTorch call computes the
@@ -673,8 +687,7 @@ def main() -> int:
 
     # ---- 1. build --------------------------------------------------------
     t_start = t0 = time.perf_counter()
-    _build.build(["gj_complex", "gj_real", "mc_ac_fused", "mc_tran_fused",
-                  "mc_tran_nr", "mxu_gj"])
+    _build.build(list(_build.LIBRARIES))
     for mod in (gj, gj_real, mc_ac_fused, mc_tran_fused, mxu):
         mod.load_library()
     mc_tran_fused.load_nr_library()
@@ -3327,6 +3340,26 @@ def main() -> int:
     zero_counts()
     say("26 sens/fit/adapt", f"{time.perf_counter() - t26:.1f} s "
         f"(workload walls {json.dumps({k: round(v, 3) for k, v in walls26.items()})})")
+    torch.cuda.empty_cache()
+
+    # ---- 27. the device mesh (item 9) --------------------------------------
+    # tools/profile_torch_mesh.py:phase27's workloads, each call on its own
+    # counters (zeroed before it, read after, before any comparison)
+    from tools import profile_torch_mesh as pmesh
+
+    t27 = time.perf_counter()
+
+    def run27(label, fn):
+        zero_counts()
+        out, wall = timed(fn)
+        got = {name: k.launches for name, k in kernels.items() if k.launches}
+        counted(f"27 {label}", [])
+        return out, wall, got
+
+    pmesh.phase27(dev, run27, lambda line: say("27 mesh", line), smi,
+                  cli_s=cli_s)
+    zero_counts()
+    say("27 mesh", f"{time.perf_counter() - t27:.1f} s")
     torch.cuda.empty_cache()
 
     # ---- 9. launches and times --------------------------------------------

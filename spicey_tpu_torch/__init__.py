@@ -28,14 +28,21 @@ finished sweeps (``meas_batch`` over a ``.step`` transient's lanes), a
 choose their own steps: ``sensitivity_ac``/``sensitivity_tran``
 (forward-mode tangents), ``fit_ac`` (reverse mode) and ``fit_tran``
 through the derivative rules of K1, K2 and K3 (ops/linsolve.py), and the
-LTE-controlled ``simulate_tran_adaptive`` (K2). The host layer (parsing, IR, formatting,
-the post-analyses) is a jax-free copy of the JAX package's. Public entry
-points run on the CUDA card unless called with ``device="cpu"``, and
-state float64 or float32 at every tensor creation.
+LTE-controlled ``simulate_tran_adaptive`` (K2), and the device mesh:
+``make_mesh`` and ``sharder`` split the variants (and the batched AC's
+frequencies) of ``mc_ac_stats``, ``mc_tran_stats``,
+``simulate_ac_batch`` and ``simulate_tran_batch`` over devices
+(``device_put=``), each piece on the route and kernels an unsharded call
+takes (parallel/mesh.py). ``warmup`` pays the card's first round trip
+up front and, with ``full=True``, builds every kernel library. The host
+layer (parsing, IR, formatting, the post-analyses) is a jax-free copy of
+the JAX package's. Public entry points run on the CUDA card unless
+called with ``device="cpu"``, and state float64 or float32 at every
+tensor creation.
 
-Of ``spicey_tpu``'s public names three are not here: ``make_mesh`` and
-``sharder`` (the multi-device mesh, the last of ROADMAP §1 item 9) and
-``warmup`` (the TPU device handshake and compile cache, item 10).
+Every public name of ``spicey_tpu`` is here. The JAX package's TPU-only
+machinery (its compile cache, device placement tiers and
+float32-with-refinement wrappers) has no counterpart.
 """
 
 from __future__ import annotations
@@ -74,10 +81,12 @@ from .formatting.vgraph import (eec_engine_tran_to_vgraphs,
                                 spicey_tran_to_vgraphs)
 from .ir.circuit import CircuitTensors, build_tensors, from_jax_tensors
 from .math_complex import Complex
+from .parallel.mesh import make_mesh, sharder
 from .parsing.netlist import ParsedCircuit, parse_netlist
 from .parsing.numbers import parse_number_with_units
 from .parsing.waveforms import (PulseSpec, parse_pulse_args, parse_pwl_args,
                                 pulse_value, pwl_value)
+from .utils.device import warmup
 from .utils.profiling import count, profiled, report, span
 
 # camelCase aliases matching the reference's npm surface (lib/index.ts:1-12)
@@ -136,6 +145,7 @@ __all__ = [
     "format_tf_result",
     "format_tran_result",
     "from_jax_tensors",
+    "make_mesh",
     "mc_ac_sampled",
     "mc_ac_stats",
     "mc_tran_sampled",
@@ -152,6 +162,7 @@ __all__ = [
     "read_rawfile",
     "sensitivity_ac",
     "sensitivity_tran",
+    "sharder",
     "simulate",
     "simulateAC",
     "simulateTRAN",
@@ -171,5 +182,6 @@ __all__ = [
     "spiceyTranToVGraphs",
     "spicey_tran_to_vgraphs",
     "to_precision",
+    "warmup",
     "write_rawfile",
 ]

@@ -35,9 +35,14 @@ on a CPU tensor), all in float64:
 V-kind B sources stamp as 0 V shorts in AC, as the JAX package's batch AC
 does. As in the JAX package, neither batch entry point plans a Schur
 partition: ``method="schur"`` names the dense elimination here. The JAX
-package's ``device_put`` sharding hook (item 9)
-and ``interpret`` have no counterpart. Entry points run on the card
+package's ``interpret`` has no counterpart. Entry points run on the card
 unless ``device="cpu"``.
+
+``device_put=sharder(mesh)`` (parallel/mesh.py) splits the variants over
+the mesh's "batch" axis and, in AC, the frequencies over its "freq" axis:
+each (variants x frequencies) block runs the route above on its device,
+and the full solutions gather on the mesh's first device before their
+one copy to the host.
 
 The helpers tile netlist values to the variants axis for these analyses
 and for the Monte-Carlo statistics (analysis/mc.py) and ``op_batch``.
@@ -45,6 +50,7 @@ and for the Monte-Carlo statistics (analysis/mc.py) and ``op_batch``.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -57,6 +63,7 @@ from ..ir.circuit import (CircuitTensors, build_tensors, bv_branch_rows,
 from ..ops.mc_ac_fused import (FUSED_MAX_N, PackedPattern,
                                build_stamp_pattern, combine_values,
                                mc_ac_fused_x, pack_pattern)
+from ..parallel.mesh import VARIANTS, map_blocks
 from ..parsing.netlist import ParsedCircuit, parse_netlist
 from ..utils.device import resolve_device
 from .ac import _ac_sweep_core, build_frequency_array, index_tensor
@@ -235,6 +242,28 @@ def _fused_pattern(ckt: ParsedCircuit, tensors, method: str,
     return pack_pattern(pattern, tensors.nvar, device)
 
 
+def _ac_block(freqs: torch.Tensor, idx: dict, r_vals: torch.Tensor,
+              c_vals: torch.Tensor, l_vals: torch.Tensor, v_re: torch.Tensor,
+              v_im: torch.Tensor, ext: dict, i_re: torch.Tensor,
+              i_im: torch.Tensor, pattern: PackedPattern | None,
+              lk: dict | None, tl: dict | None, nvar: int, method: str
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full solutions x (B, F, nvar) complex and ``valid`` (B, F) of
+    the variants' values at ``freqs``: K7 with a fused ``pattern``, else
+    the planes through ``_ac_sweep_core`` (K1)."""
+    if pattern is not None:
+        values = combine_values(r_vals, c_vals, l_vals, v_re, v_im, ext=ext,
+                                i_re=i_re, i_im=i_im, dtype=r_vals.dtype)
+        xr, xi, valid = mc_ac_fused_x(freqs, values, pattern)
+        # (F, N, B) -> (B, F, N), permuted once on the device
+        return torch.complex(xr, xi).permute(2, 0, 1), valid.T
+    x_re, x_im, valid = _ac_sweep_core(
+        freqs, idx["r"], r_vals, idx["c"], c_vals, idx["l"], l_vals,
+        idx["v"], v_re, v_im, nvar, method=method, ext=ext, i_re=i_re,
+        i_im=i_im, lk=lk, tl=tl)
+    return torch.complex(x_re, x_im), valid
+
+
 def simulate_ac_batch(
     circuit: ParsedCircuit | str,
     overrides: dict[str, np.ndarray],
@@ -242,13 +271,20 @@ def simulate_ac_batch(
     method: str = "gj",
     dialect: str = "spicey",
     device: torch.device | str | None = None,
+    device_put=None,
 ) -> BatchACResult:
     """One batched AC sweep over all parameter variants, in float64 on
     ``device`` (the card unless ``device="cpu"``): the full (B, F, nvar)
     solution of every variant at every frequency. ``method="pallas"``
     takes K7 where the circuit qualifies (N <= 16), ``"gj"`` always
-    assembles the planes and solves them with K1."""
-    device = resolve_device(device)
+    assembles the planes and solves them with K1.
+
+    ``device_put``: a ``sharder(mesh)`` callable that shards the variants
+    over the mesh's "batch" axis and the frequencies over its "freq"
+    axis; each block takes the route above, and the solutions gather on
+    the mesh's first device (``device=None`` means it; another device
+    raises ``ValueError``)."""
+    device = resolve_device(device, device_put)
     ckt = _resolve(circuit, dialect=dialect)
     if ckt.ac is None:
         raise ValueError("netlist has no .ac analysis")
@@ -279,29 +315,49 @@ def simulate_ac_batch(
     iph = tensors.i_ac_phase_deg * math.pi / 180.0
     i_re = dev(tensors.i_ac_mag * np.cos(iph))
     i_im = dev(tensors.i_ac_mag * np.sin(iph))
-    pattern = _fused_pattern(ckt, tensors, method, device)
-    if pattern is not None:
-        values = combine_values(dev(r_vals), dev(c_vals), dev(l_vals), v_re,
-                                v_im, ext=ext, i_re=i_re, i_im=i_im,
-                                dtype=f64)
-        xr, xi, valid = mc_ac_fused_x(dev(freqs), values, pattern)
-        # (F, N, B) -> (B, F, N), permuted once on the device
-        x = torch.complex(xr, xi).permute(2, 0, 1)
-        valid = valid.T
-    else:
-        x_re, x_im, valid = _ac_sweep_core(
-            dev(freqs), index_tensor(tensors.r_idx, device), dev(r_vals),
-            index_tensor(tensors.c_idx, device), dev(c_vals),
-            index_tensor(tensors.l_idx, device), dev(l_vals),
-            index_tensor(_v_idx_ac(ckt, tensors), device), v_re, v_im,
-            tensors.nvar, method=method, ext=ext, i_re=i_re, i_im=i_im,
-            lk=_batched_lk(tensors, overrides, B, device, f64),
-            tl=_batched_tl(tensors, overrides, B, device, f64))
-        x = torch.complex(x_re, x_im)
+    args = dict(
+        freqs=dev(freqs),
+        idx={"r": index_tensor(tensors.r_idx, device),
+             "c": index_tensor(tensors.c_idx, device),
+             "l": index_tensor(tensors.l_idx, device),
+             "v": index_tensor(_v_idx_ac(ckt, tensors), device)},
+        r_vals=dev(r_vals), c_vals=dev(c_vals), l_vals=dev(l_vals),
+        v_re=v_re, v_im=v_im, ext=ext, i_re=i_re, i_im=i_im,
+        pattern=_fused_pattern(ckt, tensors, method, device),
+        lk=_batched_lk(tensors, overrides, B, device, f64),
+        tl=_batched_tl(tensors, overrides, B, device, f64))
+    specs = dict.fromkeys(("r_vals", "c_vals", "l_vals", "v_re", "v_im",
+                           "ext", "lk", "tl"), VARIANTS)
+    specs["freqs"] = ("freq",)
+    x, valid = map_blocks(
+        device_put,
+        functools.partial(_ac_block, nvar=tensors.nvar, method=method),
+        args, specs, ({"batch": 0, "freq": 1},) * 2, B)
     # one contiguous device->host copy of the complex128 solution
     return BatchACResult(freqs=freqs, node_names=tensors.node_names,
                          x=x.contiguous().cpu().numpy(),
                          valid=valid.cpu().numpy())
+
+
+def _tran_block(vs: torch.Tensor, arr: dict, vt_scale: torch.Tensor,
+                nvar: int, tp: bool, method: str, nr: str, dt: float
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full trajectories of the variants of ``arr`` (tran_arrays' dict,
+    values leading with the variants): xs (S+1, B, nvar), the switch
+    states (S+1, B, nS) and ``valid`` (B,), from the parallel-in-time core
+    (``tp``: mc._tp_solutions, no switch states) or the loop."""
+    if tp:
+        # a linear circuit in the parallel-in-time regime: full
+        # trajectories from the affine maps
+        from .mc import _tp_solutions
+
+        xs, valid = _tp_solutions(vs, dt, arr, nvar, None)
+        return (xs, torch.zeros(xs.shape[:2] + (0,), dtype=torch.bool,
+                                device=xs.device), valid)
+    xs, sw_states, valid, _carry = _tran_core(
+        vs, dt, arr, nvar, method=method, nr=nr,
+        lead=(arr["r_vals"].shape[0],), vt_scale=vt_scale)
+    return xs, sw_states, valid
 
 
 def simulate_tran_batch(
@@ -312,6 +368,7 @@ def simulate_tran_batch(
     dialect: str = "spicey",
     time_parallel: str = "auto",
     device: torch.device | str | None = None,
+    device_put=None,
 ) -> BatchTranResult:
     """One batched transient run over all parameter variants, in float64
     on ``device`` (the card unless ``device="cpu"``): the full (B, S+1,
@@ -321,8 +378,15 @@ def simulate_tran_batch(
     BJTs iterate Newton to convergence, as in the JAX package.
     ``time_parallel``: "auto" (default) takes the parallel-in-time core
     for a linear circuit in its regime (``timeparallel.worthwhile`` at
-    itemsize 8); "never" forces the sequential loop."""
-    device = resolve_device(device)
+    itemsize 8); "never" forces the sequential loop.
+
+    ``device_put``: a ``sharder(mesh)`` callable that shards the variants
+    (and a batched source grid) over the mesh's "batch" axis. The route is
+    chosen for the whole batch (the time-parallel guard at the global B)
+    and each piece runs it; the trajectories gather on the mesh's first
+    device (``device=None`` means it; another device raises
+    ``ValueError``)."""
+    device = resolve_device(device, device_put)
     ckt = _resolve(circuit, dialect=dialect)
     if ckt.tran is None:
         raise ValueError("netlist has no .tran analysis")
@@ -377,20 +441,16 @@ def simulate_tran_batch(
                       lk=_batched_lk(tensors, overrides, B, device, f64),
                       tl=_batched_tl(tensors, overrides, B, device, f64),
                       ckt=ckt, dt=dt)
-    if (time_parallel == "auto" and tp_eligible(tensors, ckt, nr, "be")
-            and tp_worthwhile(tensors, steps, B, 8, device=device)):
-        # a linear circuit in the parallel-in-time regime: full
-        # trajectories from the affine maps (mc._tp_solutions)
-        from .mc import _tp_solutions
-
-        xs, valid = _tp_solutions(vs, dt, arr, tensors.nvar, None)
-        sw_states = torch.zeros(xs.shape[:2] + (0,), dtype=torch.bool,
-                                device=device)
-    else:
-        xs, sw_states, valid, _carry = _tran_core(
-            vs, dt, arr, tensors.nvar,
-            method="gj" if method == "schur" else method, nr=nr, lead=(B,),
-            vt_scale=vt_scale_of(tensors, device, f64))
+    tp = (time_parallel == "auto" and tp_eligible(tensors, ckt, nr, "be")
+          and tp_worthwhile(tensors, steps, B, 8, device=device))
+    run = functools.partial(_tran_block, nvar=tensors.nvar, tp=tp,
+                            method="gj" if method == "schur" else method,
+                            nr=nr, dt=dt)
+    xs, sw_states, valid = map_blocks(
+        device_put, run,
+        dict(vs=vs, arr=arr, vt_scale=vt_scale_of(tensors, device, f64)),
+        {"arr": VARIANTS, "vs": (None, "batch", None) if vs.ndim == 3
+         else None}, ({"batch": 1}, {"batch": 1}, {"batch": 0}), B)
     # one device->host copy of [solution | switch states], variants first
     packed = torch.cat([xs, sw_states.to(f64)], dim=-1).permute(1, 0, 2)
     packed = packed.contiguous().cpu().numpy()

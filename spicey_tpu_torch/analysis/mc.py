@@ -34,6 +34,14 @@ Transient routes, as the JAX package routes them:
 On a CPU tensor the same routes run their plain versions. Entry points
 run on the card unless ``device="cpu"``.
 
+``mc_ac_stats`` and ``mc_tran_stats`` take ``device_put=sharder(mesh)``
+(parallel/mesh.py): the variants split over the mesh, each piece runs
+the route chosen for the whole batch (the fused kernels only on a plain
+1D 'batch' mesh dividing B, and in AC only unchunked: the JAX package's
+``_batch_mesh`` rule), and one reduction runs over the gathered
+responses on the mesh's first device, so both quantile methods see the
+batch an unsharded call sees.
+
 The structured tier (ops/schur.py) routes as in the JAX package: forced
 by ``method="schur"``, taken by ``method="gj"`` on a subcircuit board past
 N = 128 (the AC sweep, the transient loop), its block solves on K1's and
@@ -49,6 +57,7 @@ by hand: ``torch.quantile`` refuses inputs above 2^24 elements, and the
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -63,6 +72,7 @@ from ..ops import linsolve
 from ..ops import mc_tran_fused as mtf
 from ..ops.schur import plan_for
 from ..ops.mc_ac_fused import PackedPattern, combine_values, mc_ac_fused
+from ..parallel.mesh import VARIANTS, map_blocks, mesh_of
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
 from .ac import _ac_sweep_core, build_frequency_array, index_tensor
@@ -190,17 +200,41 @@ def _unpack_stats(packed: np.ndarray, quantiles, grid) -> MCStats:
     )
 
 
-def _mc_ac_stats_core(freqs: torch.Tensor, idx: dict,
-                      r_vals: torch.Tensor, c_vals: torch.Tensor,
-                      l_vals: torch.Tensor, v_re: torch.Tensor,
-                      v_im: torch.Tensor, ext: dict, i_re: torch.Tensor,
-                      i_im: torch.Tensor, nvar: int, node_idx: int,
-                      method: str, qs: tuple, chunk: int | None = None,
-                      q_method: str = "exact",
-                      pattern: PackedPattern | None = None,
-                      lk: dict | None = None, tl: dict | None = None,
-                      plan: dict | None = None) -> torch.Tensor:
-    """Solve every (variant, frequency) system, reduce over the variants.
+def _reduce(resp: torch.Tensor, valid: torch.Tensor, qs: tuple,
+            q_method: str = "exact") -> torch.Tensor:
+    """The statistics of the (B, G) responses over the variants, packed
+    (``_pack_stats``); ``valid`` (B,) or (B, G), a variant counting as
+    valid where it is at every grid point."""
+    n_valid = valid.all(dim=-1).sum() if valid.ndim == 2 else valid.sum()
+    return _pack_stats(_stats_of(resp, valid, qs, q_method=q_method),
+                       n_valid)
+
+
+def _batch_mesh(device_put, B: int) -> bool:
+    """Whether the fused kernels may run per device on the mesh behind a
+    ``sharder`` callable (the JAX package's rule, mc.py:467-481): a
+    'batch' axis that is the mesh's only axis larger than 1 (the fused
+    kernels have no frequency axis to give a 2D mesh) and a variant count
+    divisible by it. Otherwise every piece takes the non-fused route, as
+    the JAX package's sharded runs do."""
+    shape = mesh_of(device_put).shape
+    n_b = shape.get("batch", 0)
+    return (n_b > 0 and B % n_b == 0
+            and all(n == 1 for ax, n in shape.items() if ax != "batch"))
+
+
+def _mc_ac_responses(freqs: torch.Tensor, idx: dict,
+                     r_vals: torch.Tensor, c_vals: torch.Tensor,
+                     l_vals: torch.Tensor, v_re: torch.Tensor,
+                     v_im: torch.Tensor, ext: dict, i_re: torch.Tensor,
+                     i_im: torch.Tensor, nvar: int, node_idx: int,
+                     method: str, chunk: int | None = None,
+                     pattern: PackedPattern | None = None,
+                     lk: dict | None = None, tl: dict | None = None,
+                     plan: dict | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Solve every (variant, frequency) system: |V(node)| and ``valid``,
+    each (B, F).
 
     Values lead with the variants axis B; ``idx`` holds the r/c/l/v index
     tensors; ``lk`` the couplings (unbatched k) and ``tl`` the T lines
@@ -209,8 +243,7 @@ def _mc_ac_stats_core(freqs: torch.Tensor, idx: dict,
     (a variant whose block pivots fail counts as invalid, as in the JAX
     package: no dense retry here). ``chunk`` solves the batch in
     blocks of that many variants, bounding the solve buffers; only the
-    (B, F) response accumulates. Returns the packed statistics (see
-    ``_pack_stats``)."""
+    (B, F) response accumulates."""
 
     def solve_block(sl: slice) -> tuple[torch.Tensor, torch.Tensor]:
         ext_b = {k: (v if k.endswith("idx") else v[sl])
@@ -234,13 +267,9 @@ def _mc_ac_stats_core(freqs: torch.Tensor, idx: dict,
     step = B if chunk is None or chunk >= B else chunk
     blocks = [solve_block(slice(s, s + step)) for s in range(0, B, step)]
     if len(blocks) == 1:
-        mag, valid = blocks[0]
-    else:
-        mag = torch.cat([m for m, _ in blocks], dim=0)
-        valid = torch.cat([v for _, v in blocks], dim=0)
-    stats = _stats_of(mag, valid, qs, q_method=q_method)
-    n_valid = valid.all(dim=-1).sum()
-    return _pack_stats(stats, n_valid)
+        return blocks[0]
+    return (torch.cat([m for m, _ in blocks], dim=0),
+            torch.cat([v for _, v in blocks], dim=0))
 
 
 def _check_args(precision: str, quantile_method: str) -> torch.dtype:
@@ -255,10 +284,13 @@ def _run(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
          c_vals: torch.Tensor, l_vals: torch.Tensor, ext: dict,
          node: str, quantiles, method: str, fdt: torch.dtype,
          chunk: int | None, quantile_method: str,
-         device: torch.device | str, tl: dict | None = None) -> MCStats:
+         device: torch.device | str, tl: dict | None = None,
+         device_put=None) -> MCStats:
     """Shared tail of mc_ac_stats and mc_ac_sampled: drive phasors,
     index tensors, the route, the core, one transfer to the host. ``tl``:
-    the T lines, Z0/Td tiled to the variants."""
+    the T lines, Z0/Td tiled to the variants. ``device_put``: the
+    variants split over a mesh whose first device is ``device``, the
+    responses gathered there and reduced once."""
     B = r_vals.shape[0]
     freqs = build_frequency_array(ckt.ac.mode, ckt.ac.N, ckt.ac.f1, ckt.ac.f2)
     ph = tensors.v_ac_phase_deg * math.pi / 180.0
@@ -281,14 +313,26 @@ def _run(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
     plan = plan_for(method, ckt, tensors, tensors.nvar, device)
     if method == "schur":
         method = "gj"
-    packed = _mc_ac_stats_core(
-        torch.as_tensor(freqs, dtype=fdt, device=device), idx,
-        r_vals.to(fdt), c_vals.to(fdt), l_vals.to(fdt), v_re, v_im, ext,
-        i_re, i_im, tensors.nvar, node_idx, method,
-        tuple(float(q) for q in quantiles), chunk=chunk,
-        q_method=quantile_method,
-        pattern=_fused_pattern(ckt, tensors, method, device),
+    # on a mesh, the fused kernel runs per device only on a plain 1D
+    # batch mesh with an unchunked sweep (the JAX package's rule)
+    fused = device_put is None or (
+        (chunk is None or chunk >= B) and _batch_mesh(device_put, B))
+    args = dict(
+        freqs=torch.as_tensor(freqs, dtype=fdt, device=device), idx=idx,
+        r_vals=r_vals.to(fdt), c_vals=c_vals.to(fdt), l_vals=l_vals.to(fdt),
+        v_re=v_re, v_im=v_im, ext=ext, i_re=i_re, i_im=i_im,
+        pattern=(_fused_pattern(ckt, tensors, method, device) if fused
+                 else None),
         lk=lk_arrays(tensors, device, fdt), tl=tl, plan=plan)
+    run = functools.partial(_mc_ac_responses, nvar=tensors.nvar,
+                            node_idx=node_idx, method=method, chunk=chunk)
+    mag, valid = map_blocks(
+        device_put, run, args,
+        dict.fromkeys(("r_vals", "c_vals", "l_vals", "v_re", "v_im", "ext",
+                       "tl"), VARIANTS),
+        ({"batch": 0}, {"batch": 0}), B)
+    packed = _reduce(mag, valid, tuple(float(q) for q in quantiles),
+                     quantile_method)
     res = _unpack_stats(packed.cpu().numpy(), tuple(quantiles), freqs)
     res.n_total = B
     return res
@@ -305,6 +349,7 @@ def mc_ac_stats(
     dialect: str = "spicey",
     chunk: int | None = None,
     quantile_method: str = "exact",
+    device_put=None,
     device: torch.device | str | None = None,
 ) -> MCStats:
     """Distribution of |V(node)| per frequency across parameter variants.
@@ -317,8 +362,16 @@ def mc_ac_stats(
     default f64. ``method="pallas"`` takes the fused kernel K5 where the
     circuit qualifies (N <= 16), ``"gj"`` always assembles and solves
     with K1; on the CPU (``device="cpu"``) both run their plain versions.
+
+    ``device_put``: a ``sharder(mesh)`` callable (parallel/mesh.py) that
+    shards the variants axis over the mesh. Each device's piece runs the
+    route above on its own (chunked within the piece); the fused kernel
+    K5 runs per device only on a plain 1D 'batch' mesh dividing B and an
+    unchunked sweep, else every piece takes K1. The responses gather on
+    the mesh's first device (``device=None`` means it; another device
+    raises ``ValueError``), where the statistics reduce once.
     """
-    device = resolve_device(device)
+    device = resolve_device(device, device_put)
     ckt = _resolve(circuit, dialect=dialect)
     if ckt.ac is None:
         raise ValueError("netlist has no .ac analysis")
@@ -342,7 +395,8 @@ def mc_ac_stats(
     return _run(ckt, tensors, dev(r_vals), dev(c_vals), dev(l_vals),
                 _batched_ext(tensors, overrides, B, device, fdt), node,
                 quantiles, method, fdt, chunk, quantile_method, device,
-                tl=_batched_tl(tensors, overrides, B, device, fdt))
+                tl=_batched_tl(tensors, overrides, B, device, fdt),
+                device_put=device_put)
 
 
 def _sample_targets(tensors, spreads: dict[str, float]) -> list[tuple]:
@@ -507,18 +561,19 @@ def _nr_mode(tensors, ckt: ParsedCircuit | None = None
     return "spicey", MAX_NR_ITERS
 
 
-def _mc_tran_fused_core(vs_grid: torch.Tensor, values: torch.Tensor,
-                        pattern: mtf.TranPattern, node_idx: int, qs: tuple,
-                        q_method: str = "exact", vd_scale: float = 1.0,
-                        nr: str = "spicey", max_nr: int = MAX_NR_ITERS
-                        ) -> torch.Tensor:
-    """K8 or K9 on the value slab (``tran_value_slab``), then the
-    reduction."""
-    v_node, valid = mtf.mc_tran_fused(
+def _mc_tran_fused_responses(vs_grid: torch.Tensor, r_vals: torch.Tensor,
+                             c_vals: torch.Tensor, l_vals: torch.Tensor,
+                             ext: dict, nl: dict, tensors, dt: float,
+                             pattern: mtf.TranPattern, node_idx: int,
+                             vd_scale: float = 1.0, nr: str = "spicey",
+                             max_nr: int = MAX_NR_ITERS
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8 or K9 on the variants' value slab (``tran_value_slab``): V(node)
+    (B, S+1) and ``valid`` (B,)."""
+    values = tran_value_slab(tensors, r_vals, c_vals, l_vals, ext, nl, dt)
+    return mtf.mc_tran_fused(
         vs_grid.to(torch.float32).contiguous(), values, pattern, node_idx,
         vd_scale=vd_scale, nr=nr, max_nr=max_nr)
-    return _pack_stats(_stats_of(v_node, valid, qs, q_method=q_method),
-                       valid.sum())
 
 
 def _slice_arrays(tree: object, sl: slice, B: int) -> object:
@@ -535,19 +590,18 @@ def _slice_arrays(tree: object, sl: slice, B: int) -> object:
     return tree
 
 
-def _mc_tran_stats_core(vs_grid: torch.Tensor, dt: float, arr: dict,
-                        nvar: int, node_idx: int, method: str, qs: tuple,
-                        integration: str = "be", chunk: int | None = None,
-                        q_method: str = "exact",
-                        vt_scale: torch.Tensor | float = 1.0,
-                        nr: str = "spicey", plan: dict | None = None
-                        ) -> torch.Tensor:
+def _mc_tran_loop_responses(vs_grid: torch.Tensor, arr: dict,
+                            vt_scale: torch.Tensor | float, plan: dict | None,
+                            dt: float, nvar: int, node_idx: int, method: str,
+                            integration: str = "be",
+                            chunk: int | None = None, nr: str = "spicey"
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """The batched time loop (analysis/tran._tran_core with lead (B,)),
-    recording only the probed node, then the reduction. ``chunk`` runs
-    the variants in blocks of that many, bounding the loop's buffers;
-    only the (B, S+1) response accumulates. ``plan``: the structured tier
-    (a lane whose block pivots fail counts as invalid, as in the JAX
-    package)."""
+    recording only the probed node: V(node) (B, S+1) and ``valid`` (B,).
+    ``chunk`` runs the variants in blocks of that many, bounding the
+    loop's buffers; only the (B, S+1) response accumulates. ``plan``: the
+    structured tier (a lane whose block pivots fail counts as invalid, as
+    in the JAX package)."""
     B = arr["r_vals"].shape[0]
 
     def run_block(sl: slice) -> tuple[torch.Tensor, torch.Tensor]:
@@ -562,12 +616,9 @@ def _mc_tran_stats_core(vs_grid: torch.Tensor, dt: float, arr: dict,
     step = B if chunk is None or chunk >= B else chunk
     blocks = [run_block(slice(s, s + step)) for s in range(0, B, step)]
     if len(blocks) == 1:
-        v_node, valid = blocks[0]
-    else:
-        v_node = torch.cat([v for v, _ in blocks], dim=0)
-        valid = torch.cat([v for _, v in blocks], dim=0)
-    return _pack_stats(_stats_of(v_node, valid, qs, q_method=q_method),
-                       valid.sum())
+        return blocks[0]
+    return (torch.cat([v for v, _ in blocks], dim=0),
+            torch.cat([v for _, v in blocks], dim=0))
 
 
 def _tp_solutions(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
@@ -625,15 +676,14 @@ def _tp_solutions(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
     return xs, valid
 
 
-def _mc_tran_tp_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
-                     node_idx: int, qs: tuple, q_method: str = "exact",
-                     integration: str = "be") -> torch.Tensor:
-    """``_tp_solutions`` of the probed node, then the reduction, packed as
-    the sequential core packs it."""
+def _mc_tran_tp_responses(vs_grid: torch.Tensor, arr: dict, dt: float,
+                          nvar: int, node_idx: int, integration: str = "be"
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_tp_solutions`` of the probed node: V(node) (B, S+1) and
+    ``valid`` (B,), as the sequential loop gives them."""
     xs, valid = _tp_solutions(vs_grid, dt, arr, nvar, node_idx,
                               integration=integration)
-    return _pack_stats(_stats_of(xs.T, valid, qs, q_method=q_method),
-                       valid.sum())
+    return xs.T, valid
 
 
 def _check_tran_args(ckt: ParsedCircuit, method: str,
@@ -656,12 +706,16 @@ def _run_tran(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
               quantile_method: str, device: torch.device,
               tl: dict | None = None, time_parallel: str = "auto",
               tp_crossover: float | None = None,
-              tp_mem_budget: float | None = None) -> MCStats:
+              tp_mem_budget: float | None = None,
+              device_put=None) -> MCStats:
     """Shared tail of mc_tran_stats and mc_tran_sampled: per-variant
     source values, the route, the core, one transfer to the host.
     ``tl``: the T lines (Z0/Td batched or not), None without. The routes
     in the JAX package's order: the fused kernels, then the Schur plan,
-    then the time-parallel core, else the loop."""
+    then the time-parallel core, else the loop, each chosen for the whole
+    batch. ``device_put``: the variants split over a mesh whose first
+    device is ``device``, each piece run on that route, the responses
+    gathered there and reduced once."""
     fdt = _DTYPES[precision]
     B = r_vals.shape[0]
     node_idx = [n.upper() for n in tensors.node_names].index(node.upper())
@@ -681,12 +735,15 @@ def _run_tran(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
     nr, max_nr = _nr_mode(tensors, ckt)
     pattern = _fused_tran_pattern(ckt, tensors, method, precision,
                                   integration, bool(v_over), device)
+    if device_put is not None and not _batch_mesh(device_put, B):
+        pattern = None
     if pattern is not None:
-        values = tran_value_slab(tensors, r_vals, c_vals, l_vals, ext, nl,
-                                 dt)
-        packed = _mc_tran_fused_core(
-            vs, values, pattern, node_idx, qs, q_method=quantile_method,
-            vd_scale=float(tensors.vt) / VT_300K, nr=nr, max_nr=max_nr)
+        run = functools.partial(
+            _mc_tran_fused_responses, tensors=tensors, dt=dt,
+            node_idx=node_idx, vd_scale=float(tensors.vt) / VT_300K, nr=nr,
+            max_nr=max_nr)
+        args = dict(vs_grid=vs, r_vals=r_vals, c_vals=c_vals, l_vals=l_vals,
+                    ext=ext, nl=nl, pattern=pattern)
     else:
         def cast(d: dict) -> dict:
             return {k: (v if k.endswith("idx") else v.to(fdt))
@@ -707,17 +764,25 @@ def _run_tran(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
                                   device=device)):
             # a linear circuit in the regime where the whole time axis
             # in O(log S) depth beats the sequential loop
-            packed = _mc_tran_tp_core(vs, dt, arr, tensors.nvar, node_idx,
-                                      qs, q_method=quantile_method,
-                                      integration=integration)
+            run = functools.partial(
+                _mc_tran_tp_responses, dt=dt, nvar=tensors.nvar,
+                node_idx=node_idx, integration=integration)
+            args = dict(vs_grid=vs, arr=arr)
         else:
-            packed = _mc_tran_stats_core(
-                vs, dt, arr, tensors.nvar, node_idx,
-                "gj" if method == "schur" else method, qs,
-                integration=integration, chunk=chunk,
-                q_method=quantile_method,
-                vt_scale=vt_scale_of(tensors, device, fdt), nr=nr,
-                plan=plan)
+            run = functools.partial(
+                _mc_tran_loop_responses, dt=dt, nvar=tensors.nvar,
+                node_idx=node_idx,
+                method="gj" if method == "schur" else method,
+                integration=integration, chunk=chunk, nr=nr)
+            args = dict(vs_grid=vs, arr=arr,
+                        vt_scale=vt_scale_of(tensors, device, fdt),
+                        plan=plan)
+    specs = dict.fromkeys(("r_vals", "c_vals", "l_vals", "ext", "nl", "arr"),
+                          VARIANTS)
+    specs["vs_grid"] = (None, "batch", None) if vs.ndim == 3 else None
+    v_node, valid = map_blocks(device_put, run, args, specs,
+                               ({"batch": 0}, {"batch": 0}), B)
+    packed = _reduce(v_node, valid, qs, quantile_method)
     res = _unpack_stats(packed.cpu().numpy(), tuple(quantiles), times)
     res.n_total = B
     return res
@@ -739,6 +804,7 @@ def mc_tran_stats(
     device: torch.device | str | None = None,
     tp_crossover: float | None = None,
     tp_mem_budget: float | None = None,
+    device_put=None,
 ) -> MCStats:
     """Distribution of V(node) per timestep across parameter variants.
 
@@ -760,8 +826,15 @@ def mc_tran_stats(
     ``tp_mem_budget`` tune that guard (or ``SPICEY_TPU_TP_CROSSOVER`` /
     ``SPICEY_TPU_TP_MEM_BUDGET``). ``method="schur"`` forces the
     structured tier (and the loop); ``"gj"`` takes it past N = 128 on a
-    subcircuit board."""
-    device = resolve_device(device)
+    subcircuit board.
+
+    ``device_put``: a ``sharder(mesh)`` callable placing the variants axis
+    over a device mesh (see mc_ac_stats). The route is chosen for the
+    whole batch (the time-parallel guard at the global B); each piece
+    runs it (chunked within the piece), except that the fused kernels K8
+    and K9 run per device only on a plain 1D 'batch' mesh dividing B, and
+    the pieces take the loop or the time-parallel core otherwise."""
+    device = resolve_device(device, device_put)
     ckt = _resolve(circuit, dialect=dialect)
     if tensors is None:
         tensors = build_tensors(ckt)
@@ -793,7 +866,7 @@ def mc_tran_stats(
         quantile_method, device,
         tl=_batched_tl(tensors, overrides, B, device, fdt),
         time_parallel=time_parallel, tp_crossover=tp_crossover,
-        tp_mem_budget=tp_mem_budget)
+        tp_mem_budget=tp_mem_budget, device_put=device_put)
 
 
 def mc_tran_sampled(

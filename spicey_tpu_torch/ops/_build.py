@@ -10,7 +10,13 @@ module and have no ``nvcc``.
 Every C entry point takes raw device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launch; ``check``
 turns a nonzero code into an exception (a refused launch never runs, and a
-later synchronize would not report it).
+later synchronize would not report it). The C side plans, sets function
+attributes and queries occupancy on the runtime's current device, so each
+launcher makes the tensors' device current around its C calls
+(``torch.cuda.device``): a launch on ``cuda:1`` gets ``cuda:1``'s plan as
+well as its stream. No plan or attribute is cached on the host across
+calls, and the Python-side caches are keyed by device
+(``mc_tran_fused._plan``).
 """
 
 from __future__ import annotations
@@ -35,6 +41,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # opt-in shared memory of one H100 block (227 KB), gj_common.cuh:SMEM_MAX
 SMEM_MAX = 232_448
+
+# every library of csrc/ (warmup and chip_smoke.py build them all)
+LIBRARIES = ("gj_complex", "gj_real", "mc_ac_fused", "mc_tran_fused",
+             "mc_tran_nr", "mxu_gj")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILD_S: dict[str, float] = {}

@@ -174,20 +174,21 @@ def gj_solve_planes_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
     x_re = torch.empty((nb, n), dtype=A_re.dtype, device=A_re.device)
     x_im = torch.empty_like(x_re)
     valid = torch.empty((nb,), dtype=torch.bool, device=A_re.device)
-    ws = None
-    n_ws = lib.gj_complex_workspace_systems(n, nb, int(dbl), code_tier)
-    if n_ws:
-        # the planes live in global memory: the block tier's where they
-        # overflow shared memory (f64 from N = 119, f32 past ~168), one
-        # system each; the panel tier's where its plan keeps them there,
-        # one slot per resident block
-        ws = workspace((n_ws, 2, n, n + 1), A_re, "K1")
-    fn = lib.gj_complex_f64 if dbl else lib.gj_complex_f32
-    code = fn(ptr(A_re), ptr(A_im), ptr(b_re), ptr(b_im), ptr(x_re),
-              ptr(x_im), ptr(valid),
-              ctypes.c_void_p(0 if ws is None else ws.data_ptr()),
-              nb, n, float(eps), code_tier, stream_ptr(A_re.device))
-    check(code, f"gj_complex {tier} launch")
+    with torch.cuda.device(A_re.device):
+        ws = None
+        n_ws = lib.gj_complex_workspace_systems(n, nb, int(dbl), code_tier)
+        if n_ws:
+            # the planes live in global memory: the block tier's where they
+            # overflow shared memory (f64 from N = 119, f32 past ~168), one
+            # system each; the panel tier's where its plan keeps them there,
+            # one slot per resident block
+            ws = workspace((n_ws, 2, n, n + 1), A_re, "K1")
+        fn = lib.gj_complex_f64 if dbl else lib.gj_complex_f32
+        code = fn(ptr(A_re), ptr(A_im), ptr(b_re), ptr(b_im), ptr(x_re),
+                  ptr(x_im), ptr(valid),
+                  ctypes.c_void_p(0 if ws is None else ws.data_ptr()),
+                  nb, n, float(eps), code_tier, stream_ptr(A_re.device))
+        check(code, f"gj_complex {tier} launch")
     K1[A_re.dtype].launches += 1
     K1_TIERS[A_re.dtype][tier] += 1
     return x_re, x_im, valid
@@ -227,19 +228,20 @@ def gj_inverse_planes_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
     m_re = torch.empty_like(A_re)
     m_im = torch.empty_like(A_re)
     valid = torch.empty((nb,), dtype=torch.bool, device=A_re.device)
-    ws = None
-    n_ws = lib.gj_complex_inv_workspace_systems(n, nb, int(dbl), code_tier)
-    if n_ws:
-        # [A | I] in global memory: the block tier's where it overflows
-        # shared memory (f64 above N = 84, f32 above ~119), one system
-        # each; the panel tier's where its plan keeps the planes there,
-        # one slot per resident block
-        ws = workspace((n_ws, 2, n, 2 * n), A_re, "K4")
-    fn = lib.gj_complex_inverse_f64 if dbl else lib.gj_complex_inverse_f32
-    code = fn(ptr(A_re), ptr(A_im), ptr(m_re), ptr(m_im), ptr(valid),
-              ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,
-              float(eps), code_tier, stream_ptr(A_re.device))
-    check(code, f"gj_complex inverse {tier} launch")
+    with torch.cuda.device(A_re.device):
+        ws = None
+        n_ws = lib.gj_complex_inv_workspace_systems(n, nb, int(dbl), code_tier)
+        if n_ws:
+            # [A | I] in global memory: the block tier's where it overflows
+            # shared memory (f64 above N = 84, f32 above ~119), one system
+            # each; the panel tier's where its plan keeps the planes there,
+            # one slot per resident block
+            ws = workspace((n_ws, 2, n, 2 * n), A_re, "K4")
+        fn = lib.gj_complex_inverse_f64 if dbl else lib.gj_complex_inverse_f32
+        code = fn(ptr(A_re), ptr(A_im), ptr(m_re), ptr(m_im), ptr(valid),
+                  ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,
+                  float(eps), code_tier, stream_ptr(A_re.device))
+        check(code, f"gj_complex inverse {tier} launch")
     K4[A_re.dtype].launches += 1
     K4_TIERS[A_re.dtype][tier] += 1
     return m_re, m_im, valid
@@ -288,15 +290,16 @@ def gj_solve_planes_multi_cuda(A_re: torch.Tensor, A_im: torch.Tensor,
     X_re = torch.empty((nb, n, r), dtype=A_re.dtype, device=A_re.device)
     X_im = torch.empty_like(X_re)
     valid = torch.empty((nb,), dtype=torch.bool, device=A_re.device)
-    n_ws = lib.gj_complex_multi_workspace_systems(n, r, nb, int(dbl),
-                                                  code_tier)
-    ws = workspace((n_ws, 2, n, n + r), A_re, "K1 multi") if n_ws else None
-    fn = lib.gj_complex_multi_f64 if dbl else lib.gj_complex_multi_f32
-    code = fn(ptr(A_re), ptr(A_im), ptr(B_re), ptr(B_im), ptr(X_re),
-              ptr(X_im), ptr(valid),
-              ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n, r,
-              float(eps), code_tier, stream_ptr(A_re.device))
-    check(code, f"gj_complex multi {tier} launch")
+    with torch.cuda.device(A_re.device):
+        n_ws = lib.gj_complex_multi_workspace_systems(n, r, nb, int(dbl),
+                                                      code_tier)
+        ws = workspace((n_ws, 2, n, n + r), A_re, "K1 multi") if n_ws else None
+        fn = lib.gj_complex_multi_f64 if dbl else lib.gj_complex_multi_f32
+        code = fn(ptr(A_re), ptr(A_im), ptr(B_re), ptr(B_im), ptr(X_re),
+                  ptr(X_im), ptr(valid),
+                  ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,
+                  r, float(eps), code_tier, stream_ptr(A_re.device))
+        check(code, f"gj_complex multi {tier} launch")
     K1[A_re.dtype].launches += 1
     K1_TIERS[A_re.dtype][tier] += 1
     K1_MULTI[A_re.dtype].launches += 1

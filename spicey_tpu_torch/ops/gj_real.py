@@ -239,13 +239,14 @@ def gj_solve_cuda(A: torch.Tensor, b: torch.Tensor, eps: float = EPS,
     lib = load_library()
     x = torch.empty((nb, n), dtype=A.dtype, device=A.device)
     valid = torch.empty((nb,), dtype=torch.bool, device=A.device)
-    ws = _workspace(lib, A, n, inv=False, tier=tier)
-    fn = lib.gj_real_solve_f64 if A.dtype == torch.float64 \
-        else lib.gj_real_solve_f32
-    code = fn(ptr(A), ptr(b), ptr(x), ptr(valid),
-              ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,
-              float(eps), CODES[tier], stream_ptr(A.device))
-    check(code, f"gj_real {tier} solve launch")
+    with torch.cuda.device(A.device):
+        ws = _workspace(lib, A, n, inv=False, tier=tier)
+        fn = lib.gj_real_solve_f64 if A.dtype == torch.float64 \
+            else lib.gj_real_solve_f32
+        code = fn(ptr(A), ptr(b), ptr(x), ptr(valid),
+                  ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,
+                  float(eps), CODES[tier], stream_ptr(A.device))
+        check(code, f"gj_real {tier} solve launch")
     K2[A.dtype].launches += 1
     K2_TIERS[A.dtype][tier] += 1
     return x, valid
@@ -266,13 +267,14 @@ def gj_inverse_cuda(A: torch.Tensor, eps: float = EPS,
     lib = load_library()
     inv = torch.empty((nb, n, n), dtype=A.dtype, device=A.device)
     valid = torch.empty((nb,), dtype=torch.bool, device=A.device)
-    ws = _workspace(lib, A, n, inv=True, tier=tier)
-    fn = lib.gj_real_inverse_f64 if A.dtype == torch.float64 \
-        else lib.gj_real_inverse_f32
-    code = fn(ptr(A), ptr(inv), ptr(valid),
-              ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,
-              float(eps), CODES[tier], stream_ptr(A.device))
-    check(code, f"gj_real {tier} inverse launch")
+    with torch.cuda.device(A.device):
+        ws = _workspace(lib, A, n, inv=True, tier=tier)
+        fn = lib.gj_real_inverse_f64 if A.dtype == torch.float64 \
+            else lib.gj_real_inverse_f32
+        code = fn(ptr(A), ptr(inv), ptr(valid),
+                  ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,
+                  float(eps), CODES[tier], stream_ptr(A.device))
+        check(code, f"gj_real {tier} inverse launch")
     K3[A.dtype].launches += 1
     K3_TIERS[A.dtype][tier] += 1
     return inv, valid
@@ -300,14 +302,16 @@ def gj_solve_multi_cuda(A: torch.Tensor, B: torch.Tensor, eps: float = EPS,
     X = torch.empty((nb, n, r), dtype=A.dtype, device=A.device)
     valid = torch.empty((nb,), dtype=torch.bool, device=A.device)
     dbl = A.dtype == torch.float64
-    n_ws = lib.gj_real_multi_workspace_systems(n, r, nb, int(dbl),
-                                               CODES[tier])
-    ws = workspace((n_ws, n, n + r), A, "K2 multi") if n_ws else None
-    fn = lib.gj_real_solve_multi_f64 if dbl else lib.gj_real_solve_multi_f32
-    code = fn(ptr(A), ptr(B), ptr(X), ptr(valid),
-              ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n, r,
-              float(eps), CODES[tier], stream_ptr(A.device))
-    check(code, f"gj_real multi {tier} launch")
+    with torch.cuda.device(A.device):
+        n_ws = lib.gj_real_multi_workspace_systems(n, r, nb, int(dbl),
+                                                   CODES[tier])
+        ws = workspace((n_ws, n, n + r), A, "K2 multi") if n_ws else None
+        fn = lib.gj_real_solve_multi_f64 if dbl \
+            else lib.gj_real_solve_multi_f32
+        code = fn(ptr(A), ptr(B), ptr(X), ptr(valid),
+                  ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,
+                  r, float(eps), CODES[tier], stream_ptr(A.device))
+        check(code, f"gj_real multi {tier} launch")
     K2[A.dtype].launches += 1
     K2_TIERS[A.dtype][tier] += 1
     K2_MULTI[A.dtype].launches += 1

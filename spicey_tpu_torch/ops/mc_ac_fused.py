@@ -513,13 +513,14 @@ def mc_ac_fused_cuda(freqs: torch.Tensor, values: torch.Tensor,
     valid = torch.empty((F, B), dtype=torch.bool, device=values.device)
     fn = lib.mc_ac_fused_f64 if values.dtype == torch.float64 \
         else lib.mc_ac_fused_f32
-    code = fn(ptr(freqs), ptr(values), F, B, ptr(packed.flat),
-              packed.flat.shape[0], ptr(packed.terms), ptr(packed.zeros),
-              packed.zeros.shape[0], ptr(packed.row_ent),
-              ptr(packed.row_ptr), n, node_idx, float(eps),
-              FORMS.index(form), fused_group_for(n), ptr(mag), ptr(valid),
-              stream_ptr(values.device))
-    check(code, f"mc_ac_fused {form} launch")
+    with torch.cuda.device(values.device):
+        code = fn(ptr(freqs), ptr(values), F, B, ptr(packed.flat),
+                  packed.flat.shape[0], ptr(packed.terms), ptr(packed.zeros),
+                  packed.zeros.shape[0], ptr(packed.row_ent),
+                  ptr(packed.row_ptr), n, node_idx, float(eps),
+                  FORMS.index(form), fused_group_for(n), ptr(mag), ptr(valid),
+                  stream_ptr(values.device))
+        check(code, f"mc_ac_fused {form} launch")
     K5[values.dtype].launches += 1
     K5_FORMS[values.dtype][form] += 1
     return mag.T, valid.T
@@ -548,11 +549,13 @@ def mc_ac_fused_x_cuda(freqs: torch.Tensor, values: torch.Tensor,
     fn = lib.mc_ac_fused_x_f64 if values.dtype == torch.float64 \
         else lib.mc_ac_fused_x_f32
     rr, ri = (None, None) if rhs is None else (ptr(rhs[0]), ptr(rhs[1]))
-    code = fn(ptr(freqs), ptr(values), F, B, ptr(packed.row_ent),
-              ptr(packed.row_ptr), ptr(packed.terms), n, fused_group_for(n),
-              float(eps), rr, ri, ptr(xr), ptr(xi), ptr(valid),
-              stream_ptr(values.device))
-    check(code, "mc_ac_fused_x launch")
+    with torch.cuda.device(values.device):
+        code = fn(ptr(freqs), ptr(values), F, B, ptr(packed.row_ent),
+                  ptr(packed.row_ptr), ptr(packed.terms), n,
+                  fused_group_for(n), float(eps), rr, ri, ptr(xr), ptr(xi),
+                  ptr(valid),
+                  stream_ptr(values.device))
+        check(code, "mc_ac_fused_x launch")
     K7[values.dtype].launches += 1
     return xr, xi, valid
 

@@ -216,14 +216,15 @@ def _plan(fn, key: tuple, form: str, n: int, per_variant: int, B: int,
     key = key + (form, n, per_variant, index)
     if key not in _RESIDENT:
         res = {}
-        for tpb in BLOCK_SIZES:
-            smem = warp_slots(tpb) * per_variant
-            if smem > SMEM_MAX:
-                continue
-            got = fn(FORMS.index(form), n, tpb, smem)
-            if got < 0:
-                check(-got, f"{key[0]} occupancy")
-            res[tpb] = got
+        with torch.cuda.device(index):
+            for tpb in BLOCK_SIZES:
+                smem = warp_slots(tpb) * per_variant
+                if smem > SMEM_MAX:
+                    continue
+                got = fn(FORMS.index(form), n, tpb, smem)
+                if got < 0:
+                    check(-got, f"{key[0]} occupancy")
+                res[tpb] = got
         _RESIDENT[key] = res
     return launch_plan(B, _N_SM[index], _RESIDENT[key])
 
@@ -860,17 +861,18 @@ def mc_tran_fused_cuda(vs_grid: torch.Tensor, values: torch.Tensor,
         raise ValueError("K8: the deck's per-variant state does not fit "
                          "32 variants in one block's shared memory")
     lib = load_library()
-    plan = k8_launch_plan(values, pattern, form)
     out = torch.empty((n_steps, B), dtype=torch.float32, device=values.device)
     valid = torch.empty((B,), dtype=torch.bool, device=values.device)
-    code = lib.mc_tran_fused_f32(
-        ptr(vs_grid), vs_grid.shape[1], n_steps, ptr(values), B,
-        ptr(pattern.ent), pattern.ent.shape[0], ptr(pattern.terms),
-        ptr(pattern.zeros), pattern.zeros.shape[0], ptr(pattern.bsrc),
-        pattern.bsrc.shape[0], ptr(pattern.cst), n_c, ptr(pattern.lst), n_l,
-        pattern.b_rows, n, node_idx, float(eps), FORMS.index(form),
-        plan.tpb, ptr(out), ptr(valid), stream_ptr(values.device))
-    check(code, f"mc_tran_fused {form} launch")
+    with torch.cuda.device(values.device):
+        plan = k8_launch_plan(values, pattern, form)
+        code = lib.mc_tran_fused_f32(
+            ptr(vs_grid), vs_grid.shape[1], n_steps, ptr(values), B,
+            ptr(pattern.ent), pattern.ent.shape[0], ptr(pattern.terms),
+            ptr(pattern.zeros), pattern.zeros.shape[0], ptr(pattern.bsrc),
+            pattern.bsrc.shape[0], ptr(pattern.cst), n_c, ptr(pattern.lst),
+            n_l, pattern.b_rows, n, node_idx, float(eps), FORMS.index(form),
+            plan.tpb, ptr(out), ptr(valid), stream_ptr(values.device))
+        check(code, f"mc_tran_fused {form} launch")
     K8[torch.float32].launches += 1
     K8_FORMS[form] += 1
     return out.T, valid
@@ -964,24 +966,26 @@ def mc_tran_fused_nr_cuda(vs_grid: torch.Tensor, values: torch.Tensor,
         raise ValueError("K9: the deck's per-variant state does not fit "
                          "32 variants in one block's shared memory")
     lib = load_nr_library()
-    plan = k9_launch_plan(values, pattern, form)
     k = nr_constants(vd_scale)
     out = torch.empty((n_steps, B), dtype=torch.float32, device=values.device)
     valid = torch.empty((B,), dtype=torch.bool, device=values.device)
     n_c, n_l, n_s, n_d, n_m, n_q, has_d, has_q = counts
-    code = lib.mc_tran_nr_f32(
-        ptr(vs_grid), vs_grid.shape[1], n_steps, ptr(values),
-        pattern.n_rows, B, ptr(pattern.ent), pattern.ent.shape[0],
-        ptr(pattern.terms), ptr(pattern.zeros), pattern.zeros.shape[0],
-        ptr(pattern.bsrc), pattern.bsrc.shape[0], ptr(pattern.cst), n_c,
-        ptr(pattern.lst), n_l, ptr(pattern.slist), n_s, ptr(pattern.dlist),
-        n_d, ptr(pattern.mlist), n_m, ptr(pattern.qlist), n_q,
-        ptr(pattern.pol), ptr(pattern.dchg), has_d, ptr(pattern.qchg), has_q,
-        pattern.row_invdt, n, node_idx, float(eps), k["vd_lo"], k["vd_hi"],
-        k["vt_q"], k["q_lo"], k["q_hi"], k["tol"], int(nr == "converged"),
-        int(max_nr), FORMS.index(form), plan.tpb, ptr(out), ptr(valid),
-        stream_ptr(values.device))
-    check(code, f"mc_tran_nr {form} launch")
+    with torch.cuda.device(values.device):
+        plan = k9_launch_plan(values, pattern, form)
+        code = lib.mc_tran_nr_f32(
+            ptr(vs_grid), vs_grid.shape[1], n_steps, ptr(values),
+            pattern.n_rows, B, ptr(pattern.ent), pattern.ent.shape[0],
+            ptr(pattern.terms), ptr(pattern.zeros), pattern.zeros.shape[0],
+            ptr(pattern.bsrc), pattern.bsrc.shape[0], ptr(pattern.cst), n_c,
+            ptr(pattern.lst), n_l, ptr(pattern.slist), n_s,
+            ptr(pattern.dlist), n_d, ptr(pattern.mlist), n_m,
+            ptr(pattern.qlist), n_q, ptr(pattern.pol), ptr(pattern.dchg),
+            has_d, ptr(pattern.qchg), has_q, pattern.row_invdt, n, node_idx,
+            float(eps), k["vd_lo"], k["vd_hi"], k["vt_q"], k["q_lo"],
+            k["q_hi"], k["tol"], int(nr == "converged"), int(max_nr),
+            FORMS.index(form), plan.tpb, ptr(out), ptr(valid),
+            stream_ptr(values.device))
+        check(code, f"mc_tran_nr {form} launch")
     K9[torch.float32].launches += 1
     K9_FORMS[form] += 1
     return out.T, valid

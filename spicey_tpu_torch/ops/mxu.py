@@ -298,18 +298,19 @@ def _launch(ts: tuple, eps: float, what: str) -> tuple[torch.Tensor, ...]:
     xs = [torch.empty((nb, n), dtype=A.dtype, device=A.device)
           for _ in range(planes)]
     valid = torch.empty((nb,), dtype=torch.bool, device=A.device)
-    ws = None
-    n_ws = lib.mxu_gj_workspace_systems(n, nb, planes, int(dbl), p_)
-    if n_ws:
-        # the plan keeps the planes in global memory: one slot per
-        # resident block, whatever the batch
-        ws = workspace((n_ws, planes, n, n + 1), A, what)
-    kind = "real" if planes == 1 else "complex"
-    fn = getattr(lib, f"mxu_gj_{kind}_{'f64' if dbl else 'f32'}")
-    code = fn(*[ptr(t) for t in ts], *[ptr(x) for x in xs], ptr(valid),
-              ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,
-              p_, float(eps), stream_ptr(A.device))
-    check(code, f"{what} launch")
+    with torch.cuda.device(A.device):
+        ws = None
+        n_ws = lib.mxu_gj_workspace_systems(n, nb, planes, int(dbl), p_)
+        if n_ws:
+            # the plan keeps the planes in global memory: one slot per
+            # resident block, whatever the batch
+            ws = workspace((n_ws, planes, n, n + 1), A, what)
+        kind = "real" if planes == 1 else "complex"
+        fn = getattr(lib, f"mxu_gj_{kind}_{'f64' if dbl else 'f32'}")
+        code = fn(*[ptr(t) for t in ts], *[ptr(x) for x in xs], ptr(valid),
+                  ctypes.c_void_p(0 if ws is None else ws.data_ptr()), nb, n,
+                  p_, float(eps), stream_ptr(A.device))
+        check(code, f"{what} launch")
     (K10a if planes == 1 else K10b)[A.dtype].launches += 1
     return (*xs, valid)
 

@@ -13,9 +13,11 @@ the two-stage amplifier's .op/.tf/.ac/.noise, an ``op_batch``, a
 transient and its f32 ``method="pallas"`` Monte-Carlo), a deck with
 ``.pz``, ``.sens``, ``.four``, ``.meas`` and a ``.control`` block that
 writes a rawfile, the CLI (``__main__.main([..., "--cpu"])``), a
-transient sensitivity of the boost converter and an adaptive RC
-transient; an AST
-scan asserts that no module of the port imports jax or the JAX package.
+transient sensitivity of the boost converter, an adaptive RC
+transient and an ``mc_ac_stats`` over a mesh of repeated CPU devices
+(``make_mesh``, ``sharder``; and ``make_mesh()`` raising with no card); an
+AST scan asserts that no module of the port, ``parallel/`` included,
+imports jax or the JAX package.
 """
 
 import ast
@@ -134,6 +136,19 @@ ad = st.simulate_tran_adaptive(st.parse_netlist(
     "t\nV1 1 0 dc 5\nR1 1 2 1k\nC1 2 0 1u\n.tran 10u 10m\n"), rtol=1e-3,
     device="cpu")
 assert not ad.exhausted and ad.times[-1] == 10e-3
+put = st.sharder(st.make_mesh({"batch": 4}, devices=["cpu"] * 4))
+ms = st.mc_ac_stats(deck, {"r1": [30.0, 31.0, 32.0, 33.0, 34.0]}, node="2",
+                    device_put=put)
+one = st.mc_ac_stats(deck, {"r1": [30.0, 31.0, 32.0, 33.0, 34.0]}, node="2",
+                     device="cpu")
+assert ms.n_valid == 5 and np.allclose(ms.mean, one.mean, rtol=1e-13)
+if not torch.cuda.is_available():
+    try:
+        st.make_mesh()
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("make_mesh() fell back to the CPU")
 print("OK")
 """
 
@@ -177,7 +192,7 @@ def _imports(tree: ast.AST):
 
 def test_no_port_module_imports_jax():
     files = sorted(PORT.rglob("*.py"))
-    assert len(files) > 15
+    assert len(files) > 15 and PORT / "parallel" / "mesh.py" in files
     for path in files:
         for name in _imports(ast.parse(path.read_text(), str(path))):
             root = name.split(".")[0]

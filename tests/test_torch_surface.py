@@ -159,10 +159,10 @@ def test_waveform_and_number_helpers_match_jax():
 
 
 def test_all_covers_the_jax_surface():
-    """Every public name of spicey_tpu is in the port's __all__ but the
-    mesh (make_mesh, sharder: ROADMAP §1 item 9) and warmup (item 10)."""
+    """Every public name of spicey_tpu is in the port's __all__, the mesh
+    (make_mesh, sharder) and warmup included."""
     missing = set(sj.__all__) - set(st.__all__)
-    assert missing == {"make_mesh", "sharder", "warmup"}
+    assert missing == set()
     for name in st.__all__:
         assert hasattr(st, name), name
 
@@ -170,16 +170,15 @@ def test_all_covers_the_jax_surface():
 def test_public_attributes_cover_the_jax_package():
     """Every public module attribute of spicey_tpu (not only its __all__,
     which leaves out sensitivity_*, fit_*, FitResult,
-    simulate_tran_adaptive, AdaptiveTranResult and count) is in the port
-    but the mesh (make_mesh, sharder: the rest of ROADMAP §1 item 9) and
-    warmup (item 10)."""
+    simulate_tran_adaptive, AdaptiveTranResult and count) is in the port,
+    the mesh (make_mesh, sharder) and warmup included."""
     import types
 
     def public(mod):
         return {n for n in dir(mod) if not n.startswith("_")
                 and not isinstance(getattr(mod, n), types.ModuleType)}
 
-    assert public(sj) - public(st) == {"make_mesh", "sharder", "warmup"}
+    assert public(sj) - public(st) == set()
     for name in ("sensitivity_ac", "sensitivity_tran", "fit_ac", "fit_tran",
                  "FitResult", "simulate_tran_adaptive", "AdaptiveTranResult",
                  "count"):

@@ -13,7 +13,8 @@ the knobs by argument and by environment variable). The decks are
 ``tests/test_mc.py``'s and ``tests/test_batch.py``'s (RLC, RC with DC
 overrides, a K-coupled transformer), BE and trap, the full trajectories
 of ``simulate_tran_batch`` included. The JAX package's sharded-mesh case
-(``tests/test_mc.py:582``) waits for the port's mesh (ROADMAP item 9).
+(``tests/test_mc.py:582``) has its counterpart in
+``tests/test_torch_mesh.py``.
 """
 
 from types import SimpleNamespace
