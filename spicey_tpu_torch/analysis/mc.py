@@ -53,6 +53,15 @@ flat deck past N = 128 solves dense (K1, K2 or K3 in a global workspace;
 Exact quantiles follow ``jnp.nanpercentile``'s linear interpolation, done
 by hand: ``torch.quantile`` refuses inputs above 2^24 elements, and the
 1M-variant x 201-frequency response is 2e8.
+
+Spans (utils/profiling.py, recorded inside ``profiled()`` only): each
+entry opens a span of its own name at its first line, holding four in
+order: ``prepare`` (the argument checks, the values tiled and copied to
+the device, the source grid, the route's inputs: the fused pattern and
+value rows, or the loop's arrays, or the AC phasors and pattern),
+``solve`` (the route over the mesh's blocks), ``reduce`` (the statistics
+on the device) and ``fetch`` (the one transfer to the host, counted as
+``sync.fetch``).
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
@@ -75,6 +85,7 @@ from ..ops.mc_ac_fused import PackedPattern, combine_values, mc_ac_fused
 from ..parallel.mesh import VARIANTS, map_blocks, mesh_of
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 from .ac import _ac_sweep_core, build_frequency_array, index_tensor
 from .batch import (_batch_size, _batch_values, _batched_ext, _batched_nl,
                     _batched_tl, _consumed, _fused_pattern, _pad_v_phasors,
@@ -210,6 +221,42 @@ def _reduce(resp: torch.Tensor, valid: torch.Tensor, qs: tuple,
                        n_valid)
 
 
+@dataclass
+class _Route:
+    """A Monte-Carlo call once prepared: the route's function ``run`` and
+    its ``args`` (placed over a mesh by ``specs``), the variant count, the
+    grid and what the statistics ask for."""
+
+    run: Callable
+    args: dict
+    specs: dict
+    n_variants: int
+    grid: np.ndarray
+    quantiles: tuple
+    quantile_method: str
+    device_put: object
+
+
+def _solve_reduce_fetch(route: _Route) -> MCStats:
+    """The shared tail of the four entries, one span each: ``solve`` (the
+    route, over the mesh's blocks), ``reduce`` (the statistics on the
+    device) and ``fetch`` (one transfer to the host)."""
+    with span("solve"):
+        resp, valid = map_blocks(route.device_put, route.run, route.args,
+                                 route.specs, ({"batch": 0}, {"batch": 0}),
+                                 route.n_variants)
+    with span("reduce"):
+        packed = _reduce(resp, valid,
+                         tuple(float(q) for q in route.quantiles),
+                         route.quantile_method)
+    with span("fetch"):
+        count("sync.fetch")
+        res = _unpack_stats(packed.cpu().numpy(), route.quantiles,
+                            route.grid)
+    res.n_total = route.n_variants
+    return res
+
+
 def _batch_mesh(device_put, B: int) -> bool:
     """Whether the fused kernels may run per device on the mesh behind a
     ``sharder`` callable (the JAX package's rule, mc.py:467-481): a
@@ -280,14 +327,14 @@ def _check_args(precision: str, quantile_method: str) -> torch.dtype:
     return _DTYPES[precision]
 
 
-def _run(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
-         c_vals: torch.Tensor, l_vals: torch.Tensor, ext: dict,
-         node: str, quantiles, method: str, fdt: torch.dtype,
-         chunk: int | None, quantile_method: str,
-         device: torch.device | str, tl: dict | None = None,
-         device_put=None) -> MCStats:
-    """Shared tail of mc_ac_stats and mc_ac_sampled: drive phasors,
-    index tensors, the route, the core, one transfer to the host. ``tl``:
+def _ac_route(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
+              c_vals: torch.Tensor, l_vals: torch.Tensor, ext: dict,
+              node: str, quantiles, method: str, fdt: torch.dtype,
+              chunk: int | None, quantile_method: str,
+              device: torch.device | str, tl: dict | None = None,
+              device_put=None) -> _Route:
+    """The rest of mc_ac_stats' and mc_ac_sampled's preparation: drive
+    phasors, index tensors, the structured plan and the route. ``tl``:
     the T lines, Z0/Td tiled to the variants. ``device_put``: the
     variants split over a mesh whose first device is ``device``, the
     responses gathered there and reduced once."""
@@ -326,16 +373,10 @@ def _run(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
         lk=lk_arrays(tensors, device, fdt), tl=tl, plan=plan)
     run = functools.partial(_mc_ac_responses, nvar=tensors.nvar,
                             node_idx=node_idx, method=method, chunk=chunk)
-    mag, valid = map_blocks(
-        device_put, run, args,
-        dict.fromkeys(("r_vals", "c_vals", "l_vals", "v_re", "v_im", "ext",
-                       "tl"), VARIANTS),
-        ({"batch": 0}, {"batch": 0}), B)
-    packed = _reduce(mag, valid, tuple(float(q) for q in quantiles),
-                     quantile_method)
-    res = _unpack_stats(packed.cpu().numpy(), tuple(quantiles), freqs)
-    res.n_total = B
-    return res
+    return _Route(run, args,
+                  dict.fromkeys(("r_vals", "c_vals", "l_vals", "v_re",
+                                 "v_im", "ext", "tl"), VARIANTS),
+                  B, freqs, tuple(quantiles), quantile_method, device_put)
 
 
 def mc_ac_stats(
@@ -371,32 +412,40 @@ def mc_ac_stats(
     the mesh's first device (``device=None`` means it; another device
     raises ``ValueError``), where the statistics reduce once.
     """
-    device = resolve_device(device, device_put)
-    ckt = _resolve(circuit, dialect=dialect)
-    if ckt.ac is None:
-        raise ValueError("netlist has no .ac analysis")
-    if tensors is None:
-        tensors = build_tensors(ckt)
-    fdt = _check_args(precision, quantile_method)
-    B = _batch_size(overrides)
-    _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
-               _tl_names(tensors),
-               tensors.v_names, tensors.i_names, tensors.g_names,
-               tensors.e_names, tensors.f_names, tensors.h_names], overrides)
-    r_vals = _batch_values(tensors.r_vals, tensors.r_names, overrides, B)
-    c_vals = _batch_values(tensors.c_vals, tensors.c_names, overrides, B)
-    l_vals = _batch_values(tensors.l_vals, tensors.l_names, overrides, B)
-    if np.any(r_vals <= 0):
-        raise ValueError("R values must be > 0")
+    with span("mc_ac_stats"):
+        with span("prepare"):
+            device = resolve_device(device, device_put)
+            ckt = _resolve(circuit, dialect=dialect)
+            if ckt.ac is None:
+                raise ValueError("netlist has no .ac analysis")
+            if tensors is None:
+                tensors = build_tensors(ckt)
+            fdt = _check_args(precision, quantile_method)
+            B = _batch_size(overrides)
+            _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
+                       _tl_names(tensors),
+                       tensors.v_names, tensors.i_names, tensors.g_names,
+                       tensors.e_names, tensors.f_names, tensors.h_names],
+                      overrides)
+            r_vals = _batch_values(tensors.r_vals, tensors.r_names,
+                                   overrides, B)
+            c_vals = _batch_values(tensors.c_vals, tensors.c_names,
+                                   overrides, B)
+            l_vals = _batch_values(tensors.l_vals, tensors.l_names,
+                                   overrides, B)
+            if np.any(r_vals <= 0):
+                raise ValueError("R values must be > 0")
 
-    def dev(a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=fdt, device=device)
+            def dev(a: np.ndarray) -> torch.Tensor:
+                return torch.as_tensor(a, dtype=fdt, device=device)
 
-    return _run(ckt, tensors, dev(r_vals), dev(c_vals), dev(l_vals),
+            route = _ac_route(
+                ckt, tensors, dev(r_vals), dev(c_vals), dev(l_vals),
                 _batched_ext(tensors, overrides, B, device, fdt), node,
                 quantiles, method, fdt, chunk, quantile_method, device,
                 tl=_batched_tl(tensors, overrides, B, device, fdt),
                 device_put=device_put)
+        return _solve_reduce_fetch(route)
 
 
 def _sample_targets(tensors, spreads: dict[str, float]) -> list[tuple]:
@@ -460,23 +509,27 @@ def mc_ac_sampled(
     (B, nE) host arrays ever exist. The draws differ from the JAX
     package's ``jax.random`` stream for the same key. Everything else
     matches mc_ac_stats."""
-    device = resolve_device(device)
-    ckt = _resolve(circuit, dialect=dialect)
-    if ckt.ac is None:
-        raise ValueError("netlist has no .ac analysis")
-    if tensors is None:
-        tensors = build_tensors(ckt)
-    fdt = _check_args(precision, quantile_method)
-    targets = _sample_targets(tensors, spreads)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(key))
-    z = torch.randn((B, len(targets)), generator=gen, dtype=torch.float64,
-                    device=device)
-    vals = _spread_values(tensors, targets, z, dist)
-    return _run(ckt, tensors, vals["r"], vals["c"], vals["l"],
+    with span("mc_ac_sampled"):
+        with span("prepare"):
+            device = resolve_device(device)
+            ckt = _resolve(circuit, dialect=dialect)
+            if ckt.ac is None:
+                raise ValueError("netlist has no .ac analysis")
+            if tensors is None:
+                tensors = build_tensors(ckt)
+            fdt = _check_args(precision, quantile_method)
+            targets = _sample_targets(tensors, spreads)
+            gen = torch.Generator(device=device)
+            gen.manual_seed(int(key))
+            z = torch.randn((B, len(targets)), generator=gen,
+                            dtype=torch.float64, device=device)
+            vals = _spread_values(tensors, targets, z, dist)
+            route = _ac_route(
+                ckt, tensors, vals["r"], vals["c"], vals["l"],
                 _batched_ext(tensors, {}, B, device, fdt), node, quantiles,
                 method, fdt, chunk, quantile_method, device,
                 tl=_batched_tl(tensors, {}, B, device, fdt))
+        return _solve_reduce_fetch(route)
 
 
 def _fused_tran_pattern(ckt: ParsedCircuit, tensors, method: str,
@@ -510,7 +563,16 @@ def _fused_tran_pattern(ckt: ParsedCircuit, tensors, method: str,
 def tran_value_slab(tensors, r_vals: torch.Tensor, c_vals: torch.Tensor,
                     l_vals: torch.Tensor, ext: dict, nl: dict,
                     dt: float) -> torch.Tensor:
-    """The fused tier's (n_rows, B) float32 value slab in
+    """The fused tier's (n_rows, B) float32 value slab, contiguous: the
+    transpose of ``_value_rows``."""
+    return _value_rows(tensors, r_vals, c_vals, l_vals, ext, nl,
+                       dt).T.contiguous()
+
+
+def _value_rows(tensors, r_vals: torch.Tensor, c_vals: torch.Tensor,
+                l_vals: torch.Tensor, ext: dict, nl: dict,
+                dt: float) -> torch.Tensor:
+    """The fused tier's float32 values, (B, n_rows), one column per row of
     build_tran_pattern's row order: [R | gc = C/dt | gl = dt/L | g | e |
     f | h | switch 1/max(|Ron|, EPS) | 1/max(|Roff|, EPS) | Von | Voff |
     diode Is | N * VT_300K | MOSFET beta | Vto | lambda | BJT Is | Bf |
@@ -547,7 +609,7 @@ def tran_value_slab(tensors, r_vals: torch.Tensor, c_vals: torch.Tensor,
         cols += [to2d(t.q_chg[:, j]) for j in (0, 2, 3, 4, 1, 5, 6, 7, 8)]
     if t.has_d_charge or t.has_q_charge:
         cols += [to2d(np.full(1, 1.0 / dt_c))]
-    return torch.cat(cols, dim=1).T.to(torch.float32).contiguous()
+    return torch.cat(cols, dim=1).to(torch.float32)
 
 
 def _nr_mode(tensors, ckt: ParsedCircuit | None = None
@@ -561,19 +623,17 @@ def _nr_mode(tensors, ckt: ParsedCircuit | None = None
     return "spicey", MAX_NR_ITERS
 
 
-def _mc_tran_fused_responses(vs_grid: torch.Tensor, r_vals: torch.Tensor,
-                             c_vals: torch.Tensor, l_vals: torch.Tensor,
-                             ext: dict, nl: dict, tensors, dt: float,
+def _mc_tran_fused_responses(vs_grid: torch.Tensor, values: torch.Tensor,
                              pattern: mtf.TranPattern, node_idx: int,
                              vd_scale: float = 1.0, nr: str = "spicey",
                              max_nr: int = MAX_NR_ITERS
                              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K8 or K9 on the variants' value slab (``tran_value_slab``): V(node)
-    (B, S+1) and ``valid`` (B,)."""
-    values = tran_value_slab(tensors, r_vals, c_vals, l_vals, ext, nl, dt)
+    """K8 or K9 on the variants' values (``_value_rows``, (B, n_rows)),
+    laid out as the kernels' (n_rows, B) slab: V(node) (B, S+1) and
+    ``valid`` (B,)."""
     return mtf.mc_tran_fused(
-        vs_grid.to(torch.float32).contiguous(), values, pattern, node_idx,
-        vd_scale=vd_scale, nr=nr, max_nr=max_nr)
+        vs_grid.to(torch.float32).contiguous(), values.T.contiguous(),
+        pattern, node_idx, vd_scale=vd_scale, nr=nr, max_nr=max_nr)
 
 
 def _slice_arrays(tree: object, sl: slice, B: int) -> object:
@@ -698,28 +758,28 @@ def _check_tran_args(ckt: ParsedCircuit, method: str,
     return _check_args(precision, quantile_method)
 
 
-def _run_tran(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
-              c_vals: torch.Tensor, l_vals: torch.Tensor, ext: dict,
-              nl: dict, vs_grid: np.ndarray, times: np.ndarray, dt: float,
-              v_over: dict, node: str, quantiles, method: str,
-              precision: str, integration: str, chunk: int | None,
-              quantile_method: str, device: torch.device,
-              tl: dict | None = None, time_parallel: str = "auto",
-              tp_crossover: float | None = None,
-              tp_mem_budget: float | None = None,
-              device_put=None) -> MCStats:
-    """Shared tail of mc_tran_stats and mc_tran_sampled: per-variant
-    source values, the route, the core, one transfer to the host.
-    ``tl``: the T lines (Z0/Td batched or not), None without. The routes
-    in the JAX package's order: the fused kernels, then the Schur plan,
-    then the time-parallel core, else the loop, each chosen for the whole
-    batch. ``device_put``: the variants split over a mesh whose first
-    device is ``device``, each piece run on that route, the responses
-    gathered there and reduced once."""
+def _tran_route(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
+                c_vals: torch.Tensor, l_vals: torch.Tensor, ext: dict,
+                nl: dict, vs_grid: np.ndarray, times: np.ndarray, dt: float,
+                v_over: dict, node: str, quantiles, method: str,
+                precision: str, integration: str, chunk: int | None,
+                quantile_method: str, device: torch.device,
+                tl: dict | None = None, time_parallel: str = "auto",
+                tp_crossover: float | None = None,
+                tp_mem_budget: float | None = None,
+                device_put=None) -> _Route:
+    """The rest of mc_tran_stats' and mc_tran_sampled's preparation:
+    per-variant source values and the route with its inputs (the fused
+    kernels' pattern and value rows, or the loop's arrays). ``tl``: the T
+    lines (Z0/Td batched or not), None without. The routes in the JAX
+    package's order: the fused kernels, then the Schur plan, then the
+    time-parallel core, else the loop, each chosen for the whole batch.
+    ``device_put``: the variants split over a mesh whose first device is
+    ``device``, each piece run on that route, the responses gathered there
+    and reduced once."""
     fdt = _DTYPES[precision]
     B = r_vals.shape[0]
     node_idx = [n.upper() for n in tensors.node_names].index(node.upper())
-    qs = tuple(float(q) for q in quantiles)
     vs = torch.as_tensor(vs_grid, dtype=fdt, device=device)
     if v_over:
         # time-major (S+1, B, nSrc): one DC value per variant and source
@@ -739,11 +799,10 @@ def _run_tran(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
         pattern = None
     if pattern is not None:
         run = functools.partial(
-            _mc_tran_fused_responses, tensors=tensors, dt=dt,
-            node_idx=node_idx, vd_scale=float(tensors.vt) / VT_300K, nr=nr,
-            max_nr=max_nr)
-        args = dict(vs_grid=vs, r_vals=r_vals, c_vals=c_vals, l_vals=l_vals,
-                    ext=ext, nl=nl, pattern=pattern)
+            _mc_tran_fused_responses, node_idx=node_idx,
+            vd_scale=float(tensors.vt) / VT_300K, nr=nr, max_nr=max_nr)
+        args = dict(vs_grid=vs, pattern=pattern, values=_value_rows(
+            tensors, r_vals, c_vals, l_vals, ext, nl, dt))
     else:
         def cast(d: dict) -> dict:
             return {k: (v if k.endswith("idx") else v.to(fdt))
@@ -777,15 +836,10 @@ def _run_tran(ckt: ParsedCircuit, tensors, r_vals: torch.Tensor,
             args = dict(vs_grid=vs, arr=arr,
                         vt_scale=vt_scale_of(tensors, device, fdt),
                         plan=plan)
-    specs = dict.fromkeys(("r_vals", "c_vals", "l_vals", "ext", "nl", "arr"),
-                          VARIANTS)
+    specs = dict.fromkeys(("values", "arr"), VARIANTS)
     specs["vs_grid"] = (None, "batch", None) if vs.ndim == 3 else None
-    v_node, valid = map_blocks(device_put, run, args, specs,
-                               ({"batch": 0}, {"batch": 0}), B)
-    packed = _reduce(v_node, valid, qs, quantile_method)
-    res = _unpack_stats(packed.cpu().numpy(), tuple(quantiles), times)
-    res.n_total = B
-    return res
+    return _Route(run, args, specs, B, times, tuple(quantiles),
+                  quantile_method, device_put)
 
 
 def mc_tran_stats(
@@ -834,39 +888,43 @@ def mc_tran_stats(
     runs it (chunked within the piece), except that the fused kernels K8
     and K9 run per device only on a plain 1D 'batch' mesh dividing B, and
     the pieces take the loop or the time-parallel core otherwise."""
-    device = resolve_device(device, device_put)
-    ckt = _resolve(circuit, dialect=dialect)
-    if tensors is None:
-        tensors = build_tensors(ckt)
-    fdt = _check_tran_args(ckt, method, precision, quantile_method,
-                           time_parallel, integration)
-    B = _batch_size(overrides)
-    _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
-               _tl_names(tensors),
-               tensors.v_names, tensors.i_names, tensors.g_names,
-               tensors.e_names, tensors.f_names, tensors.h_names,
-               tensors.m_names, tensors.q_names], overrides)
+    with span("mc_tran_stats"):
+        with span("prepare"):
+            device = resolve_device(device, device_put)
+            ckt = _resolve(circuit, dialect=dialect)
+            if tensors is None:
+                tensors = build_tensors(ckt)
+            fdt = _check_tran_args(ckt, method, precision, quantile_method,
+                                   time_parallel, integration)
+            B = _batch_size(overrides)
+            _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
+                       _tl_names(tensors),
+                       tensors.v_names, tensors.i_names, tensors.g_names,
+                       tensors.e_names, tensors.f_names, tensors.h_names,
+                       tensors.m_names, tensors.q_names], overrides)
 
-    def vals(base: np.ndarray, names: tuple) -> torch.Tensor:
-        return torch.as_tensor(_batch_values(base, names, overrides, B),
-                               dtype=fdt, device=device)
+            def vals(base: np.ndarray, names: tuple) -> torch.Tensor:
+                return torch.as_tensor(
+                    _batch_values(base, names, overrides, B), dtype=fdt,
+                    device=device)
 
-    dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
-    times = np.arange(steps + 1, dtype=np.float64) * dt
-    v_lower = {n.lower() for n in tensors.v_names}
-    return _run_tran(
-        ckt, tensors, vals(tensors.r_vals, tensors.r_names),
-        vals(tensors.c_vals, tensors.c_names),
-        vals(tensors.l_vals, tensors.l_names),
-        _batched_ext(tensors, overrides, B, device, fdt),
-        _batched_nl(tensors, overrides, B, device, fdt),
-        sample_source_values(ckt, times), times, dt,
-        {k: v for k, v in overrides.items() if k.lower() in v_lower},
-        node, quantiles, method, precision, integration, chunk,
-        quantile_method, device,
-        tl=_batched_tl(tensors, overrides, B, device, fdt),
-        time_parallel=time_parallel, tp_crossover=tp_crossover,
-        tp_mem_budget=tp_mem_budget, device_put=device_put)
+            dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
+            times = np.arange(steps + 1, dtype=np.float64) * dt
+            v_lower = {n.lower() for n in tensors.v_names}
+            route = _tran_route(
+                ckt, tensors, vals(tensors.r_vals, tensors.r_names),
+                vals(tensors.c_vals, tensors.c_names),
+                vals(tensors.l_vals, tensors.l_names),
+                _batched_ext(tensors, overrides, B, device, fdt),
+                _batched_nl(tensors, overrides, B, device, fdt),
+                sample_source_values(ckt, times), times, dt,
+                {k: v for k, v in overrides.items() if k.lower() in v_lower},
+                node, quantiles, method, precision, integration, chunk,
+                quantile_method, device,
+                tl=_batched_tl(tensors, overrides, B, device, fdt),
+                time_parallel=time_parallel, tp_crossover=tp_crossover,
+                tp_mem_budget=tp_mem_budget, device_put=device_put)
+        return _solve_reduce_fetch(route)
 
 
 def mc_tran_sampled(
@@ -895,26 +953,29 @@ def mc_tran_sampled(
     ``torch.Generator`` on ``device`` seeded with ``key`` (other draws
     than the JAX package's ``jax.random`` for the same key), then the
     routes and options of mc_tran_stats."""
-    device = resolve_device(device)
-    ckt = _resolve(circuit, dialect=dialect)
-    if tensors is None:
-        tensors = build_tensors(ckt)
-    fdt = _check_tran_args(ckt, method, precision, quantile_method,
-                           time_parallel, integration)
-    targets = _sample_targets(tensors, spreads)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(key))
-    z = torch.randn((B, len(targets)), generator=gen, dtype=torch.float64,
-                    device=device)
-    vals = _spread_values(tensors, targets, z, dist)
-    dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
-    times = np.arange(steps + 1, dtype=np.float64) * dt
-    return _run_tran(ckt, tensors, vals["r"], vals["c"], vals["l"],
-                     ext_arrays(tensors, device, fdt),
-                     nl_arrays(tensors, device, fdt),
-                     sample_source_values(ckt, times), times, dt, {}, node,
-                     quantiles, method, precision, integration, chunk,
-                     quantile_method, device,
-                     tl=tl_arrays(tensors, device, fdt),
-                     time_parallel=time_parallel, tp_crossover=tp_crossover,
-                     tp_mem_budget=tp_mem_budget)
+    with span("mc_tran_sampled"):
+        with span("prepare"):
+            device = resolve_device(device)
+            ckt = _resolve(circuit, dialect=dialect)
+            if tensors is None:
+                tensors = build_tensors(ckt)
+            fdt = _check_tran_args(ckt, method, precision, quantile_method,
+                                   time_parallel, integration)
+            targets = _sample_targets(tensors, spreads)
+            gen = torch.Generator(device=device)
+            gen.manual_seed(int(key))
+            z = torch.randn((B, len(targets)), generator=gen,
+                            dtype=torch.float64, device=device)
+            vals = _spread_values(tensors, targets, z, dist)
+            dt, steps = effective_time_step(ckt.tran.dt, ckt.tran.tstop)
+            times = np.arange(steps + 1, dtype=np.float64) * dt
+            route = _tran_route(
+                ckt, tensors, vals["r"], vals["c"], vals["l"],
+                ext_arrays(tensors, device, fdt),
+                nl_arrays(tensors, device, fdt),
+                sample_source_values(ckt, times), times, dt, {}, node,
+                quantiles, method, precision, integration, chunk,
+                quantile_method, device, tl=tl_arrays(tensors, device, fdt),
+                time_parallel=time_parallel, tp_crossover=tp_crossover,
+                tp_mem_budget=tp_mem_budget)
+        return _solve_reduce_fetch(route)

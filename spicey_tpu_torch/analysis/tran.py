@@ -92,6 +92,7 @@ from ..ops.stamps import (pad_solution, stamp_admittance, stamp_current,
 from ..parsing.bexpr import bexpr_partials
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
+from ..utils.profiling import count
 from .results import TranResult
 
 
@@ -700,6 +701,9 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
     sw_states = torch.empty((n_steps,) + lead + (n["s"],), dtype=torch.bool,
                             device=dev)
     tol_eff = max(float(nr_tol), 16.0 * float(torch.finfo(dtype).eps))
+    # Newton passes (one solve and one host sync each), counted here and
+    # handed to the counters once per call
+    passes = 0
     for s in range(n_steps):
         vs_t = vs_grid[s]
         first = s == 0 and not resume
@@ -738,6 +742,7 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
                                      integration, first, second, vt_scale,
                                      e_t=e_t, t=float(times[s]))
                 x_new, solve_ok = solve(A, b, method=method, plan=plan)
+                passes += 1
                 new_on = _switch_update(arr["s_idx"], arr["s_von"],
                                         arr["s_voff"], sw,
                                         pad_solution(x_new, nvar))
@@ -824,6 +829,10 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
         sw_states[s] = sw_on
     if tl is not None:
         carry = carry + [w_hist, torch.tensor(t_cnt, dtype=torch.int32)]
+    count("tran.steps", n_steps)
+    if not linear:
+        count("tran.newton_passes", passes)
+        count("sync.newton_done", passes)
     return xs, sw_states, valid_all, carry
 
 
@@ -852,6 +861,10 @@ def tran_arrays(tensors: CircuitTensors, device: torch.device,
 
     if tl is None:
         tl = tl_arrays(tensors, device, dtype)
+    hist_len = 0
+    if tl is not None:
+        count("sync.tline_td")
+        hist_len = tline_hist_len(tl["td"].cpu().numpy(), dt)
     return {
         "r_idx": idx(tensors.r_idx),
         "r_vals": val(tensors.r_vals) if r_vals is None else r_vals,
@@ -872,8 +885,7 @@ def tran_arrays(tensors: CircuitTensors, device: torch.device,
         "lk": lk_arrays(tensors, device, dtype) if lk is None else lk,
         "tl": tl,
         "bsrc": () if ckt is None else bsrc_static(ckt, tensors.nvar),
-        "hist_len": (0 if tl is None
-                     else tline_hist_len(tl["td"].cpu().numpy(), dt)),
+        "hist_len": hist_len,
     }
 
 
