@@ -7,8 +7,9 @@ line each:
 
   1. build kernels K1 + K4 (csrc/gj_complex.cu), K2 + K3
      (csrc/gj_real.cu), K5 + K7 (csrc/mc_ac_fused.cu), K8
-     (csrc/mc_tran_fused.cu), K9 (csrc/mc_tran_nr.cu) and K10a + K10b
-     (csrc/mxu_gj.cu) with nvcc, one process per source, all started
+     (csrc/mc_tran_fused.cu), K9 (csrc/mc_tran_nr.cu), K10a + K10b
+     (csrc/mxu_gj.cu) and K11 (csrc/stamp_real.cu) with nvcc, one
+     process per source, all started
      together; print the build seconds and the card's name/power limit,
      and the register report of every K7 instance, every instance of
      K5's register and group forms, every register instance of K8 and
@@ -91,8 +92,12 @@ line each:
      RC transient at f32 through K8 and through the batched loop (K3),
      at f64 (K3), and one on-device-sampled f32 run, against the exact
      backward-Euler recurrence at 2e-4 (f32) and 1e-9 (f64); the
-     100k-variant boost converter at f64 and f32 (K2 every Newton pass),
-     n_valid 100k, a 64-variant subset equal to the CPU path at 1e-9;
+     100k-variant boost converter at f64 and f32 (K11 and K2 every
+     Newton pass), n_valid 100k, a 64-variant subset equal to the CPU path
+     at 1e-9; in the transient goldens, the boost-100k runs and phase 19's
+     batches K11 must launch exactly once per Newton pass of the time loop
+     (``tran.newton_passes`` inside ``profiled()``), and phase 8 must run
+     its tile form in f64 and f32;
   10-13. the nonlinear Monte-Carlo through K9 (f32, ``method="pallas"``)
      against the f64 loop (K2): the bench's ring oscillator at B = 4096
      (mean within 5e-3 x scale, a 64-variant f64 subset equal to the CPU
@@ -260,6 +265,18 @@ line each:
      launched once per piece, K2 once per pass of each piece), the walls
      sharded and unsharded; then ``warmup(full=True)`` in a new process
      beside the CLI's cold start of phase 24;
+  28. K11, the time loop's assembly, against the index_add_ chain it
+     replaced on the same values (``tools/profile_torch_k11.py:phase28``):
+     the boost's 1M-lane pass at N = 6 in f64 and f32, in the tile form
+     and the entry form, bit for bit against the chain on the card (no
+     scatter call there adds two contributions to one entry), and the
+     uA741's 1,024-lane pass at N = 36 in the entry form, bit for bit
+     against the chain on the CPU (the card's atomics add a call's
+     duplicate entries in any order); each form and the chain timed with
+     CUDA events beside K11's bytes bound (values read once, A and b
+     written once, at 3.35 TB/s); the boost's rows are K11's JSON
+     entries, and phase 23 (c) must run the entry form in the uA741's
+     .tran;
   9. every instantiation launched during 3-8 and 10-27 (printed after
      them; the f32 instances of K4 and K7 are on no main path and are
      checked in phase 2 and timed here only); CUDA-event times of each
@@ -296,7 +313,8 @@ line each:
      of K1 and K2 f64 at phase 21's N = 256 planes and on random systems
      at N = 512 (64 of them) and 1024 (16), each beside the plain
      version, ``torch.linalg.solve`` on the same planes and the bound, with
-     the share of the bound reached (the JSON line keeps K10 at N = 64).
+     the share of the bound reached (the JSON line keeps K10 at N = 64);
+     K11 at phase 28's boost shape.
      Every phase prints the launches of each tier of K1-K4 and of
      each form of K5, K8 and K9 beside the kernels' (phase 4 fails unless
      the yield ran K5's register form, phase 7 unless tran-1M ran K8's and
@@ -304,7 +322,7 @@ line each:
      10-12 unless K9 ran its register form, phase 16 unless the amp's .ac
      ran K1's warp tier, phase 21 unless the N = 129 transient ran K3's
      panel tier); the JSON line adds them to K1's, K2's, K3's, K4's, K5's,
-     K8's and K9's entries as ``tiers``.
+     K8's, K9's and K11's entries as ``tiers``.
 
 Then a JSON line of the kernels, the nvidia-smi line, and the result line.
 """
@@ -612,7 +630,9 @@ def main() -> int:
     from spicey_tpu_torch.ir.circuit import (effective_time_step,
                                              sample_source_values)
     from spicey_tpu_torch.ops import (_build, gj, gj_real, linsolve,
-                                      mc_ac_fused, mc_tran_fused, mxu)
+                                      mc_ac_fused, mc_tran_fused, mxu,
+                                      stamp_real)
+    from spicey_tpu_torch.utils import profiling
     from tools import profile_torch_solver as solver
     from tests.fixtures import netlists
     from tests.fused_systems import FREQS, dense_pattern, dense_values
@@ -632,7 +652,9 @@ def main() -> int:
                + list(mxu.K10a.values()) + list(mxu.K10b.values())
                # K1's and K2's multi entry, the Schur tier's block solves
                # (phase 25, f64; f32 runs there against the plain version)
-               + [gj.K1_MULTI[torch.float64], gj_real.K2_MULTI[torch.float64]]}
+               + [gj.K1_MULTI[torch.float64], gj_real.K2_MULTI[torch.float64]]
+               # K11, the batched time loop's assembly, every Newton pass
+               + list(stamp_real.K11.values())}
     err = {name: 0.0 for name in kernels}
     # name -> (kernel ms, plain ms, library ms or None, bound ms, bound by)
     ms: dict[str, tuple] = {}
@@ -654,6 +676,8 @@ def main() -> int:
         mc_tran_fused.K8_FORMS
     tier_counts[mc_tran_fused.K9[torch.float32].name] = \
         mc_tran_fused.K9_FORMS
+    tier_counts.update({stamp_real.K11[dt].name: stamp_real.K11_FORMS[dt]
+                        for dt in stamp_real.K11})
     tier_launches = {name: dict.fromkeys(c, 0)
                      for name, c in tier_counts.items()}
 
@@ -688,7 +712,7 @@ def main() -> int:
     # ---- 1. build --------------------------------------------------------
     t_start = t0 = time.perf_counter()
     _build.build(list(_build.LIBRARIES))
-    for mod in (gj, gj_real, mc_ac_fused, mc_tran_fused, mxu):
+    for mod in (gj, gj_real, mc_ac_fused, mc_tran_fused, mxu, stamp_real):
         mod.load_library()
     mc_tran_fused.load_nr_library()
     smi = subprocess.run(
@@ -1897,12 +1921,27 @@ def main() -> int:
 
     counted("5 ladder", list(gj.K1.values()))
 
+    def k11_per_pass(label, dtype, fn):
+        """``fn()``, failing unless K11 (``dtype``) launched exactly once
+        per Newton pass of the batched time loop in it (the
+        ``tran.newton_passes`` counter, inside ``profiled()``)."""
+        k = stamp_real.K11[dtype]
+        before = k.launches
+        with profiling.profiled():
+            out = fn()
+            passes = int(profiling.counters().get("tran.newton_passes", 0))
+        if k.launches - before != passes:
+            raise AssertionError(f"{label}: K11 launched {k.launches - before}"
+                                 f" times in {passes} Newton passes")
+        return out
+
     # ---- 6. transient goldens on cuda -------------------------------------
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for deck in GOLDENS:
         net = getattr(netlists, deck)
-        tran = st.simulate(net, device=dev).tran
+        tran = k11_per_pass(f"6 {deck}", f64, lambda: st.simulate(
+            net, device=dev).tran)
         text = st.format_tran_result(tran)
         times, nv, ec = oracle_tran(st.parse_netlist(net))
         rtol, atol = ((1e-7, 1e-9) if deck == "BOOST_CONVERTER"
@@ -1937,7 +1976,8 @@ def main() -> int:
     say("6 tran golden", "a deck with no unknowns on cuda: empty .op, .ac "
         "(68 frequencies) and .tran (1002 times), as on the CPU path")
     # the linear decks' factor-once inverses run K3's register form
-    counted("6 tran golden", [gj_real.K2[f64], gj_real.K3[f64]],
+    counted("6 tran golden", [gj_real.K2[f64], gj_real.K3[f64],
+                              stamp_real.K11[f64]],
             tiers=[(gj_real.K3[f64], "register")])
 
     # ---- 7. tran-1M: the RC transient, 1M variants x 201 steps -----------
@@ -2014,8 +2054,11 @@ def main() -> int:
     for precision in ("f64", "f32"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        boost[precision] = st.mc_tran_stats(BOOST_NET, boost_over, node="N3",
-                                            precision=precision, device=dev)
+        boost[precision] = k11_per_pass(
+            f"8 boost-100k {precision}",
+            torch.float64 if precision == "f64" else torch.float32,
+            lambda: st.mc_tran_stats(BOOST_NET, boost_over, node="N3",
+                                     precision=precision, device=dev))
         boost_s[precision] = time.perf_counter() - t0
         if boost[precision].n_valid != BOOST_B:
             raise AssertionError(f"boost {precision}: n_valid "
@@ -2037,7 +2080,9 @@ def main() -> int:
         f"(limit {5e-3 * scale:.2e}); f64 kernel = CPU path on 64 variants "
         f"at 1e-9; wall f64 {boost_s['f64']:.3f} s f32 "
         f"{boost_s['f32']:.3f} s")
-    counted("8 boost-100k", list(gj_real.K2.values()))
+    counted("8 boost-100k", list(gj_real.K2.values())
+            + list(stamp_real.K11.values()),
+            tiers=[(k, "tile") for k in stamp_real.K11.values()])
     torch.cuda.empty_cache()
 
     def f32_vs_f64(f32s, f64s, what):
@@ -2307,8 +2352,9 @@ def main() -> int:
             ("boost 100k (K2)", BOOST_NET, "spicey", boost_over),
             ("ring 4096 (K2, Newton to convergence)", RING_NET, "extended",
              r4k)):
-        bt, bt_s = timed(lambda: st.simulate_tran_batch(
-            net, over, dialect=dialect, device=dev))
+        bt, bt_s = timed(lambda: k11_per_pass(
+            f"19 batch-tran {label}", f64, lambda: st.simulate_tran_batch(
+                net, over, dialect=dialect, device=dev)))
         nb = len(next(iter(over.values())))
         n_sw = st.build_tensors(st.parse_netlist(net, dialect=dialect)).n_s
         if not bt.valid.all() \
@@ -2325,7 +2371,8 @@ def main() -> int:
             f"steps, valid {int(bt.valid.sum())}; 64 equal the CPU path at "
             f"1e-9; wall {bt_s:.3f} s, xs {bt.xs.nbytes / 1e6:.0f} MB")
         del bt
-    counted("19 batch-tran", [gj_real.K3[f64], gj_real.K2[f64]],
+    counted("19 batch-tran", [gj_real.K3[f64], gj_real.K2[f64],
+                              stamp_real.K11[f64]],
             tiers=[(gj_real.K3[f64], "register")])
 
     # ---- 20. .step through simulate(): 1,001 corners of an RLC low-pass ---
@@ -2671,7 +2718,8 @@ def main() -> int:
     amp, amp_s = workload(
         "23c ua741 amp", lambda: st.simulate(decks.UA741_AMP, dialect=X,
                                              device=dev),
-        [gj.K1[f64], K2f, gj.K4[f64]], reps=1)
+        [gj.K1[f64], K2f, gj.K4[f64], stamp_real.K11[f64]], reps=1,
+        tiers=[(stamp_real.K11[f64], "entry")])
     want = st.simulate(decks.UA741_AMP, dialect=X, device="cpu")
     same_op(amp.op, want.op, "ua741 .op")
     for series, ref in ((amp.ac.node_voltages, want.ac.node_voltages),
@@ -2701,7 +2749,7 @@ def main() -> int:
     bmc, bmc_s = workload(
         "23d bsrc-tanh 100k", lambda: st.mc_tran_stats(
             decks.BSRC_TANH, b_over, node="out", dialect=X, device=dev),
-        [K2f], absent=[K3f])
+        [K2f, stamp_real.K11[f64]], absent=[K3f])
     if bmc.n_valid != BB:
         raise AssertionError(f"bsrc-tanh-100k: n_valid {bmc.n_valid}")
     same_stats(bmc, st.mc_tran_stats(decks.BSRC_TANH, b_over, node="out",
@@ -3360,6 +3408,26 @@ def main() -> int:
                   cli_s=cli_s)
     zero_counts()
     say("27 mesh", f"{time.perf_counter() - t27:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ---- 28. K11 against the index_add_ assembly -------------------------
+    # tools/profile_torch_k11.py:phase28: every form bit for bit against
+    # the chain it replaced on the same values, then timed beside it; off
+    # the main path's counts (zeroed after)
+    from tools import profile_torch_k11 as pk11
+
+    t28 = time.perf_counter()
+    for row in pk11.phase28(dev, lambda line: say("28 k11", line), smi):
+        if row["shape"] != "boost-loop-1M":
+            continue
+        dtype = getattr(torch, row["dtype"])
+        name = stamp_real.K11[dtype].name
+        shape[name] = (f"{row['shape']} ({row['lanes']}, N={row['n']}, "
+                       f"{row['form']})")
+        ms[name] = (row["k11_ms"], row["chain_ms"], None, row["bound_ms"],
+                    "bytes")
+    zero_counts()
+    say("28 k11", f"{time.perf_counter() - t28:.1f} s")
     torch.cuda.empty_cache()
 
     # ---- 9. launches and times --------------------------------------------

@@ -45,7 +45,7 @@ from ..ops.stamps import pad_solution
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
 from .tran import (_bjt_junction_charge, _charge_slots, _diode_charge, _l_mv,
-                   _mutual_inv, _nl_index_sets, _stamp_system, _switch_update,
+                   _mutual_inv, _stamp_setup, _stamp_system, _switch_update,
                    _vdrop, prepare_bsources, tran_arrays, vt_scale_of)
 
 
@@ -116,11 +116,11 @@ def _adaptive_core(ckt: ParsedCircuit, tensors: CircuitTensors,
     f64 = torch.float64
     nvar = tensors.nvar
     arr = tran_arrays(tensors, device, f64, ckt=ckt, dt=dt0)
-    arr = dict(arr, nl_sets=_nl_index_sets(arr["nl"]),
-               bsrc_t=prepare_bsources(arr["bsrc"], device))
+    arr = dict(arr, bsrc_t=prepare_bsources(arr["bsrc"], device))
     minv = None
     if arr["lk"] is not None:
         minv = arr["minv"] = _mutual_inv(arr["l_vals"], arr["lk"])[0]
+    arr["stamps"] = _stamp_setup(arr, nvar)
     vt_scale = vt_scale_of(tensors, device, f64)
     pos_d, pos_q = _charge_slots(arr)
     nl = arr["nl"]

@@ -72,6 +72,7 @@ only the dtype half of the Newton tolerance floor (16 ulps) is kept.
 
 from __future__ import annotations
 
+from collections.abc import Callable
 from dataclasses import dataclass
 
 import numpy as np
@@ -86,9 +87,11 @@ from ..ir.circuit import (CircuitTensors, bsrc_refs, bsrc_static,
 from ..models.devices import bjt_ebers_moll, diode_charge_cap, mos_level1
 from ..ops.linsolve import inverse, solve
 from ..ops.schur import plan_for, schur_solve_multi
+from ..ops.stamp_real import StampPlan, assemble, build_plan
+from ..ops.stamp_real import apply as apply_stamps
 from ..ops.stamps import (pad_solution, stamp_admittance, stamp_current,
                           stamp_extended, stamp_mutual, stamp_tline_ports,
-                          stamp_vccs, stamp_voltage_source)
+                          stamp_voltage_source)
 from ..parsing.bexpr import bexpr_partials
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
@@ -222,20 +225,17 @@ def _tline_write(tl: dict, w_hist: torch.Tensor, cnt: int,
                                                             dim=-1)
 
 
-def prepare_bsources(bsrc: tuple, device: torch.device) -> list[dict]:
-    """``ir.circuit.bsrc_static``'s entries with their index patterns as
-    tensors on ``device``, built once per run: the reference gathers (ra,
-    rb), an I-kind source's VCCS rows [i1, i2, a_j, b_j] and current pair,
-    a V-kind source's +1 / -1 branch pattern and the (row, column) pairs
-    of its gradient couplings."""
-    def idx(rows: object, width: int) -> torch.Tensor:
-        return torch.as_tensor(
-            np.asarray(rows, np.int64).reshape(-1, width), device=device)
+def _bsource_sets(bsrc: tuple) -> list[dict]:
+    """The index patterns of ``ir.circuit.bsrc_static``'s entries as host
+    arrays: the reference pairs (a_j, b_j), an I-kind source's VCCS rows
+    [i1, i2, a_j, b_j] and current pair, a V-kind source's +1 / -1 branch
+    pattern and the (row, column) pairs of its gradient couplings."""
+    def idx(rows: object, width: int) -> np.ndarray:
+        return np.asarray(rows, np.int64).reshape(-1, width)
 
     out = []
-    for kind, fn, i1, i2, br, refs in bsrc:
-        pairs = idx(refs, 2)
-        src = {"kind": kind, "fn": fn, "ra": pairs[:, 0], "rb": pairs[:, 1]}
+    for kind, _fn, i1, i2, br, refs in bsrc:
+        src = {"pairs": idx(refs, 2)}
         if kind == "i":
             src["vccs"] = idx([[i1, i2, a, b] for a, b in refs], 4)
             src["pair"] = idx([[i1, i2]], 2)
@@ -249,46 +249,74 @@ def prepare_bsources(bsrc: tuple, device: torch.device) -> list[dict]:
     return out
 
 
-def _stamp_bsources(A: torch.Tensor, b: torch.Tensor, bsrc: list[dict],
-                    x_pad: torch.Tensor, t: float) -> None:
+def prepare_bsources(bsrc: tuple, device: torch.device) -> list[dict]:
+    """``ir.circuit.bsrc_static``'s entries with their index patterns
+    (``_bsource_sets``) as tensors on ``device``, built once per run, and
+    each source's kind and compiled expression, the reference gathers
+    (ra, rb) the pairs' columns."""
+    out = []
+    for entry, sets in zip(bsrc, _bsource_sets(bsrc)):
+        src = {k: torch.as_tensor(v, device=device) for k, v in sets.items()}
+        src.update(kind=entry[0], fn=entry[1], ra=src["pairs"][:, 0],
+                   rb=src["pairs"][:, 1])
+        out.append(src)
+    return out
+
+
+def _bsrc_layout(bsrc: list[dict]) -> list[tuple]:
+    """The B sources' stamps (``_stamp_bsources``), source k's index sets
+    and values under "b<k>.": an I-kind source's VCCS rows and current
+    injection, a V-kind source's branch row (+1 / -1 couplings, the
+    gradient couplings, the constant term in the RHS)."""
+    out = []
+    for k, src in enumerate(bsrc):
+        p = f"b{k}."
+        if src["kind"] == "i":
+            out += [("vccs", p + "vccs", p + "g", 1),
+                    ("cur", p + "pair", p + "lin", 1)]
+        else:
+            out += [("pattern", p + "plus", None, 1),
+                    ("pattern", p + "minus", None, -1),
+                    ("pattern", p + "grad_a", p + "g", -1),
+                    ("pattern", p + "grad_b", p + "g", 1),
+                    ("vec", p + "br", p + "lin", 1)]
+    return out
+
+
+def _bsrc_index(bsrc: list[dict]) -> dict:
+    """The B sources' index sets by ``_bsrc_layout``'s keys."""
+    return {f"b{k}.{name}": v for k, src in enumerate(bsrc)
+            for name, v in src.items()
+            if name not in ("kind", "fn", "ra", "rb")}
+
+
+def _bsrc_values(bsrc: list[dict], x_pad: torch.Tensor, t: float) -> dict:
     """Behavioral-source Newton companions (spicey_tpu/analysis/tran.py:
     242-280). Each source linearizes as f(vals) ~ f0 + sum_j g_j (vals_j -
     vals0_j) with vals_j = x[a_j] - x[b_j], the partials by forward-mode
-    AD (``bexpr_partials``). An I-kind source stamps per-reference VCCS
-    rows plus a current injection; a V-kind source its branch row
-    v(n+) - v(n-) - f = 0 with the gradient couplings."""
-    for src in bsrc:
+    AD (``bexpr_partials``): "b<k>.g" the partials (..., nRef), "b<k>.lin"
+    the constant term f0 - sum_j g_j vals_j (..., 1)."""
+    out = {}
+    for k, src in enumerate(bsrc):
         vals = x_pad[..., src["ra"]] - x_pad[..., src["rb"]]  # (..., nRef)
         f0, gs = bexpr_partials(src["fn"], vals, t)
         lin = f0
         for j, g in enumerate(gs):
             lin = lin - g * vals[..., j]
-        # lin = f0 - sum_j g_j vals_j, the constant term of the companion
-        g = (torch.stack(gs, dim=-1) if gs
-             else vals.new_zeros(vals.shape[:-1] + (0,)))
-        if src["kind"] == "i":
-            stamp_vccs(A, src["vccs"], g)
-            stamp_current(b, src["pair"], lin[..., None])
-        else:
-            one = torch.ones((), dtype=A.dtype, device=A.device)
-            _add_pattern(A, src["plus"], one)
-            _add_pattern(A, src["minus"], -one)
-            _add_pattern(A, src["grad_a"], -g)
-            _add_pattern(A, src["grad_b"], g)
-            b.index_add_(-1, src["br"], lin[..., None])
+        out[f"b{k}.g"] = (torch.stack(gs, dim=-1) if gs
+                          else vals.new_zeros(vals.shape[:-1] + (0,)))
+        out[f"b{k}.lin"] = lin[..., None]
+    return out
 
 
-def _add_pattern(A: torch.Tensor, rc: torch.Tensor,
-                 y: torch.Tensor) -> None:
-    """A[..., r_e, c_e] += y[..., e] for the (row, column) pairs ``rc``
-    (nE, 2); a scalar ``y`` adds to every pair."""
-    if rc.shape[0] == 0:
-        return
-    n1 = A.shape[-1]
-    lead = A.shape[:-2]
-    A.view(*lead, n1 * n1).index_add_(
-        -1, rc[:, 0] * n1 + rc[:, 1], y.to(A.dtype).expand(
-            *lead, rc.shape[0]))
+def _stamp_bsources(A: torch.Tensor, b: torch.Tensor, bsrc: list[dict],
+                    x_pad: torch.Tensor, t: float) -> None:
+    """The B sources' companions (``_bsrc_values``) through ops/stamps.py
+    into the padded (A, b): an I-kind source stamps per-reference VCCS rows
+    plus a current injection, a V-kind source its branch row v(n+) - v(n-)
+    - f = 0 with the gradient couplings."""
+    apply_stamps(A, b, _bsrc_layout(bsrc), _bsrc_index(bsrc),
+                 _bsrc_values(bsrc, x_pad, t))
 
 
 def _zeros(lead: tuple, n: int, dtype: torch.dtype,
@@ -322,17 +350,20 @@ def _l_factor(dt_c: float, integration: str, first: bool,
 
 
 def _companion_currents(arr: dict, dt_c: float, integration: str,
-                        first: bool, second: bool, carry: list
+                        first: bool, second: bool, carry: list,
+                        g_c: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """The stamp_current values of the C and L companions:
       trap   C: -(G v_n + i_n)             L: i_n + (c/L) v_n
       gear2  C: -(C/dt)(2 v_n - 0.5 v_n-1)  L: (2 i_n - 0.5 i_n-1) / 1.5
       BE     C: -G v_n                      L: i_n
-    (c/L becomes c M^{-1} with mutual couplings, ``arr["minv"]``)."""
+    (c/L becomes c M^{-1} with mutual couplings, ``arr["minv"]``). ``g_c``:
+    ``_c_conductance``'s G when the caller has it."""
     (v_prev_c, i_prev_c, i_prev_l, v_prev_l, _vd, _vm, _vq, _sw,
      v_prev2_c, i_prev2_l) = carry[:10]
     c_vals, l_vals = arr["c_vals"], arr["l_vals"]
-    g_c = _c_conductance(c_vals, dt_c, integration, first, second)
+    if g_c is None:
+        g_c = _c_conductance(c_vals, dt_c, integration, first, second)
     c_l = _l_factor(dt_c, integration, first, second)
     startup = first or second
     if integration == "trap":
@@ -363,11 +394,24 @@ def _nl_index_sets(nl: dict) -> dict:
             "q_gmf": q[:, [0, 2, 1, 2]], "q_gmr": q[:, [0, 2, 1, 0]]}
 
 
-def _stamp_nonlinear(A: torch.Tensor, b: torch.Tensor, nl: dict, sets: dict,
-                     x_pad: torch.Tensor, it: int,
-                     vm_prev: torch.Tensor | None,
-                     vq_prev: torch.Tensor | None,
-                     vq_lim: torch.Tensor | None = None) -> None:
+def _nl_layout(n_m: int, n_q: int) -> list[tuple]:
+    """The MOSFET/BJT companions' stamps (``_nl_values``), each present
+    only with its devices."""
+    out = []
+    if n_m:
+        out += [("adm", "m_ds", "gds", 1), ("vccs", "m_gm", "gm", 1),
+                ("cur", "m_ds", "i_eq", 1)]
+    if n_q:
+        out += [("adm", "q_be", "gbe", 1), ("adm", "q_bc", "gbc", 1),
+                ("vccs", "q_gmf", "gmf", 1), ("vccs", "q_gmr", "gmr", -1),
+                ("cur", "q_be", "ibe_eq", 1), ("cur", "q_bc", "ibc_eq", 1),
+                ("cur", "q_ce", "ict_eq", 1)]
+    return out
+
+
+def _nl_values(nl: dict, x_pad: torch.Tensor, it: int,
+               vm_prev: torch.Tensor | None, vq_prev: torch.Tensor | None,
+               vq_lim: torch.Tensor | None = None) -> dict:
     """MOSFET/BJT Newton companions (spicey_tpu/analysis/tran.py:152-198).
     Seeds follow the diode convention: the previous step's junction
     voltages on pass 0, the current iterate after (the operating point
@@ -375,35 +419,40 @@ def _stamp_nonlinear(A: torch.Tensor, b: torch.Tensor, nl: dict, sets: dict,
     pnjlim-limited (vbe, vbc) from the operating-point Newton (op.py), in
     place of the absolute clamp."""
     m_idx, q_idx = nl["m_idx"], nl["q_idx"]
+    out = {}
     if m_idx.shape[0]:
         if it == 0:
             vgs, vds = vm_prev[..., 0], vm_prev[..., 1]
         else:
             vgs = x_pad[..., m_idx[:, 1]] - x_pad[..., m_idx[:, 2]]
             vds = x_pad[..., m_idx[:, 0]] - x_pad[..., m_idx[:, 2]]
-        gm, gds, i_eq, _ = mos_level1(vgs, vds, nl["m_beta"], nl["m_vto"],
-                                      nl["m_lambda"], nl["m_pol"])
-        stamp_admittance(A, sets["m_ds"], gds)
-        stamp_vccs(A, sets["m_gm"], gm)
-        stamp_current(b, sets["m_ds"], i_eq)
+        out["gm"], out["gds"], out["i_eq"], _ = mos_level1(
+            vgs, vds, nl["m_beta"], nl["m_vto"], nl["m_lambda"], nl["m_pol"])
     if q_idx.shape[0]:
         if it == 0:
             vbe, vbc = vq_prev[..., 0], vq_prev[..., 1]
         else:
             vbe = x_pad[..., q_idx[:, 1]] - x_pad[..., q_idx[:, 2]]
             vbc = x_pad[..., q_idx[:, 1]] - x_pad[..., q_idx[:, 0]]
-        gbe, gbc, gmf, gmr, ibe_eq, ibc_eq, ict_eq, _, _ = bjt_ebers_moll(
+        (out["gbe"], out["gbc"], out["gmf"], out["gmr"], out["ibe_eq"],
+         out["ibc_eq"], out["ict_eq"], _, _) = bjt_ebers_moll(
             vbe, vbc, nl["q_is"], nl["q_bf"], nl["q_br"], nl["q_pol"],
             vt=nl["vt"],
             vbe_lim=None if vq_lim is None else vq_lim[..., 0],
             vbc_lim=None if vq_lim is None else vq_lim[..., 1])
-        stamp_admittance(A, sets["q_be"], gbe)
-        stamp_admittance(A, sets["q_bc"], gbc)
-        stamp_vccs(A, sets["q_gmf"], gmf)
-        stamp_vccs(A, sets["q_gmr"], -gmr)
-        stamp_current(b, sets["q_be"], ibe_eq)
-        stamp_current(b, sets["q_bc"], ibc_eq)
-        stamp_current(b, sets["q_ce"], ict_eq)
+    return out
+
+
+def _stamp_nonlinear(A: torch.Tensor, b: torch.Tensor, nl: dict, sets: dict,
+                     x_pad: torch.Tensor, it: int,
+                     vm_prev: torch.Tensor | None,
+                     vq_prev: torch.Tensor | None,
+                     vq_lim: torch.Tensor | None = None) -> None:
+    """The MOSFET/BJT companions (``_nl_values``) through ops/stamps.py
+    into the padded (A, b), scattered through ``sets``
+    (``_nl_index_sets``)."""
+    apply_stamps(A, b, _nl_layout(nl["m_idx"].shape[0], nl["q_idx"].shape[0]),
+                 sets, _nl_values(nl, x_pad, it, vm_prev, vq_prev, vq_lim))
 
 
 def _bjt_junction_charge(x_pad: torch.Tensor, nl: dict, qchg: dict
@@ -457,58 +506,144 @@ def _diode_charge(vd: torch.Tensor, arr: dict,
     return q
 
 
-def _stamp_system(arr: dict, nvar: int, dt: float, vs_t: torch.Tensor,
-                  x: torch.Tensor, it: int, carry: list, sw_on: torch.Tensor,
-                  integration: str = "be", first: bool = False,
-                  second: bool = False, vt_scale: torch.Tensor | float = 1.0,
-                  e_t: torch.Tensor | None = None, t: float = 0.0
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Assemble one Newton pass's (A, b), sliced to (..., nvar[, nvar]).
-    ``arr`` carries the MOSFET/BJT arrays under "nl" (with their index
-    sets from ``_nl_index_sets`` under "nl_sets"), the junction charges
-    under "dchg"/"qchg", the coupled inductors' M^{-1} under "minv", the
-    T lines under "tl" (with their far-end sources ``e_t`` (..., nT, 2)
-    at this step) and the prepared B sources under "bsrc_t", evaluated at
-    time ``t`` (each None or empty when absent)."""
-    A, b = _zeros(x.shape[:-1], nvar + 1, x.dtype, x.device)
+def _stamp_layout(arr: dict) -> list[tuple]:
+    """One Newton pass's stamps in assembly order (ops/stamp_real.py's
+    layouts), each value named as ``_pass_values`` names it: R, C and its
+    companion current, L (c/L, or the matrix companion c * M^{-1} with
+    couplings, ``arr["minv"]``) and its companion current, switches, V
+    sources, extended I sources, the T lines' ports and far-end sources,
+    the extended G/E/F/H sources, the diodes and their charge companions,
+    the MOSFET/BJT companions and the BJT charge, the B sources."""
+    out = [("adm", "r", "g_r", 1), ("adm", "c", "g_c", 1),
+           ("cur", "c", "ieq_c", 1),
+           ("mutual" if arr.get("minv") is not None else "adm", "l", "g_l",
+            1),
+           ("cur", "l", "isrc_l", 1), ("adm", "s", "g_s", 1),
+           ("vsrc", "v", "vs", 1), ("cur", "i", "i_src", 1)]
+    if arr.get("tl") is not None:
+        out += [("tline", "t", "z0", 1), ("vec", "t_br1", "e_1", 1),
+                ("vec", "t_br2", "e_2", 1)]
+    out += [("vccs", "g", "g_gm", 1), ("vcvs", "e", "e_gain", 1),
+            ("cccs", "f", "f_gain", 1), ("ccvs", "h", "h_r", 1),
+            ("adm", "d", "g_d", 1), ("cur", "d", "i_deq", 1)]
+    if arr.get("dchg") is not None:
+        out += [("adm", "d", "c_d", 1), ("cur", "d", "i_qd", 1)]
+    nl = arr.get("nl")
+    if nl is not None and (nl["m_idx"].shape[0] or nl["q_idx"].shape[0]):
+        out += _nl_layout(nl["m_idx"].shape[0], nl["q_idx"].shape[0])
+        if arr.get("qchg") is not None:
+            out += [("adm", "q_be", "c_qbe", 1), ("cur", "q_be", "i_qbe", 1),
+                    ("adm", "q_bc", "c_qbc", 1), ("cur", "q_bc", "i_qbc", 1)]
+    return out + _bsrc_layout(arr.get("bsrc_t") or [])
+
+
+def _stamp_index(idx: dict, bsets: list[dict]) -> dict:
+    """The index sets the layout scatters through, from the deck's index
+    arrays under ``tran_arrays``' names (``idx``: tensors, or their host
+    arrays) and the B sources' sets (``bsets``)."""
+    out = {"r": idx["r_idx"], "c": idx["c_idx"], "l": idx["l_idx"],
+           "s": idx["s_idx"][:, :2], "v": idx["v_idx"], "i": idx["i_idx"],
+           "g": idx["g_idx"], "e": idx["e_idx"], "f": idx["f_idx"],
+           "h": idx["h_idx"], "d": idx["d_idx"]}
+    t_idx = idx.get("t_idx")
+    if t_idx is not None:
+        out.update(t=t_idx, t_br1=t_idx[:, 4], t_br2=t_idx[:, 5])
+    out.update(_nl_index_sets(idx))
+    out.update(_bsrc_index(bsets))
+    return out
+
+
+@dataclass
+class _Stamps:
+    """A run's assembly, set up once: the layout, its index tensors (the
+    CPU path's scatters) and, on the card, K11's plan."""
+
+    layout: list
+    index: dict
+    plan: StampPlan | None
+
+
+def stamp_plan(arr: dict, nvar: int) -> StampPlan:
+    """K11's plan of ``arr``'s deck, from the host index arrays that
+    ``tran_arrays`` keeps (``arr["index_host"]``): no read back from the
+    card. ``arr`` as ``_tran_core`` prepares it (B sources under
+    "bsrc_t", the couplings' M^{-1} under "minv")."""
+    bsets = _bsource_sets(arr["bsrc"]) if arr.get("bsrc_t") else []
+    return build_plan(_stamp_layout(arr),
+                      _stamp_index(arr["index_host"], bsets), nvar)
+
+
+def _stamp_setup(arr: dict, nvar: int) -> _Stamps:
+    """``arr``'s assembly (prepared as for ``stamp_plan``), once a run."""
+    nl = arr["nl"]
+    dev = arr["r_idx"].device
+    idx = dict(arr, **arr["ext"], m_idx=nl["m_idx"], q_idx=nl["q_idx"],
+               t_idx=None if arr.get("tl") is None else arr["tl"]["t_idx"])
+    return _Stamps(_stamp_layout(arr),
+                   _stamp_index(idx, arr.get("bsrc_t") or []),
+                   stamp_plan(arr, nvar) if dev.type == "cuda" else None)
+
+
+def _pass_values(arr: dict, nvar: int, dt: float, vs_t: torch.Tensor,
+                 x: torch.Tensor, it: int, carry: list, sw_on: torch.Tensor,
+                 integration: str, first: bool, second: bool,
+                 vt_scale: torch.Tensor | float, e_t: torch.Tensor | None,
+                 t: float) -> dict:
+    """The values of one Newton pass's stamps, by ``_stamp_layout``'s
+    names (simulateTRAN.ts:25-106 and the extended devices). The values
+    that do not change within a run (1/R, the C and L companion
+    conductances of each integration phase, the diode's thermal voltage,
+    clamp window and Is/Vt) are kept in ``arr["memo"]`` when the run gives
+    one (``_tran_core``: one dt a run), so a pass computes them once."""
+    memo = arr.get("memo")
+
+    def once(key: tuple, make: Callable[[], torch.Tensor]) -> torch.Tensor:
+        if memo is None:
+            return make()
+        if key not in memo:
+            memo[key] = make()
+        return memo[key]
+
     dt_c = max(dt, EPS)
-    stamp_admittance(A, arr["r_idx"], 1.0 / arr["r_vals"])
-    ieq_c, isrc_l = _companion_currents(arr, dt_c, integration, first,
-                                        second, carry)
-    stamp_admittance(A, arr["c_idx"], _c_conductance(
+    phase = (integration, first, second)
+    g_c = once(("g_c",) + phase, lambda: _c_conductance(
         arr["c_vals"], dt_c, integration, first, second))
-    stamp_current(b, arr["c_idx"], ieq_c)
-    _l_stamp(A, arr["l_idx"], _l_factor(dt_c, integration, first, second),
-             arr["l_vals"], arr.get("minv"))
-    stamp_current(b, arr["l_idx"], isrc_l)
+    ieq_c, isrc_l = _companion_currents(arr, dt_c, integration, first,
+                                        second, carry, g_c)
+    c_l = _l_factor(dt_c, integration, first, second)
+    minv = arr.get("minv")
     # switches by their hysteresis state
     r_sw = torch.where(sw_on, arr["s_ron"], arr["s_roff"])
-    stamp_admittance(A, arr["s_idx"][:, :2],
-                     1.0 / torch.clamp(r_sw.abs(), min=EPS))
     n_v = arr["v_idx"].shape[0]
-    stamp_voltage_source(A, b, arr["v_idx"], vs_t[..., :n_v])
-    # extended-dialect current sources: direct RHS injection
     ext = arr["ext"]
-    stamp_current(b, ext["i_idx"], vs_t[..., n_v:])
+    out = {"g_r": once(("g_r",), lambda: 1.0 / arr["r_vals"]),
+           "g_c": g_c, "ieq_c": ieq_c,
+           "g_l": once(("g_l",) + phase, lambda: (
+               c_l / arr["l_vals"] if minv is None else c_l * minv)),
+           "isrc_l": isrc_l,
+           "g_s": 1.0 / torch.clamp(r_sw.abs(), min=EPS),
+           "vs": vs_t[..., :n_v],
+           # extended-dialect current sources: direct RHS injection
+           "i_src": vs_t[..., n_v:],
+           "g_gm": ext["g_gm"], "e_gain": ext["e_gain"],
+           "f_gain": ext["f_gain"], "h_r": ext["h_r"]}
     tl = arr.get("tl")
     if tl is not None:
         # T lines: near-end topology + the delayed far-end Thevenin
         # sources from the history buffer (Branin)
-        stamp_tline_ports(A, tl["t_idx"], tl["z0"])
-        b.index_add_(-1, tl["t_idx"][:, 4], e_t[..., 0])
-        b.index_add_(-1, tl["t_idx"][:, 5], e_t[..., 1])
-    stamp_extended(A, ext)
+        out.update(z0=tl["z0"], e_1=e_t[..., 0], e_2=e_t[..., 1])
     # diode Shockley companions; the clamp window scales with T/300
-    d_idx = arr["d_idx"]
-    vd = carry[4] if it == 0 else _vdrop(pad_solution(x, nvar), d_idx)
-    vd_lim = torch.clamp(vd, DIODE_VD_MIN * vt_scale,
-                         DIODE_VD_MAX * vt_scale)
-    v_th = arr["d_n"] * VT_300K
+    vd = carry[4] if it == 0 else _vdrop(pad_solution(x, nvar),
+                                         arr["d_idx"])
+    vd_lim = torch.clamp(vd, once(("vd_lo",), lambda: DIODE_VD_MIN
+                                  * vt_scale),
+                         once(("vd_hi",), lambda: DIODE_VD_MAX * vt_scale))
+    v_th = once(("v_th",), lambda: arr["d_n"] * VT_300K)
     exp_val = torch.exp(vd_lim / v_th)
     i_d = arr["d_is"] * (exp_val - 1.0)
-    g_d = torch.clamp((arr["d_is"] / v_th) * exp_val, min=GMIN)
-    stamp_admittance(A, d_idx, g_d)
-    stamp_current(b, d_idx, i_d - g_d * vd_lim)
+    g_d = torch.clamp(once(("is_vt",), lambda: arr["d_is"] / v_th)
+                      * exp_val, min=GMIN)
+    out.update(g_d=g_d, i_deq=i_d - g_d * vd_lim)
     pos_d, pos_q = _charge_slots(arr)
     if pos_d is not None:
         # charge companion (BE): i = (q(v) - q_prev)/dt with the split
@@ -517,29 +652,52 @@ def _stamp_system(arr: dict, nvar: int, dt: float, vs_t: torch.Tensor,
         q_d, c_d = diode_charge_cap(vd, i_d, g_d, dchg["tt"], dchg["cjo"],
                                     dchg["vj"], dchg["m"], dchg["fc"])
         c_dep = c_d - dchg["tt"] * g_d
-        stamp_admittance(A, d_idx, c_d / dt_c)
-        stamp_current(b, d_idx, (q_d - carry[pos_d]
-                                 - dchg["tt"] * g_d * vd_lim - c_dep * vd)
-                      / dt_c)
+        out.update(c_d=c_d / dt_c,
+                   i_qd=(q_d - carry[pos_d] - dchg["tt"] * g_d * vd_lim
+                         - c_dep * vd) / dt_c)
     nl = arr.get("nl")
     if nl is not None and (nl["m_idx"].shape[0] or nl["q_idx"].shape[0]):
         x_pad = pad_solution(x, nvar)
-        _stamp_nonlinear(A, b, nl, arr["nl_sets"], x_pad, it, carry[5],
-                         carry[6])
+        out.update(_nl_values(nl, x_pad, it, carry[5], carry[6]))
         if pos_q is not None:
             # BJT junction-charge companions (BE), at the current iterate
             q_be, c_be, q_bc, c_bc, cv_be, cv_bc = _bjt_junction_charge(
                 x_pad, nl, arr["qchg"])
-            sets = arr["nl_sets"]
             q_prev = carry[pos_q]
-            stamp_admittance(A, sets["q_be"], c_be / dt_c)
-            stamp_current(b, sets["q_be"],
-                          (q_be - q_prev[..., 0] - cv_be) / dt_c)
-            stamp_admittance(A, sets["q_bc"], c_bc / dt_c)
-            stamp_current(b, sets["q_bc"],
-                          (q_bc - q_prev[..., 1] - cv_bc) / dt_c)
+            out.update(c_qbe=c_be / dt_c,
+                       i_qbe=(q_be - q_prev[..., 0] - cv_be) / dt_c,
+                       c_qbc=c_bc / dt_c,
+                       i_qbc=(q_bc - q_prev[..., 1] - cv_bc) / dt_c)
     if arr.get("bsrc_t"):
-        _stamp_bsources(A, b, arr["bsrc_t"], pad_solution(x, nvar), t)
+        out.update(_bsrc_values(arr["bsrc_t"], pad_solution(x, nvar), t))
+    return out
+
+
+def _stamp_system(arr: dict, nvar: int, dt: float, vs_t: torch.Tensor,
+                  x: torch.Tensor, it: int, carry: list, sw_on: torch.Tensor,
+                  integration: str = "be", first: bool = False,
+                  second: bool = False, vt_scale: torch.Tensor | float = 1.0,
+                  e_t: torch.Tensor | None = None, t: float = 0.0
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Assemble one Newton pass's (A, b), (..., nvar, nvar) and (...,
+    nvar). ``arr`` carries the MOSFET/BJT arrays under "nl", the junction
+    charges under "dchg"/"qchg", the coupled inductors' M^{-1} under
+    "minv", the T lines under "tl" (with their far-end sources ``e_t``
+    (..., nT, 2) at this step) and the prepared B sources under "bsrc_t",
+    evaluated at time ``t`` (each None or empty when absent), and the
+    run's assembly under "stamps" (``_stamp_setup``; set up here when
+    absent). The values are ``_pass_values``; on a CUDA tensor K11 writes
+    the system once from the plan (ops/stamp_real.py), on the CPU the
+    layout runs through ops/stamps.py's scatters into a padded system whose
+    ground row and column are sliced off."""
+    stamps = arr.get("stamps") or _stamp_setup(arr, nvar)
+    vals = _pass_values(arr, nvar, dt, vs_t, x, it, carry, sw_on,
+                        integration, first, second, vt_scale, e_t, t)
+    lead = x.shape[:-1]
+    if x.is_cuda:
+        return assemble(stamps.plan, vals, lead, x.dtype, x.device)
+    A, b = _zeros(lead, nvar + 1, x.dtype, x.device)
+    apply_stamps(A, b, stamps.layout, stamps.index, vals)
     return A[..., :nvar, :nvar], b[..., :nvar]
 
 
@@ -629,8 +787,7 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
          "s": arr["s_idx"].shape[0], "d": arr["d_idx"].shape[0],
          "m": nl["m_idx"].shape[0], "q": nl["q_idx"].shape[0]}
     bsrc = arr.get("bsrc", ())
-    arr = dict(arr, nl_sets=_nl_index_sets(nl),
-               bsrc_t=prepare_bsources(bsrc, dev))
+    arr = dict(arr, bsrc_t=prepare_bsources(bsrc, dev))
     pos_d, pos_q = _charge_slots(arr)
     n_chg = (pos_d is not None) + (pos_q is not None)
     if max_nr is None:
@@ -656,6 +813,12 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
         # the step cannot be causal on a fixed grid); Td may be (nT,) or
         # batch-swept (B, nT)
         td_steps = torch.clamp(tl["td"] / dt_c, min=1.0)
+    if not linear:
+        # the assembly of every pass, set up once: on the card K11's plan,
+        # copied to the card here and never inside the loop; the values
+        # that stay the same all run long, computed at their first pass
+        arr["stamps"] = _stamp_setup(arr, nvar)
+        arr["memo"] = {}
     if linear:
         # the matrix is time-invariant (per integration phase): factor
         # ONCE, then each step is a multiply by the inverse plus one
@@ -836,6 +999,12 @@ def _tran_core(vs_grid: torch.Tensor, dt: float, arr: dict, nvar: int,
     return xs, sw_states, valid_all, carry
 
 
+# the index arrays of a deck (``CircuitTensors`` fields, ``tran_arrays``'
+# keys)
+_INDEX_KEYS = ("r_idx", "c_idx", "l_idx", "v_idx", "s_idx", "d_idx", "i_idx",
+               "g_idx", "e_idx", "f_idx", "h_idx", "m_idx", "q_idx", "t_idx")
+
+
 def tran_arrays(tensors: CircuitTensors, device: torch.device,
                 dtype: torch.dtype, r_vals: torch.Tensor | None = None,
                 c_vals: torch.Tensor | None = None,
@@ -851,7 +1020,9 @@ def tran_arrays(tensors: CircuitTensors, device: torch.device,
     junction charges, "lk" and "tl" the couplings and lines (each None
     when the deck has none), "bsrc" the B sources of ``ckt``
     (``ir.circuit.bsrc_static``; none without ``ckt``) and "hist_len" the
-    lines' history length at step ``dt`` (read once from the Td values)."""
+    lines' history length at step ``dt`` (read once from the Td values);
+    "index_host" the host arrays of every index tensor, which K11's plan
+    is built from (``stamp_plan``) without a read back from the card."""
     def idx(a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
@@ -886,6 +1057,8 @@ def tran_arrays(tensors: CircuitTensors, device: torch.device,
         "tl": tl,
         "bsrc": () if ckt is None else bsrc_static(ckt, tensors.nvar),
         "hist_len": hist_len,
+        "index_host": {k: np.asarray(getattr(tensors, k), np.int64)
+                       for k in _INDEX_KEYS},
     }
 
 

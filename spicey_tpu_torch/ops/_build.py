@@ -44,7 +44,7 @@ SMEM_MAX = 232_448
 
 # every library of csrc/ (warmup and chip_smoke.py build them all)
 LIBRARIES = ("gj_complex", "gj_real", "mc_ac_fused", "mc_tran_fused",
-             "mc_tran_nr", "mxu_gj")
+             "mc_tran_nr", "mxu_gj", "stamp_real")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILD_S: dict[str, float] = {}

@@ -20,7 +20,8 @@ around a call ending in ``torch.cuda.synchronize()``):
                    (N = 16), 4,096 x 201, ``"pallas"`` (K7) and ``"gj"``
                    (K1);
   diode-switch-1024 ``simulate_tran_batch`` of DIODE_SWITCH over its first
-                   2 ms (200 steps), 1,024 loads (K2 every Newton pass).
+                   2 ms (200 steps), 1,024 loads (K11 and K2 every
+                   Newton pass).
 Each is called unsharded; with ``device_put=sharder(make_mesh())`` (every
 CUDA device of the machine), which must give the unsharded result bit for
 bit with the same launches; and on meshes that repeat the first card,
@@ -68,13 +69,14 @@ WARMUP = ("import json, time\nt0 = time.perf_counter()\n"
 def kernels() -> dict:
     """Every kernel counter of the port, by name."""
     from spicey_tpu_torch.ops import gj, gj_real, mc_ac_fused, mc_tran_fused
-    from spicey_tpu_torch.ops import mxu
+    from spicey_tpu_torch.ops import mxu, stamp_real
 
     ks = (list(gj.K1.values()) + list(gj.K4.values())
           + list(gj_real.K2.values()) + list(gj_real.K3.values())
           + list(mc_ac_fused.K5.values()) + list(mc_ac_fused.K7.values())
           + list(mc_tran_fused.K8.values()) + list(mc_tran_fused.K9.values())
-          + list(mxu.K10a.values()) + list(mxu.K10b.values()))
+          + list(mxu.K10a.values()) + list(mxu.K10b.values())
+          + list(stamp_real.K11.values()))
     return {k.name: k for k in ks}
 
 
@@ -139,7 +141,8 @@ def phase27(dev, run, emit, card: str, cli_s: float | None = None) -> dict:
     import spicey_tpu_torch as st
     from spicey_tpu_torch.decks import (BOOST_NET, TRAN_NET,
                                         rc_ladder_netlist, tp_rlc_netlist)
-    from spicey_tpu_torch.ops import gj, gj_real, mc_ac_fused, mc_tran_fused
+    from spicey_tpu_torch.ops import (gj, gj_real, mc_ac_fused, mc_tran_fused,
+                                      stamp_real)
     from tests.fixtures import netlists
 
     f32, f64 = torch.float32, torch.float64
@@ -164,8 +167,10 @@ def phase27(dev, run, emit, card: str, cli_s: float | None = None) -> dict:
                 for n, v in _ladder_values(st, lad).items()}
     f32p = dict(method="pallas", precision="f32")
     k2 = gj_real.K2[f64]
+    # the kernels of a Newton loop: K2 and K11 launch once per pass
+    per_pass = {k2.name, stamp_real.K11[f64].name}
     # (label, the kernel it must launch, the comparison rule, the
-    # repeated-card meshes, the call); K2 launches once per Newton pass
+    # repeated-card meshes, the call)
     workloads = [
         ("yield-64k", mc_ac_fused.K5[f32], "f32", [b4],
          lambda put: st.mc_ac_stats(
@@ -220,7 +225,7 @@ def phase27(dev, run, emit, card: str, cli_s: float | None = None) -> dict:
                                      f"{sorted(got_l)} against "
                                      f"{sorted(base_l)}")
             for n, c in base_l.items():
-                ok = (c <= got_l[n] <= pieces * c if n == k2.name
+                ok = (c <= got_l[n] <= pieces * c if n in per_pass
                       else got_l[n] == pieces * c)
                 if not ok:
                     raise AssertionError(
