@@ -3,7 +3,7 @@
 
     python3 portbench/control.py --workload <cell> \
         --program-seeds 1 2 ... 12 --control-seeds 21 22 23 \
-        [--faults half frozen altered --fault-seeds 31 32 33] [--out FILE]
+        [--faults [NAME ...] --fault-seeds 31 32 33] [--out FILE]
 
 For each program seed: one job of the cell (the first job that seed's
 run would time), judged against the plain reference as a run judges it:
@@ -11,11 +11,13 @@ the lower readings. For each control seed: the plain reference computed
 in the precision below the one the cell states (``control_dtype`` in
 ``workloads/<cell>.json``), put in the program's place and judged the
 same way: the upper readings. For each fault and fault seed: one job
-with the fault planted in the program (``faults.py``), judged the same
-way. Prints one JSON line per reading and a summary (the largest program
-reading, the smallest control reading, the smallest reading of each
-fault, and the cell's limits); ``--out`` writes them too. Runs on the
-card; the benchmark's own runs never run this.
+with the fault planted in the program, judged the same way: the faults
+that the cell's entry declares (``entries/<entry>.py:FAULTS``,
+``faults.py``), all of them where ``--faults`` names none. Prints one
+JSON line per reading and a summary (the largest program reading, the
+smallest control reading, the smallest reading of each fault, and the
+cell's limits); ``--out`` writes them too. Runs on the card; the
+benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -34,14 +36,16 @@ if str(ROOT) not in sys.path:
 def readings(workload: str, program_seeds: list[int],
              control_seeds: list[int], device=None,
              variants: int | None = None, faults: tuple[str, ...] = (),
-             fault_seeds: tuple[int, ...] = ()) -> dict:
+             fault_seeds: tuple[int, ...] = (), home=None) -> dict:
+    """``home``: the folder holding the cell's pieces
+    (``core/manifest.py``), ``portbench/`` by default."""
     import torch
 
     import spicey_tpu_torch as program
     from portbench import faults as planted_faults
     from portbench.core import manifest, traffic
 
-    cell = manifest.Cell(workload)
+    cell = manifest.Cell(workload, home=home or manifest.HERE)
     spec, ref, caller = cell.spec, cell.reference, cell.caller.ENTRY
     device = torch.device(device or "cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -55,7 +59,7 @@ def readings(workload: str, program_seeds: list[int],
 
     def program_row(seed: int) -> dict:
         ov = draw(seed)
-        ckt = program.parse_netlist(cell.deck_text)
+        ckt = program.parse_netlist(cell.deck_text, **cell.parse_kw)
         tensors = program.build_tensors(ckt)
         t0 = time.perf_counter()
         res = caller.call(program, ckt, tensors, ov, spec, device)
@@ -97,7 +101,8 @@ def main(argv=None) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--program-seeds", type=int, nargs="*", default=[])
     ap.add_argument("--control-seeds", type=int, nargs="*", default=[])
-    ap.add_argument("--faults", nargs="*", default=[])
+    ap.add_argument("--faults", nargs="*", default=None,
+                    help="faults of the cell's entry; none named: all")
     ap.add_argument("--fault-seeds", type=int, nargs="*", default=[])
     ap.add_argument("--out")
     args = ap.parse_args(argv)
@@ -105,8 +110,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("control: no CUDA card", file=sys.stderr)
         return 3
+    faults = args.faults
+    if faults == []:
+        from portbench import faults as planted_faults
+        from portbench.core import manifest
+        faults = planted_faults.names(manifest.Cell(args.workload).spec)
     out = readings(args.workload, args.program_seeds, args.control_seeds,
-                   faults=tuple(args.faults),
+                   faults=tuple(faults or ()),
                    fault_seeds=tuple(args.fault_seeds))
     summary = {k: v for k, v in out.items()
                if k not in ("program", "control", "faults")}

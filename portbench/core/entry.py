@@ -1,18 +1,24 @@
 """How a cell drives one entry point of the program, and how the
 yardstick judges what it returned.
 
-An entry (``entries/<name>.py``) binds one of these classes to a public
-function of the program. ``call`` is the job's call; ``invalid`` the
-lanes it reports as failed, read between jobs; ``judge`` the comparison
-of a returned answer with the plain reference, run after the window on
-the sampled jobs; ``control`` the same comparison with the reference in
-a lower precision put in the program's place.
+An entry (``entries/<name>.py``) binds a caller to a public function of
+the program (``ENTRY``: one of these classes, or one of its own) and
+declares the faults its route can have (``FAULTS``, ``faults.py``).
+``call`` is the job's call; ``dtype`` the precision it computes in (the
+work formulas' item size); ``points`` the solutions one variant gives;
+``invalid`` the lanes it reports as failed, read between jobs; ``judge``
+the comparison of a returned answer with the plain reference, run after
+the window on the sampled jobs; ``control`` the same comparison with the
+reference in a lower precision put in the program's place.
 
 Compared numbers (each with its limit in ``workloads/<cell>.json``):
   - ``stats_gap``: statistics jobs. Row by row (mean, std, min, max and
     each quantile, over the grid), the largest difference from the
     reference's statistics over the largest reference value of that row;
     the worst row.
+  - ``op_gap``: operating-point jobs (``entries/op_batch.py``). The
+    largest difference from the reference over every variant and node
+    voltage, over the reference's largest value.
   - ``lanes_missing``: variants that the program left out, reported
     invalid, or returned as NaN; exact, 0.
 """
@@ -44,6 +50,9 @@ class StatsEntry:
         return fn(ckt, overrides, spec["node"], tensors=tensors,
                   quantiles=tuple(float(q) for q in spec["quantiles"]),
                   device=device, **spec["args"])
+
+    def dtype(self, spec) -> str:
+        return PRECISIONS[spec["args"]["precision"]]
 
     def points(self, result) -> int:
         return len(result.grid)

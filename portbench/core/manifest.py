@@ -1,14 +1,22 @@
 """Where the benchmark's pieces live, found by the names in BENCHMARK.json.
 
 A cell ``<name>`` is ``workloads/<name>.json``: its traffic mix (the
-request a job sends: the entry, its arguments with the one precision,
-the variants per job), the control's precision and the limits. Its
-configuration is ``configs/<config>.json`` (the deck, the probed node,
-the sweep with its nominal values, the shapes), beside its deck and its
-plain reference ``reference/<config>.py``. The entry's caller is
+request a job sends: the entry, its arguments, the variants per job),
+the control's precision and the limits. Its configuration is
+``configs/<config>.json`` (the deck, the probed node, the sweep with its
+nominal values, the shapes), beside its deck and its plain reference
+``reference/<config>.py``. The entry's caller and faults are
 ``entries/<entry>.py``, a per-layer metric ``metrics/<metric>.py`` and a
 kernel's work ``work/<kernel>.py``. Adding any of them is adding files
 and entries: nothing here names one.
+
+A cell's own pieces (its configuration with its deck, its traffic mix
+and its reference) sit in one folder, its ``home``: ``portbench/`` for
+the cells of ``BENCHMARK.json``; a folder of its own for a cell kept
+apart (a test's fixture), whose cells are listed in
+``<home>/cells.json`` in BENCHMARK.json's form. A piece the home lacks
+is taken from ``portbench/``; entries, metrics and kernels' work are
+always ``portbench/``'s.
 """
 
 from __future__ import annotations
@@ -30,20 +38,33 @@ def load_json(path: Path) -> dict:
         return json.load(fh)
 
 
-def benchmark(root: Path = ROOT) -> dict:
-    return load_json(root / "BENCHMARK.json")
+def benchmark(root: Path = ROOT, home: Path = HERE) -> dict:
+    """The cells of ``home``: BENCHMARK.json for ``portbench/``, else
+    ``<home>/cells.json``."""
+    if Path(home).resolve() == HERE:
+        return load_json(root / "BENCHMARK.json")
+    return load_json(Path(home) / "cells.json")
 
 
-def module(folder: str, name: str) -> ModuleType:
-    """``portbench/<folder>/<name>.py`` as a module (names may hold '-',
-    so they are loaded by path, once per process)."""
-    path = HERE / folder / f"{name}.py"
+def find(folder: str, name: str, suffix: str, home: Path = HERE) -> Path:
+    """``<home>/<folder>/<name><suffix>``, else the same under
+    ``portbench/``."""
+    own = Path(home) / folder / f"{name}{suffix}"
+    return own if own.is_file() else HERE / folder / f"{name}{suffix}"
+
+
+def module(folder: str, name: str, home: Path = HERE) -> ModuleType:
+    """``<folder>/<name>.py`` of ``home`` (else of ``portbench/``) as a
+    module (names may hold '-', so they are loaded by path, once per
+    process)."""
+    path = find(folder, name, ".py", home).resolve()
     if path not in _MODULES:
         if not path.is_file():
             raise FileNotFoundError(f"no {folder} named {name!r} ({path})")
+        rel = path.relative_to(HERE).with_suffix("").parts
         spec = importlib.util.spec_from_file_location(
-            f"portbench_{folder}_{name.replace('-', '_').replace('.', '_')}",
-            path)
+            "portbench_" + "_".join(p.replace("-", "_").replace(".", "_")
+                                    for p in rel), path)
         mod = importlib.util.module_from_spec(spec)
         sys.modules[spec.name] = mod
         spec.loader.exec_module(mod)
@@ -52,28 +73,34 @@ def module(folder: str, name: str) -> ModuleType:
 
 
 class Cell:
-    """One cell of BENCHMARK.json with everything it names, read from its
-    files."""
+    """One cell with everything it names, read from its files."""
 
     def __init__(self, name: str, bench: dict | None = None,
-                 root: Path = ROOT):
-        bench = benchmark(root) if bench is None else bench
+                 root: Path = ROOT, home: Path = HERE):
+        self.home = Path(home).resolve()
+        bench = benchmark(root, self.home) if bench is None else bench
         entries = {w["name"]: w for w in bench["workloads"]}
         if name not in entries:
-            raise KeyError(f"BENCHMARK.json has no workload {name!r}")
+            where = ("BENCHMARK.json" if self.home == HERE
+                     else self.home / "cells.json")
+            raise KeyError(f"{where} has no workload {name!r}")
         self.name = name
         self.entry = entries[name]
-        self.config = load_json(HERE / "configs"
-                                / f"{self.entry['config']}.json")
-        workload = load_json(HERE / "workloads" / f"{name}.json")
+        self.config = load_json(find("configs", self.entry["config"],
+                                     ".json", self.home))
+        workload = load_json(find("workloads", name, ".json", self.home))
         if workload.get("traffic") != self.entry["traffic"]:
             raise KeyError(f"workloads/{name}.json holds traffic "
-                           f"{workload.get('traffic')!r}, BENCHMARK.json "
+                           f"{workload.get('traffic')!r}, the cell "
                            f"{self.entry['traffic']!r}")
         # the request and the limits (workload) with the probed node
         # (configuration), in one view
-        self.spec = {**workload, "node": self.config["probe"]}
-        self.deck_text = (ROOT / self.config["deck"]).read_text()
+        self.spec = {**workload, "node": self.config.get("probe")}
+        self.deck_text = (root / self.config["deck"]).read_text()
+        # the program's reader of the deck: its default dialect, unless
+        # the configuration names one ("extended": subcircuits, BJTs, ...)
+        self.parse_kw = ({"dialect": self.config["dialect"]}
+                         if "dialect" in self.config else {})
         self.chips = int(self.entry["chips"])
         self.end_to_end = [m for m in bench["end_to_end"]
                            if name in m.get("workloads", [name])]
@@ -82,7 +109,7 @@ class Cell:
 
     @property
     def reference(self) -> ModuleType:
-        return module("reference", self.entry["config"])
+        return module("reference", self.entry["config"], self.home)
 
     @property
     def caller(self) -> ModuleType:

@@ -22,7 +22,10 @@ puts
 
 The readers of the per-layer metrics that read spans and counters are at
 the end (``READERS``): each takes a ``SpanContext`` and returns None when
-the program has no such span or counter.
+the program has no such span or counter. A job's phases (``prepare``,
+``solve``, ``reduce``) are the spans directly under its top-level span,
+whatever the entry's name. ``metric`` binds a reader to a per-layer
+metric's file (``metrics/<name>.py``), which gets run.py's ``Context``.
 """
 
 from __future__ import annotations
@@ -37,10 +40,6 @@ OUTSIDE = "outside the program"
 UNLINKED = "no runtime call"
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy")
-# the program's Monte-Carlo entries, each a span holding four: prepare,
-# solve, reduce and fetch
-ENTRIES = ("mc_tran_stats", "mc_tran_sampled", "mc_ac_stats",
-           "mc_ac_sampled")
 
 
 @dataclass
@@ -49,6 +48,14 @@ class Records:
     and host runtime calls (start_ns, end_ns, name, correlation)."""
     device: list[tuple[int, int, str, int]] = field(default_factory=list)
     runtime: list[tuple[int, int, str, int]] = field(default_factory=list)
+
+
+def program_readings(profiling) -> tuple[list, dict]:
+    """The program's closed spans and its counters
+    (``profiling.intervals()``, ``profiling.counters()``); a program
+    without the accessors has none of either."""
+    return (list(getattr(profiling, "intervals", list)()),
+            dict(getattr(profiling, "counters", dict)()))
 
 
 def records(prof) -> Records:
@@ -253,13 +260,14 @@ class SpanContext:
 
 
 def _phase(q: str, phase: str) -> bool:
-    head, _, tail = q.partition("/")
-    return head in ENTRIES and (tail == phase
-                                or tail.startswith(phase + "/"))
+    """``q`` is the phase ``phase`` of a job's top-level span, or inside
+    it."""
+    parts = q.split("/")
+    return len(parts) >= 2 and parts[1] == phase
 
 
 def prepare_ms(ctx: SpanContext):
-    """Median host ms a traced job spent in its entry's ``prepare``."""
+    """Median host ms a traced job spent in its ``prepare``."""
     times = [t for q, ts in ctx.join.host.items()
              if _phase(q, "prepare") and q.count("/") == 1 for t in ts]
     return 1e3 * statistics.median(times) if times else None
@@ -306,3 +314,15 @@ READERS = {
     "newton_passes_per_step": ("program_counter", "passes",
                                newton_passes_per_step),
 }
+
+
+def metric(name: str) -> tuple:
+    """(SOURCE, UNIT, read) of the per-layer metric ``name`` for its file
+    under ``metrics/``: ``read`` takes run.py's ``Context`` and reads
+    ``READERS[name]`` from its spans and counters."""
+    source, unit, reader = READERS[name]
+
+    def read(ctx):
+        sc = ctx.span_context
+        return None if sc is None else reader(sc)
+    return source, unit, read

@@ -3,58 +3,51 @@ with the path broken comes out not correct (``tests/``) and for reading
 what each fault does to the compared numbers at the cell's own size
 (``control.py --faults``).
 
-The faults a statistics cell can have: ``frozen``, a time step that
-returns its state unchanged (every point holds the first point's value);
-``half``, half of the batch left out and the statistics taken over the
-rest; ``altered``, one variant's answer altered where it is produced. No
-cell runs across chips, so no exchange between chips can be left out.
+Each entry declares the faults its route can have
+(``entries/<entry>.py:FAULTS``: name -> a function of the cell's spec
+returning a context manager that plants the fault where that route
+produces or reduces its answer, and restores the route after). This
+module finds them by the cell's entry; ``patched`` is the one way an
+entry swaps a function of the program for a broken one.
 """
 
 from __future__ import annotations
 
 import contextlib
 
-import torch
-
-# the program's route function that produces a job's responses, by the
-# ``method`` a cell passes (the fused kernel or the batched time loop)
-ROUTES = {"pallas": "_mc_tran_fused_responses",
-          "gj": "_mc_tran_loop_responses"}
-FAULTS = ("frozen", "half", "altered")
+from portbench.core import manifest
 
 
-def frozen(v: torch.Tensor) -> torch.Tensor:
-    return v[:, :1].expand_as(v).clone()
+def of(spec: dict) -> dict:
+    """The faults of the cell ``spec``'s entry (``manifest.Cell.spec``):
+    name -> context manager factory."""
+    return dict(getattr(manifest.module("entries", spec["entry"]),
+                        "FAULTS", {}))
 
 
-def altered(v: torch.Tensor) -> torch.Tensor:
-    out = v.clone()
-    out[0] = out[0] * 1.5
-    return out
+def names(spec: dict) -> tuple[str, ...]:
+    return tuple(of(spec))
 
 
 @contextlib.contextmanager
 def planted(spec: dict, fault: str):
     """Run the body with ``fault`` planted in the program's route for the
-    cell ``spec`` (``manifest.Cell.spec``); the route is restored after."""
-    from spicey_tpu_torch.analysis import mc
-    if fault == "half":
-        name, inner = "_reduce", mc._reduce
+    cell ``spec``; the route is restored after."""
+    faults = of(spec)
+    if fault not in faults:
+        raise ValueError(f"the entry {spec['entry']!r} has no fault "
+                         f"{fault!r}; it has {tuple(faults)}")
+    with faults[fault](spec):
+        yield
 
-        def broken(resp, valid, *a, **k):
-            n = resp.shape[0] // 2
-            return inner(resp[:n], valid[:n], *a, **k)
-    elif fault in ("frozen", "altered"):
-        name = ROUTES[spec["args"]["method"]]
-        inner, change = getattr(mc, name), globals()[fault]
 
-        def broken(*a, **k):
-            v, valid = inner(*a, **k)
-            return change(v), valid
-    else:
-        raise ValueError(f"unknown fault {fault!r}; known: {FAULTS}")
-    setattr(mc, name, broken)
+@contextlib.contextmanager
+def patched(owner, name: str, wrap):
+    """``owner.<name>`` replaced by ``wrap(<the original>)`` in the body,
+    restored after."""
+    inner = getattr(owner, name)
+    setattr(owner, name, wrap(inner))
     try:
         yield
     finally:
-        setattr(mc, name, inner)
+        setattr(owner, name, inner)

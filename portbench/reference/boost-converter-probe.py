@@ -22,6 +22,12 @@ if mna is None:
     _spec.loader.exec_module(mna)
 
 
+def facts(deck_text: str) -> dict:
+    """The analysis, the nominal values and the shapes, read from the deck
+    by ``mna.py`` (``mna.tran_facts``)."""
+    return mna.tran_facts(deck_text)
+
+
 def responses(deck_text: str, overrides: dict, probe: str,
               dtype: torch.dtype, device: torch.device
               ) -> tuple[torch.Tensor, torch.Tensor, dict]:

@@ -433,3 +433,36 @@ def stamp_adds(deck: Deck) -> int:
         elif el.kind in "DS":
             adds += k(el, pair) ** 2 + (k(el, pair) if el.kind == "D" else 0)
     return adds
+
+
+def lane_values(deck: Deck) -> int:
+    """Stamp values one transient assembly of ``deck`` reads that the
+    stamper above holds per variant: each R, C and L conductance, each C's
+    and L's history current, a diode's conductance and companion current,
+    a switch's conductance (``tran_response`` keeps each switch's state
+    per variant, since its control voltage is in general the variant's own
+    solution; where a deck drives the control from a V source alone, as
+    the boost does, every variant reads the same, and this counts one
+    value a variant more than the least an assembly must read). A V
+    source's value is the same for every variant (the deck's, at the
+    step's time) and is not counted."""
+    per = {"R": 1, "C": 2, "L": 2, "D": 2, "S": 1, "V": 0}
+    return sum(per[el.kind] for el in deck.elements)
+
+
+def tran_facts(deck_text: str) -> dict:
+    """What a transient configuration states of its deck, read here:
+    the analysis, every R, C and L's nominal value, and the shapes the
+    work formulas read (unknowns, time points, V sources, ``stamp_adds``,
+    ``lane_values``)."""
+    deck = read_deck(deck_text)
+    if deck.tran is None:
+        raise ValueError("the deck has no .tran line")
+    return {"analysis": "tran",
+            "nominal": {el.name: el.value for el in deck.elements
+                        if el.kind in "RCL"},
+            "shape": {"unknowns": len(deck.unknowns),
+                      "points": len(time_grid(deck)[1]),
+                      "sources": len(deck.of("V")),
+                      "stamp_adds": stamp_adds(deck),
+                      "lane_values": lane_values(deck)}}

@@ -24,8 +24,10 @@ inputs drawn from the seed just before it (``core/traffic.py``); the
 end-to-end metrics are the rate of solutions over the window (first
 job's start to last job's end, less the draws between jobs) and the
 tail of the job times. ``--trace 1``: a few whole jobs, drawn in
-set-up, run under ``torch.profiler`` and the per-layer metrics
-(``metrics/<name>.py``) are read from that trace.
+set-up, run under ``torch.profiler`` with the program's spans and
+counters on (``profiling.profiled()``) for exactly the profiler's
+window, and the per-layer metrics (``metrics/<name>.py``) are read from
+that trace, those spans and those counters (``Context``).
 
 After the window a sample of the jobs, drawn from the seed, is judged
 against the plain reference (``reference/<config>.py``); each number
@@ -42,6 +44,7 @@ cell missing. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -109,7 +112,15 @@ class Job:
 
 @dataclass
 class Context:
-    """What a per-layer metric's reader gets (``metrics/<name>.py``)."""
+    """What a per-layer metric's reader gets (``metrics/<name>.py``): the
+    traced jobs and window, the trace's reduction (``core/trace.py``),
+    the harness's front-end times, the program's launch counters
+    (``core/counters.py``), the shapes (``_shape``) and what the
+    reference counted (``info``); and the program's spans over the
+    window (``spans``: qualified name, start_ns, end_ns), the program's
+    counters over it (``program_counters``), the trace's raw records
+    (``records``) and their join to the spans (``join``;
+    ``core/spans.py``)."""
     jobs: int
     window_s: float
     trace: object
@@ -117,10 +128,23 @@ class Context:
     counters: dict[str, int]
     shape: dict
     info: dict = field(default_factory=dict)
+    spans: list = field(default_factory=list)
+    program_counters: dict = field(default_factory=dict)
+    records: object = None
+    join: object = None
 
     def work(self, kernel: str):
         from portbench.core import manifest
         return manifest.module("work", kernel)
+
+    @property
+    def span_context(self):
+        """The spans' and counters' readers' view (``core/spans.py``)."""
+        if self.join is None:
+            return None
+        from portbench.core.spans import SpanContext
+        return SpanContext(jobs=self.jobs, join=self.join,
+                           counters=self.program_counters)
 
 
 class Reservoir:
@@ -148,14 +172,21 @@ def parse(argv) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def main(argv=None, *, device=None, variants: int | None = None) -> int:
+def main(argv=None, *, device=None, variants: int | None = None,
+         home: Path | None = None, spans: bool = True,
+         inspect=None) -> int:
     """Run the cell. ``device`` and ``variants`` are for the CPU tests: a
     device other than the card skips the look for one, and ``variants``
-    cuts a job's size."""
+    cuts a job's size. ``home``: the folder holding the cell's pieces
+    (``core/manifest.py``; ``portbench/``, the default, for the cells of
+    BENCHMARK.json). With ``--trace 1``: ``spans`` False leaves the
+    program's spans off (to read what they cost), and ``inspect`` is
+    called with the readers' ``Context`` and the window's edges on
+    ``time.time_ns()``'s clock (``trace_spans.py``)."""
     args = parse(argv)
     from portbench.core import manifest
     try:
-        cell = manifest.Cell(args.workload)
+        cell = manifest.Cell(args.workload, home=home or manifest.HERE)
     except (KeyError, FileNotFoundError) as exc:
         print(f"portbench: {exc}", file=sys.stderr)
         return 5
@@ -189,6 +220,7 @@ def main(argv=None, *, device=None, variants: int | None = None) -> int:
     try:
         import spicey_tpu_torch as program
         from portbench.core import counters, traffic, trace
+        from portbench.core import spans as span_join
         ref = cell.reference
         caller = cell.caller.ENTRY
     except (ImportError, FileNotFoundError) as exc:
@@ -212,7 +244,7 @@ def main(argv=None, *, device=None, variants: int | None = None) -> int:
         job = Job(j, time.perf_counter())
         res = tensors = None
         try:
-            ckt = program.parse_netlist(cell.deck_text)
+            ckt = program.parse_netlist(cell.deck_text, **cell.parse_kw)
             tensors = program.build_tensors(ckt)
             job.front_s = time.perf_counter() - job.t0
             res = caller.call(program, ckt, tensors, overrides, spec, device)
@@ -232,8 +264,14 @@ def main(argv=None, *, device=None, variants: int | None = None) -> int:
     prof = None
     if args.trace:
         from torch.profiler import ProfilerActivity, profile
+
+        from spicey_tpu_torch.utils import profiling
+        # the card's activity; on a machine without one (the CPU tests)
+        # the host's operators instead
+        activities = [ProfilerActivity.CUDA if device.type == "cuda"
+                      else ProfilerActivity.CPU]
         # CUPTI's first start costs seconds: pay it here, not in a job
-        with profile(activities=[ProfilerActivity.CUDA]):
+        with profile(activities=activities):
             torch.zeros(1, device=device).add_(1)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -245,8 +283,12 @@ def main(argv=None, *, device=None, variants: int | None = None) -> int:
     sample = Reservoir(int(spec["sample_jobs"]), args.seed)
     before = counters.snapshot()
     if args.trace:
-        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof = profile(activities=activities)
         prof.__enter__()
+        program_spans = (profiling.profiled() if spans
+                         else contextlib.nullcontext())
+        program_spans.__enter__()
+        t_ns0 = time.time_ns()
     # the window: whole jobs until ``limit_s`` of it have passed. Untraced,
     # each job's inputs are drawn just before it; the draws are the
     # harness's time, not the program's, and are left out of the window.
@@ -274,6 +316,10 @@ def main(argv=None, *, device=None, variants: int | None = None) -> int:
     if prof is not None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+        edges = (t_ns0, time.time_ns())
+        program_spans.__exit__(None, None, None)
+        intervals, program_counters = (
+            span_join.program_readings(profiling) if spans else ([], {}))
         prof.__exit__(None, None, None)
     used = counters.delta(before, counters.snapshot())
     window_s = jobs[-1].t_end - jobs[0].t0 - drawing_s
@@ -332,10 +378,15 @@ def main(argv=None, *, device=None, variants: int | None = None) -> int:
             metrics[name] = {"value": value, "unit": m["unit"]}
     else:
         trace_red = trace.reduce(prof)
-        shape = _shape(cell, B)
+        recs = span_join.records(prof)
         ctx = Context(jobs=len(jobs), window_s=window_s, trace=trace_red,
                       front_end_s=[j.front_s for j in jobs],
-                      counters=used, shape=shape, info=info)
+                      counters=used, shape=_shape(cell, B, caller),
+                      info=info, spans=intervals,
+                      program_counters=program_counters, records=recs,
+                      join=span_join.join(recs, intervals, edges))
+        if inspect is not None:
+            inspect(ctx, edges)
         for m in cell.per_layer:
             reader = manifest.module("metrics", m["name"])
             value = reader.read(ctx)
@@ -381,15 +432,15 @@ def _percentile(sorted_values: list[float], q: float) -> float:
     return sorted_values[lo] * (1 - w) + sorted_values[hi] * w
 
 
-def _shape(cell, B: int) -> dict:
-    """The shapes the work formulas read (``work/<kernel>.py``), as the
-    configuration states them."""
-    from portbench.core.entry import PRECISIONS
-    dtype = PRECISIONS[cell.spec["args"]["precision"]]
+def _shape(cell, B: int, caller) -> dict:
+    """The shapes the work formulas read (``work/<kernel>.py``): the
+    configuration's ``shape`` as it states it, with ``n`` (its
+    unknowns), the variants a job, the swept elements, and the dtype the
+    entry computes in with its item size."""
+    dtype = caller.dtype(cell.spec)
     shape = cell.config["shape"]
-    return {"n": shape["unknowns"], "variants": B, "points": shape["points"],
+    return {**shape, "n": shape["unknowns"], "variants": B,
             "swept": len(cell.config["sweep"]["elements"]),
-            "sources": shape["sources"], "stamp_adds": shape["stamp_adds"],
             "dtype": dtype, "itemsize": {"float64": 8, "float32": 4}[dtype]}
 
 

@@ -2,13 +2,15 @@
 
 Each test drives the rest of a run (``run.main`` with ``device="cpu"``,
 which skips the look for a card, and a job cut to a few variants) with
-one fault of ``faults.py`` planted in the program's route, and reads the
-result line: a time step that returns its state unchanged; half of the
-batch left out, the statistics taken over the rest; an answer altered
-where it is produced. No cell runs across chips, so no exchange between
-chips can be left out. A sound run of each cell comes out correct. The
-control (the reference in the precision below the cell's) is judged by
-``control.readings`` and fails every cell's limits.
+one fault that the cell's entry declares (``entries/<entry>.py:FAULTS``,
+``faults.py``) planted in the program's route, and reads the result
+line. The statistics entry's: a time step that returns its state
+unchanged; half of the batch left out, the statistics taken over the
+rest; an answer altered where it is produced. No cell runs across
+chips, so no exchange between chips can be left out. A sound run of
+each cell comes out correct. The control (the reference in the
+precision below the cell's) is judged by ``control.readings`` and fails
+every cell's limits.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ from portbench.core import manifest  # noqa: E402
 
 VARIANTS = 24
 CELLS = sorted(w["name"] for w in manifest.benchmark()["workloads"])
+# (cell, fault): every fault of every cell's entry
+PLANTED = [(w, f) for w in CELLS
+           for f in faults.names(manifest.Cell(w).spec)]
 
 
 def result_of(capsys, workload: str, seed: int = 4000000011) -> dict:
@@ -47,11 +52,21 @@ def test_sound_run_is_correct(capsys, workload):
     assert {"setup_s", "solutions_per_s"} <= set(res["metrics"])
 
 
-@pytest.mark.parametrize("fault", faults.FAULTS)
-@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("workload,fault", PLANTED,
+                         ids=[f"{w}-{f}" for w, f in PLANTED])
 def test_a_planted_fault_is_caught(capsys, workload, fault):
     with faults.planted(manifest.Cell(workload).spec, fault):
         assert result_of(capsys, workload)["correct"] is False
+
+
+@pytest.mark.parametrize("workload", [
+    w for w in CELLS if manifest.Cell(w).spec["entry"] == "mc_tran_stats"])
+def test_the_statistics_entry_declares_its_three_faults(workload):
+    spec = manifest.Cell(workload).spec
+    assert faults.names(spec) == ("frozen", "half", "altered")
+    with pytest.raises(ValueError, match="no fault"):
+        with faults.planted(spec, "one_pass"):
+            pass
 
 
 @pytest.mark.parametrize("workload", CELLS)
@@ -70,9 +85,10 @@ def test_the_control_and_the_faults_fail_the_limits_at_the_cells_size(
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the cell's own size runs there")
     seeds = [4000000031, 4000000032, 4000000033]
-    out = control.readings(workload, [], seeds, faults=faults.FAULTS,
+    declared = faults.names(manifest.Cell(workload).spec)
+    out = control.readings(workload, [], seeds, faults=declared,
                            fault_seeds=seeds)
     limits = out["limits"]
     assert any(out[f"{n}_upper"] > limits[n] for n in limits), out
-    for fault in faults.FAULTS:
+    for fault in declared:
         assert any(out[f"{n}_{fault}"] > limits[n] for n in limits), fault

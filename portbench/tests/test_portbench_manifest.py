@@ -15,6 +15,7 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
+from portbench import faults  # noqa: E402
 from portbench.core import manifest  # noqa: E402
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -142,30 +143,45 @@ def test_cells_resolve_and_carry_limits():
         assert cell.spec["limits"] and all(
             math.isfinite(v) and v >= 0 for v in cell.spec["limits"].values())
         assert "precision" not in cell.spec      # one precision: args'
-        assert cell.spec["args"]["precision"] in ("f64", "f32")
+        # the dtype the entry computes in: a statistics entry's from the
+        # one precision argument, f64 or f32
+        assert cell.caller.ENTRY.dtype(cell.spec) in ("float64", "float32")
         assert cell.spec["control_dtype"] in ("float32", "bfloat16")
+        assert faults.names(cell.spec), w["name"]   # the entry's faults
     assert four <= max(1, len(BENCH["workloads"]) // 4)
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])
 def test_config_states_its_deck_nominal_values_and_shapes(name):
-    """What the harness reads from a configuration's file (the swept
-    elements' nominal values, the work formulas' shapes) is what the
-    plain reference reads from its deck."""
+    """What the harness reads from a configuration's file (the analysis,
+    the swept elements' nominal values, the work formulas' shapes) is
+    what the configuration's own plain reference reads from its deck
+    (``reference/<config>.py:facts``)."""
     cfg = json.loads((ROOT / "portbench" / "configs"
                       / f"{name}.json").read_text())
-    mna = manifest.module("reference", "mna")
-    deck = mna.read_deck((ROOT / cfg["deck"]).read_text())
-    values = {e.name: e.value for e in deck.elements}
+    facts = manifest.module("reference", name).facts(
+        (ROOT / cfg["deck"]).read_text())
     sweep = cfg["sweep"]
     assert list(sweep["nominal"]) == sweep["elements"]
     for el, nominal in sweep["nominal"].items():
-        assert values[el] == pytest.approx(nominal, rel=1e-15), el
-    assert cfg["analysis"] == "tran"
-    assert cfg["shape"] == {"unknowns": len(deck.unknowns),
-                            "points": len(mna.time_grid(deck)[1]),
-                            "sources": len(deck.of("V")),
-                            "stamp_adds": mna.stamp_adds(deck)}
+        assert facts["nominal"][el] == pytest.approx(nominal, rel=1e-15), el
+    assert cfg["analysis"] == facts["analysis"]
+    assert cfg["shape"] == facts["shape"]
+
+
+def test_the_boost_facts_are_the_transient_readers_numbers():
+    """The boost's reference reads from its deck the numbers that its
+    configuration held before each reference stated its own facts: the
+    transient, the three swept values, 6 unknowns, 101 points, 2 sources,
+    22 stamped entries; and the 8 values a lane's pass stamps (K11's
+    work)."""
+    text = (ROOT / "portbench/configs/boost-converter-probe.cir").read_text()
+    facts = manifest.module("reference", "boost-converter-probe").facts(text)
+    assert facts["analysis"] == "tran"
+    assert facts["nominal"] == pytest.approx(
+        {"RR1": 1000.0, "CC1": 1e-05, "LL1": 1.0}, rel=1e-15)
+    assert facts["shape"] == {"unknowns": 6, "points": 101, "sources": 2,
+                              "stamp_adds": 22, "lane_values": 8}
 
 
 def test_every_file_under_paths_is_named_from_name_characters():

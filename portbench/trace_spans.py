@@ -6,14 +6,16 @@ to the trace.
         [--spans 0|1]
 
 runs ``run.py --trace 1`` of the cell unchanged (its set-up, its traced
-jobs, its result line), with ``torch.profiler.profile`` wrapped so that
-the program's ``profiled()`` is on for exactly the profiler's window
-(``--spans 1``, the default; ``--spans 0`` leaves it off, to read what
-the spans cost). On a machine without a card (the CPU tests) the
-profiler records the host's operators instead of CUDA activity.
+jobs, its result line), which keeps the program's ``profiled()`` on for
+exactly the profiler's window (``--spans 1``, the default; ``--spans 0``
+leaves it off, to read what the spans cost), and takes the run's
+readers' ``Context``: the trace's raw records, the program's spans and
+counters, and their join (``core/spans.py``). On a machine without a
+card (the CPU tests) the profiler records the host's operators instead
+of CUDA activity.
 
-After the run it joins the trace's raw records to the program's spans
-(``core/spans.py``) and prints on standard error the table by span:
+After the run it prints on standard error, from that join, the table by
+span:
 host ms, device ms, launches, syncs and device idle ms per traced job;
 how the largest idle gaps of the trace split by span; and what each
 sync followed. The last line of standard output is JSON: ``workload``,
@@ -33,7 +35,6 @@ import contextlib
 import io
 import json
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -43,80 +44,27 @@ if str(ROOT) not in sys.path:
 TOP_GAPS = 8
 
 
-class _Window:
-    """The profiler window of the last run: its profile, its edges on
-    ``time.time_ns()``'s clock, the program's intervals and counters."""
-    prof = None
-    edges = (0, 0)
-    intervals: list = []
-    counters: dict = {}
-
-
-def _wrap_profiler(spans_on: bool) -> None:
-    import torch
-    import torch.profiler as tp
-
-    from spicey_tpu_torch.utils import profiling
-
-    base = getattr(tp.profile, "_unwrapped", tp.profile)
-
-    class Profile(base):
-        def __init__(self, *args, **kw):
-            if not torch.cuda.is_available():
-                # no card (the CPU tests): the host's operators instead
-                kw["activities"] = [tp.ProfilerActivity.CPU]
-            super().__init__(*args, **kw)
-
-        def __enter__(self):
-            out = super().__enter__()
-            self._spans = profiling.profiled() if spans_on else None
-            if self._spans is not None:
-                self._spans.__enter__()
-            self._t0 = time.time_ns()
-            return out
-
-        def __exit__(self, *exc):
-            t1 = time.time_ns()
-            try:
-                if self._spans is not None:
-                    self._spans.__exit__(None, None, None)
-                _Window.prof, _Window.edges = self, (self._t0, t1)
-                # a program without the accessors (an older one) has no
-                # interval and no counter to read
-                _Window.intervals = (
-                    getattr(profiling, "intervals", list)() if spans_on
-                    else [])
-                _Window.counters = (
-                    getattr(profiling, "counters", dict)() if spans_on
-                    else {})
-            finally:
-                out = super().__exit__(*exc)
-            return out
-
-    Profile._unwrapped = base
-    tp.profile = Profile
-
-
 def one(workload: str, seed: int, spans_on: bool, **run_kw) -> dict:
     """One traced run of ``workload``; ``run_kw`` are ``run.main``'s
     ``device`` and ``variants`` (for the CPU tests)."""
     from portbench import run
     from portbench.core import spans
 
-    _wrap_profiler(spans_on)
+    seen = {}
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = run.main(["--workload", workload, "--seed", str(seed),
-                       "--seconds", "1", "--trace", "1"], **run_kw)
+                       "--seconds", "1", "--trace", "1"], spans=spans_on,
+                      inspect=lambda ctx, _edges: seen.update(ctx=ctx),
+                      **run_kw)
     lines = buf.getvalue().strip().splitlines()
-    if rc != 0 or not lines:
+    if rc != 0 or not lines or "ctx" not in seen:
         raise SystemExit(rc or 5)
     result = json.loads(lines[-1])
     jobs = int(result["attempted"])
-    recs = spans.records(_Window.prof)
-    j = spans.join(recs, _Window.intervals, _Window.edges)
-    ctx = spans.SpanContext(jobs=jobs, join=j, counters=_Window.counters)
-    readings = {name: reader(ctx)
+    ctx = seen["ctx"]
+    recs, j, counters = ctx.records, ctx.join, ctx.program_counters
+    readings = {name: reader(ctx.span_context)
                 for name, (_src, _unit, reader) in spans.READERS.items()}
     rows = spans.table(j, jobs)
     syncs_trace = sum(1 for r in recs.runtime
@@ -136,7 +84,7 @@ def one(workload: str, seed: int, spans_on: bool, **run_kw) -> dict:
         print(f"  syncs in {label}, per job: " + ", ".join(
             f"after {k} {n / max(jobs, 1):g}" for k, n in sorted(
                 kinds.items())), file=sys.stderr)
-    print(f"  counters {_Window.counters}", file=sys.stderr)
+    print(f"  counters {counters}", file=sys.stderr)
     sys.stderr.flush()
     return {"workload": workload, "seed": seed, "spans": int(spans_on),
             "result": result, "readings": readings,
@@ -147,7 +95,7 @@ def one(workload: str, seed: int, spans_on: bool, **run_kw) -> dict:
                      "syncs_after": j.sync_after,
                      "launches_by_span": j.launches,
                      "stream_syncs_per_job": syncs_trace / max(jobs, 1),
-                     "counters": _Window.counters,
+                     "counters": counters,
                      "gaps": [[k, v] for k, v in gaps[:TOP_GAPS]],
                      "table": rows}}
 
