@@ -27,15 +27,17 @@ corners (``lead=(B,)``). ``simulate_op`` keeps the JAX package's
 convergence aids, tried in order when plain Newton fails: gmin stepping
 (a shunt from every node to ground, 1e-2 S down to 0), then source
 stepping (10% to 100%), each stage seeded from the last; ``.nodeset`` seeds
-the first Newton iterate.
+the first Newton iterate. ``op_batch`` gives the lanes its batched Newton
+leaves invalid the same aids, lane by lane in one batched ladder, where the
+JAX package's ``op_batch`` leaves them invalid.
 
 The structured tier (ops/schur.py, the op-space plan
 ``plan_partition_op``: nodes, branches and the L shorts) routes the
 solves as the JAX package routes them: forced by ``method="schur"``, taken
 by ``method="gj"`` on a subcircuit board past 128 op unknowns, and retried
 dense where a block pivot fails (``simulate_op`` before its homotopy
-ladder, ``simulate_dc`` over the whole sweep; ``op_batch`` leaves such a
-lane invalid); ``method="pallas"`` stays dense. A flat deck past N = 128
+ladder, ``simulate_dc`` over the whole sweep, ``op_batch`` lane by lane
+before its ladder); ``method="pallas"`` stays dense. A flat deck past N = 128
 solves dense (K2 in a global workspace where a system overflows shared
 memory).
 
@@ -63,6 +65,7 @@ from ..ops.stamps import (pad_solution, stamp_admittance, stamp_current,
                           stamp_tline_ports, stamp_voltage_source)
 from ..parsing.netlist import ParsedCircuit
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 from .tran import (_host, _nl_index_sets, _stamp_bsources, _stamp_nonlinear,
                    _switch_update, prepare_bsources)
 
@@ -303,6 +306,12 @@ def _run_op_core(ckt: ParsedCircuit, tensors: CircuitTensors,
         x0=None if x0 is None else val(x0), gshunt=gshunt, plan=plan)
 
 
+# the convergence aids' schedule (simulate_op, op_batch's ladder): gmin
+# stepping's node-to-ground shunts, then source stepping's scales
+GMIN_STEPS = (1e-2, 1e-3, 1e-4, 1e-5, 1e-6, 1e-8, 1e-10, 1e-12, 0.0)
+SOURCE_STEPS = tuple(float(c) for c in np.linspace(0.1, 1.0, 10))
+
+
 def _tol_floor(tol: float) -> float:
     """The Newton tolerance floored at 16 ulps of float64 (the dtype half
     of the JAX package's ``newton_tol_floor``)."""
@@ -362,15 +371,15 @@ def simulate_op(
         #    from 1e-2 S down to 0;
         # 2. source stepping: ramp every independent source 10% -> 100%.
         seed = x0
-        for g in (1e-2, 1e-3, 1e-4, 1e-5, 1e-6, 1e-8, 1e-10, 1e-12, 0.0):
+        for g in GMIN_STEPS:
             packed, ok = attempt(seed, gshunt=g)
             if not ok:
                 break
             seed = packed[:nvar_op]
         if not ok:
             seed = x0
-            for scale in np.linspace(0.1, 1.0, 10):
-                packed, ok = attempt(seed, v_scale=float(scale))
+            for scale in SOURCE_STEPS:
+                packed, ok = attempt(seed, v_scale=scale)
                 if not ok:
                     break
                 seed = packed[:nvar_op]
@@ -487,19 +496,26 @@ def _batched_op(ckt: ParsedCircuit, tensors: CircuitTensors,
                 v_dc: np.ndarray, i_dc: np.ndarray,
                 r_vals: np.ndarray, B: int, max_iters: int, tol: float,
                 method: str, device: torch.device, ext: dict | None = None,
-                nl: dict | None = None, plan: dict | None = None
+                nl: dict | None = None, plan: dict | None = None,
+                x0: np.ndarray | None = None, gshunt: float | None = None
                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """One batched Newton over B lanes; one device->host transfer of
-    [x | valid | passes]. Returns host (x (B, nvar_op), valid, passes)."""
+    """One batched Newton over B lanes (from ``x0``, (B, nvar_op), else
+    rest; ``gshunt`` as ``_op_core``'s), in a ``solve`` span; one
+    device->host transfer of [x | valid | passes], in a ``fetch`` span.
+    Returns host (x (B, nvar_op), valid, passes)."""
     nvar_op = tensors.nvar + tensors.n_l
-    x, _sw, valid, passes = _run_op_core(
-        ckt, tensors, v_dc, i_dc, r_vals, max_iters, tol,
-        "gj" if method == "schur" else method, device, ext=ext, nl=nl,
-        batch=B, plan=plan)
-    packed = torch.cat([x, valid[:, None].to(x.dtype),
-                        passes[:, None].to(x.dtype)], dim=1).cpu().numpy()
+    with span("solve"):
+        x, _sw, valid, passes = _run_op_core(
+            ckt, tensors, v_dc, i_dc, r_vals, max_iters, tol,
+            "gj" if method == "schur" else method, device, ext=ext, nl=nl,
+            batch=B, x0=x0, gshunt=gshunt, plan=plan)
+    with span("fetch"):
+        packed = torch.cat([x, valid[:, None].to(x.dtype),
+                            passes[:, None].to(x.dtype)],
+                           dim=1).cpu().numpy()
     return (packed[:, :nvar_op], packed[:, nvar_op] > 0.5,
             packed[:, nvar_op + 1].astype(np.int64))
+
 
 
 def simulate_dc(
@@ -601,6 +617,41 @@ def simulate_dc(
                     sweep2=sweep2, shape2d=shape2d, passes=passes)
 
 
+def _op_ladder(stage, n: int, nvar_op: int, retry: bool = False
+               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``simulate_op``'s convergence aids over ``n`` lanes at once, lane by
+    lane: where ``retry``, a plain dense Newton first; then gmin stepping
+    over ``GMIN_STEPS``, a lane's chain ending at its first failed stage;
+    then, for the lanes still unsolved, source stepping over
+    ``SOURCE_STEPS`` alike. Every chain starts from rest and seeds each
+    stage with the last one's answer, and each stage runs only on the
+    lanes still in its chain. ``stage(lanes, seed, scale=, gshunt=)``
+    runs one stage's batched Newton on ``lanes`` (indices into the n) and
+    returns host (x, valid, passes). Returns host (x, solved, passes each
+    lane ran over every stage); x of an unsolved lane is 0."""
+    x = np.zeros((n, nvar_op))
+    solved = np.zeros(n, dtype=bool)
+    passes = np.zeros(n, dtype=np.int64)
+
+    def chain(lanes: np.ndarray, kws: list[dict]) -> None:
+        seed = np.zeros((len(lanes), nvar_op))
+        for kw in kws:
+            if not len(lanes):
+                return
+            got, ok, p = stage(lanes, seed, **kw)
+            passes[lanes] += p
+            lanes, seed = lanes[ok], got[ok]
+        x[lanes] = seed
+        solved[lanes] = True
+
+    for kws in ([{}] if retry else [],
+                [{"gshunt": g} for g in GMIN_STEPS],
+                [{"scale": c} for c in SOURCE_STEPS]):
+        if kws:
+            chain(np.flatnonzero(~solved), kws)
+    return x, solved, passes
+
+
 @dataclass
 class BatchOPResult:
     node_names: tuple[str, ...]
@@ -628,38 +679,104 @@ def op_batch(
 
     overrides sweep element values by name (R resistance, V/I DC level,
     controlled-source gains, M beta, Q Is), exactly like the other batch
-    APIs."""
+    APIs.
+
+    A variant that the batched Newton leaves invalid takes
+    ``simulate_op``'s convergence aids (``_op_ladder``): the variants left
+    invalid, and only they, run as one batch through the structured
+    tier's dense retry where it had a plan, then gmin stepping, then
+    source stepping, each stage seeded from the last, and their answers
+    are scattered back. A variant the Newton solves keeps its answer and
+    its passes; a rescued variant's passes count the Newton's and every
+    stage's it ran; one that no stage solves stays invalid, with the
+    Newton's answer.
+
+    Spans (``profiling.profiled()``): ``op_batch``, and in it ``prepare``
+    (the deck's tensors and the variants' values), ``solve`` (the batched
+    Newton), ``fetch`` (its one transfer to the host) and ``ladder`` (the
+    aids, only when a variant takes them; a ``solve`` and a ``fetch`` in
+    it for each stage). Counters: ``op.newton_passes``
+    (the Newton's batched passes), ``op.lane_passes`` (its passes summed
+    over the variants), ``op.ladder_lanes`` (the variants it left to the
+    aids), ``op.ladder_rescued`` (those the aids solved),
+    ``op.ladder_passes`` (the aids' batched passes), ``sync.newton_done``
+    (each batched pass's ``bool(done.all())``) and ``sync.fetch`` (each
+    transfer to the host). The counts are read from the passes that come
+    back with the answers: counting adds no transfer."""
     from .batch import (_batch_size, _batch_values, _batched_ext,
                         _batched_nl, _consumed, _resolve)
 
-    device = resolve_device(device)
-    ckt = _resolve(circuit, dialect=dialect)
-    if tensors is None:
-        tensors = build_tensors(ckt)
-    B = _batch_size(overrides)
-    _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
-               tensors.v_names, tensors.i_names, tensors.g_names,
-               tensors.e_names, tensors.f_names, tensors.h_names,
-               tensors.m_names, tensors.q_names], overrides)
-    r_vals = _batch_values(tensors.r_vals, tensors.r_names, overrides, B)
-    v_dc = _batch_values(tensors.v_dc, tensors.v_names, overrides, B)
-    i_dc = _batch_values(tensors.i_dc, tensors.i_names, overrides, B)
+    with span("op_batch"):
+        with span("prepare"):
+            device = resolve_device(device)
+            ckt = _resolve(circuit, dialect=dialect)
+            if tensors is None:
+                tensors = build_tensors(ckt)
+            B = _batch_size(overrides)
+            _consumed([tensors.r_names, tensors.c_names, tensors.l_names,
+                       tensors.v_names, tensors.i_names, tensors.g_names,
+                       tensors.e_names, tensors.f_names, tensors.h_names,
+                       tensors.m_names, tensors.q_names], overrides)
+            dump = tensors.nvar + tensors.n_l
+            f64 = torch.float64
+            tol = _tol_floor(tol)
 
-    dump = tensors.nvar + tensors.n_l
-    f64 = torch.float64
+            def remapped(arrays: dict) -> dict:
+                return {k: (torch.where(v == tensors.nvar, dump, v)
+                            if k.endswith("idx") else v)
+                        for k, v in arrays.items()}
 
-    def remapped(arrays: dict) -> dict:
-        return {k: (torch.where(v == tensors.nvar, dump, v)
-                    if k.endswith("idx") else v) for k, v in arrays.items()}
+            def values(over: dict, n: int) -> dict:
+                """The batched Newton's inputs for ``n`` variants."""
+                return dict(
+                    r_vals=_batch_values(tensors.r_vals, tensors.r_names,
+                                         over, n),
+                    v_dc=_batch_values(tensors.v_dc, tensors.v_names, over,
+                                       n),
+                    i_dc=_batch_values(tensors.i_dc, tensors.i_names, over,
+                                       n),
+                    ext=remapped(_batched_ext(tensors, over, n, device,
+                                              f64)),
+                    nl=remapped(_batched_nl(tensors, over, n, device, f64)))
 
-    # the structured tier (see simulate_op); a lane whose block pivots
-    # fail stays invalid, as any other batch failure
-    plan = plan_for(method, ckt, tensors, dump, device, op=True)
-    x, valid, passes = _batched_op(
-        ckt, tensors, v_dc, i_dc, r_vals, B, max_iters, _tol_floor(tol),
-        method, device,
-        ext=remapped(_batched_ext(tensors, overrides, B, device, f64)),
-        nl=remapped(_batched_nl(tensors, overrides, B, device, f64)),
-        plan=plan)
+            # the structured tier (see simulate_op); a lane whose block
+            # pivots fail retries dense in the ladder
+            plan = plan_for(method, ckt, tensors, dump, device, op=True)
+            inputs = values(overrides, B)
+        x, valid, passes = _batched_op(
+            ckt, tensors, B=B, max_iters=max_iters, tol=tol, method=method,
+            device=device, plan=plan, **inputs)
+        newton = int(passes.max(initial=0))
+        count("op.newton_passes", newton)
+        count("op.lane_passes", int(passes.sum()))
+        count("sync.newton_done", newton)
+        count("sync.fetch")
+        bad = np.flatnonzero(~valid)
+        count("op.ladder_lanes", len(bad))
+        if len(bad):
+            with span("ladder"):
+                def stage(lanes, seed, scale=1.0, gshunt=None):
+                    """One stage of the aids: the batched Newton over the
+                    variants ``bad[lanes]``, dense."""
+                    sub = bad[lanes]
+                    got = values({k: np.asarray(v, np.float64)[sub]
+                                  for k, v in overrides.items()}, len(sub))
+                    got["v_dc"] = got["v_dc"] * scale
+                    got["i_dc"] = got["i_dc"] * scale
+                    out = _batched_op(
+                        ckt, tensors, B=len(sub), max_iters=max_iters,
+                        tol=tol, method=method, device=device, x0=seed,
+                        gshunt=gshunt, **got)
+                    count("op.ladder_passes", int(out[2].max()))
+                    count("sync.newton_done", int(out[2].max()))
+                    count("sync.fetch")
+                    return out
+
+                x_l, ok_l, passes_l = _op_ladder(stage, len(bad), dump,
+                                                 retry=plan is not None)
+                count("op.ladder_rescued", int(ok_l.sum()))
+                x[bad[ok_l]] = x_l[ok_l]
+                valid[bad] = ok_l
+                passes[bad] += passes_l
     return BatchOPResult(node_names=tensors.node_names, x=x, valid=valid,
                          passes=passes)

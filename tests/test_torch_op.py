@@ -11,12 +11,14 @@ tests/test_op_convergence.py and tests/test_tf.py.
 
 import numpy as np
 import pytest
+import torch
 
 import spicey_tpu as sj
 from spicey_tpu.analysis.op import simulate_op as jax_simulate_op
 from spicey_tpu.analysis.tf import simulate_tf as jax_simulate_tf
 import spicey_tpu_torch as st
 from spicey_tpu_torch import decks
+from spicey_tpu_torch.analysis.op import GMIN_STEPS, SOURCE_STEPS
 
 RTOL, ATOL = 1e-9, 1e-12
 
@@ -218,6 +220,186 @@ def test_op_batch_overrides_match_jax():
     with pytest.raises(ValueError, match="unknown elements"):
         st.op_batch(net, {"nope": np.ones(B)}, dialect="extended",
                     device="cpu")
+
+
+
+# ---- op_batch on the uA741 .step: the reference, the ladder, the spans ---
+
+def _ua741_rfb(B: int, seed: int) -> np.ndarray:
+    """B feedback resistors drawn as the benchmark's cell draws them:
+    U(0.5, 2.0) x 10k, the .step's range."""
+    return 1e4 * np.random.default_rng(seed).uniform(0.5, 2.0, B)
+
+
+def test_op_batch_ua741_step_matches_the_plain_reference():
+    """16 seeded draws of the uA741 inverter's feedback resistor through
+    op_batch equal portbench's plain reference (its own reader, MNA and
+    Newton) within the cell's op_gap limit, every lane valid."""
+    from portbench.core import manifest
+
+    ref = manifest.module("reference", "ua741-step")
+    deck = manifest.Cell("ua741-step-f64").deck_text
+    rfb = _ua741_rfb(16, 2095434620)
+    got = st.op_batch(deck, {"rfb": rfb}, dialect="extended", device="cpu")
+    v, names, ok, _info = ref.operating_points(deck, {"rfb": rfb},
+                                               torch.float64,
+                                               torch.device("cpu"))
+    assert got.valid.all() and bool(ok.all())
+    want = v.numpy()
+    x = np.stack([got.node_voltage(n) for n in names], axis=1)
+    assert np.abs(x - want).max() / np.abs(want).max() <= 1e-10
+    np.testing.assert_allclose(got.node_voltage("out"), -rfb / 1e3 * 0.05,
+                               rtol=5e-3)
+
+
+# a pass limit that leaves some of these lanes to the aids (they need up
+# to 16 passes; the aids' stages converge within it)
+LADDER_ITERS = 12
+# feedback resistors in a narrow window (about 5510.43-5510.53 ohm) where
+# the batched Newton from rest falls into a cycle and runs out its 100
+# passes on the CPU and on the card alike; both drawn by the benchmark's
+# cell (seed 2095434620, jobs 4 and 28), whose runs then failed
+LIMIT_CYCLE_RFB = (5510.492746322804, 5510.495543018835)
+
+
+def _newton_alone(rfb, max_iters):
+    """The batched Newton without its aids on op_batch's inputs (what
+    op_batch answered before it had them): host (x, valid, passes)."""
+    from spicey_tpu_torch.analysis import batch, op
+
+    ckt = st.parse_netlist(decks.UA741_STEP, dialect="extended")
+    t = st.build_tensors(ckt)
+    over, B, cpu = {"rfb": np.asarray(rfb)}, len(rfb), torch.device("cpu")
+    dump = t.nvar + t.n_l
+
+    def remapped(arrays):
+        return {k: (torch.where(v == t.nvar, dump, v)
+                    if k.endswith("idx") else v) for k, v in arrays.items()}
+
+    return op._batched_op(
+        ckt, t, batch._batch_values(t.v_dc, t.v_names, over, B),
+        batch._batch_values(t.i_dc, t.i_names, over, B),
+        batch._batch_values(t.r_vals, t.r_names, over, B), B, max_iters,
+        op._tol_floor(1e-12), "gj", cpu,
+        ext=remapped(batch._batched_ext(t, over, B, cpu, torch.float64)),
+        nl=remapped(batch._batched_nl(t, over, B, cpu, torch.float64)))
+
+
+def _ua741_op(rfb, max_iters=100):
+    return st.op_batch(decks.UA741_STEP, {"rfb": np.asarray(rfb)},
+                       dialect="extended", device="cpu", max_iters=max_iters)
+
+
+def _simulate_op_at(rfb: float, max_iters: int = 100) -> np.ndarray:
+    deck = decks.UA741_STEP.replace("rfb minus out 10k",
+                                    f"rfb minus out {float(rfb)!r}")
+    op = st.simulate_op(st.parse_netlist(deck, dialect="extended"),
+                        max_iters=max_iters, device="cpu")
+    return np.array(list(op.node_voltages.values()))
+
+
+def test_op_batch_ladder_rescues_lanes_as_simulate_op():
+    """Lanes the batched Newton leaves invalid (a pass limit under what
+    they need) take simulate_op's aids: each ends valid, equal bit for bit
+    to simulate_op of the same deck at the same limit, its passes the
+    Newton's and every stage's."""
+    rfb = _ua741_rfb(40, 7)
+    _x0, valid0, passes0 = _newton_alone(rfb, LADDER_ITERS)
+    got = _ua741_op(rfb, LADDER_ITERS)
+    rescued = np.flatnonzero(~valid0)
+    assert len(rescued) >= 2 and got.valid.all()
+    assert (got.passes[rescued] > passes0[rescued]).all()
+    for k in rescued[:2]:
+        want = _simulate_op_at(rfb[k], LADDER_ITERS)
+        np.testing.assert_array_equal(got.x[k, :len(want)], want)
+
+
+def test_op_batch_plain_lanes_keep_their_answers_bit_for_bit():
+    """The lanes the batched Newton solves keep its x and its passes bit
+    for bit, whether or not other lanes take the aids."""
+    rfb = _ua741_rfb(40, 7)
+    for max_iters, aided in ((LADDER_ITERS, True), (100, False)):
+        x0, valid0, passes0 = _newton_alone(rfb, max_iters)
+        got = _ua741_op(rfb, max_iters)
+        assert valid0.all() != aided and got.valid.all()
+        np.testing.assert_array_equal(got.x[valid0], x0[valid0])
+        np.testing.assert_array_equal(got.passes[valid0], passes0[valid0])
+
+
+def test_op_batch_ladder_rescues_the_newton_limit_cycle():
+    """The two draws of the limit cycle fail the batched Newton at its
+    full pass limit; the aids solve them to simulate_op's answer, and the
+    lane beside them keeps the Newton's."""
+    rfb = np.array([LIMIT_CYCLE_RFB[0], 1e4, LIMIT_CYCLE_RFB[1]])
+    x0, valid0, passes0 = _newton_alone(rfb, 100)
+    np.testing.assert_array_equal(valid0, [False, True, False])
+    np.testing.assert_array_equal(passes0[[0, 2]], [100, 100])
+    got = _ua741_op(rfb)
+    assert got.valid.all() and (got.passes[[0, 2]] > 100).all()
+    np.testing.assert_array_equal(got.x[1], x0[1])
+    want = _simulate_op_at(LIMIT_CYCLE_RFB[0])
+    np.testing.assert_array_equal(got.x[0, :len(want)], want)
+    np.testing.assert_allclose(got.node_voltage("out")[[0, 2]],
+                               -np.array(LIMIT_CYCLE_RFB) / 1e3 * 0.05,
+                               rtol=5e-3)
+
+
+def test_op_batch_ladder_keeps_an_unsolved_lane_invalid():
+    """A lane that no stage solves (a pass limit too small for every
+    stage) is reported invalid with its answer, never dropped."""
+    got = _ua741_op(_ua741_rfb(6, 11), max_iters=2)
+    assert got.x.shape[0] == 6 and not got.valid.any()
+    assert (got.passes > 2).all()
+
+
+def test_op_batch_spans_and_counters():
+    """Under profiled(): op_batch's span with prepare, solve, fetch and,
+    when the Newton leaves lanes invalid, ladder (a solve and a fetch in
+    it for each stage of the aids); the Newton's batched
+    passes and its lanes' passes, the lanes it left to the aids and those
+    they rescued, the aids' batched passes, one bool(...all()) a batched
+    pass and one fetch a batched Newton. Outside, nothing is recorded and
+    the answer is the same bit for bit."""
+    from spicey_tpu_torch.utils import profiling
+
+    rfb = _ua741_rfb(24, 7)
+    _x0, valid0, passes0 = _newton_alone(rfb, LADDER_ITERS)
+    plain = _ua741_op(rfb, LADDER_ITERS)
+    with profiling.profiled():
+        got = _ua741_op(rfb, LADDER_ITERS)
+    names = [q for q, _s, _e in profiling.intervals()]
+    c = profiling.counters()
+    np.testing.assert_array_equal(got.x, plain.x)
+    np.testing.assert_array_equal(got.passes, plain.passes)
+    assert [q for q in names if q.count("/") <= 1] == [
+        "op_batch/prepare", "op_batch/solve", "op_batch/fetch",
+        "op_batch/ladder", "op_batch"]
+    stages = [q for q in names if q.count("/") == 2]
+    assert stages == ["op_batch/ladder/solve", "op_batch/ladder/fetch"] \
+        * (len(stages) // 2)
+    sent = int((~valid0).sum())
+    assert sent >= 1 and c["op.ladder_lanes"] == c["op.ladder_rescued"] \
+        == sent
+    assert c["op.newton_passes"] == LADDER_ITERS == passes0.max()
+    assert c["op.lane_passes"] == passes0.sum()
+    ladder = c["op.ladder_passes"]
+    assert 0 < ladder <= (plain.passes - passes0).sum()
+    assert c["sync.newton_done"] == LADDER_ITERS + ladder
+    # one fetch for the Newton and one for each stage of the aids
+    assert c["sync.fetch"] == 1 + len(stages) // 2
+    assert 2 <= c["sync.fetch"] <= 1 + len(GMIN_STEPS) + len(SOURCE_STEPS)
+    with profiling.profiled():
+        small = _ua741_op(rfb[:4])
+    assert [q for q, _s, _e in profiling.intervals()] == [
+        "op_batch/prepare", "op_batch/solve", "op_batch/fetch", "op_batch"]
+    c = profiling.counters()
+    assert c["op.ladder_lanes"] == 0 and "op.ladder_passes" not in c
+    assert c["op.newton_passes"] == small.passes.max()
+    assert c["sync.newton_done"] == small.passes.max()
+    assert c["sync.fetch"] == 1
+    before = profiling.counters()
+    _ua741_op(rfb[:2])
+    assert profiling.counters() == before
 
 
 # ---- .tf -----------------------------------------------------------------
